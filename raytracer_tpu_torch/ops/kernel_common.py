@@ -1,0 +1,646 @@
+"""Dense building blocks of the two kernels, as plain PyTorch.
+
+Counterpart of raytracer_tpu/ops/kernel_common.py:105-894 (the dense
+blocks) and intersect_pallas.py:42-85 (the table packers).  These are the
+plain versions the CUDA kernels are held against: csrc/common.cuh holds the
+same blocks as __device__ functions, one thread per ray.  Here each lane
+quantity is a 1-D [R] tensor and each (primitive, lane) quantity a [T, R]
+tensor; the plain versions run on any device.
+
+What differs from the TPU blocks (the TPU workarounds are not ported):
+  * torch.acos / torch.atan2 / torch.pow replace the Mosaic polynomials;
+  * a gather by winner index replaces the one-hot MXU contraction
+    (matmul_cols);
+  * `powf` keeps kernel_common.powf's domain rule: base <= 0 gives 0, so
+    decay^travel is 0 for decay 0 even at travel 0.
+
+Semantics kept exactly (raytracer_tpu/ops/intersect.py:1-39): face
+culling, exclusion by (prim, face), last-wins ties (spheres after
+triangles, update on <=), non-finite t is a miss, the 3e38 sentinel, and
+the factored-target shadow algebra (_ShadowSweep below).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
+from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, Scene
+from raytracer_tpu_torch.utils.kernels import check
+
+BIG = 3.0e38
+F32_EPS = float(np.finfo(np.float32).eps)
+_INV_PI = float(np.float32(1.0 / np.pi))
+_HALF_INV_PI = float(np.float32(0.5 / np.pi))
+_EIGHT_PI = float(np.float32(8.0 * np.pi))
+
+TRI_COLS, SPH_COLS, MAT_COLS, LIGHT_COLS = 34, 8, 16, 16
+
+
+class Tables(NamedTuple):
+    """Packed scene tables (float32, contiguous, on the scene's device)."""
+
+    tri: torch.Tensor  # [T, 34] pack_tri
+    sph: torch.Tensor  # [S, 8] pack_sph
+    mat: torch.Tensor  # [O, 16] pack_materials
+    lights: torch.Tensor  # [L, 16] pack_lights
+    n_tri: int
+    n_sph: int
+    n_light: int
+
+
+def pack_tri(scene: Scene) -> torch.Tensor:
+    """[T, 34]: fn(0:3), d(3), g0(4:7), g1(7:10), g2(10:13), h(13:16),
+    n0(16:19), n1(19:22), n2(22:25), uv0(25:27), uv1(27:29), uv2(29:31),
+    area2(31), obj(32), pad(33)."""
+    T = scene.n_tri
+    return torch.cat([
+        scene.tri_fn, scene.tri_d[:, None],
+        scene.tri_g[:, 0, :], scene.tri_g[:, 1, :], scene.tri_g[:, 2, :],
+        scene.tri_h,
+        scene.tri_n[:, 0, :], scene.tri_n[:, 1, :], scene.tri_n[:, 2, :],
+        scene.tri_uv[:, 0, :], scene.tri_uv[:, 1, :], scene.tri_uv[:, 2, :],
+        scene.tri_area2[:, None], scene.tri_obj[:, None].float(),
+        scene.tri_v.new_zeros((T, 1)),
+    ], dim=1).float().contiguous()
+
+
+def pack_sph(scene: Scene) -> torch.Tensor:
+    """[S, 8]: cx, cy, cz, r^2, obj (+3 pad)."""
+    S = scene.n_sph
+    return torch.cat([
+        scene.sph_c, (scene.sph_r ** 2)[:, None], scene.sph_obj[:, None].float(),
+        scene.sph_c.new_zeros((S, 3)),
+    ], dim=1).float().contiguous()
+
+
+def pack_materials(scene: Scene) -> torch.Tensor:
+    """[O, 16]: diffuse(0:3), shiness(3), specular(4:7), smoothness(7),
+    transparency(8), refraction(9), decay(10), normal(11:14), tex_id(14)."""
+    O = scene.n_obj
+    return torch.cat([
+        scene.mat_diffuse, scene.mat_shiness[:, None], scene.mat_specular,
+        scene.mat_smoothness[:, None], scene.mat_transparency[:, None],
+        scene.mat_refraction[:, None], scene.mat_decay[:, None],
+        scene.mat_normal, scene.mat_tex[:, None].float(),
+        scene.mat_diffuse.new_zeros((O, 1)),
+    ], dim=1).float().contiguous()
+
+
+def pack_lights(scene: Scene) -> torch.Tensor:
+    """[L, 16]: type(0), origin(1:4), dir(4:7), color(7:10), angle(10),
+    softness(11), has_origin(12)."""
+    L = scene.n_light
+    return torch.cat([
+        scene.light_type[:, None].float(), scene.light_origin, scene.light_dir,
+        scene.light_color, scene.light_angle[:, None],
+        scene.light_softness[:, None], scene.light_has_origin[:, None],
+        scene.light_origin.new_zeros((L, 3)),
+    ], dim=1).float().contiguous()
+
+
+def pack_tables(scene: Scene) -> Tables:
+    return Tables(pack_tri(scene), pack_sph(scene), pack_materials(scene),
+                  pack_lights(scene), scene.n_tri, scene.n_sph, scene.n_light)
+
+
+# ---------------------------------------------------------------------------
+# Small vector helpers on (x, y, z) tuples of [R] tensors
+# ---------------------------------------------------------------------------
+
+
+def powf(base, expo):
+    """base**expo with kernel_common.powf's rule: 0 wherever base <= 0."""
+    r = torch.pow(torch.clamp_min(base, 1e-37), expo)
+    return torch.where(base <= 0.0, 0.0, r)
+
+
+def normalize3(x, y, z):
+    inv = torch.rsqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
+    return x * inv, y * inv, z * inv
+
+
+def dot3(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def rotate_from_z(nx, ny, nz, vx, vy, vz):
+    """Rotation taking +z onto n, applied to v (utils/vec.rotate_from_z)."""
+    qw = 1.0 + nz
+    qx = -ny
+    qy = nx
+    q2 = torch.clamp_min(qw * qw + qx * qx + qy * qy, 1e-12)
+    tx = qy * vz + qw * vx
+    ty = -qx * vz + qw * vy
+    tz = qx * vy - qy * vx + qw * vz
+    s = 2.0 / q2
+    rx = vx + s * (qy * tz)
+    ry = vy + s * (-(qx * tz))
+    rz = vz + s * (qx * ty - qy * tx)
+    anti = nz < -1.0 + 1e-6
+    return (torch.where(anti, -vx, rx), torch.where(anti, vy, ry),
+            torch.where(anti, -vz, rz))
+
+
+def reflect3(dx, dy, dz, nx, ny, nz):
+    """l - 2 (l.n) n, normalized (main.rs:329)."""
+    dn = dot3(dx, dy, dz, nx, ny, nz)
+    return normalize3(dx - 2.0 * dn * nx, dy - 2.0 * dn * ny, dz - 2.0 * dn * nz)
+
+
+def refract3(nx, ny, nz, dx, dy, dz, k):
+    """Snell refraction (src/main.rs:344-352) -> (tx, ty, tz, ok);
+    ok=False is total internal reflection."""
+    cos = -(dx * nx + dy * ny + dz * nz)
+    sin2 = 1.0 - cos * cos
+    ok = k * k >= sin2
+    root = torch.sqrt(torch.clamp_min(1.0 - sin2 / (k * k), 0.0))
+    tx = (dx + nx * cos) / k - nx * root
+    ty = (dy + ny * cos) / k - ny * root
+    tz = (dz + nz * cos) / k - nz * root
+    tx, ty, tz = normalize3(tx, ty, tz)
+    return tx, ty, tz, ok
+
+
+def _col(table, c):
+    return table[:, c:c + 1]
+
+
+def _excl_crit(excl_face, backface):
+    is_front = excl_face == FACE_FRONT
+    is_back = excl_face == FACE_BACK
+    return (is_front & ~backface) | (is_back & backface) | (~is_front & ~is_back)
+
+
+def _winner(tm, rows):
+    """Nearest of [P, R] candidate t's (BIG = none), last index on ties."""
+    t_min = tm.min(dim=0).values
+    win = torch.where(tm == t_min, rows, -1).max(dim=0).values
+    return t_min, win
+
+
+def _gather_rows(table, idx, hit):
+    """Winner's table row per lane, zeros where `hit` is False (the one-hot
+    contraction's result for a lane with no winner in this table)."""
+    rows = table[idx.clamp(0, table.shape[0] - 1).long()]
+    return torch.where(hit[:, None], rows, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Nearest sweep with all attributes (World::cast)
+# ---------------------------------------------------------------------------
+
+
+def full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
+    """Nearest hit with attributes (kernel_common.full_sweep :238).
+
+    o/d: (x, y, z) tuples of [R]; face/excl_prim/excl_face: [R] int32;
+    active: [R] bool.  Returns dict(valid, t, prim, obj, backface, px, py,
+    pz, nx, ny, nz, u, v), all [R]."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    R = ox.shape[0]
+    dev = ox.device
+    best_t = torch.full((R,), BIG, device=dev)
+    best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_bf = torch.zeros((R,), dtype=torch.bool, device=dev)
+    n_tri, n_sph = tb.n_tri, tb.n_sph
+
+    if n_tri > 0:
+        tri = tb.tri
+        fn0, fn1, fn2 = _col(tri, 0), _col(tri, 1), _col(tri, 2)
+        no_d = fn0 * dx + fn1 * dy + fn2 * dz
+        backface = no_d > 0.0
+        cull = (backface & (face == FACE_FRONT)) | (~backface & (face == FACE_BACK))
+        t = (_col(tri, 3) - (fn0 * ox + fn1 * oy + fn2 * oz)) / no_d
+        prim = torch.arange(n_tri, dtype=torch.int32, device=dev)[:, None]
+        excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
+        ok = active & ~cull & ~excl & (t > 0.0)
+        for e in range(3):
+            g0, g1, g2 = _col(tri, 4 + 3 * e), _col(tri, 5 + 3 * e), _col(tri, 6 + 3 * e)
+            h = _col(tri, 13 + e)
+            og = g0 * ox + g1 * oy + g2 * oz
+            dg = g0 * dx + g1 * dy + g2 * dz
+            ok = ok & (og + h + t * dg >= 0.0)
+        ok = ok & torch.isfinite(t)
+        t_min, win = _winner(torch.where(ok, t, BIG), prim)
+        found = t_min < BIG
+        bf = torch.gather(backface, 0, win.clamp(min=0).long()[None])[0] & (win >= 0)
+        best_t = torch.where(found, t_min, best_t)
+        best_i = torch.where(found, win, best_i)
+        best_bf = torch.where(found, bf, best_bf)
+
+    if n_sph > 0:
+        sph = tb.sph
+        wx, wy, wz = _col(sph, 0) - ox, _col(sph, 1) - oy, _col(sph, 2) - oz
+        qx = wy * dz - wz * dy
+        qy = wz * dx - wx * dz
+        qz = wx * dy - wy * dx
+        dist2 = qx * qx + qy * qy + qz * qz
+        tc = dx * wx + dy * wy + dz * wz
+        kk = torch.sqrt(torch.clamp_min(_col(sph, 3) - dist2, 0.0))
+        is_back = face == FACE_BACK
+        is_front = face == FACE_FRONT
+        backface = is_back | (~is_front & ~is_back & (tc < kk))
+        t = torch.where(backface, tc + kk, tc - kk)
+        prim = n_tri + torch.arange(n_sph, dtype=torch.int32, device=dev)[:, None]
+        excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
+        ok = active & (dist2 <= _col(sph, 3)) & (t > 0.0) & ~excl & torch.isfinite(t)
+        t_min, win = _winner(torch.where(ok, t, BIG), prim)
+        bf = torch.gather(backface, 0, (win - n_tri).clamp(min=0).long()[None])[0]
+        found = (t_min < BIG) & (t_min <= best_t)
+        best_t = torch.where(found, t_min, best_t)
+        best_i = torch.where(found, win, best_i)
+        best_bf = torch.where(found, bf, best_bf)
+
+    valid = best_t < BIG
+    t_hit = torch.where(valid, best_t, 0.0)
+    px, py, pz = ox + t_hit * dx, oy + t_hit * dy, oz + t_hit * dz
+    zero = torch.zeros_like(px)
+    nx, ny, nz, u, v, obj = zero, zero, zero, zero, zero, zero
+
+    if n_tri > 0:
+        is_tri = (best_i >= 0) & (best_i < n_tri)
+        row = _gather_rows(tb.tri, best_i, is_tri)
+        col = lambda c: row[:, c]
+        area2 = col(31)
+        inv_a2 = 1.0 / torch.where(area2 != 0.0, area2, 1.0)
+        for e in range(3):
+            bary = (col(4 + 3 * e) * px + col(5 + 3 * e) * py
+                    + col(6 + 3 * e) * pz + col(13 + e)) * inv_a2
+            nx = nx + bary * col(16 + 3 * e)
+            ny = ny + bary * col(17 + 3 * e)
+            nz = nz + bary * col(18 + 3 * e)
+            u = u + bary * col(25 + 2 * e)
+            v = v + bary * col(26 + 2 * e)
+        flip = torch.where(best_bf, -1.0, 1.0)
+        nx, ny, nz = nx * flip, ny * flip, nz * flip
+        obj = col(32)
+
+    if n_sph > 0:
+        is_sph = best_i >= n_tri if n_tri > 0 else valid
+        row = _gather_rows(tb.sph, best_i - n_tri, is_sph)
+        sx, sy, sz = normalize3(px - row[:, 0], py - row[:, 1], pz - row[:, 2])
+        sflip = torch.where(best_bf, -1.0, 1.0)
+        sx, sy, sz = sx * sflip, sy * sflip, sz * sflip
+        su = torch.acos(torch.clamp(sy, -1.0, 1.0)) * _INV_PI
+        sv = torch.atan2(sz, sx) * _HALF_INV_PI + 0.5
+        nx = torch.where(is_sph, sx, nx)
+        ny = torch.where(is_sph, sy, ny)
+        nz = torch.where(is_sph, sz, nz)
+        u = torch.where(is_sph, su, u)
+        v = torch.where(is_sph, sv, v)
+        obj = torch.where(is_sph, row[:, 4], obj)
+
+    valid = valid & active
+    return dict(
+        valid=valid,
+        t=torch.where(valid, best_t, BIG),
+        prim=best_i,
+        obj=(obj + 0.5).to(torch.int32),
+        backface=best_bf & valid,
+        px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz, u=u, v=v,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Material evaluation
+# ---------------------------------------------------------------------------
+
+
+def eval_material(tb: Tables, textures, obj, u, v):
+    """Per-lane material sample from the packed [O, 16] table + textures
+    (kernel_common.eval_material :400); a gather by object id."""
+    row = tb.mat[obj.long()]
+    col = lambda c: row[:, c]
+    out = dict(
+        dr=col(0), dg=col(1), db=col(2), shiness=col(3),
+        sr=col(4), sg=col(5), sb=col(6), smoothness=col(7),
+        transparency=col(8), refraction=col(9), decay=col(10),
+        tnx=col(11), tny=col(12), tnz=col(13),
+    )
+    tex = (col(14) + 0.5).to(torch.int32)
+    for k in range(1, len(textures)):
+        sel = tex == k
+        tr, tg, tbl = textures[k].diffuse_rows(u, v)
+        nxr, nyr, nzr = textures[k].normal_rows(u, v)
+        for key, val in (("dr", tr), ("dg", tg), ("db", tbl),
+                         ("tnx", nxr), ("tny", nyr), ("tnz", nzr)):
+            out[key] = torch.where(sel, val, out[key])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Direct shading with shadow sweeps
+# ---------------------------------------------------------------------------
+
+
+class _ShadowSweep:
+    """Shadow any-hit for rays that share their origin (the shading point),
+    kernel_common._ShadowSweep :446.
+
+    Triangles use the FACTORED-TARGET algebra: with the unnormalized
+    direction d = L - p (position lights, s=1) or d = -light_dir
+    (directional, s=0), every direction-dependent dot product factors
+    through per-triangle constants of the target t = (tx, ty, tz):
+
+        no_d = c_fn - s * o_fn,    c_fn = fn.t
+        edge_e: ogh_e + t * (c_g_e - s * ogh_e) >= 0,  c_g_e = g_e.t + s h_e
+        t    = (dpl - o_fn) / no_d, occluder iff t in (0, tlim)
+
+    with tlim = 1 for position lights (scaled units) and the real limit
+    for directional ones.  Spheres use the normalized direction and the
+    real-unit limit."""
+
+    def __init__(self, px, py, pz, self_prim, tb: Tables):
+        self.tb = tb
+        self.px, self.py, self.pz = px, py, pz
+        dev = px.device
+        if tb.n_tri > 0:
+            tri = tb.tri
+            fn0, fn1, fn2 = _col(tri, 0), _col(tri, 1), _col(tri, 2)
+            self.o_fn = fn0 * px + fn1 * py + fn2 * pz
+            self.num = _col(tri, 3) - self.o_fn
+            self.num_pos = self.num > 0.0
+            self.ogh = [
+                _col(tri, 4 + 3 * e) * px + _col(tri, 5 + 3 * e) * py
+                + _col(tri, 6 + 3 * e) * pz + _col(tri, 13 + e)
+                for e in range(3)
+            ]
+            prim = torch.arange(tb.n_tri, dtype=torch.int32, device=dev)[:, None]
+            self.not_self_tri = self_prim != prim
+        if tb.n_sph > 0:
+            sph = tb.sph
+            self.wx = _col(sph, 0) - px
+            self.wy = _col(sph, 1) - py
+            self.wz = _col(sph, 2) - pz
+            prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=dev)[:, None]
+            self.not_self_sph = self_prim != prim
+
+    def _tri_blocked(self, lt):
+        tri = self.tb.tri
+        s, tx, ty, tz = lt["s"], lt["tx"], lt["ty"], lt["tz"]
+        c_fn = _col(tri, 0) * tx + _col(tri, 1) * ty + _col(tri, 2) * tz
+        no_d = c_fn - s * self.o_fn
+        t = self.num / no_d
+        ok = (no_d > 0.0) & self.num_pos & self.not_self_tri
+        for e in range(3):
+            c_g = (_col(tri, 4 + 3 * e) * tx + _col(tri, 5 + 3 * e) * ty
+                   + _col(tri, 6 + 3 * e) * tz + s * _col(tri, 13 + e))
+            ok = ok & (self.ogh[e] + t * (c_g - s * self.ogh[e]) >= 0.0)
+        ok = ok & lt["act"] & torch.isfinite(t) & (t < lt["tlim"])
+        return ok.any(dim=0)
+
+    def _sph_blocked(self, lt):
+        r2 = _col(self.tb.sph, 3)
+        dx, dy, dz = lt["ndx"], lt["ndy"], lt["ndz"]
+        wx, wy, wz = self.wx, self.wy, self.wz
+        qx = wy * dz - wz * dy
+        qy = wz * dx - wx * dz
+        qz = wx * dy - wy * dx
+        dist2 = qx * qx + qy * qy + qz * qz
+        tc = dx * wx + dy * wy + dz * wz
+        kk = torch.sqrt(torch.clamp_min(r2 - dist2, 0.0))
+        t = tc + kk  # shadow rays are Back-face rays: far shell
+        ok = ((dist2 <= r2) & (t > 0.0) & self.not_self_sph & lt["act"]
+              & torch.isfinite(t) & (t < lt["slim"]))
+        return ok.any(dim=0)
+
+    def blocked(self, lt):
+        out = torch.zeros_like(self.px, dtype=torch.bool)
+        if self.tb.n_tri > 0:
+            out = out | self._tri_blocked(lt)
+        if self.tb.n_sph > 0:
+            out = out | self._sph_blocked(lt)
+        return out
+
+
+def get_shade(m, tb: Tables, px, py, pz, nax, nay, naz, vdx, vdy, vdz,
+              active, self_prim):
+    """Direct radiance at a hit batch (kernel_common.get_shade :564).
+
+    m: eval_material output; (nax, nay, naz): the bump-ADJUSTED normal;
+    (vdx, vdy, vdz): view = -ray_d.  Returns (r, g, b, count) with count
+    the per-lane number of shadow rays cast."""
+    r = torch.zeros_like(px)
+    g = torch.zeros_like(px)
+    b = torch.zeros_like(px)
+    count = torch.zeros(px.shape, dtype=torch.int32, device=px.device)
+    sweep = _ShadowSweep(px, py, pz, self_prim, tb)
+
+    e = 1.0 / (m["smoothness"] + F32_EPS)
+    energy = (e + 8.0) / _EIGHT_PI
+
+    for li in range(tb.n_light):
+        L = tb.lights[li]
+        ltype = L[0]
+        LOX, LOY, LOZ = L[1], L[2], L[3]
+        LDX, LDY, LDZ = L[4], L[5], L[6]
+        LCR, LCG, LCB = L[7], L[8], L[9]
+        ANGLE, SOFT, HAS_O = L[10], L[11], L[12]
+
+        # approximate_into_directional (lights.rs:44-93)
+        offx, offy, offz = px - LOX, py - LOY, pz - LOZ
+        mag = torch.sqrt(offx * offx + offy * offy + offz * offz)
+        inv_mag = 1.0 / torch.clamp_min(mag, 1e-30)
+        odx, ody, odz = offx * inv_mag, offy * inv_mag, offz * inv_mag
+        cos_ang = (LDX * offx + LDY * offy + LDZ * offz) * inv_mag
+        angle = torch.abs(torch.acos(torch.clamp(cos_ang, -1.0, 1.0)))
+        in_cone = angle <= ANGLE
+        ang_att = powf(torch.clamp_min(1.0 - angle / torch.clamp_min(ANGLE, 1e-30), 0.0),
+                       SOFT + F32_EPS)
+        dist_att = 1.0 / (mag + F32_EPS)
+
+        is_dir = ltype == 0.0
+        is_spot = ltype == 1.0
+        att = torch.where(is_dir, 1.0, torch.where(is_spot, ang_att * dist_att, dist_att))
+        ldx = torch.where(is_dir, LDX, odx)
+        ldy = torch.where(is_dir, LDY, ody)
+        ldz = torch.where(is_dir, LDZ, odz)
+        lvalid = ~is_spot | in_cone
+
+        cosine = -(ldx * nax + ldy * nay + ldz * naz)
+        consider = active & lvalid & (cosine > 0.0)
+        limit = torch.where(HAS_O > 0.5, mag, BIG)
+        s = torch.where(is_dir, 0.0, 1.0)
+        occ = dict(
+            s=s,
+            tx=torch.where(is_dir, -LDX, LOX),
+            ty=torch.where(is_dir, -LDY, LOY),
+            tz=torch.where(is_dir, -LDZ, LOZ),
+            tlim=torch.where(is_dir, limit, 1.0),
+            ndx=-ldx, ndy=-ldy, ndz=-ldz,
+            slim=limit, act=consider,
+        )
+        count = count + consider.to(torch.int32)
+        lit = consider & ~sweep.blocked(occ)
+
+        # get_diffuse / get_specular (materials.rs:46-66)
+        lam = cosine
+        refx = 2.0 * lam * nax + ldx
+        refy = 2.0 * lam * nay + ldy
+        refz = 2.0 * lam * naz + ldz
+        amount = powf(torch.clamp_min(refx * vdx + refy * vdy + refz * vdz, 0.0), e) * energy
+        dterm = lam * (1.0 - m["shiness"])
+        sterm = amount * m["shiness"]
+        r = r + torch.where(lit, (m["dr"] * dterm + m["sr"] * sterm) * LCR * att, 0.0)
+        g = g + torch.where(lit, (m["dg"] * dterm + m["sg"] * sterm) * LCG * att, 0.0)
+        b = b + torch.where(lit, (m["db"] * dterm + m["sb"] * sterm) * LCB * att, 0.0)
+
+    return r, g, b, count
+
+
+# ---------------------------------------------------------------------------
+# Interior march (get_refract)
+# ---------------------------------------------------------------------------
+
+
+def back_sweep_with_normal(px, py, pz, dx, dy, dz, active, tb: Tables):
+    """Back-face nearest sweep + interior shading normal
+    (kernel_common.back_sweep_with_normal :680).  No exclusion (a provable
+    no-op for interior rays).  Returns (t [R] BIG on miss, prim, hx, hy,
+    hz, nx, ny, nz) with the flipped, unnormalized interpolated normal."""
+    R = px.shape[0]
+    dev = px.device
+    best_t = torch.full((R,), BIG, device=dev)
+    best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    n_tri, n_sph = tb.n_tri, tb.n_sph
+
+    if n_tri > 0:
+        tri = tb.tri
+        fn0, fn1, fn2 = _col(tri, 0), _col(tri, 1), _col(tri, 2)
+        no_d = fn0 * dx + fn1 * dy + fn2 * dz
+        t = (_col(tri, 3) - (fn0 * px + fn1 * py + fn2 * pz)) / no_d
+        ok = (no_d > 0.0) & (t > 0.0)
+        for e in range(3):
+            g0, g1, g2 = _col(tri, 4 + 3 * e), _col(tri, 5 + 3 * e), _col(tri, 6 + 3 * e)
+            og = g0 * px + g1 * py + g2 * pz
+            dg = g0 * dx + g1 * dy + g2 * dz
+            ok = ok & (og + _col(tri, 13 + e) + t * dg >= 0.0)
+        ok = ok & active & torch.isfinite(t)
+        prim = torch.arange(n_tri, dtype=torch.int32, device=dev)[:, None]
+        t_min, win = _winner(torch.where(ok, t, BIG), prim)
+        found = t_min < BIG
+        best_t = torch.where(found, t_min, best_t)
+        best_i = torch.where(found, win, best_i)
+
+    if n_sph > 0:
+        sph = tb.sph
+        wx, wy, wz = _col(sph, 0) - px, _col(sph, 1) - py, _col(sph, 2) - pz
+        qx = wy * dz - wz * dy
+        qy = wz * dx - wx * dz
+        qz = wx * dy - wy * dx
+        dist2 = qx * qx + qy * qy + qz * qz
+        tc = dx * wx + dy * wy + dz * wz
+        kk = torch.sqrt(torch.clamp_min(_col(sph, 3) - dist2, 0.0))
+        t = tc + kk  # Back rays take the far shell (main.rs:273-281)
+        ok = active & (dist2 <= _col(sph, 3)) & (t > 0.0) & torch.isfinite(t)
+        prim = n_tri + torch.arange(n_sph, dtype=torch.int32, device=dev)[:, None]
+        t_min, win = _winner(torch.where(ok, t, BIG), prim)
+        found = (t_min < BIG) & (t_min <= best_t)
+        best_t = torch.where(found, t_min, best_t)
+        best_i = torch.where(found, win, best_i)
+
+    hx, hy, hz = px + best_t * dx, py + best_t * dy, pz + best_t * dz
+    zero = torch.zeros_like(px)
+    nx, ny, nz = zero, zero, zero
+
+    if n_tri > 0:
+        is_tri = (best_i >= 0) & (best_i < n_tri)
+        row = _gather_rows(tb.tri, best_i, is_tri)
+        col = lambda c: row[:, c]
+        area2 = col(31)
+        inv_a2 = 1.0 / torch.where(area2 != 0.0, area2, 1.0)
+        for e in range(3):
+            bary = (col(4 + 3 * e) * hx + col(5 + 3 * e) * hy
+                    + col(6 + 3 * e) * hz + col(13 + e)) * inv_a2
+            nx = nx + bary * col(16 + 3 * e)
+            ny = ny + bary * col(17 + 3 * e)
+            nz = nz + bary * col(18 + 3 * e)
+        nx, ny, nz = -nx, -ny, -nz  # backface hit: flipped
+
+    if n_sph > 0:
+        is_sph = best_i >= n_tri if n_tri > 0 else best_i >= 0
+        row = _gather_rows(tb.sph, best_i - n_tri, is_sph)
+        wx, wy, wz = hx - row[:, 0], hy - row[:, 1], hz - row[:, 2]
+        inv = torch.rsqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz, 1e-30))
+        nx = torch.where(is_sph, -wx * inv, nx)
+        ny = torch.where(is_sph, -wy * inv, ny)
+        nz = torch.where(is_sph, -wz * inv, nz)
+
+    return best_t, best_i, hx, hy, hz, nx, ny, nz
+
+
+def march_rows(px, py, pz, nx0, ny0, nz0, dx0, dy0, dz0, k, want,
+               tb: Tables, max_distance: float, max_retries: int):
+    """The whole get_refract march (src/main.rs:343-405,
+    kernel_common.march_rows :783): entry refraction, the interior
+    reflective bounce loop (bounded by retries and distance budget), exit
+    refraction.  Returns dict(escaped, travel, ex, ey, ez, odx, ody, odz,
+    prim, iters) — iters counts casts incl. the entry cast.  Misses inside
+    the dielectric and trapped rays give escaped=False."""
+    rx, ry, rz, ok_in = refract3(nx0, ny0, nz0, dx0, dy0, dz0, k)
+    active0 = want & ok_in  # TIR at entry -> Trapped (main.rs:354-358)
+    t, prim, hx, hy, hz, nix, niy, niz = back_sweep_with_normal(
+        px, py, pz, rx, ry, rz, active0, tb)
+    alive = active0 & (t < BIG)  # miss -> Infinite -> dead
+    travel = torch.where(alive, t, 0.0)
+    ox, oy, oz, has_out = refract3(nix, niy, niz, rx, ry, rz, 1.0 / k)
+    has_out = alive & has_out
+    s = dict(cx=hx, cy=hy, cz=hz, nx=nix, ny=niy, nz=niz, dx=rx, dy=ry, dz=rz,
+             ox=ox, oy=oy, oz=oz, prim=prim, travel=travel)
+    retry = torch.zeros_like(prim)
+    iters = torch.zeros_like(prim)
+
+    def pending():
+        return alive & ~has_out & (s["travel"] <= max_distance) & (retry < max_retries)
+
+    p = pending()
+    while bool(p.any()):
+        # get_reflect on the interior hit (main.rs:380)
+        fx, fy, fz = reflect3(s["dx"], s["dy"], s["dz"], s["nx"], s["ny"], s["nz"])
+        t2, prim2, hx2, hy2, hz2, nx2, ny2, nz2 = back_sweep_with_normal(
+            s["cx"], s["cy"], s["cz"], fx, fy, fz, p, tb)
+        step_alive = p & (t2 < BIG)
+        travel2 = s["travel"] + torch.where(step_alive, t2, 0.0)
+        ox2, oy2, oz2, ok2 = refract3(nx2, ny2, nz2, fx, fy, fz, 1.0 / k)
+        new = dict(cx=hx2, cy=hy2, cz=hz2, nx=nx2, ny=ny2, nz=nz2, dx=fx, dy=fy,
+                   dz=fz, ox=ox2, oy=oy2, oz=oz2, prim=prim2, travel=travel2)
+        s = {key: torch.where(step_alive, new[key], s[key]) for key in s}
+        alive = (p & step_alive) | (~p & alive)
+        has_out = (step_alive & ok2) | (~step_alive & has_out)
+        retry = retry + p.to(torch.int32)
+        iters = iters + p.to(torch.int32)
+        p = pending()
+
+    return dict(
+        escaped=alive & has_out, travel=s["travel"],
+        ex=s["cx"], ey=s["cy"], ez=s["cz"],
+        odx=s["ox"], ody=s["oy"], odz=s["oz"],
+        prim=s["prim"], iters=iters + active0.to(torch.int32),
+    )
+
+
+def shade_at(tb: Tables, m, px, py, pz, nx, ny, nz, rdx, rdy, rdz,
+             active, self_prim):
+    """get_shade at a hit with its material sample: bump-adjust the normal,
+    view = -ray direction."""
+    nax, nay, naz = rotate_from_z(nx, ny, nz, m["tnx"], m["tny"], m["tnz"])
+    return get_shade(m, tb, px, py, pz, nax, nay, naz, -rdx, -rdy, -rdz,
+                     active, self_prim)
+
+
+def check_tables(tb: Tables, device) -> None:
+    """Raise unless the tables are what the CUDA kernels read."""
+    for name, t, w in (("tri", tb.tri, TRI_COLS), ("sph", tb.sph, SPH_COLS),
+                       ("mat", tb.mat, MAT_COLS), ("lights", tb.lights, LIGHT_COLS)):
+        check(name, t, torch.float32, (t.shape[0], w), device)
+
+
+def is_default_textures(textures) -> bool:
+    """The CUDA kernels hold exactly the demo textures (csrc/common.cuh)."""
+    return tuple(t.name for t in textures) == tuple(t.name for t in DEFAULT_TEXTURES)
+

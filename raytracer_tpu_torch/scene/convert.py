@@ -1,0 +1,37 @@
+"""Carry scenes and cameras across from the JAX package.
+
+The parity tests build a scene with raytracer_tpu, pass its arrays here as
+numpy, and feed the resulting torch Scene to this package, so both render
+exactly the same geometry.  This module imports no jax itself.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
+from raytracer_tpu_torch.scene.types import SCENE_FIELDS, Camera, Scene
+
+_INT_FIELDS = ("tri_obj", "sph_obj", "mat_tex", "light_type")
+
+
+def from_jax_scene(fields: Mapping[str, np.ndarray],
+                   textures=DEFAULT_TEXTURES) -> Scene:
+    """Scene from a mapping of raytracer_tpu Scene field names to numpy
+    arrays (extra fields, e.g. the BVH ones, are ignored)."""
+    def conv(name):
+        dtype = np.int32 if name in _INT_FIELDS else np.float32
+        return torch.tensor(np.asarray(fields[name], dtype=dtype))
+
+    return Scene(**{name: conv(name) for name in SCENE_FIELDS},
+                 textures=tuple(textures))
+
+
+def from_jax_camera(fovy, center, toward, up, near) -> Camera:
+    """Camera from raytracer_tpu Camera fields as numpy (fovy in radians)."""
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
+    return Camera(fovy=f32(fovy), center=f32(center), toward=f32(toward),
+                  up=f32(up), near=f32(near))

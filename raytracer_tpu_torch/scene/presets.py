@@ -1,0 +1,205 @@
+"""Scene presets: the reference's demo scene and camera.
+
+Counterpart of raytracer_tpu/scene/presets.py:27-212 (src/main.rs:809-1083):
+9 objects (dodecahedron, floor, striped bump-mapped wall, two glass slabs,
+red/clear/checker/green spheres), 3 lights (white directional, pink spot,
+bluish point) and the demo camera.  The test-subset presets are not ported
+yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, square
+from raytracer_tpu_torch.scene.geometry import dodecahedron_triangles
+from raytracer_tpu_torch.scene.textures import TEXTURE_CHECKER, TEXTURE_STRIPES
+from raytracer_tpu_torch.scene.types import Camera, Scene
+from raytracer_tpu_torch.utils.obj import load_obj_triangles
+
+WHITE = (1.0, 1.0, 1.0)
+YELLOW = (1.0, 1.0, 0.0)
+BLUE = (0.0, 0.0, 1.0)
+
+# The demo bake transform for the OBJ mesh (src/main.rs:802).
+_DODE_TRANSFORM = lambda p: p / 3.0 + np.asarray([0.7, 1.0, -0.5], np.float32)
+
+
+def demo_camera() -> Camera:
+    """fovy 60deg, center (2, 2.5, 2), toward -(1,1,1)/sqrt(3), up +y,
+    near -0.1 (src/main.rs:1077-1083)."""
+    return Camera.create(
+        fovy_deg=60.0,
+        center=(2.0, 2.5, 2.0),
+        toward=np.asarray([-1.0, -1.0, -1.0]) / np.sqrt(3.0),
+        up=(0.0, 1.0, 0.0),
+        near=-0.1,
+    )
+
+
+def _dodecahedron_tris(obj_path=None):
+    if obj_path and os.path.exists(obj_path):
+        return load_obj_triangles(obj_path, transform=_DODE_TRANSFORM)
+    return dodecahedron_triangles(transform=_DODE_TRANSFORM)
+
+
+def _slab(p, x0, x1, z0, z1):
+    """Six faces of an axis-aligned glass slab, y in [1.0, 1.5], in the
+    reference's vertex/uv order (src/main.rs:879-977)."""
+    p.push_triangles(square([
+        ((x1, 1.5, z1), (0.0, 0.0)), ((x0, 1.5, z1), (0.0, 1.0)),
+        ((x0, 1.0, z1), (1.0, 0.0)), ((x1, 1.0, z1), (0.0, 1.0)),
+    ]))
+    p.push_triangles(square([
+        ((x1, 1.0, z0), (0.0, 1.0)), ((x0, 1.0, z0), (1.0, 0.0)),
+        ((x0, 1.5, z0), (0.0, 1.0)), ((x1, 1.5, z0), (0.0, 0.0)),
+    ]))
+    p.push_triangles(square([
+        ((x1, 1.5, z0), (0.0, 1.0)), ((x0, 1.5, z0), (1.0, 0.0)),
+        ((x0, 1.5, z1), (0.0, 1.0)), ((x1, 1.5, z1), (0.0, 0.0)),
+    ]))
+
+
+def demo_scene(obj_path: str | None = None) -> Scene:
+    b = SceneBuilder()
+
+    # Dodecahedron: white, shiness 0.1 (src/main.rs:812-825)
+    b.push_object(
+        MaterialSpec(
+            diffuse_color=WHITE, shiness=0.1, specular_color=WHITE,
+            smoothness=1.0, refraction_index=1.0, opaque_decay=0.0,
+            transparency=0.0,
+        )
+    ).push_triangles(_dodecahedron_tris(obj_path))
+
+    # Floor: tan square, shiness 0.5 (src/main.rs:826-844)
+    b.push_object(
+        MaterialSpec(
+            diffuse_color=(1.0, 0.8, 0.6), shiness=0.5, specular_color=WHITE,
+            smoothness=0.01,
+        )
+    ).push_triangles(square([
+        ((-2.0, 0.0, -2.0), (0.0, 0.0)),
+        ((-2.0, 0.0, 2.0), (0.0, 1.0)),
+        ((2.0, 0.0, 2.0), (1.0, 0.0)),
+        ((2.0, 0.0, -2.0), (0.0, 1.0)),
+    ]))
+
+    # Striped wall with procedural bump normal (src/main.rs:845-877)
+    b.push_object(
+        MaterialSpec(
+            shiness=0.0, specular_color=WHITE, smoothness=0.00001,
+            texture=TEXTURE_STRIPES,
+        )
+    ).push_triangles(square([
+        ((-2.0, 2.0, -2.0), (0.0, 0.0)),
+        ((-2.0, 2.0, 2.0), (0.0, 1.0)),
+        ((-2.0, -2.0, 2.0), (1.0, 0.0)),
+        ((-2.0, -2.0, -2.0), (1.0, 1.0)),
+    ]))
+
+    glass = MaterialSpec(
+        diffuse_color=(1.0, 0.8, 0.6), shiness=1.0, specular_color=WHITE,
+        smoothness=0.00001, refraction_index=1.6, opaque_decay=0.1,
+        transparency=1.0,
+    )
+
+    # Glass slab 1: x in [-0.5, 0.5], z in [0.6, 0.7] (src/main.rs:879-927)
+    p = b.push_object(glass)
+    _slab(p, -0.5, 0.5, 0.6, 0.7)
+    p.push_triangles(square([
+        ((0.5, 1.0, 0.7), (0.0, 1.0)), ((-0.5, 1.0, 0.7), (1.0, 0.0)),
+        ((-0.5, 1.0, 0.6), (0.0, 1.0)), ((0.5, 1.0, 0.6), (0.0, 0.0)),
+    ]))
+    p.push_triangles(square([
+        ((-0.5, 1.5, 0.6), (0.0, 1.0)), ((-0.5, 1.0, 0.6), (1.0, 0.0)),
+        ((-0.5, 1.0, 0.7), (0.0, 1.0)), ((-0.5, 1.5, 0.7), (0.0, 0.0)),
+    ]))
+    p.push_triangles(square([
+        ((0.5, 1.0, 0.6), (0.0, 1.0)), ((0.5, 1.5, 0.6), (1.0, 0.0)),
+        ((0.5, 1.5, 0.7), (0.0, 1.0)), ((0.5, 1.0, 0.7), (0.0, 0.0)),
+    ]))
+
+    # Glass slab 2: x in [-0.3, 0.3], z in [0.71, 0.81]
+    # (src/main.rs:929-977; its faces come in another order than slab 1's)
+    p = b.push_object(glass)
+    _slab(p, -0.3, 0.3, 0.71, 0.81)
+    p.push_triangles(square([
+        ((-0.3, 1.5, 0.71), (0.0, 1.0)), ((-0.3, 1.0, 0.71), (1.0, 0.0)),
+        ((-0.3, 1.0, 0.81), (0.0, 1.0)), ((-0.3, 1.5, 0.81), (0.0, 0.0)),
+    ]))
+    p.push_triangles(square([
+        ((0.3, 1.0, 0.81), (0.0, 1.0)), ((-0.3, 1.0, 0.81), (1.0, 0.0)),
+        ((-0.3, 1.0, 0.71), (0.0, 1.0)), ((0.3, 1.0, 0.71), (0.0, 0.0)),
+    ]))
+    p.push_triangles(square([
+        ((0.3, 1.0, 0.71), (0.0, 1.0)), ((0.3, 1.5, 0.71), (1.0, 0.0)),
+        ((0.3, 1.5, 0.81), (0.0, 1.0)), ((0.3, 1.0, 0.81), (0.0, 0.0)),
+    ]))
+
+    # Red sphere, yellow specular (src/main.rs:979-996)
+    b.push_object(
+        MaterialSpec(
+            diffuse_color=(1.0, 0.2, 0.2), shiness=0.2, specular_color=YELLOW,
+            smoothness=0.2,
+        )
+    ).push_sphere((-0.5, 0.5, 0.5 / np.sqrt(3.0)), 0.5)
+
+    # Clear sphere: ior 1.12, transparency 0.96 (src/main.rs:998-1014)
+    b.push_object(
+        MaterialSpec(
+            diffuse_color=WHITE, shiness=1.0, specular_color=WHITE,
+            smoothness=0.001, refraction_index=1.12, opaque_decay=0.3,
+            transparency=0.96,
+        )
+    ).push_sphere((0.5, 0.5, 0.5 / np.sqrt(3.0)), 0.5)
+
+    # Diagonal-checker textured sphere (src/main.rs:1016-1038)
+    b.push_object(
+        MaterialSpec(
+            shiness=0.3, specular_color=BLUE, smoothness=0.7,
+            texture=TEXTURE_CHECKER,
+        )
+    ).push_sphere((0.0, 0.5, -1.0 / np.sqrt(3.0)), 0.5)
+
+    # Green sphere on top (src/main.rs:1040-1056)
+    b.push_object(
+        MaterialSpec(
+            diffuse_color=(0.5, 1.0, 0.2), shiness=0.5, specular_color=WHITE,
+            smoothness=0.01,
+        )
+    ).push_sphere((0.0, 0.5 + np.sqrt(2.0 / 3.0), 0.0), 0.5)
+
+    _demo_lights(b)
+    return b.build()
+
+
+def _demo_lights(b: SceneBuilder) -> None:
+    # White directional (src/main.rs:1058-1062)
+    b.push_directional_light(
+        direction=np.asarray([-1.0, -1.0, 0.0]) / np.sqrt(2.0),
+        color=(1.0, 0.98, 0.95),
+    )
+    # Pink spot from y=10, 60deg cone, softness 1 (src/main.rs:1064-1070)
+    b.push_spot_light(
+        origin=(0.0, 10.0, 0.0),
+        direction=(0.0, -1.0, 0.0),
+        angle_rad=np.deg2rad(60.0),
+        softness=1.0,
+        color=(1.0, 0.5, 0.9),
+    )
+    # Bluish point at (0, 0.1, 0) (src/main.rs:1072-1075)
+    b.push_point_light(origin=(0.0, 0.1, 0.0), color=(0.8, 0.8, 1.0))
+
+
+def full_scene(obj_path: str | None = None) -> Scene:
+    """08-full: the complete demo scene (DoF + photon scatter pass)."""
+    return demo_scene(obj_path)
+
+
+PRESETS = {
+    "demo": demo_scene,
+    "full": full_scene,
+}

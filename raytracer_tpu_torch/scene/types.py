@@ -1,0 +1,135 @@
+"""SoA scene representation: dataclasses of torch tensors.
+
+Counterpart of raytracer_tpu/scene/types.py: triangles, spheres, a material
+table indexed by object id and a light table, with the intersection
+constants (face normals, plane offsets, edge-test vectors) precomputed on
+the host by scene/builder.py.  Primitive ids form one index space: triangle
+i has id i, sphere j has id n_tri + j.
+
+Only dense scenes exist in this package so far (no BVH / blocked layout).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+# FaceDirection encoding (reference: src/main.rs:52-67).
+FACE_FRONT = 0
+FACE_BACK = 1
+
+# Light type encoding (reference: src/lights.rs:26-30).
+LIGHT_DIRECTIONAL = 0
+LIGHT_SPOT = 1
+LIGHT_POINT = 2
+
+# "No exclusion" sentinel for a ray's excluded primitive.
+NO_EXCLUDE = -1
+
+# Tensor fields of Scene, in declaration order.
+SCENE_FIELDS = (
+    "tri_v", "tri_n", "tri_uv", "tri_obj", "tri_fn", "tri_d", "tri_g",
+    "tri_h", "tri_area2", "sph_c", "sph_r", "sph_obj", "mat_diffuse",
+    "mat_shiness", "mat_specular", "mat_smoothness", "mat_transparency",
+    "mat_refraction", "mat_decay", "mat_normal", "mat_tex", "light_type",
+    "light_origin", "light_dir", "light_color", "light_angle",
+    "light_softness", "light_has_origin",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """Scene tensors (shapes as in raytracer_tpu/scene/types.py) plus the
+    texture set the material table's tex ids index into."""
+
+    tri_v: torch.Tensor  # [T, 3, 3] vertex positions
+    tri_n: torch.Tensor  # [T, 3, 3] vertex normals
+    tri_uv: torch.Tensor  # [T, 3, 2] vertex uvs
+    tri_obj: torch.Tensor  # [T] int32 object id
+    tri_fn: torch.Tensor  # [T, 3] unit face normal
+    tri_d: torch.Tensor  # [T] plane offset fn.v0
+    tri_g: torch.Tensor  # [T, 3, 3] edge-test vectors
+    tri_h: torch.Tensor  # [T, 3] edge-test offsets
+    tri_area2: torch.Tensor  # [T]
+    sph_c: torch.Tensor  # [S, 3]
+    sph_r: torch.Tensor  # [S]
+    sph_obj: torch.Tensor  # [S] int32
+    mat_diffuse: torch.Tensor  # [O, 3]
+    mat_shiness: torch.Tensor  # [O]
+    mat_specular: torch.Tensor  # [O, 3]
+    mat_smoothness: torch.Tensor  # [O]
+    mat_transparency: torch.Tensor  # [O]
+    mat_refraction: torch.Tensor  # [O]
+    mat_decay: torch.Tensor  # [O]
+    mat_normal: torch.Tensor  # [O, 3] tangent-space normal
+    mat_tex: torch.Tensor  # [O] int32 texture id (0 = constant)
+    light_type: torch.Tensor  # [L] int32
+    light_origin: torch.Tensor  # [L, 3]
+    light_dir: torch.Tensor  # [L, 3]
+    light_color: torch.Tensor  # [L, 3]
+    light_angle: torch.Tensor  # [L]
+    light_softness: torch.Tensor  # [L]
+    light_has_origin: torch.Tensor  # [L] 1.0 for spot/point
+    textures: tuple = ()
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v.device
+
+    @property
+    def n_tri(self) -> int:
+        return self.tri_v.shape[0]
+
+    @property
+    def n_sph(self) -> int:
+        return self.sph_c.shape[0]
+
+    @property
+    def n_obj(self) -> int:
+        return self.mat_shiness.shape[0]
+
+    @property
+    def n_light(self) -> int:
+        return self.light_type.shape[0]
+
+    def to(self, device) -> "Scene":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in SCENE_FIELDS}
+        )
+
+    @functools.cached_property
+    def tables(self):
+        """The packed tables the sweeps read (ops/kernel_common.Tables),
+        built once per scene and device."""
+        from raytracer_tpu_torch.ops.kernel_common import pack_tables
+
+        return pack_tables(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Pinhole / thin-lens camera (reference: src/main.rs:43-127)."""
+
+    fovy: torch.Tensor  # scalar, radians
+    center: torch.Tensor  # [3]
+    toward: torch.Tensor  # [3]
+    up: torch.Tensor  # [3]
+    near: torch.Tensor  # scalar (the demo's -0.1 puts the origin behind center)
+
+    @staticmethod
+    def create(fovy_deg, center, toward, up, near) -> "Camera":
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+        return Camera(
+            fovy=f32(np.deg2rad(fovy_deg)),
+            center=f32(center),
+            toward=f32(toward),
+            up=f32(up),
+            near=f32(near),
+        )
+
+    def to(self, device) -> "Camera":
+        return Camera(**{f.name: getattr(self, f.name).to(device)
+                         for f in dataclasses.fields(self)})

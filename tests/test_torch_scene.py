@@ -1,0 +1,142 @@
+"""raytracer_tpu_torch scene, camera and pixel layout against raytracer_tpu.
+
+The port builds the demo scene without JAX; here it is held field by field
+against the JAX package's build carried across with from_jax_scene, and
+the camera / clip / block-order helpers against their JAX counterparts on
+numpy-seeded inputs.
+"""
+
+import ast
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracer_tpu import render as jrender
+from raytracer_tpu.config import RenderConfig as JaxConfig
+from raytracer_tpu.ops import camera as jcamera
+from raytracer_tpu.scene import presets as jpresets
+from raytracer_tpu.utils.obj import load_obj_triangles as jax_load_obj
+from raytracer_tpu_torch import render as trender
+from raytracer_tpu_torch.config import RenderConfig
+from raytracer_tpu_torch.ops import camera as tcamera
+from raytracer_tpu_torch.scene import presets as tpresets
+from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, square
+from raytracer_tpu_torch.scene.convert import from_jax_camera, from_jax_scene
+from raytracer_tpu_torch.scene.types import SCENE_FIELDS
+from raytracer_tpu_torch.utils.obj import load_obj_triangles
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "raytracer_tpu_torch")
+
+
+def jax_scene_fields(scene):
+    return {f.name: np.asarray(getattr(scene, f.name))
+            for f in dataclasses.fields(scene)
+            if isinstance(getattr(scene, f.name), jnp.ndarray)}
+
+
+def test_demo_scene_matches_jax_field_by_field():
+    jscene, _ = jpresets.demo_scene()
+    ref = from_jax_scene(jax_scene_fields(jscene))
+    got = tpresets.demo_scene()
+    assert [t.name for t in got.textures] == ["const", "stripes", "checker"]
+    for name in SCENE_FIELDS:
+        a, b = getattr(got, name).numpy(), getattr(ref, name).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if np.issubdtype(a.dtype, np.integer):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0, err_msg=name)
+    assert (got.n_tri, got.n_sph, got.n_obj, got.n_light) == (64, 4, 9, 3)
+
+
+def test_obj_loader_matches_jax():
+    path = os.path.join(ROOT, "assets", "dodecahedron.obj")
+    got = load_obj_triangles(path)
+    ref = jax_load_obj(path)
+    assert len(got) == len(ref) > 0
+    for tg, tr in zip(got, ref):
+        for vg, vr in zip(tg, tr):
+            np.testing.assert_array_equal(vg.position, vr.position)
+            np.testing.assert_allclose(vg.normal, vr.normal, atol=1e-7)
+
+
+def test_builder_refuses_bvh_sized_meshes():
+    b = SceneBuilder()
+    quad = square([((0, 0, 0), (0, 0)), ((1, 0, 0), (0, 1)),
+                   ((1, 0, 1), (1, 0)), ((0, 0, 1), (0, 1))])
+    b.push_object(MaterialSpec()).push_triangles(quad * 256)  # 512 triangles
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b.build()
+
+
+def test_config_defaults_match_jax():
+    got, ref = RenderConfig(), JaxConfig()
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(ref, f.name), f.name
+
+
+def test_camera_shoot_matches_jax():
+    jcam = jpresets.demo_camera()
+    cam = from_jax_camera(*(np.asarray(getattr(jcam, k))
+                            for k in ("fovy", "center", "toward", "up", "near")))
+    own = tpresets.demo_camera()
+    for k in ("fovy", "center", "toward", "up", "near"):
+        np.testing.assert_allclose(getattr(own, k).numpy(), getattr(cam, k).numpy(),
+                                   atol=1e-7)
+    rng = np.random.default_rng(0)
+    clip = rng.uniform(-0.7, 0.7, size=(500, 2)).astype(np.float32)
+    offs = (rng.normal(size=(500, 2)) * 0.04).astype(np.float32)
+    o_ref, d_ref = jcamera.shoot(jcam, jnp.asarray(clip))
+    o, d = tcamera.shoot(own, torch.as_tensor(clip))
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=1e-6)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), atol=1e-6)
+    o_ref, d_ref = jcamera.shoot_focus(jcam, jnp.asarray(clip), jnp.asarray(offs), 3.0)
+    o, d = tcamera.shoot_focus(own, torch.as_tensor(clip), torch.as_tensor(offs), 3.0)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=1e-6)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("wh", [(64, 48), (37, 29), (1280, 960)])
+def test_clip_coords_and_block_order_match_jax(wh):
+    w, h = wh
+    np.testing.assert_array_equal(trender.clip_coords(w, h), jrender.clip_coords(w, h))
+    np.testing.assert_array_equal(trender._block_perm(w, h), jrender._block_perm(w, h))
+
+
+def test_tiled_clips_are_block_major_with_centre_padding():
+    cfg = RenderConfig(width=40, height=20, tile_rays=256)
+    clips, inv = trender._clips(cfg, "cpu")
+    assert tuple(clips.shape) == (4, 256, 2)  # 800 pixels -> 4 tiles
+    flat = clips.reshape(-1, 2)
+    np.testing.assert_array_equal(flat[800:].numpy(), 0.0)
+    np.testing.assert_array_equal(flat[:800][inv].numpy(), trender.clip_coords(40, 20))
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Static scan: the card has no JAX, and importing any raytracer_tpu
+    module imports jax (raytracer_tpu/__init__.py)."""
+    files = [os.path.join(dp, f) for dp, _, fs in os.walk(PKG) for f in fs
+             if f.endswith(".py")]
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 15
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "raytracer_tpu"), (path, mod)
