@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
 """Build and check the PyTorch/CUDA port on one NVIDIA GPU, then drive its
-main path once.
+main paths once.
 
     python3 chip_smoke.py
 
 Phases (each asserts; none catches a failure):
   1. device and toolchain: nvidia-smi name and power limit, CUDA and nvcc
      versions; build the kernels (raytracer_tpu_torch/csrc, nvcc, sm_90a)
-     and print their registers and local (spill) bytes;
+     and print each instantiation's registers and local (spill) bytes;
   2. each kernel against its plain PyTorch version on the card, same
-     inputs: 64x48 and 256x192 frames, and one 65536-ray tile of the
-     1280x960 frame (the main path's shapes);
+     inputs: the demo scene (dense kernels) at 64x48, 256x192 and one
+     65536-ray tile of 1280x960; mesh_scene(24) at 64x48 and one
+     65536-ray tile of the 1024x1024 mesh11k frame (blocked level kernel,
+     blocked MC kernel, the three binned kernels), and the binned path
+     against the blocked MC kernel;
   3. the committed goldens (tests/golden) at 64x48, depth 5, with the
-     gates of scripts/tpu_check.py;
-  4. the main path: render_progressive (the CLI's function) at 1280x960,
-     depth 5, Whitted frame + 3 epochs, with the kernels' launch counts
-     taken over exactly that run; then kernel and plain times at the
-     main path's shapes.
+     gates of scripts/tpu_check.py: the demo's and the meshes'
+     (whitted_mesh{24,96,160}, mc_mesh24);
+  4. the main paths, each with the kernels' launch counts set to 0 just
+     before it and read just after: the reference schedule
+     (render_progressive on the demo scene, 1280x960, depth 5, Whitted +
+     3 epochs); the mesh11k path (render_whitted and
+     render_distributed_epoch on mesh_scene(75), 1024x1024, depth 5,
+     tile_rays 65536: blocked level and binned kernels); an MC epoch of
+     mesh_scene(24) at 1024x1024 (the blocked MC kernel); a Whitted frame
+     of mesh_scene(160); then frame / epoch and per-launch times of
+     kernels (device time, torch.profiler) and plain versions (CUDA
+     events) at the main paths' shapes, the mesh11k epoch also through the
+     blocked MC kernel, and each kernel's bound (the least time the card
+     could take for its work).
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.  Exits
-non-zero, printing no result, when CUDA is not available.
+error, times and bound; the last line is {"ok": true, "device": {...}}.
+Exits non-zero, printing no result, when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -36,6 +48,24 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
+
+# The bound: the larger of bytes over HBM bandwidth and FP32 operations
+# over the FP32 (non-tensor) peak, from the H100 SXM data sheet.
+PEAK_BYTES = 3.35e12  # B/s
+PEAK_FP32 = 67e12  # FLOP/s
+# FP32 operations charged to each kind of test that the kernels' counting
+# instantiations count per lane (kernels.WORK_ROWS, common.cuh `Work`),
+# an FMA as 2 and a division, square root, compare or min/max as 1: a
+# triangle test begun is a dot product and a compare (6); going on to the
+# plane's t adds a dot product, a subtraction, a division and three
+# compares (10); an edge test is two dot products, an add, an FMA and a
+# compare (14); a sphere test a difference, a cross product, two dot
+# products, a square root and compares (30); a slab test 6 subtractions,
+# 6 multiplies, 6 NaN tests, 11 min/max and 2 compares (31).  Shading,
+# sampling and the march's refractions are not counted, so the operation
+# bound is low.
+OPS = {"tri": 6, "plane": 10, "edge": 14, "sph": 30, "box": 31}
+DEPTH, MD, MR = 5, 100.0, 10
 
 
 def psnr(a, b):
@@ -69,6 +99,80 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps, name):
+    """Mean device milliseconds per fn() call of the kernels whose name
+    holds `name`, from torch.profiler over reps calls after a warm-up
+    (CUDA events around a short kernel measure the host's launch pace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if name in e.key)
+    assert us > 0, f"the profiler saw no device time of {name}"
+    return us / reps / 1e3
+
+
+def profile_breakdown(label, fn):
+    """fn() after a warm-up, three times unprofiled (the least host seconds
+    between two synchronisations: a single run right after the plain
+    versions has read 40x the frame's usual time) and once under
+    torch.profiler: device busy milliseconds (the sum of every kernel's and
+    copy's device time), the idle share of the unprofiled seconds (the
+    profiler slows the host) and the five largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    wall = min(timed(fn)[1] for _ in range(3))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+    evs = sorted(prof.key_averages(), key=dev, reverse=True)
+    busy = sum(dev(e) for e in evs) / 1e3
+    top = [(e.key[:60], dev(e) / 1e3, e.count) for e in evs[:5]]
+    idle = max(0.0, 1 - busy / 1e3 / wall)
+    print(f"profile {label}: {wall:.3f} s host, device busy {busy:.1f} ms "
+          f"({100 * idle:.0f} % idle); top: "
+          + "; ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in top))
+    return {"wall_s": wall, "device_busy_ms": busy, "idle": idle, "top": top}
+
+
+def timed(fn):
+    """(result, host seconds) of fn() between two synchronisations."""
+    torch.cuda.synchronize()
+    t = time.time()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.time() - t
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(in_out_bytes, work):
+    """(bound_ms, bound_by, FP32 operations) from the bytes a call must
+    move and the tests its lanes ran (work: [len(WORK_ROWS), n] counts)."""
+    from raytracer_tpu_torch.utils.kernels import WORK_ROWS
+
+    ops = sum(int(work[i].sum()) * OPS[k] for i, k in enumerate(WORK_ROWS))
+    t_bytes = in_out_bytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def golden_gate(img, name, min_psnr, max_bad):
+    g = np.load(os.path.join(GOLDEN, name))
+    a = img.cpu().numpy()
+    p, bad = psnr(a, g), float((np.abs(a - g).max(axis=-1) > 0.1).mean())
+    return p, bad, p >= min_psnr and bad <= max_bad
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -76,7 +180,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.ops import camera as camera_ops
-    from raytracer_tpu_torch.ops import level_kernel, mc_kernel
+    from raytracer_tpu_torch.ops import level_kernel, mc_binned, mc_kernel
     from raytracer_tpu_torch.ops.trace import _pack_primary, trace_whitted
     from raytracer_tpu_torch.parallel.progressive import render_progressive
     from raytracer_tpu_torch.render import (
@@ -85,11 +189,27 @@ def main() -> int:
         render_whitted,
         tile_draws,
     )
-    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
     from raytracer_tpu_torch.utils import kernels
     from raytracer_tpu_torch.utils.png import read_png_rgb8
 
     dev = torch.device("cuda")
+    counts = {
+        "level": level_kernel.COUNTS, "level_blk": level_kernel.COUNTS_BLK,
+        "mc": mc_kernel.COUNTS, "mc_blk": mc_kernel.COUNTS_BLK,
+        "binned_primary": mc_binned.COUNTS_PRIMARY,
+        "binned_bounce": mc_binned.COUNTS_BOUNCE,
+        "binned_terminal": mc_binned.COUNTS_TERMINAL,
+    }
+
+    def reset_counts():
+        for c in counts.values():
+            c.launches = c.plain = 0
+
+    def read_counts():
+        launches = {k: c.launches for k, c in counts.items()}
+        assert all(c.plain == 0 for c in counts.values()), {k: c.plain for k, c in counts.items()}
+        return launches
 
     # ---- 1. device and toolchain ----------------------------------------
     smi = subprocess.run(
@@ -101,38 +221,41 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc_ver}")
     _, build_s = kernels.build(verbose=True)
     print(f"kernels built in {build_s:.1f} s")
-    attrs = {k: kernels.kernel_attrs(k) for k in ("level", "mc")}
+    attrs = {k: kernels.kernel_attrs(k) for k in kernels.ATTRS}
     for k, a in attrs.items():
         print(f"{k} kernel: {a['registers']} registers/thread, "
               f"{a['local_bytes']} local (spill+stack) bytes/thread")
 
-    scene = demo_scene().to(dev)
-    camera = demo_camera().to(dev)
-    tb, tex = scene.tables, scene.textures
+    demo = demo_scene().to(dev)
+    demo_cam = demo_camera().to(dev)
+    meshes = {grid: tuple(x.to(dev) for x in mesh_scene(grid)) for grid in (24, 75, 96, 160)}
+    for grid, (scene, _) in meshes.items():
+        print(f"mesh_scene({grid}): {scene.n_tri} triangles, "
+              f"{scene.blk_tables.n_chunks} chunks of {scene.blk_tables.box.shape[0]}")
+    mesh24, mesh24_cam = meshes[24]
+    mesh11k, mesh11k_cam = meshes[75]
 
     def plain_level(sc, pool, last, direct, thr, md, mr):
         c, r, f, casts = level_kernel.process_level_plain(
-            sc.tables, sc.textures, pool, last, direct, thr, md, mr)
+            sc.geom, sc.textures, pool, last, direct, thr, md, mr)
         return c, r, f, casts.sum()
 
-    # ---- 2. kernels against their plain versions, same inputs -----------
-    rng = np.random.default_rng(0)
-    full = RenderConfig(depth=5, epochs=3)  # 1280x960, tile_rays 65536
-    cases = [(f"{w}x{h}", RenderConfig(width=w, height=h, depth=5, tile_rays=w * h), 0)
-             for w, h in ((64, 48), (256, 192))]
-    cases.append(("1280x960 tile 9", full, 9))  # a main-path tile, mid-frame
-    for label, cfg, tile in cases:
-        clip = _clips(cfg, dev)[0][tile]
+    def plain_mc(sc, o, d, unifs):
+        return mc_kernel.trace_plain(sc.geom, sc.textures, o, d, unifs, DEPTH, MD, MR)
+
+    def tile_rays(cam, clip, rng, cfg):
+        """Numpy-seeded lens normals and draws for one tile -> (o, d, unifs)
+        of the MC pass, contiguous on the card."""
         n = clip.shape[0]
-        # MC: numpy-seeded lens normals and draws
         normals = torch.as_tensor(rng.normal(size=(n, 2)).astype(np.float32), device=dev)
-        unifs = rng.uniform(size=(5, 3, n)).astype(np.float32)
+        unifs = rng.uniform(size=(DEPTH, 3, n)).astype(np.float32)
         unifs[:, 2] = unifs[:, 2] * np.float32(2 * np.pi) - np.float32(np.pi)
-        unifs = torch.as_tensor(unifs, device=dev)
-        o, d = camera_ops.shoot_focus(camera, clip, normals * cfg.blur, cfg.focus)
-        o, d = o.contiguous(), d.contiguous()
-        got, got_casts = mc_kernel.trace(scene, o, d, unifs, 5, 100.0, 10)
-        ref, ref_casts = mc_kernel.trace_plain(tb, tex, o, d, unifs, 5, 100.0, 10)
+        o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
+        return o.contiguous(), d.contiguous(), torch.as_tensor(unifs, device=dev)
+
+    def check_mc(label, scene, o, d, unifs):
+        got, got_casts = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR)
+        ref, ref_casts = plain_mc(scene, o, d, unifs)
         torch.cuda.synchronize()
         a, b = got.cpu().numpy(), ref.cpu().numpy()
         fc = frac_close(a, b)
@@ -140,8 +263,10 @@ def main() -> int:
               f"{int(ref_casts)}, max |err| {np.abs(a - b).max():.3g}")
         assert np.isfinite(a).all() and fc >= 0.99, fc
         assert casts_close(got_casts, ref_casts), (int(got_casts), int(ref_casts))
-        # Whitted: the whole frame through the level kernel vs plain levels
-        o, d = camera_ops.shoot(camera, clip)
+        return got, got_casts
+
+    def check_whitted(label, scene, cam, clip, cfg):
+        o, d = camera_ops.shoot(cam, clip)
         rk = trace_whitted(scene, o, d, cfg)
         rp = trace_whitted(scene, o, d, cfg, level_fn=plain_level)
         torch.cuda.synchronize()
@@ -153,111 +278,364 @@ def main() -> int:
         assert casts_close(rk.casts, rp.casts), (int(rk.casts), int(rp.casts))
         assert int(rk.dropped) == 0 and int(rp.dropped) == 0
 
+    def binned_walk(scene, o, d, unifs):
+        """mc_binned.trace step by step -> (photon [n, 3], casts, the inputs
+        each kernel got: ("primary", o_t, d_t) / ("bounce", sf, si, u,
+        first) / ("terminal", sf, si, first))."""
+        calls = []
+        o_t, d_t = o.t().contiguous(), d.t().contiguous()
+        calls.append(("primary", o_t, d_t))
+        sf, si, c0 = mc_binned.primary(scene, o_t, d_t)
+        casts = c0.sum()
+        for step in range(DEPTH):
+            sf, si = mc_binned.sort_state(scene, sf, si, unifs[step])
+            u = unifs[step][:, si[mc_binned.I_SLOT].long()].contiguous()
+            calls.append(("bounce", sf, si, u, step == 0))
+            sf, si, dc = mc_binned.bounce(scene, sf, si, u, step == 0, MD, MR)
+            casts = casts + dc.sum()
+        calls.append(("terminal", sf, si, DEPTH == 0))
+        rows, dc = mc_binned.terminal(scene, sf, si, DEPTH == 0)
+        casts = casts + dc.sum()
+        photon = torch.zeros((o.shape[0], 3), device=dev)
+        photon.index_add_(0, si[mc_binned.I_SLOT].long(), rows.t())
+        return photon, casts, calls
+
+    def run_binned(scene, call, plain=False, work=None):
+        """One binned kernel (or its plain version) on captured inputs ->
+        its float outputs, int outputs (or None), casts."""
+        kind, *args = call
+        geom, tex = scene.geom, scene.textures
+        if kind == "primary":
+            if plain:
+                return mc_binned.primary_plain(geom, *args)
+            return mc_binned.primary(scene, *args, work=work)
+        if kind == "bounce":
+            sf, si, u, first = args
+            if plain:
+                return mc_binned.bounce_plain(geom, tex, sf, si, u, first, MD, MR)
+            return mc_binned.bounce(scene, sf, si, u, first, MD, MR, work=work)
+        sf, si, first = args
+        if plain:
+            out = mc_binned.terminal_plain(geom, tex, sf, si, first)
+        else:
+            out = mc_binned.terminal(scene, sf, si, first, work=work)
+        return out[0], None, out[1]
+
+    def check_binned_kernels(label, scene, calls):
+        """Each binned kernel against its plain version on the same inputs:
+        >= 99 % of lanes with every output within 1e-3 + 2e-2 |ref| and equal
+        int rows; casts within 1 %."""
+        errs = {}
+        for call in calls:
+            fk, ik, ck = run_binned(scene, call)
+            fp, ip, cp = run_binned(scene, call, plain=True)
+            torch.cuda.synchronize()
+            a, b = fk.t().cpu().numpy(), fp.t().cpu().numpy()
+            ok = np.abs(a - b) <= 1e-3 + 2e-2 * np.abs(b)
+            read = np.ones_like(ok)
+            same = np.ones(a.shape[0], bool)
+            if ik is not None:
+                same = (ik == ip).all(0).cpu().numpy()
+                # a dead lane's photon is its accumulation (rows 0-2); its
+                # other rows are never read again
+                read[(ip[mc_binned.I_ALIVE] == 0).cpu().numpy(), 3:] = False
+            close = same & np.all(ok | ~read, axis=-1)
+            diff = np.where(read, np.abs(a - b), 0.0)
+            err = float(diff[same].max()) if same.any() else 0.0
+            name = f"binned_{call[0]}"
+            errs[name] = max(errs.get(name, 0.0), err)
+            tag = f"{call[0]}{'' if call[0] == 'primary' else ' first' if call[-1] else ''}"
+            print(f"binned {tag} {label}: {close.mean():.5f} of lanes agree, casts "
+                  f"{int(ck.sum())} vs {int(cp.sum())}, max |err| {err:.3g}")
+            assert np.isfinite(a).all() and close.mean() >= 0.99, close.mean()
+            assert casts_close(ck.sum(), cp.sum()), (int(ck.sum()), int(cp.sum()))
+        return errs
+
+    # ---- 2. kernels against their plain versions, same inputs -----------
+    rng = np.random.default_rng(0)
+    full = RenderConfig(depth=5, epochs=3)  # 1280x960, tile_rays 65536
+    mesh_cfg = RenderConfig(width=1024, height=1024, depth=5)  # mesh11k
+    cases = [(f"{w}x{h}", RenderConfig(width=w, height=h, depth=5, tile_rays=w * h), 0)
+             for w, h in ((64, 48), (256, 192))]
+    cases.append(("1280x960 tile 9", full, 9))  # a main-path tile, mid-frame
+    for label, cfg, tile in cases:
+        clip = _clips(cfg, dev)[0][tile]
+        check_mc(label, demo, *tile_rays(demo_cam, clip, rng, cfg))
+        check_whitted(label, demo, demo_cam, clip, cfg)
+
+    binned_err = {}
+    small = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
+    for label, scene, cam, cfg, tile in (
+            ("mesh24 64x48", mesh24, mesh24_cam, small, 0),
+            ("mesh11k 1024x1024 tile 6", mesh11k, mesh11k_cam, mesh_cfg, 6)):
+        clip = _clips(cfg, dev)[0][tile]
+        o, d, unifs = tile_rays(cam, clip, rng, cfg)
+        mega, mega_casts = check_mc(label + " (blocked)", scene, o, d, unifs)
+        check_whitted(label + " (blocked)", scene, cam, clip, cfg)
+        photon, casts, calls = binned_walk(scene, o, d, unifs)
+        for k, v in check_binned_kernels(label, scene, calls).items():
+            binned_err[k] = max(binned_err.get(k, 0.0), v)
+        a, b = photon.cpu().numpy(), mega.cpu().numpy()
+        close = float(np.all(np.isclose(a, b, rtol=1e-4, atol=1e-5), axis=-1).mean())
+        print(f"binned path vs blocked mc kernel {label}: {close:.5f} of lanes agree, "
+              f"casts {int(casts)} vs {int(mega_casts)}")
+        assert close >= 0.995 and int(casts) == int(mega_casts), (close, int(casts))
+
     # ---- 3. goldens (scripts/tpu_check.py gates) ------------------------
-    cfg = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
-    img, stats = render_whitted(scene, camera, cfg)
-    g = np.load(os.path.join(GOLDEN, "whitted_demo_64x48.npy"))
-    a = img.cpu().numpy()
-    p, bad = psnr(a, g), float((np.abs(a - g).max(axis=-1) > 0.1).mean())
-    print(f"golden whitted 64x48: psnr {p:.1f} dB, bad {bad:.4f}, dropped {stats['dropped']}")
-    assert p >= 38.0 and bad <= 0.02 and stats["dropped"] == 0
     z = np.load(os.path.join(GOLDEN, "mc_demo_64x48_draws.npz"))
     draws = [(torch.as_tensor(z["normals"], device=dev), torch.as_tensor(z["unifs"], device=dev))]
-    img, stats = render_distributed_epoch(scene, camera, cfg, draws=draws)
-    g = np.load(os.path.join(GOLDEN, "mc_demo_64x48.npy"))
-    a = img.cpu().numpy()
-    p, bad = psnr(a, g), float((np.abs(a - g).max(axis=-1) > 0.1).mean())
+    img, stats = render_whitted(demo, demo_cam, small)
+    p, bad, ok = golden_gate(img, "whitted_demo_64x48.npy", 38.0, 0.02)
+    print(f"golden whitted 64x48: psnr {p:.1f} dB, bad {bad:.4f}, dropped {stats['dropped']}")
+    assert ok and stats["dropped"] == 0
+    img, stats = render_distributed_epoch(demo, demo_cam, small, draws=draws)
+    p, bad, ok = golden_gate(img, "mc_demo_64x48.npy", 25.0, 0.01)
     print(f"golden mc 64x48: psnr {p:.1f} dB, bad {bad:.4f}")
-    assert p >= 25.0 and bad <= 0.01
+    assert ok
+    for grid in (24, 96, 160):
+        scene, cam = meshes[grid]
+        img, stats = render_whitted(scene, cam, small)
+        p, bad, ok = golden_gate(img, f"whitted_mesh{grid}_64x48.npy", 30.0, 0.01)
+        print(f"golden whitted mesh{grid} ({scene.n_tri} triangles) 64x48: psnr {p:.1f} dB, "
+              f"bad {bad:.4f}, dropped {stats['dropped']}")
+        assert ok and stats["dropped"] == 0
+    # the draws of PRNGKey(7), tile 0, do not depend on the scene
+    img, stats = render_distributed_epoch(mesh24, mesh24_cam, small, draws=draws)
+    p, bad, ok = golden_gate(img, "mc_mesh24_64x48.npy", 25.0, 0.01)
+    print(f"golden mc mesh24 64x48: psnr {p:.1f} dB, bad {bad:.4f}")
+    assert ok
 
-    # ---- 4. the main path at full size -----------------------------------
+    # ---- 4. the main paths -----------------------------------------------
     lines = []
 
     def log(msg):
         lines.append(msg)
         print(msg, flush=True)
 
-    for c in (mc_kernel.COUNTS, level_kernel.COUNTS):
-        c.launches = c.plain = 0
+    reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out.png")
-        t0 = time.time()
-        state = render_progressive(scene, camera, full, out_path=out, log=log)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = {"level": level_kernel.COUNTS.launches, "mc": mc_kernel.COUNTS.launches}
+        state, wall = timed(lambda: render_progressive(demo, demo_cam, full, out_path=out,
+                                                       log=log))
+        demo_launches = read_counts()
         png = read_png_rgb8(out)
-    print(f"main path: whitted + {full.epochs} epochs at 1280x960 in {wall:.2f} s wall; "
-          f"launches {launches}")
+    print(f"main path (demo): whitted + {full.epochs} epochs at 1280x960 in {wall:.2f} s wall; "
+          f"launches {demo_launches}")
     assert state.epoch == full.epochs
     assert png.shape == (960, 1280, 3) and png.max() > 0, png.shape
     assert torch.isfinite(state.img).all()
     assert not any("dropped" in m for m in lines), lines
-    assert launches["level"] > 0 and launches["mc"] > 0, launches
-    assert level_kernel.COUNTS.plain == 0 and mc_kernel.COUNTS.plain == 0
+    assert demo_launches["level"] > 0 and demo_launches["mc"] > 0, demo_launches
 
-    # Whitted frame and one epoch, kernel vs plain, host clock around a sync
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, time.time() - t
+    reset_counts()
+    (wimg, wst), mw_s = timed(lambda: render_whitted(mesh11k, mesh11k_cam, mesh_cfg))
+    (eimg, est), me_s = timed(lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg))
+    mesh_launches = read_counts()
+    print(f"main path (mesh11k, {mesh11k.n_tri} triangles): whitted frame 1024x1024 "
+          f"{mw_s:.3f} s ({wst['casts'] / mw_s:,.0f} casts/s, dropped {wst['dropped']}), "
+          f"mc epoch {me_s:.3f} s ({est['casts'] / me_s:,.0f} casts/s); "
+          f"launches {mesh_launches}")
+    for img in (wimg, eimg):
+        assert tuple(img.shape) == (1024, 1024, 3) and torch.isfinite(img).all()
+        assert float(img.max()) > 0
+    assert wst["dropped"] == 0
+    assert mesh_launches["level_blk"] > 0, mesh_launches
+    assert all(mesh_launches[k] > 0 for k in ("binned_primary", "binned_bounce",
+                                               "binned_terminal")), mesh_launches
 
-    clips, _ = _clips(full, dev)
+    reset_counts()
+    (m24img, m24st), m24_s = timed(lambda: render_distributed_epoch(mesh24, mesh24_cam,
+                                                                    mesh_cfg))
+    m24_launches = read_counts()
+    print(f"main path (mesh24 mc epoch 1024x1024): {m24_s:.3f} s; launches {m24_launches}")
+    assert torch.isfinite(m24img).all() and float(m24img.max()) > 0
+    assert m24_launches["mc_blk"] > 0, m24_launches
 
-    def whitted_plain_frame():
-        for clip in clips:
-            o, d = camera_ops.shoot(camera, clip)
-            trace_whitted(scene, o, d, full, level_fn=plain_level)
+    mesh51k, mesh51k_cam = meshes[160]
+    render_whitted(mesh51k, mesh51k_cam, mesh_cfg)  # first-call set-up
+    reset_counts()
+    (_, w51), w51_s = timed(lambda: render_whitted(mesh51k, mesh51k_cam, mesh_cfg))
+    w51_launches = read_counts()
+    print(f"mesh51k ({mesh51k.n_tri} triangles) whitted frame 1024x1024: {w51_s:.3f} s "
+          f"({w51['casts'] / w51_s:,.0f} casts/s, dropped {w51['dropped']}); "
+          f"launches {w51_launches}")
+    assert w51["dropped"] == 0 and w51_launches["level_blk"] > 0
+    launches = {k: demo_launches[k] + mesh_launches[k] + m24_launches[k] + w51_launches[k]
+                for k in counts}
 
-    def mc_plain_epoch():
-        for t, clip in enumerate(clips):
-            normals, unifs = tile_draws(full, 0, 0, t, clip.shape[0], dev)
-            o, d = camera_ops.shoot_focus(camera, clip, normals * full.blur, full.focus)
-            mc_kernel.trace_plain(tb, tex, o.contiguous(), d.contiguous(), unifs, 5, 100.0, 10)
+    # frames and epochs, kernel vs plain, host clock around a sync
+    def whitted_plain_frame(scene, cam, cfg):
+        for clip in _clips(cfg, dev)[0]:
+            o, d = camera_ops.shoot(cam, clip)
+            trace_whitted(scene, o, d, cfg, level_fn=plain_level)
 
-    (_, wst), w_s = timed(lambda: render_whitted(scene, camera, full))
-    _, wp_s = timed(whitted_plain_frame)
-    (_, est), e_s = timed(lambda: render_distributed_epoch(scene, camera, full, epoch=7))
-    _, ep_s = timed(mc_plain_epoch)
-    print(f"whitted frame 1280x960: kernel {w_s:.3f} s ({wst['casts'] / w_s:,.0f} casts/s), "
-          f"plain {wp_s:.3f} s")
-    print(f"mc epoch 1280x960: kernel {e_s:.3f} s ({est['casts'] / e_s:,.0f} casts/s), "
-          f"plain {ep_s:.3f} s")
+    def mc_plain_epoch(scene, cam, cfg):
+        for t, clip in enumerate(_clips(cfg, dev)[0]):
+            normals, unifs = tile_draws(cfg, 0, 0, t, clip.shape[0], dev)
+            o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
+            plain_mc(scene, o.contiguous(), d.contiguous(), unifs)
 
-    # per-launch times at the main path's shapes: one 65536-ray tile
-    clip = clips[0]
-    normals, unifs = tile_draws(full, 0, 0, 0, clip.shape[0], dev)
-    o, d = camera_ops.shoot_focus(camera, clip, normals * full.blur, full.focus)
-    o, d = o.contiguous(), d.contiguous()
-    mk, _ = mc_kernel.trace(scene, o, d, unifs, 5, 100.0, 10)
-    mp, _ = mc_kernel.trace_plain(tb, tex, o, d, unifs, 5, 100.0, 10)
-    mc_err = float((mk - mp).abs().max())
-    mc_ms = cuda_ms(lambda: mc_kernel.trace(scene, o, d, unifs, 5, 100.0, 10), 5)
-    mc_plain_ms = cuda_ms(lambda: mc_kernel.trace_plain(tb, tex, o, d, unifs, 5, 100.0, 10), 2)
-    o, d = camera_ops.shoot(camera, clip)
-    pool = _pack_primary(o, d)
-    args = (full.threshold, full.max_refract_distance, full.max_tir_retries)
-    lk = level_kernel.process_level(scene, pool, False, True, *args)
-    lp = plain_level(scene, pool, False, True, *args)
-    lv_err = float((lk[0] - lp[0]).abs().max())
-    lv_ms = cuda_ms(lambda: level_kernel.process_level(scene, pool, False, True, *args), 10)
-    lv_plain_ms = cuda_ms(lambda: plain_level(scene, pool, False, True, *args), 3)
-    print(f"per launch, 65536 rays: mc kernel {mc_ms:.3f} ms vs plain {mc_plain_ms:.3f} ms; "
-          f"level (primary) kernel {lv_ms:.3f} ms vs plain {lv_plain_ms:.3f} ms")
+    frames = {}
+    for name, scene, cam, cfg in (("demo 1280x960", demo, demo_cam, full),
+                                  ("mesh11k 1024x1024", mesh11k, mesh11k_cam, mesh_cfg)):
+        (_, wst), w_s = timed(lambda: render_whitted(scene, cam, cfg))
+        _, wp_s = timed(lambda: whitted_plain_frame(scene, cam, cfg))
+        (_, est), e_s = timed(lambda: render_distributed_epoch(scene, cam, cfg, epoch=7))
+        _, ep_s = timed(lambda: mc_plain_epoch(scene, cam, cfg))
+        frames[name] = {"whitted_frame_s": w_s, "whitted_frame_plain_s": wp_s,
+                        "mc_epoch_s": e_s, "mc_epoch_plain_s": ep_s}
+        if scene.n_tri >= mc_binned.BINNED_MIN_TRIS:  # the same epoch on the other route
+            threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, scene.n_tri + 1
+            (_, est2), e2_s = timed(lambda: render_distributed_epoch(scene, cam, cfg, epoch=7))
+            mc_binned.BINNED_MIN_TRIS = threshold
+            assert est2["casts"] == est["casts"], (est2["casts"], est["casts"])
+            frames[name]["mc_epoch_mega_kernel_s"] = e2_s
+            print(f"mc epoch {name} through the blocked mc kernel instead: {e2_s:.3f} s")
+        print(f"whitted frame {name}: kernel {w_s:.3f} s ({wst['casts'] / w_s:,.0f} casts/s), "
+              f"plain {wp_s:.3f} s")
+        print(f"mc epoch {name}: kernel {e_s:.3f} s ({est['casts'] / e_s:,.0f} casts/s), "
+              f"plain {ep_s:.3f} s")
+    frames["mesh51k 1024x1024"] = {"whitted_frame_s": w51_s}
 
-    print(json.dumps({"whitted_frame_s": w_s, "whitted_frame_plain_s": wp_s,
-                      "mc_epoch_s": e_s, "mc_epoch_plain_s": ep_s, "attrs": attrs}))
+    # where the mesh11k frame and epoch spend device time (both MC routes)
+    profiles = {
+        "mesh11k whitted": profile_breakdown(
+            "mesh11k whitted frame", lambda: render_whitted(mesh11k, mesh11k_cam, mesh_cfg)),
+        "mesh11k mc binned": profile_breakdown(
+            "mesh11k mc epoch (binned)",
+            lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7))}
+    threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, mesh11k.n_tri + 1
+    profiles["mesh11k mc mega"] = profile_breakdown(
+        "mesh11k mc epoch (blocked mc kernel)",
+        lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7))
+    mc_binned.BINNED_MIN_TRIS = threshold
+
+    # per-launch times at the main paths' shapes: one 65536-ray tile each
+    def time_mc(scene, cam, cfg):
+        clip = _clips(cfg, dev)[0][0]
+        normals, unifs = tile_draws(cfg, 0, 0, 0, clip.shape[0], dev)
+        o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
+        o, d = o.contiguous(), d.contiguous()
+        n = o.shape[0]
+        work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
+        mk, _ = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR)
+        mw, _ = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR, work=work)
+        assert torch.equal(mk, mw)  # counting changes no result
+        mp, _ = plain_mc(scene, o, d, unifs)
+        io = nbytes(o, d, unifs, *scene_tables(scene)) + 16 * n  # photon + casts
+        b_ms, b_by, ops = bound(io, work)
+        return dict(max_abs_err=float((mk - mp).abs().max()),
+                    ms=device_ms(lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR), 5,
+                                 "mc_kernel"),
+                    plain_ms=cuda_ms(lambda: plain_mc(scene, o, d, unifs), 1),
+                    bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
+                    tests=dict(zip(kernels.WORK_ROWS, work.sum(1).tolist())))
+
+    def time_level(scene, cam, cfg):
+        clip = _clips(cfg, dev)[0][0]
+        o, d = camera_ops.shoot(cam, clip)
+        pool = _pack_primary(o, d)
+        args = (cfg.threshold, cfg.max_refract_distance, cfg.max_tir_retries)
+        work = torch.zeros((len(kernels.WORK_ROWS), pool.width), dtype=torch.int32, device=dev)
+        lk = level_kernel.process_level(scene, pool, False, True, *args)
+        lw = level_kernel.process_level(scene, pool, False, True, *args, work=work)
+        assert torch.equal(lk[0], lw[0])  # counting changes no result
+        lp = plain_level(scene, pool, False, True, *args)
+        io = nbytes(pool.f, pool.i, *scene_tables(scene)) + (3 + 2 * 16 + 1) * 4 * pool.width
+        b_ms, b_by, ops = bound(io, work)
+        return dict(max_abs_err=float((lk[0] - lp[0]).abs().max()),
+                    ms=device_ms(lambda: level_kernel.process_level(scene, pool, False, True,
+                                                                    *args), 10, "level_kernel"),
+                    plain_ms=cuda_ms(lambda: plain_level(scene, pool, False, True, *args), 1),
+                    bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
+                    tests=dict(zip(kernels.WORK_ROWS, work.sum(1).tolist())))
+
+    def scene_tables(scene):
+        tb = scene.tables
+        out = [tb.tri, tb.sph, tb.mat, tb.lights]
+        if scene.blocked:
+            bt = scene.blk_tables
+            out = [bt.tri, bt.box, bt.sup, tb.sph, tb.mat, tb.lights]
+        return out
+
+    def time_binned(scene, cam, cfg):
+        """Each binned kernel on the inputs it got in one 65536-ray tile's
+        walk: ms and bound per launch (bounces: the mean over the walk's
+        five), plain_ms likewise."""
+        clip = _clips(cfg, dev)[0][0]
+        normals, unifs = tile_draws(cfg, 0, 0, 0, clip.shape[0], dev)
+        o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
+        _, _, calls = binned_walk(scene, o.contiguous(), d.contiguous(), unifs)
+        out = {}
+        for kind in ("primary", "bounce", "terminal"):
+            mine = [c for c in calls if c[0] == kind]
+            ms = plain_ms = b_ms = io = ops = 0.0
+            by = set()
+            tests = dict.fromkeys(kernels.WORK_ROWS, 0)
+            for call in mine:
+                n = call[1].shape[1]
+                work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
+                got = run_binned(scene, call)
+                counted = run_binned(scene, call, work=work)
+                assert all(a is None or torch.equal(a, b) for a, b in zip(got, counted))
+                ins = [t for t in call[1:] if isinstance(t, torch.Tensor)]
+                outs = {"primary": (21 + 5 + 1) * 4, "bounce": (21 + 5 + 1) * 4,
+                        "terminal": 4 * 4}[kind] * n
+                call_io = nbytes(*ins, *scene_tables(scene)) + outs
+                b, b_by, call_ops = bound(call_io, work)
+                b_ms, io, ops = b_ms + b, io + call_io, ops + call_ops
+                by.add(b_by)
+                for k, v in zip(kernels.WORK_ROWS, work.sum(1).tolist()):
+                    tests[k] += v
+                ms += device_ms(lambda: run_binned(scene, call), 5, f"binned_{kind}")
+                plain_ms += cuda_ms(lambda: run_binned(scene, call, plain=True), 1)
+            k = len(mine)
+            out[f"binned_{kind}"] = dict(ms=ms / k, plain_ms=plain_ms / k, bound_ms=b_ms / k,
+                                         bound_by="operations" if "operations" in by else "bytes",
+                                         bytes=io / k, ops=ops / k,
+                                         tests={t: v / k for t, v in tests.items()})
+        return out
+
+    per = {"mc": time_mc(demo, demo_cam, full), "level": time_level(demo, demo_cam, full),
+           "mc_blk": time_mc(mesh11k, mesh11k_cam, mesh_cfg),
+           "level_blk": time_level(mesh11k, mesh11k_cam, mesh_cfg)}
+    per.update(time_binned(mesh11k, mesh11k_cam, mesh_cfg))
+    for k, v in per.items():
+        print(f"per launch, 65536 rays, {k}: kernel {v['ms']:.3f} ms vs plain "
+              f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
+              f"{v['bytes']:,.0f} B, {v['ops']:,.0f} FP32 operations; tests {v['tests']})")
+
+    print(json.dumps({"frames": frames, "attrs": attrs, "per_launch": per,
+                      "profiles": profiles}))
+
+    def entry(name, source, replaces, key, blk_key=None):
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[key] + (launches[blk_key] if blk_key else 0),
+             "max_abs_err": per[key].get("max_abs_err", binned_err.get(key)),
+             "ms": per[key]["ms"], "plain_ms": per[key]["plain_ms"],
+             "bound_ms": per[key]["bound_ms"], "bound_by": per[key]["bound_by"],
+             "library_ms": None}
+        if blk_key:  # the blocked instantiation's own fields
+            e.update({"launches_blocked": launches[blk_key],
+                      "max_abs_err_blocked": per[blk_key]["max_abs_err"],
+                      "ms_blocked": per[blk_key]["ms"],
+                      "plain_ms_blocked": per[blk_key]["plain_ms"],
+                      "bound_ms_blocked": per[blk_key]["bound_ms"],
+                      "bound_by_blocked": per[blk_key]["bound_by"]})
+        return e
+
+    csrc = "raytracer_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "mc_kernel", "route": "cuda",
-         "source": "raytracer_tpu_torch/csrc/mc_kernel.cu",
-         "replaces": "raytracer_tpu/ops/mc_pallas.py:474", "launches": launches["mc"],
-         "max_abs_err": mc_err, "ms": mc_ms, "plain_ms": mc_plain_ms},
-        {"name": "level_kernel", "route": "cuda",
-         "source": "raytracer_tpu_torch/csrc/level_kernel.cu",
-         "replaces": "raytracer_tpu/ops/level_pallas.py:73", "launches": launches["level"],
-         "max_abs_err": lv_err, "ms": lv_ms, "plain_ms": lv_plain_ms},
+        entry("mc_kernel", csrc + "mc_kernel.cu", "raytracer_tpu/ops/mc_pallas.py:474",
+              "mc", "mc_blk"),
+        entry("level_kernel", csrc + "level_kernel.cu", "raytracer_tpu/ops/level_pallas.py:73",
+              "level", "level_blk"),
+        entry("binned_primary", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:131",
+              "binned_primary"),
+        entry("binned_bounce", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:157",
+              "binned_bounce"),
+        entry("binned_terminal", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:190",
+              "binned_terminal"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

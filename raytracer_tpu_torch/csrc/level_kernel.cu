@@ -2,7 +2,9 @@
 // ray_trace recursion (src/main.rs:466-519) per launch.
 //
 // Replaces the TPU kernel raytracer_tpu/ops/level_pallas.py:73
-// `_level_kernel` / :127 `_level_body` (wrapper `process_level` :261).
+// `_level_kernel` / :127 `_level_body` (wrapper `process_level` :261),
+// both of its branches: one instantiation per geometry policy
+// (common.cuh DenseGeom, BlockedGeom for the large-mesh blocked layout).
 // Plain version: raytracer_tpu_torch/ops/level_kernel.py
 // `process_level_plain`.
 //
@@ -14,17 +16,22 @@
 // alive); children come out in the same layout for the compaction in
 // ops/trace.py.
 //
-// What bounds it on an H100: issue throughput of the sweeps (64 triangles
-// + 4 spheres per cast, up to 3 shadow rays and 11 march casts per lane)
+// What bounds it on an H100: issue throughput of the sweeps (dense: 64
+// triangles + 4 spheres per cast; blocked: the box tests and the 128-row
+// chunks a ray enters; up to 3 shadow rays and 11 march casts per lane)
 // and warp divergence between lanes that march and lanes that do not; the
-// pool I/O is 128 bytes in and ~260 bytes out per lane.  The design: 128
+// pool I/O is 128 bytes in and ~260 bytes out per lane.  On the blocked
+// layout the lanes of a warp also diverge in which chunks they enter; the
+// warp serialises their union (staging chunks in shared memory and
+// warp-cooperative gating are later work).  The design: 128
 // threads per block, scene tables through const __restrict__ global
 // pointers (L1-resident), and a per-lane early exit in place of the TPU's
 // dead-tile skip — a lane that is not alive writes exactly what a dead
 // TPU tile writes (children zero; pending delivered through contrib on
 // direct levels, otherwise carried on the reflect child with its slot).
 // The TPU's 512-lane tiles, bit-cast int rows and one-hot attribute
-// matmuls are gone.
+// matmuls are gone.  W is the test counter (common.cuh): NoWork on the
+// main path, Work when the caller asks for the per-lane test counts.
 #include "common.cuh"
 
 namespace rt {
@@ -39,13 +46,17 @@ __device__ __forceinline__ void put_i(int* __restrict__ a, int row, int k, int l
   a[(size_t)row * k + lane] = x;
 }
 
+template <class G, class W>
 __global__ void __launch_bounds__(128)
-level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb,
+level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
              float* __restrict__ contrib, float* __restrict__ rf, int* __restrict__ ri,
-             float* __restrict__ ff, int* __restrict__ fi, int* __restrict__ casts_out, int k,
-             bool last, bool direct, float threshold, float max_distance, int max_retries) {
+             float* __restrict__ ff, int* __restrict__ fi, int* __restrict__ casts_out,
+             int* __restrict__ work_out, int k, bool last, bool direct, float threshold,
+             float max_distance, int max_retries) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= k) return;
+  const Tables& tb = g.tb;
+  W w{};
   auto f_at = [&](int row) { return pf[(size_t)row * k + lane]; };
   auto i_at = [&](int row) { return pi[(size_t)row * k + lane]; };
   V3 pend = v3(f_at(F_PEND), f_at(F_PEND + 1), f_at(F_PEND + 2));
@@ -71,6 +82,7 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb
       put_i(ri, I_SLOT, k, lane, slot);
     }
     casts_out[lane] = 0;
+    w.put(work_out, k, lane);
     return;
   }
 
@@ -79,7 +91,7 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb
   float c = f_at(6), s = f_at(7);
   int face = i_at(I_FACE);
 
-  Hit h = full_sweep(tb, o, d, face, i_at(I_EXCL_PRIM), i_at(I_EXCL_FACE), true);
+  Hit h = g.nearest(o, d, face, i_at(I_EXCL_PRIM), i_at(I_EXCL_FACE), true, w);
   bool live = h.valid;
   int casts = 1;
 
@@ -91,7 +103,7 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb
   // direct shade iff c*shade_c >= THRESHOLD (main.rs:482); at the last
   // level the local shade weight does not apply (488-490)
   bool need_shade = live && c * shade_c >= threshold;
-  V3 sh = shade_at(tb, m, h.p, h.n, d, need_shade, h.prim, casts);
+  V3 sh = shade_at(g, m, h.p, h.n, d, need_shade, h.prim, casts, w);
   float coef = last ? s : s * shade_c;
   V3 p_new = v3(pend.x + (need_shade ? sh.x * coef : 0.0f),
                 pend.y + (need_shade ? sh.y * coef : 0.0f),
@@ -110,6 +122,7 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb
     put_f(contrib, 1, k, lane, p_new.y);
     put_f(contrib, 2, k, lane, p_new.z);
     casts_out[lane] = casts;
+    w.put(work_out, k, lane);
     return;
   }
 
@@ -134,7 +147,7 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb
   // refract child (main.rs:502-514): the whole interior march
   float c_f = c * refr_c;
   bool want_f = live && c_f > threshold;  // strict > (504)
-  March mm = march(tb, h.p, h.n, d, m.refraction, want_f, max_distance, max_retries);
+  March mm = march(g, h.p, h.n, d, m.refraction, want_f, max_distance, max_retries, w);
   casts += mm.iters;
   float decay = kpowf(m.decay, mm.travel);  // opaque_decay^travel (508)
   bool alive_f = want_f && mm.escaped;
@@ -170,6 +183,19 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb
   put_f(ff, F_PEND + 1, k, lane, out_f.y);
   put_f(ff, F_PEND + 2, k, lane, out_f.z);
   casts_out[lane] = casts;
+  w.put(work_out, k, lane);
+}
+
+template <class G>
+int launch_level(const float* pf, const int* pi, G g, float* contrib, float* rf, int* ri,
+                 float* ff, int* fi, int* casts, int* work, int k, int last, int direct,
+                 float threshold, float max_distance, int max_retries, void* stream) {
+  int blocks = (k + 127) / 128;
+  auto kernel = work ? &level_kernel<G, Work> : &level_kernel<G, NoWork>;
+  kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(pf, pi, g, contrib, rf, ri, ff, fi, casts,
+                                                  work, k, last != 0, direct != 0, threshold,
+                                                  max_distance, max_retries);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rt
@@ -177,31 +203,39 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, Tables tb
 extern "C" {
 
 // pf: [11, k] float32; pi: [5, k] int32; contrib: [3, k]; rf/ff: [11, k];
-// ri/fi: [5, k]; casts: [k].
+// ri/fi: [5, k]; casts: [k]; work: [WORK_ROWS, k] or null (null runs the
+// instantiation that counts nothing).
 int rt_level(const float* pf, const int* pi, const float* tri, int n_tri, const float* sph,
              int n_sph, const float* mat, int n_obj, const float* lights, int n_light,
-             float* contrib, float* rf, int* ri, float* ff, int* fi, int* casts, int k, int last,
-             int direct, float threshold, float max_distance, int max_retries, void* stream) {
-  rt::Tables tb{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light};
-  int blocks = (k + 127) / 128;
-  rt::level_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
-      pf, pi, tb, contrib, rf, ri, ff, fi, casts, k, last != 0, direct != 0, threshold,
-      max_distance, max_retries);
-  return (int)cudaGetLastError();
+             float* contrib, float* rf, int* ri, float* ff, int* fi, int* casts, int* work, int k,
+             int last, int direct, float threshold, float max_distance, int max_retries,
+             void* stream) {
+  rt::DenseGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light}};
+  return rt::launch_level(pf, pi, g, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
+                          threshold, max_distance, max_retries, stream);
 }
 
-// Compiled attributes of the level kernel: out = {registers per thread,
-// local (spill + stack) bytes per thread, static shared bytes, max threads
-// per block}.
-int rt_level_attrs(int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, rt::level_kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = a.maxThreadsPerBlock;
-  return 0;
+// The blocked instantiation: btri [NCH*128, 36], box [NCH, 8], sup
+// [NCH/8, 8], n_chunks = chunks that hold a triangle.
+int rt_level_blk(const float* pf, const int* pi, const float* tri, int n_tri, const float* sph,
+                 int n_sph, const float* mat, int n_obj, const float* lights, int n_light,
+                 const float* btri, const float* box, const float* sup, int n_chunks,
+                 float* contrib, float* rf, int* ri, float* ff, int* fi, int* casts, int* work,
+                 int k, int last, int direct, float threshold, float max_distance,
+                 int max_retries, void* stream) {
+  rt::BlockedGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light},
+                    rt::Blk{btri, box, sup, n_chunks}};
+  return rt::launch_level(pf, pi, g, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
+                          threshold, max_distance, max_retries, stream);
+}
+
+// Compiled attributes of the main path's instantiation `which` (0 dense, 1
+// blocked): out = {registers per thread, local (spill + stack) bytes per
+// thread, static shared bytes, max threads per block}.
+int rt_level_attrs(int which, int* out) {
+  return rt::attrs_of(which ? (const void*)rt::level_kernel<rt::BlockedGeom, rt::NoWork>
+                            : (const void*)rt::level_kernel<rt::DenseGeom, rt::NoWork>,
+                      out);
 }
 
 }  // extern "C"

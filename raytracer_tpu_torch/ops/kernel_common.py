@@ -1,11 +1,20 @@
-"""Dense building blocks of the two kernels, as plain PyTorch.
+"""Building blocks of the kernels, as plain PyTorch.
 
 Counterpart of raytracer_tpu/ops/kernel_common.py:105-894 (the dense
-blocks) and intersect_pallas.py:42-85 (the table packers).  These are the
-plain versions the CUDA kernels are held against: csrc/common.cuh holds the
-same blocks as __device__ functions, one thread per ray.  Here each lane
-quantity is a 1-D [R] tensor and each (primitive, lane) quantity a [T, R]
-tensor; the plain versions run on any device.
+blocks), :894-1786 (the blocked large-mesh blocks and the DenseGeom /
+BlockedGeom switch) and intersect_pallas.py:42-85 (the table packers).
+These are the plain versions the CUDA kernels are held against:
+csrc/common.cuh holds the same blocks as __device__ functions, one thread
+per ray.  Here each lane quantity is a 1-D [R] tensor and each (primitive,
+lane) quantity a [T, R] tensor; the plain versions run on any device.
+
+The blocked sweeps gate PER LANE, as the kernels do: a lane tests a
+supergroup's box, then each of its chunks' boxes, bounded by its current
+best hit (or shadow limit), and the chunk's triangles only where its ray
+enters the box.  The TPU's per-tile gate (`any(hit_box)` over a 512-lane
+tile), its supergroup visit order and its HBM chunk streaming are not
+ported: any visit order gives the same hits, and the permuted table stays
+in global memory.
 
 What differs from the TPU blocks (the TPU workarounds are not ported):
   * torch.acos / torch.atan2 / torch.pow replace the Mosaic polynomials;
@@ -27,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.scene.blocked import BLK_CHUNK, SUP_CHUNKS
 from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, Scene
 from raytracer_tpu_torch.utils.kernels import check
@@ -38,6 +48,9 @@ _HALF_INV_PI = float(np.float32(0.5 / np.pi))
 _EIGHT_PI = float(np.float32(8.0 * np.pi))
 
 TRI_COLS, SPH_COLS, MAT_COLS, LIGHT_COLS = 34, 8, 16, 16
+# Blocked triangle rows: pack_tri's 34 columns, the original triangle id
+# (34, as float32: exact below 2^24) and one pad column (a 144-byte row).
+BLK_COLS, BLK_ID = 36, 34
 
 
 class Tables(NamedTuple):
@@ -105,6 +118,49 @@ def pack_lights(scene: Scene) -> torch.Tensor:
 def pack_tables(scene: Scene) -> Tables:
     return Tables(pack_tri(scene), pack_sph(scene), pack_materials(scene),
                   pack_lights(scene), scene.n_tri, scene.n_sph, scene.n_light)
+
+
+class BlkTables(NamedTuple):
+    """Blocked tables of a large mesh (float32, contiguous, on the scene's
+    device), kernel_common.py:891-933."""
+
+    tri: torch.Tensor  # [T_pad, 36] pack_tri_blocked
+    box: torch.Tensor  # [NCH, 8] chunk AABBs: min xyz 0:3, max xyz 3:6
+    sup: torch.Tensor  # [NCH / 8, 8] supergroup AABBs (pack_sup)
+    chunk_of_prim: torch.Tensor  # [T + max(S, 1)] int64: chunk per primitive
+    n_chunks: int  # chunks that hold at least one triangle
+
+
+def pack_tri_blocked(scene: Scene, base: torch.Tensor) -> torch.Tensor:
+    """[T_pad, 36]: `base` (pack_tri's [T, 34]) in blk_perm order, then the
+    ORIGINAL triangle id and a zero pad column.  Pad rows (perm == -1) are
+    all zero with id -1: their plane test divides 0/0 and fails."""
+    perm = scene.blk_perm.long()
+    live = perm >= 0
+    rows = torch.where(live[:, None], base[perm.clamp(min=0)], 0.0)
+    ids = torch.where(live, perm, -1).float()[:, None]
+    return torch.cat([rows, ids, torch.zeros_like(ids)], dim=1).contiguous()
+
+
+def pack_sup(box: torch.Tensor) -> torch.Tensor:
+    """[NCH / 8, 8] supergroup AABBs, the union of SUP_CHUNKS chunk boxes
+    (kernel_common.pack_sup8 :920 without the TPU's 8x row replication)."""
+    g = box.view(-1, SUP_CHUNKS, 8)
+    return torch.cat([g[:, :, 0:3].amin(dim=1), g[:, :, 3:6].amax(dim=1),
+                      box.new_zeros((g.shape[0], 2))], dim=1).contiguous()
+
+
+def pack_blocked(scene: Scene) -> BlkTables:
+    box = scene.blk_box.float().contiguous()
+    perm = scene.blk_perm.long()
+    live = perm >= 0
+    rows = torch.arange(perm.shape[0], device=perm.device)
+    chunk_of_tri = torch.zeros(scene.n_tri, dtype=torch.int64, device=perm.device)
+    chunk_of_tri[perm[live]] = rows[live] // BLK_CHUNK
+    chunk_of_prim = torch.cat([chunk_of_tri, box.shape[0] + torch.arange(
+        max(scene.n_sph, 1), dtype=torch.int64, device=perm.device)])
+    return BlkTables(pack_tri_blocked(scene, scene.tables.tri), box, pack_sup(box),
+                     chunk_of_prim, -(-scene.n_tri // BLK_CHUNK))
 
 
 # ---------------------------------------------------------------------------
@@ -207,16 +263,15 @@ def full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
     best_t = torch.full((R,), BIG, device=dev)
     best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
     best_bf = torch.zeros((R,), dtype=torch.bool, device=dev)
-    n_tri, n_sph = tb.n_tri, tb.n_sph
 
-    if n_tri > 0:
+    if tb.n_tri > 0:
         tri = tb.tri
         fn0, fn1, fn2 = _col(tri, 0), _col(tri, 1), _col(tri, 2)
         no_d = fn0 * dx + fn1 * dy + fn2 * dz
         backface = no_d > 0.0
         cull = (backface & (face == FACE_FRONT)) | (~backface & (face == FACE_BACK))
         t = (_col(tri, 3) - (fn0 * ox + fn1 * oy + fn2 * oz)) / no_d
-        prim = torch.arange(n_tri, dtype=torch.int32, device=dev)[:, None]
+        prim = torch.arange(tb.n_tri, dtype=torch.int32, device=dev)[:, None]
         excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
         ok = active & ~cull & ~excl & (t > 0.0)
         for e in range(3):
@@ -232,7 +287,19 @@ def full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
         best_t = torch.where(found, t_min, best_t)
         best_i = torch.where(found, win, best_i)
         best_bf = torch.where(found, bf, best_bf)
+    return _finish_hit(o, d, face, excl_prim, excl_face, active, tb,
+                       best_t, best_i, best_bf, tb.tri, best_i)
 
+
+def _finish_hit(o, d, face, excl_prim, excl_face, active, tb: Tables,
+                best_t, best_i, best_bf, tri_rows, tri_row):
+    """Spheres after the triangles (they win exact ties), then the winner's
+    attributes.  tri_rows[tri_row] is the winning triangle's packed row
+    (the dense table by prim id, or the blocked table by blocked row)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    dev = ox.device
+    n_tri, n_sph = tb.n_tri, tb.n_sph
     if n_sph > 0:
         sph = tb.sph
         wx, wy, wz = _col(sph, 0) - ox, _col(sph, 1) - oy, _col(sph, 2) - oz
@@ -264,7 +331,7 @@ def full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
 
     if n_tri > 0:
         is_tri = (best_i >= 0) & (best_i < n_tri)
-        row = _gather_rows(tb.tri, best_i, is_tri)
+        row = _gather_rows(tri_rows, tri_row, is_tri)
         col = lambda c: row[:, c]
         area2 = col(31)
         inv_a2 = 1.0 / torch.where(area2 != 0.0, area2, 1.0)
@@ -372,13 +439,7 @@ class _ShadowSweep:
             ]
             prim = torch.arange(tb.n_tri, dtype=torch.int32, device=dev)[:, None]
             self.not_self_tri = self_prim != prim
-        if tb.n_sph > 0:
-            sph = tb.sph
-            self.wx = _col(sph, 0) - px
-            self.wy = _col(sph, 1) - py
-            self.wz = _col(sph, 2) - pz
-            prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=dev)[:, None]
-            self.not_self_sph = self_prim != prim
+        self.sph = _SphShadow(px, py, pz, self_prim, tb)
 
     def _tri_blocked(self, lt):
         tri = self.tb.tri
@@ -394,7 +455,31 @@ class _ShadowSweep:
         ok = ok & lt["act"] & torch.isfinite(t) & (t < lt["tlim"])
         return ok.any(dim=0)
 
-    def _sph_blocked(self, lt):
+    def blocked(self, lt):
+        out = self.sph.blocked(lt)
+        if self.tb.n_tri > 0:
+            out = out | self._tri_blocked(lt)
+        return out
+
+
+class _SphShadow:
+    """The spheres' part of a shadow sweep from shared origins p (dense
+    and blocked scenes alike): normalized direction, real-unit limit."""
+
+    def __init__(self, px, py, pz, self_prim, tb: Tables):
+        self.tb = tb
+        self.none = torch.zeros_like(px, dtype=torch.bool)
+        if tb.n_sph > 0:
+            sph = tb.sph
+            self.wx = _col(sph, 0) - px
+            self.wy = _col(sph, 1) - py
+            self.wz = _col(sph, 2) - pz
+            prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=px.device)[:, None]
+            self.not_self_sph = self_prim != prim
+
+    def blocked(self, lt):
+        if self.tb.n_sph == 0:
+            return self.none
         r2 = _col(self.tb.sph, 3)
         dx, dy, dz = lt["ndx"], lt["ndy"], lt["ndz"]
         wx, wy, wz = self.wx, self.wy, self.wz
@@ -409,27 +494,21 @@ class _ShadowSweep:
               & torch.isfinite(t) & (t < lt["slim"]))
         return ok.any(dim=0)
 
-    def blocked(self, lt):
-        out = torch.zeros_like(self.px, dtype=torch.bool)
-        if self.tb.n_tri > 0:
-            out = out | self._tri_blocked(lt)
-        if self.tb.n_sph > 0:
-            out = out | self._sph_blocked(lt)
-        return out
 
-
-def get_shade(m, tb: Tables, px, py, pz, nax, nay, naz, vdx, vdy, vdz,
+def get_shade(m, geom, px, py, pz, nax, nay, naz, vdx, vdy, vdz,
               active, self_prim):
     """Direct radiance at a hit batch (kernel_common.get_shade :564).
 
-    m: eval_material output; (nax, nay, naz): the bump-ADJUSTED normal;
-    (vdx, vdy, vdz): view = -ray_d.  Returns (r, g, b, count) with count
-    the per-lane number of shadow rays cast."""
+    m: eval_material output; geom: a DenseGeom / BlockedGeom (Scene.geom);
+    (nax, nay, naz): the bump-ADJUSTED normal; (vdx, vdy, vdz):
+    view = -ray_d.  Returns (r, g, b, count) with count the per-lane
+    number of shadow rays cast."""
+    tb = geom.tb
     r = torch.zeros_like(px)
     g = torch.zeros_like(px)
     b = torch.zeros_like(px)
     count = torch.zeros(px.shape, dtype=torch.int32, device=px.device)
-    sweep = _ShadowSweep(px, py, pz, self_prim, tb)
+    sweep = geom.shadow_sweep(px, py, pz, self_prim)
 
     e = 1.0 / (m["smoothness"] + F32_EPS)
     energy = (e + 8.0) / _EIGHT_PI
@@ -507,9 +586,8 @@ def back_sweep_with_normal(px, py, pz, dx, dy, dz, active, tb: Tables):
     dev = px.device
     best_t = torch.full((R,), BIG, device=dev)
     best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    n_tri, n_sph = tb.n_tri, tb.n_sph
 
-    if n_tri > 0:
+    if tb.n_tri > 0:
         tri = tb.tri
         fn0, fn1, fn2 = _col(tri, 0), _col(tri, 1), _col(tri, 2)
         no_d = fn0 * dx + fn1 * dy + fn2 * dz
@@ -521,12 +599,22 @@ def back_sweep_with_normal(px, py, pz, dx, dy, dz, active, tb: Tables):
             dg = g0 * dx + g1 * dy + g2 * dz
             ok = ok & (og + _col(tri, 13 + e) + t * dg >= 0.0)
         ok = ok & active & torch.isfinite(t)
-        prim = torch.arange(n_tri, dtype=torch.int32, device=dev)[:, None]
+        prim = torch.arange(tb.n_tri, dtype=torch.int32, device=dev)[:, None]
         t_min, win = _winner(torch.where(ok, t, BIG), prim)
         found = t_min < BIG
         best_t = torch.where(found, t_min, best_t)
         best_i = torch.where(found, win, best_i)
+    return _finish_back((px, py, pz), (dx, dy, dz), active, tb, best_t, best_i,
+                        tb.tri, best_i)
 
+
+def _finish_back(p, d, active, tb: Tables, best_t, best_i, tri_rows, tri_row):
+    """Spheres' far shells after the triangles, then the hit point and the
+    flipped interior normal (tri_rows[tri_row] is the winner's row)."""
+    px, py, pz = p
+    dx, dy, dz = d
+    dev = px.device
+    n_tri, n_sph = tb.n_tri, tb.n_sph
     if n_sph > 0:
         sph = tb.sph
         wx, wy, wz = _col(sph, 0) - px, _col(sph, 1) - py, _col(sph, 2) - pz
@@ -550,7 +638,7 @@ def back_sweep_with_normal(px, py, pz, dx, dy, dz, active, tb: Tables):
 
     if n_tri > 0:
         is_tri = (best_i >= 0) & (best_i < n_tri)
-        row = _gather_rows(tb.tri, best_i, is_tri)
+        row = _gather_rows(tri_rows, tri_row, is_tri)
         col = lambda c: row[:, c]
         area2 = col(31)
         inv_a2 = 1.0 / torch.where(area2 != 0.0, area2, 1.0)
@@ -575,17 +663,17 @@ def back_sweep_with_normal(px, py, pz, dx, dy, dz, active, tb: Tables):
 
 
 def march_rows(px, py, pz, nx0, ny0, nz0, dx0, dy0, dz0, k, want,
-               tb: Tables, max_distance: float, max_retries: int):
+               geom, max_distance: float, max_retries: int):
     """The whole get_refract march (src/main.rs:343-405,
     kernel_common.march_rows :783): entry refraction, the interior
     reflective bounce loop (bounded by retries and distance budget), exit
     refraction.  Returns dict(escaped, travel, ex, ey, ez, odx, ody, odz,
     prim, iters) — iters counts casts incl. the entry cast.  Misses inside
-    the dielectric and trapped rays give escaped=False."""
+    the dielectric and trapped rays give escaped=False.  geom: a DenseGeom
+    / BlockedGeom (Scene.geom)."""
     rx, ry, rz, ok_in = refract3(nx0, ny0, nz0, dx0, dy0, dz0, k)
     active0 = want & ok_in  # TIR at entry -> Trapped (main.rs:354-358)
-    t, prim, hx, hy, hz, nix, niy, niz = back_sweep_with_normal(
-        px, py, pz, rx, ry, rz, active0, tb)
+    t, prim, hx, hy, hz, nix, niy, niz = geom.back(px, py, pz, rx, ry, rz, active0)
     alive = active0 & (t < BIG)  # miss -> Infinite -> dead
     travel = torch.where(alive, t, 0.0)
     ox, oy, oz, has_out = refract3(nix, niy, niz, rx, ry, rz, 1.0 / k)
@@ -602,8 +690,8 @@ def march_rows(px, py, pz, nx0, ny0, nz0, dx0, dy0, dz0, k, want,
     while bool(p.any()):
         # get_reflect on the interior hit (main.rs:380)
         fx, fy, fz = reflect3(s["dx"], s["dy"], s["dz"], s["nx"], s["ny"], s["nz"])
-        t2, prim2, hx2, hy2, hz2, nx2, ny2, nz2 = back_sweep_with_normal(
-            s["cx"], s["cy"], s["cz"], fx, fy, fz, p, tb)
+        t2, prim2, hx2, hy2, hz2, nx2, ny2, nz2 = geom.back(
+            s["cx"], s["cy"], s["cz"], fx, fy, fz, p)
         step_alive = p & (t2 < BIG)
         travel2 = s["travel"] + torch.where(step_alive, t2, 0.0)
         ox2, oy2, oz2, ok2 = refract3(nx2, ny2, nz2, fx, fy, fz, 1.0 / k)
@@ -624,20 +712,230 @@ def march_rows(px, py, pz, nx0, ny0, nz0, dx0, dy0, dz0, k, want,
     )
 
 
-def shade_at(tb: Tables, m, px, py, pz, nx, ny, nz, rdx, rdy, rdz,
+def shade_at(geom, m, px, py, pz, nx, ny, nz, rdx, rdy, rdz,
              active, self_prim):
     """get_shade at a hit with its material sample: bump-adjust the normal,
     view = -ray direction."""
     nax, nay, naz = rotate_from_z(nx, ny, nz, m["tnx"], m["tny"], m["tnz"])
-    return get_shade(m, tb, px, py, pz, nax, nay, naz, -rdx, -rdy, -rdz,
+    return get_shade(m, geom, px, py, pz, nax, nay, naz, -rdx, -rdy, -rdz,
                      active, self_prim)
 
 
-def check_tables(tb: Tables, device) -> None:
+# ---------------------------------------------------------------------------
+# Blocked large-mesh sweeps (kernel_common.py:978-1707)
+# ---------------------------------------------------------------------------
+
+
+def slab(box, ox, oy, oz, ix, iy, iz, tmax):
+    """Ray-AABB slab test per lane (kernel_common._slab_rows :978).
+
+    box: an [8] row (min xyz 0:3, max xyz 3:6); (ix, iy, iz) = 1/d, +-inf
+    on axis-parallel rays; bounded by tmax (the lane's current best hit or
+    shadow limit), inclusive, so an equal-t hit in a later chunk can still
+    win.  minimum/maximum propagate NaN, so a ray lying in a box face's
+    plane with a zero direction component (0 * inf) misses, as in
+    ops/intersect_bvh.py:97-102."""
+    t0x, t1x = (box[0] - ox) * ix, (box[3] - ox) * ix
+    t0y, t1y = (box[1] - oy) * iy, (box[4] - oy) * iy
+    t0z, t1z = (box[2] - oz) * iz, (box[5] - oz) * iz
+    tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+                       torch.minimum(t0z, t1z))
+    tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+                       torch.maximum(t0z, t1z))
+    return (tn <= torch.minimum(tf, torch.as_tensor(tmax, device=tf.device))) & (tf >= 0.0)
+
+
+def _chunks(bt: BlkTables, o, inv, tmax_fn, gate):
+    """Walk the two gate tiers for lanes `gate`: yields (chunk index, [R]
+    mask of lanes whose ray enters the supergroup's and the chunk's box
+    within tmax_fn()); tmax_fn is read at each test, so hits found in one
+    chunk prune the next as in the kernels."""
+    for s in range(bt.sup.shape[0]):
+        c0 = s * SUP_CHUNKS
+        if c0 >= bt.n_chunks:
+            break
+        in_sup = slab(bt.sup[s], *o, *inv, tmax_fn()) & gate()
+        if not bool(in_sup.any()):
+            continue
+        for c in range(c0, min(c0 + SUP_CHUNKS, bt.n_chunks)):
+            enter = slab(bt.box[c], *o, *inv, tmax_fn()) & in_sup & gate()
+            if bool(enter.any()):
+                yield c, enter
+
+
+def _blocked_nearest_tris(o, d, face, excl_prim, excl_face, active,
+                          bt: BlkTables, back_only: bool):
+    """Nearest triangle over the blocked table -> (best_t, best_id
+    (original triangle id), best_row (blocked row), best_bf).  Equal t goes
+    to the larger ORIGINAL id, whatever the visit order
+    (kernel_common.py:1234-1242): the dense scan's last-wins rule."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    R = ox.shape[0]
+    dev = ox.device
+    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    st = dict(t=torch.full((R,), BIG, device=dev),
+              id=torch.full((R,), -1, dtype=torch.int32, device=dev),
+              row=torch.zeros((R,), dtype=torch.int64, device=dev),
+              bf=torch.zeros((R,), dtype=torch.bool, device=dev))
+    local = torch.arange(BLK_CHUNK, device=dev)[:, None]
+    for c, enter in _chunks(bt, o, inv, lambda: st["t"], lambda: active):
+        rows = bt.tri[c * BLK_CHUNK:(c + 1) * BLK_CHUNK]
+        ids = _col(rows, BLK_ID).to(torch.int32)
+        fn0, fn1, fn2 = _col(rows, 0), _col(rows, 1), _col(rows, 2)
+        no_d = fn0 * dx + fn1 * dy + fn2 * dz
+        backface = no_d > 0.0
+        t = (_col(rows, 3) - (fn0 * ox + fn1 * oy + fn2 * oz)) / no_d
+        if back_only:  # interior rays hit backfaces only, no exclusion
+            ok = backface & (t > 0.0)
+        else:
+            cull = (backface & (face == FACE_FRONT)) | (~backface & (face == FACE_BACK))
+            excl = (excl_prim == ids) & _excl_crit(excl_face, backface)
+            ok = ~cull & ~excl & (t > 0.0)
+        for e in range(3):
+            g0, g1, g2 = _col(rows, 4 + 3 * e), _col(rows, 5 + 3 * e), _col(rows, 6 + 3 * e)
+            og = g0 * ox + g1 * oy + g2 * oz
+            dg = g0 * dx + g1 * dy + g2 * dz
+            ok = ok & (og + _col(rows, 13 + e) + t * dg >= 0.0)
+        ok = ok & torch.isfinite(t) & (ids >= 0) & enter
+        tm = torch.where(ok, t, BIG)
+        t_min = tm.min(dim=0).values
+        win = torch.where(tm == t_min, ids, -1).max(dim=0).values
+        loc = torch.where(ids == win, local, -1).max(dim=0).values.clamp(min=0)
+        better = (t_min < BIG) & ((t_min < st["t"]) | ((t_min == st["t"]) & (win > st["id"])))
+        st["t"] = torch.where(better, t_min, st["t"])
+        st["id"] = torch.where(better, win, st["id"])
+        st["row"] = torch.where(better, c * BLK_CHUNK + loc, st["row"])
+        st["bf"] = torch.where(better, torch.gather(backface, 0, loc[None])[0], st["bf"])
+    return st["t"], st["id"], st["row"], st["bf"]
+
+
+def blocked_full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables,
+                       bt: BlkTables):
+    """Nearest hit with attributes over the blocked layout
+    (kernel_common.blocked_full_sweep :1175); same contract as
+    full_sweep."""
+    t, i, row, bf = _blocked_nearest_tris(o, d, face, excl_prim, excl_face,
+                                          active, bt, back_only=False)
+    return _finish_hit(o, d, face, excl_prim, excl_face, active, tb, t, i, bf,
+                       bt.tri, row)
+
+
+def blocked_back_sweep(px, py, pz, dx, dy, dz, active, tb: Tables, bt: BlkTables):
+    """Back-face nearest sweep + interior normal over the blocked layout
+    (kernel_common.blocked_back_sweep :1562); contract of
+    back_sweep_with_normal."""
+    p, d = (px, py, pz), (dx, dy, dz)
+    t, i, row, _ = _blocked_nearest_tris(p, d, None, None, None, active, bt,
+                                         back_only=True)
+    return _finish_back(p, d, active, tb, t, i, bt.tri, row)
+
+
+class _BlockedShadowSweep:
+    """Shadow any-hit over the blocked layout, one gated traversal per light
+    (_BlockedShadowSweep :1383).  Triangles: the per-lane unnormalized
+    direction d = target - s p toward the light (blocked_multi :1499-1511),
+    t in scaled units below tlim (1 for position lights, whose scaled
+    limit is |L - p| / |L - p|), the same d and tlim in the slab tests.  A
+    lane leaves the traversal once an occluder is found.  Spheres as the
+    dense sweep.  The TPU tests all lights in one pass over a tile's
+    chunks to load each chunk once; per lane the answer is the same."""
+
+    def __init__(self, px, py, pz, self_prim, tb: Tables, bt: BlkTables):
+        self.p = (px, py, pz)
+        self.self_prim = self_prim
+        self.bt = bt
+        self.sph = _SphShadow(px, py, pz, self_prim, tb)
+
+    def blocked(self, lt):
+        px, py, pz = self.p
+        s = lt["s"]
+        dx, dy, dz = lt["tx"] - s * px, lt["ty"] - s * py, lt["tz"] - s * pz
+        lim = lt["tlim"]
+        out = self.sph.blocked(lt)
+        hit = torch.zeros_like(out)
+        pending = lambda: lt["act"] & ~hit
+        for c, enter in _chunks(self.bt, self.p, (1.0 / dx, 1.0 / dy, 1.0 / dz),
+                                lambda: lim, pending):
+            rows = self.bt.tri[c * BLK_CHUNK:(c + 1) * BLK_CHUNK]
+            ids = _col(rows, BLK_ID).to(torch.int32)
+            fn0, fn1, fn2 = _col(rows, 0), _col(rows, 1), _col(rows, 2)
+            num = _col(rows, 3) - (fn0 * px + fn1 * py + fn2 * pz)
+            no_d = fn0 * dx + fn1 * dy + fn2 * dz
+            t = num / no_d
+            ok = (no_d > 0.0) & (t > 0.0) & (self.self_prim != ids) & (ids >= 0)
+            for e in range(3):
+                g0, g1, g2 = _col(rows, 4 + 3 * e), _col(rows, 5 + 3 * e), _col(rows, 6 + 3 * e)
+                ogh = g0 * px + g1 * py + g2 * pz + _col(rows, 13 + e)
+                ok = ok & (ogh + t * (g0 * dx + g1 * dy + g2 * dz) >= 0.0)
+            ok = ok & torch.isfinite(t) & (t < lim) & enter
+            hit = hit | ok.any(dim=0)
+        return out | hit
+
+
+class DenseGeom:
+    """Dense strategy (kernel_common.DenseGeom :1715): every sweep tests the
+    whole [T, 34] table."""
+
+    blocked = False
+
+    def __init__(self, tb: Tables):
+        self.tb = tb
+
+    def nearest(self, o, d, face, excl_prim, excl_face, active):
+        return full_sweep(o, d, face, excl_prim, excl_face, active, self.tb)
+
+    def shadow_sweep(self, px, py, pz, self_prim):
+        return _ShadowSweep(px, py, pz, self_prim, self.tb)
+
+    def back(self, px, py, pz, dx, dy, dz, active):
+        return back_sweep_with_normal(px, py, pz, dx, dy, dz, active, self.tb)
+
+
+class BlockedGeom:
+    """Blocked strategy for large meshes (kernel_common.BlockedGeom :1739):
+    per-lane, two-tier gated sweeps over the permuted table."""
+
+    blocked = True
+
+    def __init__(self, tb: Tables, bt: BlkTables):
+        self.tb, self.bt = tb, bt
+
+    def nearest(self, o, d, face, excl_prim, excl_face, active):
+        return blocked_full_sweep(o, d, face, excl_prim, excl_face, active,
+                                  self.tb, self.bt)
+
+    def shadow_sweep(self, px, py, pz, self_prim):
+        return _BlockedShadowSweep(px, py, pz, self_prim, self.tb, self.bt)
+
+    def back(self, px, py, pz, dx, dy, dz, active):
+        return blocked_back_sweep(px, py, pz, dx, dy, dz, active, self.tb, self.bt)
+
+
+def check_tables(tb: Tables, device, bt: BlkTables | None = None) -> None:
     """Raise unless the tables are what the CUDA kernels read."""
     for name, t, w in (("tri", tb.tri, TRI_COLS), ("sph", tb.sph, SPH_COLS),
                        ("mat", tb.mat, MAT_COLS), ("lights", tb.lights, LIGHT_COLS)):
         check(name, t, torch.float32, (t.shape[0], w), device)
+    if bt is not None:
+        nch = bt.box.shape[0]
+        check("blk_tri", bt.tri, torch.float32, (nch * BLK_CHUNK, BLK_COLS), device)
+        check("blk_box", bt.box, torch.float32, (nch, 8), device)
+        check("blk_sup", bt.sup, torch.float32, (nch // SUP_CHUNKS, 8), device)
+        if nch % SUP_CHUNKS or bt.n_chunks != -(-tb.n_tri // BLK_CHUNK):
+            raise ValueError("blocked tables do not fit the scene")
+
+
+def kernel_geometry(tb: Tables, bt: BlkTables | None = None) -> tuple:
+    """The scene arguments of a kernel's C entry (utils/kernels.py
+    SIGNATURES): the dense tables and their counts, then, for a blocked
+    instantiation, the blocked rows, chunk and supergroup boxes and the
+    chunk count."""
+    geo = (tb.tri, tb.n_tri, tb.sph, tb.n_sph, tb.mat, tb.mat.shape[0],
+           tb.lights, tb.n_light)
+    if bt is not None:
+        geo += (bt.tri, bt.box, bt.sup, bt.n_chunks)
+    return geo
 
 
 def is_default_textures(textures) -> bool:

@@ -6,8 +6,10 @@ the flattened ray_trace recursion (src/main.rs:466-519) per launch —
 nearest cast with attributes, direct shade with all shadow sweeps
 (threshold-gated), the reflect child, the refract child after the whole
 interior march, and the pending-radiance carry or `contrib` delivery.
-The CUDA kernel is csrc/level_kernel.cu; `process_level_plain` below is the
-same level in plain PyTorch.
+The CUDA kernel is csrc/level_kernel.cu, one instantiation per geometry:
+dense scenes launch `rt_level`, blocked (large-mesh) scenes `rt_level_blk`
+(level_pallas.py:127-253, the BlockedGeom branch).  `process_level_plain`
+below is the same level in plain PyTorch over either geometry.
 
 Pool layout: `Pool.f` [11, K] float32 and `Pool.i` [5, K] int32 (the TPU
 kernel bit-casts the int rows into one f32 array; here they stay int32):
@@ -36,7 +38,8 @@ F_O, F_D, F_C, F_S, F_PEND = 0, 3, 6, 7, 8
 I_FACE, I_EXCL_PRIM, I_EXCL_FACE, I_SLOT, I_ALIVE = 0, 1, 2, 3, 4
 N_F, N_I = 11, 5
 
-COUNTS = kernels.LaunchCounts()
+COUNTS = kernels.LaunchCounts()  # the dense instantiation
+COUNTS_BLK = kernels.LaunchCounts()  # the blocked instantiation
 
 
 class Pool(NamedTuple):
@@ -48,11 +51,13 @@ class Pool(NamedTuple):
         return self.f.shape[1]
 
 
-def process_level_plain(tb: kc.Tables, textures, pool: Pool, last: bool,
+def process_level_plain(geom, textures, pool: Pool, last: bool,
                         direct: bool, threshold: float, max_distance: float,
                         max_retries: int):
     """One level in plain PyTorch -> (contrib [3, K], reflect child Pool,
-    refract child Pool, casts [K] int32)."""
+    refract child Pool, casts [K] int32).  geom: a DenseGeom / BlockedGeom
+    (Scene.geom)."""
+    tb = geom.tb
     f, i = pool.f, pool.i
     K = f.shape[1]
     dev = f.device
@@ -61,7 +66,7 @@ def process_level_plain(tb: kc.Tables, textures, pool: Pool, last: bool,
     face, slot = i[I_FACE], i[I_SLOT]
     alive = i[I_ALIVE] != 0
 
-    h = kc.full_sweep(o, d, face, i[I_EXCL_PRIM], i[I_EXCL_FACE], alive, tb)
+    h = geom.nearest(o, d, face, i[I_EXCL_PRIM], i[I_EXCL_FACE], alive)
     live = alive & h["valid"]
     casts = alive.to(torch.int32)
 
@@ -73,7 +78,7 @@ def process_level_plain(tb: kc.Tables, textures, pool: Pool, last: bool,
     # direct shade iff c*shade_c >= THRESHOLD (main.rs:482); at the last
     # level the local shade weight does not apply (488-490)
     need_shade = live & (c * shade_c >= threshold)
-    shr, shg, shb, cnt = kc.shade_at(tb, m, h["px"], h["py"], h["pz"], h["nx"],
+    shr, shg, shb, cnt = kc.shade_at(geom, m, h["px"], h["py"], h["pz"], h["nx"],
                                      h["ny"], h["nz"], *d, need_shade, h["prim"])
     casts = casts + cnt
     coef = s if last else s * shade_c
@@ -99,7 +104,7 @@ def process_level_plain(tb: kc.Tables, textures, pool: Pool, last: bool,
         c_f = c * refr_c
         want_f = live & (c_f > threshold)  # strict > (504)
         mm = kc.march_rows(h["px"], h["py"], h["pz"], h["nx"], h["ny"], h["nz"],
-                           *d, m["refraction"], want_f, tb, max_distance,
+                           *d, m["refraction"], want_f, geom, max_distance,
                            max_retries)
         casts = casts + mm["iters"]
         decay = kc.powf(m["decay"], mm["travel"])  # opaque_decay^travel (508)
@@ -137,17 +142,23 @@ def process_level_plain(tb: kc.Tables, textures, pool: Pool, last: bool,
 
 
 def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
-                  threshold: float, max_distance: float, max_retries: int):
+                  threshold: float, max_distance: float, max_retries: int,
+                  work: torch.Tensor | None = None):
     """One Whitted level over a pool -> (contrib [3, K], reflect child Pool,
     refract child Pool, casts 0-d tensor).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/level_kernel.cu) or raise — there is no fallback."""
+    (csrc/level_kernel.cu, the blocked instantiation on a blocked scene)
+    or raise — there is no fallback.  `work`: an optional int32
+    [len(kernels.WORK_ROWS), K] tensor; given one, the kernel's counting
+    instantiation fills it with each lane's tests by kind (chip_smoke.py
+    derives the operation bound from it)."""
     dev = pool.f.device
+    counts = COUNTS_BLK if scene.blocked else COUNTS
     if dev.type == "cpu":
-        COUNTS.plain += 1
+        counts.plain += 1
         contrib, rch, fch, casts = process_level_plain(
-            scene.tables, scene.textures, pool, last, direct, threshold,
+            scene.geom, scene.textures, pool, last, direct, threshold,
             max_distance, max_retries)
         return contrib, rch, fch, casts.sum()
     if dev.type != "cuda":
@@ -155,10 +166,12 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
     if not kc.is_default_textures(scene.textures):
         raise ValueError("the level kernel holds only DEFAULT_TEXTURES")
     tb = scene.tables
-    kc.check_tables(tb, dev)
+    bt = scene.blk_tables if scene.blocked else None
+    kc.check_tables(tb, dev, bt)
     k = pool.width
     kernels.check("pool.f", pool.f, torch.float32, (N_F, k), dev)
     kernels.check("pool.i", pool.i, torch.int32, (N_I, k), dev)
+    kernels.check_work(work, k, dev)
 
     contrib = torch.empty((3, k), dtype=torch.float32, device=dev)
     rch = Pool(torch.empty_like(pool.f), torch.empty_like(pool.i))
@@ -166,11 +179,10 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
     casts = torch.empty((k,), dtype=torch.int32, device=dev)
     if k:
         kernels.launch(
-            "rt_level",
-            pool.f, pool.i, tb.tri, tb.n_tri, tb.sph, tb.n_sph, tb.mat,
-            tb.mat.shape[0], tb.lights, tb.n_light, contrib, rch.f, rch.i,
-            fch.f, fch.i, casts, k, int(last), int(direct), float(threshold),
-            float(max_distance), int(max_retries),
+            "rt_level_blk" if bt is not None else "rt_level",
+            pool.f, pool.i, *kc.kernel_geometry(tb, bt), contrib, rch.f, rch.i,
+            fch.f, fch.i, casts, work, k, int(last), int(direct),
+            float(threshold), float(max_distance), int(max_retries),
         )
-        COUNTS.launches += 1
+        counts.launches += 1
     return contrib, rch, fch, casts.sum()

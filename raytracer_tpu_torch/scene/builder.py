@@ -3,8 +3,9 @@
 Counterpart of raytracer_tpu/scene/builder.py: the same builder chain
 (push_object / push_triangles / push_sphere / push_*_light) and the same
 numpy precomputation of the intersection constants, returning torch
-tensors.  Dense scenes only: the BVH / blocked layout for large meshes is
-not ported yet (ROADMAP.md, queue 1 item 7).
+tensors.  From BVH_MIN_TRIS triangles on (or when asked), the scene also
+carries a BVH (scene/bvh.py) and the blocked layout derived from its leaf
+order (scene/blocked.py), as raytracer_tpu/scene/builder.py:229-252 does.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.scene.blocked import build_blocked
+from raytracer_tpu_torch.scene.bvh import build_bvh
 from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
 from raytracer_tpu_torch.scene.types import (
     LIGHT_DIRECTIONAL,
@@ -134,17 +137,15 @@ class SceneBuilder:
             color=_v3(color), angle=0.0, softness=0.0, has_origin=1.0,
         ))
 
-    def build(self, textures=DEFAULT_TEXTURES) -> Scene:
-        """Flatten to a CPU Scene (move it with Scene.to(device))."""
+    def build(self, textures=DEFAULT_TEXTURES, use_bvh: bool | str = "auto") -> Scene:
+        """Flatten to a CPU Scene (move it with Scene.to(device)).
+
+        use_bvh: True / False / "auto" (BVH and blocked layout from
+        BVH_MIN_TRIS triangles on)."""
         f32 = np.float32
         T = len(self._triangles)
         S = len(self._spheres)
         L = len(self._lights)
-        if T >= BVH_MIN_TRIS:
-            raise NotImplementedError(
-                f"{T} triangles need the BVH / blocked layout, which is not "
-                "ported yet (ROADMAP.md queue 1 item 7: blocked large meshes)"
-            )
 
         tri_v = np.zeros((T, 3, 3), f32)
         tri_n = np.zeros((T, 3, 3), f32)
@@ -186,7 +187,18 @@ class SceneBuilder:
         lf = lambda key, w: np.asarray([l[key] for l in lights], f32).reshape(L, *w)
 
         t = torch.as_tensor
+        bvh_fields: dict = {}
+        if (use_bvh is True or (use_bvh == "auto" and T >= BVH_MIN_TRIS)) and T > 0:
+            bvh = build_bvh(tri_v)
+            perm, boxes = build_blocked(tri_v, bvh.prim_order)
+            bvh_fields = dict(
+                bvh_node_min=t(bvh.node_min), bvh_node_max=t(bvh.node_max),
+                bvh_node_right=t(bvh.node_right), bvh_node_count=t(bvh.node_count),
+                bvh_prim_order=t(bvh.prim_order), bvh_depth=bvh.depth,
+                blk_perm=t(perm), blk_box=t(boxes),
+            )
         return Scene(
+            **bvh_fields,
             tri_v=t(tri_v), tri_n=t(tri_n), tri_uv=t(tri_uv), tri_obj=t(tri_obj),
             tri_fn=t(fn.astype(f32)), tri_d=t(tri_d.astype(f32)),
             tri_g=t(tri_g.astype(f32)), tri_h=t(tri_h.astype(f32)),

@@ -13,20 +13,27 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
-from raytracer_tpu_torch.scene.types import SCENE_FIELDS, Camera, Scene
+from raytracer_tpu_torch.scene.types import BVH_FIELDS, SCENE_FIELDS, Camera, Scene
 
-_INT_FIELDS = ("tri_obj", "sph_obj", "mat_tex", "light_type")
+_INT_FIELDS = ("tri_obj", "sph_obj", "mat_tex", "light_type", "bvh_node_right",
+               "bvh_node_count", "bvh_prim_order", "blk_perm")
 
 
 def from_jax_scene(fields: Mapping[str, np.ndarray],
                    textures=DEFAULT_TEXTURES) -> Scene:
     """Scene from a mapping of raytracer_tpu Scene field names to numpy
-    arrays (extra fields, e.g. the BVH ones, are ignored)."""
+    arrays.  The BVH and blocked fields are carried where the mapping has
+    them (with `bvh_depth`), so both packages traverse the same tables;
+    other names are ignored."""
     def conv(name):
         dtype = np.int32 if name in _INT_FIELDS else np.float32
         return torch.tensor(np.asarray(fields[name], dtype=dtype))
 
-    return Scene(**{name: conv(name) for name in SCENE_FIELDS},
+    opt = {name: conv(name) for name in BVH_FIELDS
+           if fields.get(name) is not None}
+    if "bvh_depth" in fields:
+        opt["bvh_depth"] = int(fields["bvh_depth"])
+    return Scene(**{name: conv(name) for name in SCENE_FIELDS}, **opt,
                  textures=tuple(textures))
 
 

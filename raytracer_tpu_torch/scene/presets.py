@@ -1,10 +1,12 @@
-"""Scene presets: the reference's demo scene and camera.
+"""Scene presets: the reference's demo scene and camera, and the
+large-mesh terrain.
 
 Counterpart of raytracer_tpu/scene/presets.py:27-212 (src/main.rs:809-1083):
 9 objects (dodecahedron, floor, striped bump-mapped wall, two glass slabs,
 red/clear/checker/green spheres), 3 lights (white directional, pink spot,
-bluish point) and the demo camera.  The test-subset presets are not ported
-yet (ROADMAP.md).
+bluish point) and the demo camera; and of presets.py:321-410, the
+heightfield terrain `mesh_scene` that the JAX package's mesh bench and
+goldens render.  The test-subset presets are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import os
 
 import numpy as np
 
-from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, square
+from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, Vertex, square
 from raytracer_tpu_torch.scene.geometry import dodecahedron_triangles
 from raytracer_tpu_torch.scene.textures import TEXTURE_CHECKER, TEXTURE_STRIPES
 from raytracer_tpu_torch.scene.types import Camera, Scene
@@ -197,6 +199,93 @@ def _demo_lights(b: SceneBuilder) -> None:
 def full_scene(obj_path: str | None = None) -> Scene:
     """08-full: the complete demo scene (DoF + photon scatter pass)."""
     return demo_scene(obj_path)
+
+
+def terrain_triangles(grid: int):
+    """Smooth-shaded heightfield mesh: 2*grid^2 triangles on x,z in [-3,3],
+    with analytic per-vertex normals (presets.py:321-362).  Returns a list
+    of Vertex triples for ObjectProxy.push_triangles."""
+
+    def h(x, z):
+        return (0.45 * np.sin(1.3 * x) * np.cos(1.1 * z)
+                + 0.15 * np.sin(3.1 * x + 1.0) * np.cos(2.7 * z))
+
+    def grad(x, z):
+        dx = (0.45 * 1.3 * np.cos(1.3 * x) * np.cos(1.1 * z)
+              + 0.15 * 3.1 * np.cos(3.1 * x + 1.0) * np.cos(2.7 * z))
+        dz = (-0.45 * 1.1 * np.sin(1.3 * x) * np.sin(1.1 * z)
+              - 0.15 * 2.7 * np.sin(3.1 * x + 1.0) * np.sin(2.7 * z))
+        return dx, dz
+
+    xs = np.linspace(-3.0, 3.0, grid + 1)
+    zs = np.linspace(-3.0, 3.0, grid + 1)
+
+    def vert(i, j):
+        x, z = float(xs[i]), float(zs[j])
+        y = float(h(x, z))
+        dx, dz = grad(x, z)
+        n = np.asarray([-dx, 1.0, -dz], np.float32)
+        n = n / np.linalg.norm(n)
+        uv = np.asarray([i / grid, j / grid], np.float32)
+        return Vertex(np.asarray([x, y, z], np.float32), n, uv)
+
+    tris = []
+    for i in range(grid):
+        for j in range(grid):
+            v00, v10 = vert(i, j), vert(i + 1, j)
+            v01, v11 = vert(i, j + 1), vert(i + 1, j + 1)
+            # wind both CCW seen from +y so face normals point up
+            tris.append([v00, v01, v11])
+            tris.append([v00, v11, v10])
+    return tris
+
+
+def mesh_scene(grid: int = 24) -> tuple[Scene, Camera]:
+    """Large-mesh preset (presets.py:365-410): a 2*grid^2-triangle terrain,
+    a mirror and a glass sphere, and a 12-triangle glass cube whose
+    interior march runs against the blocked table, under the demo lights.
+    grid=24 -> 1,164 triangles; grid=75 -> 11,262 (the JAX bench's
+    "mesh11k"); grid=160 -> 51,212.  Always builds the BVH / blocked
+    layout.  Returns (scene, camera)."""
+    b = SceneBuilder()
+    b.push_object(
+        MaterialSpec(diffuse_color=(0.55, 0.65, 0.45), shiness=0.25,
+                     specular_color=WHITE, smoothness=0.03)
+    ).push_triangles(terrain_triangles(grid))
+    b.push_object(
+        MaterialSpec(diffuse_color=(0.9, 0.9, 0.95), shiness=0.85,
+                     specular_color=WHITE, smoothness=0.4)
+    ).push_sphere((-1.0, 1.2, 0.3), 0.55)
+    b.push_object(
+        MaterialSpec(diffuse_color=WHITE, transparency=0.95,
+                     refraction_index=1.25, opaque_decay=0.6,
+                     specular_color=WHITE, smoothness=0.5)
+    ).push_sphere((0.9, 1.1, -0.7), 0.45)
+    glass = b.push_object(
+        MaterialSpec(diffuse_color=WHITE, transparency=1.0,
+                     refraction_index=1.5, opaque_decay=0.25,
+                     specular_color=WHITE, smoothness=0.6)
+    )
+    c, r = np.asarray([0.1, 1.0, 1.1]), 0.35
+    corners = [c + r * np.asarray(s)
+               for s in [(-1, -1, -1), (1, -1, -1), (1, 1, -1), (-1, 1, -1),
+                         (-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1)]]
+    uv0 = ((0.0, 0.0), (1.0, 0.0), (1.0, 1.0), (0.0, 1.0))
+    for face in [(0, 3, 2, 1), (4, 5, 6, 7), (0, 1, 5, 4),
+                 (2, 3, 7, 6), (1, 2, 6, 5), (0, 4, 7, 3)]:
+        glass.push_triangles(square(
+            [(corners[k], uv0[m]) for m, k in enumerate(face)]
+        ))
+    _demo_lights(b)
+    cam = Camera.create(
+        fovy_deg=55.0,
+        center=(3.2, 2.6, 3.2),
+        toward=np.asarray([-1.0, -0.75, -1.0])
+        / np.linalg.norm([-1.0, -0.75, -1.0]),
+        up=(0.0, 1.0, 0.0),
+        near=-0.1,
+    )
+    return b.build(use_bvh=True), cam
 
 
 PRESETS = {

@@ -6,7 +6,9 @@ constants (face normals, plane offsets, edge-test vectors) precomputed on
 the host by scene/builder.py.  Primitive ids form one index space: triangle
 i has id i, sphere j has id n_tri + j.
 
-Only dense scenes exist in this package so far (no BVH / blocked layout).
+Scenes with many triangles also carry the BVH (scene/bvh.py) and the
+blocked layout derived from it (scene/blocked.py); the kernels take the
+blocked branch when `Scene.blocked` holds.
 """
 
 from __future__ import annotations
@@ -37,6 +39,13 @@ SCENE_FIELDS = (
     "mat_refraction", "mat_decay", "mat_normal", "mat_tex", "light_type",
     "light_origin", "light_dir", "light_color", "light_angle",
     "light_softness", "light_has_origin",
+)
+
+# Optional tensor fields of Scene: the BVH and the blocked layout
+# (raytracer_tpu/scene/types.py:94-104); None on dense scenes.
+BVH_FIELDS = (
+    "bvh_node_min", "bvh_node_max", "bvh_node_right", "bvh_node_count",
+    "bvh_prim_order", "blk_perm", "blk_box",
 )
 
 
@@ -74,6 +83,15 @@ class Scene:
     light_softness: torch.Tensor  # [L]
     light_has_origin: torch.Tensor  # [L] 1.0 for spot/point
     textures: tuple = ()
+    # BVH (scene/bvh.py) and blocked layout (scene/blocked.py)
+    bvh_node_min: torch.Tensor | None = None  # [M, 3]
+    bvh_node_max: torch.Tensor | None = None  # [M, 3]
+    bvh_node_right: torch.Tensor | None = None  # [M] int32
+    bvh_node_count: torch.Tensor | None = None  # [M] int32
+    bvh_prim_order: torch.Tensor | None = None  # [T] int32
+    bvh_depth: int = 0
+    blk_perm: torch.Tensor | None = None  # [T_pad] int32 (-1 = pad row)
+    blk_box: torch.Tensor | None = None  # [NCH, 8] chunk AABB min/max
 
     @property
     def device(self) -> torch.device:
@@ -95,9 +113,16 @@ class Scene:
     def n_light(self) -> int:
         return self.light_type.shape[0]
 
+    @property
+    def blocked(self) -> bool:
+        """Does the scene take the kernels' blocked branch?"""
+        return self.blk_perm is not None and self.n_tri > 0
+
     def to(self, device) -> "Scene":
+        fields = SCENE_FIELDS + tuple(f for f in BVH_FIELDS
+                                      if getattr(self, f) is not None)
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in SCENE_FIELDS}
+            self, **{f: getattr(self, f).to(device) for f in fields}
         )
 
     @functools.cached_property
@@ -107,6 +132,24 @@ class Scene:
         from raytracer_tpu_torch.ops.kernel_common import pack_tables
 
         return pack_tables(self)
+
+    @functools.cached_property
+    def blk_tables(self):
+        """The blocked tables (ops/kernel_common.BlkTables) of a blocked
+        scene, built once per scene and device."""
+        from raytracer_tpu_torch.ops.kernel_common import pack_blocked
+
+        return pack_blocked(self)
+
+    @functools.cached_property
+    def geom(self):
+        """The geometry the sweeps run on (ops/kernel_common.DenseGeom or
+        BlockedGeom)."""
+        from raytracer_tpu_torch.ops.kernel_common import BlockedGeom, DenseGeom
+
+        if self.blocked:
+            return BlockedGeom(self.tables, self.blk_tables)
+        return DenseGeom(self.tables)
 
 
 @dataclasses.dataclass(frozen=True)

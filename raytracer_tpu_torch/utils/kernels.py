@@ -1,8 +1,9 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-The sources under raytracer_tpu_torch/csrc/ compile into ONE shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), at first use, into raytracer_tpu_torch/_build/.  The library's
+The sources under raytracer_tpu_torch/csrc/ compile (one nvcc per source,
+in parallel) and link into ONE shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), at first use, into
+raytracer_tpu_torch/_build/.  The library's
 name carries a hash of the sources and flags, so an edit rebuilds it and
 an unchanged tree reuses it.  Each C entry launches on the stream it is
 given and returns cudaGetLastError(); `launch` raises if that is not 0.
@@ -28,24 +29,51 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
-SOURCES = ("level_kernel.cu", "mc_kernel.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("level_kernel.cu", "mc_kernel.cu", "mc_binned.cu")
+HEADERS = ("common.cuh", "mc_walk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# C signatures: p = pointer (tensor), i = int, f = float; every entry also
-# takes the CUDA stream last.
+# C signatures: p = pointer (a CUDA tensor), o = optional pointer (a CUDA
+# tensor or None), i = int, f = float; every entry also takes the CUDA
+# stream last.  The one optional pointer is `work`: given a tensor, the
+# entry runs the instantiation that counts each lane's tests into it
+# (WORK_ROWS); None runs the main path's, which counts nothing.
 _TABLES = "p" + "ip" * 3 + "i"  # tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light
+_BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
 SIGNATURES = {
-    # ray_o, ray_d, unifs, tables, photon, casts, n, depth, max_distance,
-    # max_retries
-    "rt_mc_trace": "ppp" + _TABLES + "pp" + "ii" + "fi",
-    # pf, pi, tables, contrib, rf, ri, ff, fi, casts, k, last, direct,
+    # ray_o, ray_d, unifs, tables, photon, casts, work, n, depth,
+    # max_distance, max_retries
+    "rt_mc_trace": "ppp" + _TABLES + "ppo" + "ii" + "fi",
+    "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + "ppo" + "ii" + "fi",
+    # pf, pi, tables, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
     # threshold, max_distance, max_retries
-    "rt_level": "pp" + _TABLES + "pppppp" + "iii" + "ffi",
+    "rt_level": "pp" + _TABLES + "ppppppo" + "iii" + "ffi",
+    "rt_level_blk": "pp" + _TABLES + _BLK + "ppppppo" + "iii" + "ffi",
+    # ray_o, ray_d, tables, st_f, st_i, casts, work, n
+    "rt_binned_primary": "pp" + _TABLES + _BLK + "pppo" + "i",
+    # st_f, st_i, unifs, tables, out_f, out_i, casts, work, n, first,
+    # max_distance, max_retries
+    "rt_binned_bounce": "ppp" + _TABLES + _BLK + "pppo" + "ii" + "fi",
+    # st_f, st_i, tables, photon, casts, work, n, first
+    "rt_binned_terminal": "pp" + _TABLES + _BLK + "ppo" + "ii",
 }
-ATTRS = {"level": "rt_level_attrs", "mc": "rt_mc_attrs"}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+# Rows of a `work` output (csrc/common.cuh Work), per lane: triangle tests
+# begun, those that went on to the plane's t, edge tests, sphere tests,
+# box (slab) tests.
+WORK_ROWS = ("tri", "plane", "edge", "sph", "box")
+# kernel name -> (C entry that reports its attributes, instantiation index)
+ATTRS = {
+    "level": ("rt_level_attrs", 0), "level_blk": ("rt_level_attrs", 1),
+    "mc": ("rt_mc_attrs", 0), "mc_blk": ("rt_mc_attrs", 1),
+    "binned_primary": ("rt_binned_attrs", 0),
+    "binned_bounce_first": ("rt_binned_attrs", 1),
+    "binned_bounce": ("rt_binned_attrs", 2),
+    "binned_terminal_first": ("rt_binned_attrs", 3),
+    "binned_terminal": ("rt_binned_attrs", 4),
+}
+_CTYPES = {"p": ctypes.c_void_p, "o": ctypes.c_void_p, "i": ctypes.c_int,
+           "f": ctypes.c_float}
 
 
 @dataclasses.dataclass
@@ -66,6 +94,12 @@ def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_work(work: torch.Tensor | None, n: int, device) -> None:
+    """Raise unless `work` is None or an int32 [len(WORK_ROWS), n] output."""
+    if work is not None:
+        check("work", work, torch.int32, (len(WORK_ROWS), n), device)
+
+
 def nvcc_path() -> str:
     for cand in (os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
@@ -84,22 +118,41 @@ def _digest() -> str:
 
 def build(verbose: bool = False) -> tuple[str, float]:
     """Compile the library if it is not built yet -> (path, seconds spent
-    compiling, 0.0 when it was already there)."""
+    compiling, 0.0 when it was already there).  One nvcc per source, all
+    started together, then one link."""
     out = os.path.join(BUILD, f"libraytracer_kernels_{_digest()}.so")
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    tag = f"{os.getpid()}"
+    nvcc = nvcc_path()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+        compile_flags += ["-Xptxas", "-v"]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = os.path.join(BUILD, f"{os.path.splitext(src)[0]}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *compile_flags, "-c", os.path.join(CSRC, src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for src, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(f"--- {src}\n{err}", end="")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = f"{out}.{tag}.tmp"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *objs],
+                          capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out, time.time() - t0
 
@@ -113,9 +166,9 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in ATTRS.values():
+    for name, _ in ATTRS.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return lib
 
@@ -128,7 +181,9 @@ def launch(name: str, *args) -> None:
         raise TypeError(f"{name} takes {len(sig)} arguments, got {len(args)}")
     conv = []
     for c, a in zip(sig, args):
-        if c == "p":
+        if c == "o" and a is None:  # an optional output the caller does not want
+            conv.append(None)
+        elif c in "po":
             if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
                 raise TypeError(f"{name}: pointer arguments must be CUDA tensors")
             conv.append(a.data_ptr())
@@ -141,9 +196,11 @@ def launch(name: str, *args) -> None:
 
 
 def kernel_attrs(which: str) -> dict:
-    """Compiled attributes of kernel `which` ("level" or "mc")."""
+    """Compiled attributes of kernel instantiation `which` (a key of
+    ATTRS)."""
     out = (ctypes.c_int * 4)()
-    err = getattr(library(), ATTRS[which])(out)
+    entry, index = ATTRS[which]
+    err = getattr(library(), entry)(index, out)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: {err}")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],

@@ -127,7 +127,7 @@ def test_get_shade_with_shadows_matches(scenes):
     t = lambda x: torch.as_tensor(_np(x).copy())
     mt = kc.eval_material(tscene.tables, tscene.textures, t(h["obj"]), t(h["u"]), t(h["v"]))
     nat = kc.rotate_from_z(t(h["nx"]), t(h["ny"]), t(h["nz"]), mt["tnx"], mt["tny"], mt["tnz"])
-    got = kc.get_shade(mt, tscene.tables, t(h["px"]), t(h["py"]), t(h["pz"]), *nat,
+    got = kc.get_shade(mt, tscene.geom, t(h["px"]), t(h["py"]), t(h["pz"]), *nat,
                        *(-x for x in _trows(d)), t(h["valid"]), t(h["prim"]))
     same = _agree_int(got[3], ref[3])  # shadow rays cast per lane
     rgb_got = np.stack([_np(x) for x in got[:3]], -1)
@@ -155,7 +155,7 @@ def test_march_rows_matches(scenes):
                          jscene.n_tri, jscene.n_sph, 100.0, 10)
     t = lambda x: torch.as_tensor(_np(x).copy())
     got = kc.march_rows(*(t(x) for x in pos), *(t(x) for x in nrm), *_trows(d),
-                        torch.as_tensor(k), torch.as_tensor(want), tscene.tables, 100.0, 10)
+                        torch.as_tensor(k), torch.as_tensor(want), tscene.geom, 100.0, 10)
     esc = _agree_int(got["escaped"], ref["escaped"])
     _agree_int(got["iters"], ref["iters"])
     same = esc & _agree_int(got["prim"], ref["prim"]) & _np(ref["escaped"])

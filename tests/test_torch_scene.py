@@ -26,7 +26,7 @@ from raytracer_tpu_torch.ops import camera as tcamera
 from raytracer_tpu_torch.scene import presets as tpresets
 from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, square
 from raytracer_tpu_torch.scene.convert import from_jax_camera, from_jax_scene
-from raytracer_tpu_torch.scene.types import SCENE_FIELDS
+from raytracer_tpu_torch.scene.types import BVH_FIELDS, SCENE_FIELDS
 from raytracer_tpu_torch.utils.obj import load_obj_triangles
 
 torch.set_num_threads(1)
@@ -67,13 +67,19 @@ def test_obj_loader_matches_jax():
             np.testing.assert_allclose(vg.normal, vr.normal, atol=1e-7)
 
 
-def test_builder_refuses_bvh_sized_meshes():
-    b = SceneBuilder()
+def test_builder_builds_bvh_and_blocked_layout_from_512_triangles():
     quad = square([((0, 0, 0), (0, 0)), ((1, 0, 0), (0, 1)),
                    ((1, 0, 1), (1, 0)), ((0, 0, 1), (0, 1))])
-    b.push_object(MaterialSpec()).push_triangles(quad * 256)  # 512 triangles
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.build()
+    for copies, blocked in ((255, False), (256, True)):  # 510 / 512 triangles
+        b = SceneBuilder()
+        b.push_object(MaterialSpec()).push_triangles(quad * copies)
+        scene = b.build()
+        assert scene.blocked is blocked
+        assert all((getattr(scene, f) is not None) is blocked for f in BVH_FIELDS)
+    assert scene.blk_perm.shape[0] == scene.blk_box.shape[0] * 128 == 8 * 128
+    assert not b.build(use_bvh=False).blocked
+    moved = scene.to("meta")
+    assert all(getattr(moved, f).device.type == "meta" for f in BVH_FIELDS)
 
 
 def test_config_defaults_match_jax():

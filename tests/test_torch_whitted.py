@@ -82,7 +82,7 @@ def test_level_dead_lanes_pass_pending_through():
     args = (0.001, 100.0, 10)
     for direct in (False, True):
         contrib, rch, fch, casts = level_kernel.process_level_plain(
-            scene.tables, scene.textures, pool, False, direct, *args)
+            scene.geom, scene.textures, pool, False, direct, *args)
         assert int(casts[1]) == 0 and int(casts[2]) == 0 and int(casts[0]) >= 1
         for lane in (1, 2):
             assert torch.all(fch.f[:, lane] == 0) and torch.all(fch.i[:, lane] == 0)
