@@ -13,10 +13,17 @@ Phases (each asserts; none catches a failure):
      65536-ray tile of 1280x960; mesh_scene(24) at 64x48 and one
      65536-ray tile of the 1024x1024 mesh11k frame (blocked level kernel,
      blocked MC kernel, the three binned kernels), and the binned path
-     against the blocked MC kernel;
+     against the blocked MC kernel; the four standalone kernels of the
+     unfused path (nearest hit, any hit, multi-light shadow, interior
+     march) on the demo's primary hits at 64x48 and on that 65536-ray tile
+     (their shadow rays to all three lights, the glass lanes' marches) and
+     on random rays with random face, exclusion and limit, and the shadow
+     kernel against one any-hit launch per light through cast_any_hit;
   3. the committed goldens (tests/golden) at 64x48, depth 5, with the
      gates of scripts/tpu_check.py: the demo's and the meshes'
-     (whitted_mesh{24,96,160}, mc_mesh24);
+     (whitted_mesh{24,96,160}, mc_mesh24); then the demo's goldens through
+     the unfused path (the demo's textures without row forms) and
+     whitted_mesh24 through its BVH-only route (no blocked layout);
   4. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: the reference schedule
      (render_progressive on the demo scene, 1280x960, depth 5, Whitted +
@@ -24,7 +31,12 @@ Phases (each asserts; none catches a failure):
      render_distributed_epoch on mesh_scene(75), 1024x1024, depth 5,
      tile_rays 65536: blocked level and binned kernels); an MC epoch of
      mesh_scene(24) at 1024x1024 (the blocked MC kernel); a Whitted frame
-     of mesh_scene(160); then frame / epoch and per-launch times of
+     of mesh_scene(160); the unfused path (render_progressive on the demo
+     scene with row-less textures, 1280x960, depth 5, Whitted + 2 epochs:
+     nearest-hit, shadow and march kernels, no fused kernel), its frame
+     and one epoch held against the fused path's on the same draws; the
+     per-light shadow test of a tile through cast_any_hit (the any-hit
+     kernel); then frame / epoch and per-launch times of
      kernels (device time, torch.profiler) and plain versions (CUDA
      events) at the main paths' shapes, the mesh11k epoch also through the
      blocked MC kernel, and each kernel's bound (the least time the card
@@ -36,6 +48,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -123,7 +136,8 @@ def profile_breakdown(label, fn):
     versions has read 40x the frame's usual time) and once under
     torch.profiler: device busy milliseconds (the sum of every kernel's and
     copy's device time), the idle share of the unprofiled seconds (the
-    profiler slows the host) and the five largest kernels by device time."""
+    profiler slows the host), the number of device operations (kernel
+    launches and copies) and the five largest kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -136,10 +150,12 @@ def profile_breakdown(label, fn):
     busy = sum(dev(e) for e in evs) / 1e3
     top = [(e.key[:60], dev(e) / 1e3, e.count) for e in evs[:5]]
     idle = max(0.0, 1 - busy / 1e3 / wall)
-    print(f"profile {label}: {wall:.3f} s host, device busy {busy:.1f} ms "
-          f"({100 * idle:.0f} % idle); top: "
+    n_ops = sum(e.count for e in evs if dev(e) > 0)
+    print(f"profile {label}: {wall:.3f} s host, device busy {busy:.1f} ms in {n_ops} device "
+          f"operations ({100 * idle:.0f} % idle); top: "
           + "; ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in top))
-    return {"wall_s": wall, "device_busy_ms": busy, "idle": idle, "top": top}
+    return {"wall_s": wall, "device_busy_ms": busy, "device_ops": n_ops, "idle": idle,
+            "top": top}
 
 
 def timed(fn):
@@ -173,6 +189,140 @@ def golden_gate(img, name, min_psnr, max_bad):
     return p, bad, p >= min_psnr and bad <= max_bad
 
 
+def agree(a, b):
+    """Fraction of equal elements of two tensors."""
+    return float((a == b).float().mean())
+
+
+class Unfused:
+    """The inputs the unfused path hands its four kernels for one batch of
+    primary rays, and each kernel held against its plain version on them.
+    Tolerances: nearest hit - valid, index and backface equal on >= 99.9 %
+    of lanes, t within rtol 1e-5 where both hit (random rays: + atol 1e-5,
+    since d - n.o cancels for origins far from a plane it hits close by,
+    and the kernel contracts that into one multiply-add); any hit and shadow - equal
+    on >= 99.9 % of lanes / (light, lane) pairs; march - escape flags differ
+    on < 1 % of marching lanes, travel and exit ray within 1e-4 and the
+    exit primitive equal on lanes that escape in both, summed casts within
+    1 %.  (The kernels contract multiply-adds where PyTorch rounds each
+    operation, so a razor-edge lane may fall the other way.)"""
+
+    def __init__(self, scene, o, d):
+        from raytracer_tpu_torch.ops import materials as mat_ops
+        from raytracer_tpu_torch.ops.intersect import cast
+        from raytracer_tpu_torch.ops.shade import shadow_rays
+        from raytracer_tpu_torch.scene.types import FACE_BACK, Rays
+
+        self.scene, self.n = scene, o.shape[0]
+        self.rays = Rays.primary(o.contiguous(), d.contiguous())
+        self.active = torch.ones((self.n,), dtype=torch.bool, device=o.device)
+        h = self.hits = cast(scene, self.rays)
+        mat = mat_ops.eval_material(scene, scene.textures, h.obj, h.uv)
+        n_adj = mat_ops.adjust_normal(mat, h.normal)
+        _, to_light, self.considers, self.limits = shadow_rays(scene, h.pos, n_adj, h.valid)
+        self.to_light = to_light.contiguous()
+        back = torch.full((self.n,), FACE_BACK, dtype=torch.int32, device=o.device)
+        self.shadow = [Rays(o=h.pos, d=self.to_light[li], face=back, excl_prim=h.prim,
+                            excl_face=back) for li in range(scene.n_light)]
+        self.want = h.valid & (mat.transparency > 0.0)
+        self.march_in = (h.pos, h.normal, self.rays.d, h.prim, mat.refraction, self.want)
+
+    def check_nearest(self, label, rays=None, active=None, atol=0.0):
+        from raytracer_tpu_torch.ops import intersect_kernel as ik
+
+        rays = self.rays if rays is None else rays
+        active = self.active if active is None else active
+        t, idx, bf, valid = ik.nearest_hit(self.scene, rays, active)
+        tp, ip, bp, vp = ik.nearest_hit_plain(self.scene.tables, rays, active)
+        torch.cuda.synchronize()
+        same = (valid == vp) & (idx == ip) & (bf == bp)
+        both = valid & vp
+        rel = ((t - tp).abs() / tp.abs())[both]
+        err = float((t - tp).abs()[both].max()) if bool(both.any()) else 0.0
+        print(f"nearest_hit {label}: {float(same.float().mean()):.5f} of lanes equal "
+              f"(valid, index, backface), {int(both.sum())} hits, max rel t err "
+              f"{float(rel.max()) if rel.numel() else 0.0:.3g}")
+        assert float(same.float().mean()) >= 0.999
+        assert bool(((t - tp).abs() <= 1e-5 * tp.abs() + atol)[both].all())
+        assert bool(torch.isinf(t[~valid]).all()) and bool((idx[~valid] == -1).all())
+        return err
+
+    def check_any(self, label, rays, active, limit):
+        from raytracer_tpu_torch.ops import intersect_kernel as ik
+        from raytracer_tpu_torch.ops.kernel_common import BIG
+
+        got = ik.any_hit(self.scene, rays, active, limit)
+        lim = torch.full_like(rays.o[:, 0], BIG) if limit is None else limit.clamp(max=BIG)
+        ref = ik.any_hit_plain(self.scene.tables, rays, active, lim)
+        torch.cuda.synchronize()
+        print(f"any_hit {label}: {agree(got, ref):.5f} of lanes equal, "
+              f"{int(got.sum())} blocked of {int(active.sum())}")
+        assert agree(got, ref) >= 0.999
+        return float((got != ref).float().max())
+
+    def check_shadow(self, label):
+        """The shadow kernel against its plain version, and against one
+        any-hit launch per light through cast_any_hit (other arithmetic:
+        direct t against the factored target)."""
+        from raytracer_tpu_torch.ops import intersect_kernel as ik
+        from raytracer_tpu_torch.ops.intersect import cast_any_hit
+
+        h = self.hits
+        args = (h.pos, self.to_light, h.prim, self.limits, self.considers)
+        got = ik.shadow_any_hit(self.scene, *args)
+        ref = ik.shadow_any_hit_plain(self.scene.tables, *args)
+        per_light = torch.stack([
+            cast_any_hit(self.scene, self.shadow[li], active=self.considers[li],
+                         limit=self.limits[li]) for li in range(self.scene.n_light)])
+        torch.cuda.synchronize()
+        print(f"shadow_any_hit {label}: {agree(got, ref):.5f} of (light, lane) pairs equal "
+              f"the plain version, {agree(got, per_light):.5f} the per-light any-hit kernel; "
+              f"{int(got.sum())} blocked of {int(self.considers.sum())} shadow rays")
+        assert agree(got, ref) >= 0.999 and agree(got, per_light) >= 0.999
+        assert not bool(got[~self.considers].any())
+        return float((got != ref).float().max())
+
+    def check_march(self, label):
+        from raytracer_tpu_torch.ops import march_kernel as mk
+
+        pos, normal, ray_d, prim, k, want = self.march_in
+        esc, travel, eo, ed, eprim, casts = mk.march(self.scene, *self.march_in, MD, MR)
+        esc_p, travel_p, eo_p, ed_p, eprim_p, iters_p = mk.march_plain(
+            self.scene.tables, pos, normal, ray_d, k, want, MD, MR)
+        torch.cuda.synchronize()
+        n_want = int(want.sum())
+        flips = int((esc != esc_p).sum())
+        both = esc & esc_p
+        err = max(float((travel - travel_p).abs()[both].max()),
+                  float((eo - eo_p).abs()[both].max()),
+                  float((ed - ed_p).abs()[both].max())) if bool(both.any()) else 0.0
+        print(f"march {label}: {n_want} lanes march, {flips} escape flags differ, "
+              f"{int(both.sum())} escape in both, max |err| {err:.3g}, casts "
+              f"{int(casts)} vs {int(iters_p.sum())}")
+        assert n_want > 0 and flips < 0.01 * n_want, (flips, n_want)
+        assert err <= 1e-4 and bool((eprim == eprim_p)[both].all())
+        assert abs(int(casts) - int(iters_p.sum())) <= 0.01 * int(iters_p.sum())
+        assert not bool(esc[~want].any())
+        return err
+
+
+def random_rays(n_prim, n, rng, dev):
+    """Rays with random face, exclusion and limit, as tests/test_pallas.py
+    makes them -> (Rays, active [n], limit [n])."""
+    from raytracer_tpu_torch.scene.types import Rays
+
+    o = rng.normal(size=(n, 3)).astype(np.float32) * 2 + np.array([0.5, 1, 0.5], np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ints = lambda lo, hi: torch.as_tensor(rng.integers(lo, hi, size=n).astype(np.int32),
+                                          device=dev)
+    rays = Rays(o=torch.as_tensor(o, device=dev), d=torch.as_tensor(d, device=dev),
+                face=ints(0, 3), excl_prim=ints(-1, n_prim), excl_face=ints(0, 3))
+    active = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    limit = torch.as_tensor(rng.uniform(0.1, 10.0, size=n).astype(np.float32), device=dev)
+    return rays, active, limit
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -180,8 +330,16 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.ops import camera as camera_ops
-    from raytracer_tpu_torch.ops import level_kernel, mc_binned, mc_kernel
-    from raytracer_tpu_torch.ops.trace import _pack_primary, trace_whitted
+    from raytracer_tpu_torch.ops import (
+        intersect_kernel,
+        level_kernel,
+        march_kernel,
+        mc_binned,
+        mc_kernel,
+    )
+    from raytracer_tpu_torch.ops.intersect import cast_any_hit
+    from raytracer_tpu_torch.ops.kernel_common import BIG
+    from raytracer_tpu_torch.ops.trace import _pack_primary, fused_ok, trace_whitted
     from raytracer_tpu_torch.parallel.progressive import render_progressive
     from raytracer_tpu_torch.render import (
         _clips,
@@ -190,6 +348,7 @@ def main() -> int:
         tile_draws,
     )
     from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
+    from raytracer_tpu_torch.scene.textures import Texture, host_only
     from raytracer_tpu_torch.utils import kernels
     from raytracer_tpu_torch.utils.png import read_png_rgb8
 
@@ -200,7 +359,11 @@ def main() -> int:
         "binned_primary": mc_binned.COUNTS_PRIMARY,
         "binned_bounce": mc_binned.COUNTS_BOUNCE,
         "binned_terminal": mc_binned.COUNTS_TERMINAL,
+        "nearest_hit": intersect_kernel.COUNTS_NEAREST, "any_hit": intersect_kernel.COUNTS_ANY,
+        "shadow_any_hit": intersect_kernel.COUNTS_SHADOW, "march": march_kernel.COUNTS,
     }
+    fused_kernels = ("level", "level_blk", "mc", "mc_blk", "binned_primary", "binned_bounce",
+                     "binned_terminal")
 
     def reset_counts():
         for c in counts.values():
@@ -234,6 +397,13 @@ def main() -> int:
               f"{scene.blk_tables.n_chunks} chunks of {scene.blk_tables.box.shape[0]}")
     mesh24, mesh24_cam = meshes[24]
     mesh11k, mesh11k_cam = meshes[75]
+    # the unfused path's scenes: the demo with its textures' host forms
+    # only, and mesh24 with its BVH but no blocked layout
+    demo_u = dataclasses.replace(demo, textures=host_only(demo.textures))
+    mesh24_bvh = dataclasses.replace(mesh24, blk_perm=None, blk_box=None,
+                                     textures=host_only(mesh24.textures))
+    assert fused_ok(demo) and fused_ok(mesh24)
+    assert not fused_ok(demo_u) and not fused_ok(mesh24_bvh)
 
     def plain_level(sc, pool, last, direct, thr, md, mr):
         c, r, f, casts = level_kernel.process_level_plain(
@@ -381,6 +551,28 @@ def main() -> int:
               f"casts {int(casts)} vs {int(mega_casts)}")
         assert close >= 0.995 and int(casts) == int(mega_casts), (close, int(casts))
 
+    # the unfused path's four kernels: the demo's primary hits, their
+    # shadow rays and marches, and random rays
+    unfused_err = {}
+
+    def keep(name, err):
+        unfused_err[name] = max(unfused_err.get(name, 0.0), err)
+
+    for label, cfg, tile in cases[:1] + cases[2:]:
+        o, d = camera_ops.shoot(demo_cam, _clips(cfg, dev)[0][tile])
+        u = Unfused(demo_u, o, d)
+        keep("nearest_hit", u.check_nearest(label))
+        keep("shadow_any_hit", u.check_shadow(label))
+        for li, rays in enumerate(u.shadow):
+            keep("any_hit", u.check_any(f"{label} light {li}", rays, u.considers[li],
+                                        u.limits[li]))
+        keep("march", u.check_march(label))
+        rays, active, limit = random_rays(demo.n_prim, u.n, rng, dev)
+        keep("nearest_hit", u.check_nearest(f"{u.n} random rays", rays, active, atol=1e-5))
+        keep("any_hit", u.check_any(f"{u.n} random rays", rays, active, limit))
+        keep("any_hit", u.check_any(f"{u.n} random rays, no limit", rays, active, None))
+    tile_u = u  # the 65536-ray tile of the main path, for phase 4
+
     # ---- 3. goldens (scripts/tpu_check.py gates) ------------------------
     z = np.load(os.path.join(GOLDEN, "mc_demo_64x48_draws.npz"))
     draws = [(torch.as_tensor(z["normals"], device=dev), torch.as_tensor(z["unifs"], device=dev))]
@@ -404,6 +596,47 @@ def main() -> int:
     p, bad, ok = golden_gate(img, "mc_mesh24_64x48.npy", 25.0, 0.01)
     print(f"golden mc mesh24 64x48: psnr {p:.1f} dB, bad {bad:.4f}")
     assert ok
+
+    # the same goldens through the unfused path
+    reset_counts()
+    img, stats = render_whitted(demo_u, demo_cam, small)
+    p, bad, ok = golden_gate(img, "whitted_demo_64x48.npy", 38.0, 0.02)
+    ref_default = img.cpu()
+    print(f"golden whitted 64x48, unfused path: psnr {p:.1f} dB, bad {bad:.4f}, "
+          f"dropped {stats['dropped']}")
+    assert ok and stats["dropped"] == 0
+    img, stats = render_distributed_epoch(demo_u, demo_cam, small, draws=draws)
+    p, bad, ok = golden_gate(img, "mc_demo_64x48.npy", 25.0, 0.01)
+    print(f"golden mc 64x48, unfused path: psnr {p:.1f} dB, bad {bad:.4f}")
+    assert ok
+    got = read_counts()
+    assert got["nearest_hit"] > 0 and got["shadow_any_hit"] > 0 and got["march"] > 0, got
+    assert not any(got[k] for k in fused_kernels), got
+    # a user texture that shares a default's name and paints the wall
+    # green: the fused kernels' built-in switch would paint stripes, so it
+    # must take the unfused path, here and on the CPU (plain versions)
+    green = Texture("stripes", normal=demo.textures[2].normal,
+                    diffuse=lambda uv: torch.tensor([0.0, 1.0, 0.0], device=uv.device)
+                    .expand(uv.shape[0], 3))
+    user = dataclasses.replace(demo, textures=(demo.textures[0], green, demo.textures[2]))
+    assert not fused_ok(user)
+    reset_counts()
+    img, stats = render_whitted(user, demo_cam, small)
+    got = read_counts()
+    ref, _ = render_whitted(user.to("cpu"), demo_cam.to("cpu"), small)
+    fc = frac_close(img.reshape(-1, 3).cpu().numpy(), ref.reshape(-1, 3).numpy())
+    moved = float(((img.cpu() - ref_default).abs().amax(dim=-1) > 0.05).float().mean())
+    print(f"user texture named 'stripes' 64x48: {fc:.5f} of pixels agree with the CPU's "
+          f"plain path, {moved:.3f} of pixels differ from the demo's; launches {got}")
+    assert fc >= 0.97 and 0.02 < moved < 0.5 and stats["dropped"] == 0
+    assert got["nearest_hit"] > 0 and not any(got[k] for k in fused_kernels), got
+    reset_counts()
+    img, stats = render_whitted(mesh24_bvh, mesh24_cam, small)
+    p, bad, ok = golden_gate(img, "whitted_mesh24_64x48.npy", 30.0, 0.01)
+    print(f"golden whitted mesh24 64x48, BVH-only route: psnr {p:.1f} dB, bad {bad:.4f}, "
+          f"dropped {stats['dropped']}")
+    assert ok and stats["dropped"] == 0
+    assert not any(read_counts().values())  # tensor operations only: no kernel, no plain sweep
 
     # ---- 4. the main paths -----------------------------------------------
     lines = []
@@ -460,8 +693,61 @@ def main() -> int:
           f"({w51['casts'] / w51_s:,.0f} casts/s, dropped {w51['dropped']}); "
           f"launches {w51_launches}")
     assert w51["dropped"] == 0 and w51_launches["level_blk"] > 0
+
+    # the unfused path at the reference schedule's full width: the demo
+    # scene with row-less textures, Whitted + 2 epochs
+    ucfg = dataclasses.replace(full, epochs=2)
+    render_whitted(demo_u, demo_cam, ucfg)  # first-call set-up
+    ulines = []
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.png")
+        ustate, uwall = timed(lambda: render_progressive(
+            demo_u, demo_cam, ucfg, out_path=out, log=lambda m: (ulines.append(m), print(m))))
+        unfused_launches = read_counts()
+        png = read_png_rgb8(out)
+    print(f"main path (demo, unfused): whitted + {ucfg.epochs} epochs at 1280x960 in "
+          f"{uwall:.2f} s wall; launches {unfused_launches}")
+    assert ustate.epoch == ucfg.epochs and torch.isfinite(ustate.img).all()
+    assert png.shape == (960, 1280, 3) and png.max() > 0, png.shape
+    assert not any("dropped" in m for m in ulines), ulines
+    assert all(unfused_launches[k] > 0 for k in ("nearest_hit", "shadow_any_hit", "march"))
+    assert not any(unfused_launches[k] for k in fused_kernels), unfused_launches
+
+    # the per-light shadow test of the main path's tile through the public
+    # cast_any_hit: the any-hit kernel's route (get_shade takes the shadow
+    # kernel wherever the any-hit kernel would be eligible, shade.py:67)
+    reset_counts()
+    per_light = torch.stack([cast_any_hit(demo_u, tile_u.shadow[li], active=tile_u.considers[li],
+                                          limit=tile_u.limits[li])
+                             for li in range(demo_u.n_light)])
+    torch.cuda.synchronize()
+    any_launches = read_counts()
+    print(f"cast_any_hit path (tile 9, {demo_u.n_light} lights): {int(per_light.sum())} of "
+          f"{int(tile_u.considers.sum())} shadow rays blocked; launches {any_launches}")
+    assert any_launches["any_hit"] == demo_u.n_light and int(per_light.sum()) > 0
+    assert not bool(per_light[~tile_u.considers].any())
+
+    # unfused against fused on this card: the Whitted frame, and one MC
+    # epoch on the same draws
+    (uimg, ust), uw_s = timed(lambda: render_whitted(demo_u, demo_cam, full))
+    (fimg, fst), fw_s = timed(lambda: render_whitted(demo, demo_cam, full))
+    fc = frac_close(uimg.reshape(-1, 3).cpu().numpy(), fimg.reshape(-1, 3).cpu().numpy())
+    print(f"whitted frame 1280x960, unfused vs fused: {fc:.5f} of pixels agree, casts "
+          f"{ust['casts']} vs {fst['casts']}, dropped {ust['dropped']}/{fst['dropped']}; "
+          f"{uw_s:.3f} s vs {fw_s:.3f} s")
+    assert fc >= 0.97 and casts_close(ust["casts"], fst["casts"])
+    assert ust["dropped"] == 0 and fst["dropped"] == 0
+    (uep, uest), ue_s = timed(lambda: render_distributed_epoch(demo_u, demo_cam, full, epoch=7))
+    (fep, fest), fe_s = timed(lambda: render_distributed_epoch(demo, demo_cam, full, epoch=7))
+    fc = frac_close(uep.reshape(-1, 3).cpu().numpy(), fep.reshape(-1, 3).cpu().numpy())
+    print(f"mc epoch 1280x960 on the same draws, unfused vs fused: {fc:.5f} of lanes agree, "
+          f"casts {uest['casts']} vs {fest['casts']}; {ue_s:.3f} s vs {fe_s:.3f} s")
+    assert fc >= 0.99 and casts_close(uest["casts"], fest["casts"])
+    assert torch.isfinite(uep).all() and float(uep.max()) > 0
+
     launches = {k: demo_launches[k] + mesh_launches[k] + m24_launches[k] + w51_launches[k]
-                for k in counts}
+                + unfused_launches[k] + any_launches[k] for k in counts}
 
     # frames and epochs, kernel vs plain, host clock around a sync
     def whitted_plain_frame(scene, cam, cfg):
@@ -496,6 +782,8 @@ def main() -> int:
         print(f"mc epoch {name}: kernel {e_s:.3f} s ({est['casts'] / e_s:,.0f} casts/s), "
               f"plain {ep_s:.3f} s")
     frames["mesh51k 1024x1024"] = {"whitted_frame_s": w51_s}
+    frames["demo unfused 1280x960"] = {"whitted_frame_s": uw_s, "mc_epoch_s": ue_s,
+                                       "fused_whitted_frame_s": fw_s, "fused_mc_epoch_s": fe_s}
 
     # where the mesh11k frame and epoch spend device time (both MC routes)
     profiles = {
@@ -504,6 +792,12 @@ def main() -> int:
         "mesh11k mc binned": profile_breakdown(
             "mesh11k mc epoch (binned)",
             lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7))}
+    for name, scene in (("demo unfused", demo_u), ("demo fused", demo)):
+        profiles[f"{name} whitted"] = profile_breakdown(
+            f"{name} whitted frame", lambda: render_whitted(scene, demo_cam, full))
+        profiles[f"{name} mc"] = profile_breakdown(
+            f"{name} mc epoch",
+            lambda: render_distributed_epoch(scene, demo_cam, full, epoch=7))
     threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, mesh11k.n_tri + 1
     profiles["mesh11k mc mega"] = profile_breakdown(
         "mesh11k mc epoch (blocked mc kernel)",
@@ -596,10 +890,58 @@ def main() -> int:
                                          tests={t: v / k for t, v in tests.items()})
         return out
 
+    def time_unfused(u):
+        """The four standalone kernels on the inputs the unfused path
+        gives them for one 65536-ray tile (Unfused): the primary cast, the
+        shadow rays of its hits to all lights, the any-hit sweep of one
+        light's shadow rays, the glass lanes' marches."""
+        sc, h, n = u.scene, u.hits, u.n
+        geo = [sc.tables.tri, sc.tables.sph]
+        r = u.rays
+        ray_in = [r.o, r.d, r.face, r.excl_prim, r.excl_face, u.active]
+        sh = u.shadow[1]  # the spot light: a limit and a cone
+        pos, normal, ray_d, prim, k, want = u.march_in
+        shadow_args = (h.pos, u.to_light, h.prim, u.limits, u.considers)
+        specs = {
+            "nearest_hit": (
+                lambda work=None: intersect_kernel.nearest_hit(sc, r, u.active, work=work),
+                lambda: intersect_kernel.nearest_hit_plain(sc.tables, r, u.active),
+                nbytes(*ray_in, *geo) + 10 * n, "nearest_kernel"),
+            "any_hit": (
+                lambda work=None: intersect_kernel.any_hit(sc, sh, u.considers[1], u.limits[1],
+                                                           work=work),
+                lambda: intersect_kernel.any_hit_plain(sc.tables, sh, u.considers[1],
+                                                       u.limits[1].clamp(max=BIG)),
+                nbytes(sh.o, sh.d, sh.face, sh.excl_prim, sh.excl_face, u.considers[1],
+                       u.limits[1], *geo) + n, "any_kernel"),
+            "shadow_any_hit": (
+                lambda work=None: intersect_kernel.shadow_any_hit(sc, *shadow_args, work=work),
+                lambda: intersect_kernel.shadow_any_hit_plain(sc.tables, *shadow_args),
+                nbytes(*shadow_args, *geo, sc.tables.lights) + sc.n_light * n, "shadow_kernel"),
+            "march": (
+                lambda work=None: march_kernel.march(sc, *u.march_in, MD, MR, work=work),
+                lambda: march_kernel.march_plain(sc.tables, pos, normal, ray_d, k, want, MD, MR),
+                nbytes(pos, normal, ray_d, k, want, *geo) + 37 * n, "march_kernel"),
+        }
+        out = {}
+        for name, (kernel, plain, io, kname) in specs.items():
+            work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
+            got, counted = kernel(), kernel(work=work)
+            same = lambda a, b: torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            pairs = zip(got, counted) if isinstance(got, tuple) else [(got, counted)]
+            assert all(same(a, b) for a, b in pairs), name  # counting changes no result
+            b_ms, b_by, ops = bound(io, work)
+            out[name] = dict(max_abs_err=unfused_err[name], ms=device_ms(kernel, 10, kname),
+                             plain_ms=cuda_ms(plain, 1), bound_ms=b_ms, bound_by=b_by,
+                             bytes=io, ops=ops,
+                             tests=dict(zip(kernels.WORK_ROWS, work.sum(1).tolist())))
+        return out
+
     per = {"mc": time_mc(demo, demo_cam, full), "level": time_level(demo, demo_cam, full),
            "mc_blk": time_mc(mesh11k, mesh11k_cam, mesh_cfg),
            "level_blk": time_level(mesh11k, mesh11k_cam, mesh_cfg)}
     per.update(time_binned(mesh11k, mesh11k_cam, mesh_cfg))
+    per.update(time_unfused(tile_u))
     for k, v in per.items():
         print(f"per launch, 65536 rays, {k}: kernel {v['ms']:.3f} ms vs plain "
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
@@ -636,6 +978,14 @@ def main() -> int:
               "binned_bounce"),
         entry("binned_terminal", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:190",
               "binned_terminal"),
+        entry("nearest_hit", csrc + "intersect_kernels.cu",
+              "raytracer_tpu/ops/intersect_pallas.py:172", "nearest_hit"),
+        entry("any_hit", csrc + "intersect_kernels.cu",
+              "raytracer_tpu/ops/intersect_pallas.py:212", "any_hit"),
+        entry("shadow_any_hit", csrc + "intersect_kernels.cu",
+              "raytracer_tpu/ops/intersect_pallas.py:335", "shadow_any_hit"),
+        entry("march", csrc + "march_kernel.cu", "raytracer_tpu/ops/march_pallas.py:164",
+              "march"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Building blocks shared by the level, MC and binned MC kernels.
+// Building blocks shared by the level, MC and binned MC kernels and by the
+// standalone nearest-hit, any-hit, shadow and march kernels.
 //
 // __device__ counterparts of raytracer_tpu/ops/kernel_common.py:105-894
 // (full_sweep, eval_material, _ShadowSweep + get_shade,
@@ -122,6 +123,19 @@ __device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y
 
 __device__ __forceinline__ float dot3p(const float* __restrict__ r, V3 b) {
   return r[0] * b.x + r[1] * b.y + r[2] * b.z;
+}
+
+// Lane `lane` of an [n, 3] array, and one torch.bool element.
+typedef unsigned char u8;
+
+__device__ __forceinline__ V3 load3(const float* __restrict__ a, int lane) {
+  return v3(a[3 * lane], a[3 * lane + 1], a[3 * lane + 2]);
+}
+
+__device__ __forceinline__ void store3(float* __restrict__ a, int lane, V3 x) {
+  a[3 * lane] = x.x;
+  a[3 * lane + 1] = x.y;
+  a[3 * lane + 2] = x.z;
 }
 
 __device__ __forceinline__ V3 normalize3(V3 a) {
@@ -280,6 +294,29 @@ __device__ inline Hit finish_hit(const Tables& tb, const float* __restrict__ row
   return h;
 }
 
+// Triangles in index order: update on <=, so the last of equal t's wins.
+template <class W>
+__device__ inline void tri_nearest(const Tables& tb, V3 o, V3 d, int face, int excl_prim,
+                                   int excl_face, float& best_t, int& best_i, bool& best_bf,
+                                   W& w) {
+  for (int i = 0; i < tb.n_tri; ++i) {
+    w.tri_test();
+    const float* r = tb.tri + i * TRI_COLS;
+    float no_d = dot3p(r, d);
+    bool bf = no_d > 0.0f;
+    if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) continue;  // culled
+    if (excl_prim == i && excl_crit(excl_face, bf)) continue;
+    w.plane_test();
+    float t = (r[3] - dot3p(r, o)) / no_d;
+    if (!(t > 0.0f) || !isfinite(t) || !(t < BIG)) continue;
+    if (inside_tri(r, o, d, t, w) && t <= best_t) {
+      best_t = t;
+      best_i = i;
+      best_bf = bf;
+    }
+  }
+}
+
 template <class W>
 __device__ inline Hit full_sweep(const Tables& tb, V3 o, V3 d, int face, int excl_prim,
                                  int excl_face, bool active, W& w) {
@@ -287,22 +324,7 @@ __device__ inline Hit full_sweep(const Tables& tb, V3 o, V3 d, int face, int exc
   int best_i = -1;
   bool best_bf = false;
   if (active) {
-    for (int i = 0; i < tb.n_tri; ++i) {
-      w.tri_test();
-      const float* r = tb.tri + i * TRI_COLS;
-      float no_d = dot3p(r, d);
-      bool bf = no_d > 0.0f;
-      if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) continue;  // culled
-      if (excl_prim == i && excl_crit(excl_face, bf)) continue;
-      w.plane_test();
-      float t = (r[3] - dot3p(r, o)) / no_d;
-      if (!(t > 0.0f) || !isfinite(t) || !(t < BIG)) continue;
-      if (inside_tri(r, o, d, t, w) && t <= best_t) {
-        best_t = t;
-        best_i = i;
-        best_bf = bf;
-      }
-    }
+    tri_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
     sph_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
   }
   const float* row = (best_i >= 0 && best_i < tb.n_tri) ? tb.tri + best_i * TRI_COLS : nullptr;

@@ -37,7 +37,6 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.scene.blocked import BLK_CHUNK, SUP_CHUNKS
-from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, Scene
 from raytracer_tpu_torch.utils.kernels import check
 
@@ -250,43 +249,106 @@ def _gather_rows(table, idx, hit):
 # ---------------------------------------------------------------------------
 
 
+def tri_candidates(o, d, face, excl_prim, excl_face, active, tb: Tables):
+    """Every triangle's candidate t per lane (intersect_pallas._tri_sweep
+    :97) -> (tm [T, R], BIG where the triangle is no valid hit; backface
+    [T, R])."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    tri = tb.tri
+    fn0, fn1, fn2 = _col(tri, 0), _col(tri, 1), _col(tri, 2)
+    no_d = fn0 * dx + fn1 * dy + fn2 * dz
+    backface = no_d > 0.0
+    cull = (backface & (face == FACE_FRONT)) | (~backface & (face == FACE_BACK))
+    t = (_col(tri, 3) - (fn0 * ox + fn1 * oy + fn2 * oz)) / no_d
+    prim = torch.arange(tb.n_tri, dtype=torch.int32, device=ox.device)[:, None]
+    excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
+    ok = active & ~cull & ~excl & (t > 0.0)
+    for e in range(3):
+        g0, g1, g2 = _col(tri, 4 + 3 * e), _col(tri, 5 + 3 * e), _col(tri, 6 + 3 * e)
+        h = _col(tri, 13 + e)
+        og = g0 * ox + g1 * oy + g2 * oz
+        dg = g0 * dx + g1 * dy + g2 * dz
+        ok = ok & (og + h + t * dg >= 0.0)
+    ok = ok & torch.isfinite(t)
+    return torch.where(ok, t, BIG), backface
+
+
+def sph_candidates(o, d, face, excl_prim, excl_face, active, tb: Tables):
+    """Every sphere's candidate t per lane (intersect_pallas._sph_sweep
+    :127) -> (tm [S, R], BIG where invalid; backface [S, R])."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    sph = tb.sph
+    wx, wy, wz = _col(sph, 0) - ox, _col(sph, 1) - oy, _col(sph, 2) - oz
+    qx = wy * dz - wz * dy
+    qy = wz * dx - wx * dz
+    qz = wx * dy - wy * dx
+    dist2 = qx * qx + qy * qy + qz * qz
+    tc = dx * wx + dy * wy + dz * wz
+    kk = torch.sqrt(torch.clamp_min(_col(sph, 3) - dist2, 0.0))
+    is_back = face == FACE_BACK
+    is_front = face == FACE_FRONT
+    backface = is_back | (~is_front & ~is_back & (tc < kk))
+    t = torch.where(backface, tc + kk, tc - kk)
+    prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=ox.device)[:, None]
+    excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
+    ok = active & (dist2 <= _col(sph, 3)) & (t > 0.0) & ~excl & torch.isfinite(t)
+    return torch.where(ok, t, BIG), backface
+
+
+def _tri_nearest(o, d, face, excl_prim, excl_face, active, tb: Tables):
+    """Nearest triangle per lane -> (best_t BIG on a miss, best_i -1,
+    best_bf)."""
+    R = o[0].shape[0]
+    dev = o[0].device
+    best_t = torch.full((R,), BIG, device=dev)
+    best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_bf = torch.zeros((R,), dtype=torch.bool, device=dev)
+    if tb.n_tri > 0:
+        tm, backface = tri_candidates(o, d, face, excl_prim, excl_face, active, tb)
+        prim = torch.arange(tb.n_tri, dtype=torch.int32, device=dev)[:, None]
+        t_min, win = _winner(tm, prim)
+        found = t_min < BIG
+        bf = torch.gather(backface, 0, win.clamp(min=0).long()[None])[0] & (win >= 0)
+        best_t = torch.where(found, t_min, best_t)
+        best_i = torch.where(found, win, best_i)
+        best_bf = torch.where(found, bf, best_bf)
+    return best_t, best_i, best_bf
+
+
+def _sph_nearest(o, d, face, excl_prim, excl_face, active, tb: Tables,
+                 best_t, best_i, best_bf):
+    """Spheres after the triangles: they win exact ties (update on <=)."""
+    if tb.n_sph > 0:
+        tm, backface = sph_candidates(o, d, face, excl_prim, excl_face, active, tb)
+        prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32,
+                                       device=best_t.device)[:, None]
+        t_min, win = _winner(tm, prim)
+        bf = torch.gather(backface, 0, (win - tb.n_tri).clamp(min=0).long()[None])[0]
+        found = (t_min < BIG) & (t_min <= best_t)
+        best_t = torch.where(found, t_min, best_t)
+        best_i = torch.where(found, win, best_i)
+        best_bf = torch.where(found, bf, best_bf)
+    return best_t, best_i, best_bf
+
+
+def nearest_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
+    """Nearest t, primitive and backface per lane over the dense tables,
+    without attributes (intersect_pallas._kernel :172): last index wins
+    among equal t, a sphere beats a triangle at equal t.  Returns (t [R],
+    BIG on a miss; prim [R] int32, -1; backface [R] bool)."""
+    best = _tri_nearest(o, d, face, excl_prim, excl_face, active, tb)
+    return _sph_nearest(o, d, face, excl_prim, excl_face, active, tb, *best)
+
+
 def full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
     """Nearest hit with attributes (kernel_common.full_sweep :238).
 
     o/d: (x, y, z) tuples of [R]; face/excl_prim/excl_face: [R] int32;
     active: [R] bool.  Returns dict(valid, t, prim, obj, backface, px, py,
     pz, nx, ny, nz, u, v), all [R]."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    R = ox.shape[0]
-    dev = ox.device
-    best_t = torch.full((R,), BIG, device=dev)
-    best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    best_bf = torch.zeros((R,), dtype=torch.bool, device=dev)
-
-    if tb.n_tri > 0:
-        tri = tb.tri
-        fn0, fn1, fn2 = _col(tri, 0), _col(tri, 1), _col(tri, 2)
-        no_d = fn0 * dx + fn1 * dy + fn2 * dz
-        backface = no_d > 0.0
-        cull = (backface & (face == FACE_FRONT)) | (~backface & (face == FACE_BACK))
-        t = (_col(tri, 3) - (fn0 * ox + fn1 * oy + fn2 * oz)) / no_d
-        prim = torch.arange(tb.n_tri, dtype=torch.int32, device=dev)[:, None]
-        excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
-        ok = active & ~cull & ~excl & (t > 0.0)
-        for e in range(3):
-            g0, g1, g2 = _col(tri, 4 + 3 * e), _col(tri, 5 + 3 * e), _col(tri, 6 + 3 * e)
-            h = _col(tri, 13 + e)
-            og = g0 * ox + g1 * oy + g2 * oz
-            dg = g0 * dx + g1 * dy + g2 * dz
-            ok = ok & (og + h + t * dg >= 0.0)
-        ok = ok & torch.isfinite(t)
-        t_min, win = _winner(torch.where(ok, t, BIG), prim)
-        found = t_min < BIG
-        bf = torch.gather(backface, 0, win.clamp(min=0).long()[None])[0] & (win >= 0)
-        best_t = torch.where(found, t_min, best_t)
-        best_i = torch.where(found, win, best_i)
-        best_bf = torch.where(found, bf, best_bf)
+    best_t, best_i, best_bf = _tri_nearest(o, d, face, excl_prim, excl_face, active, tb)
     return _finish_hit(o, d, face, excl_prim, excl_face, active, tb,
                        best_t, best_i, best_bf, tb.tri, best_i)
 
@@ -294,35 +356,21 @@ def full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
 def _finish_hit(o, d, face, excl_prim, excl_face, active, tb: Tables,
                 best_t, best_i, best_bf, tri_rows, tri_row):
     """Spheres after the triangles (they win exact ties), then the winner's
-    attributes.  tri_rows[tri_row] is the winning triangle's packed row
-    (the dense table by prim id, or the blocked table by blocked row)."""
+    attributes."""
+    best_t, best_i, best_bf = _sph_nearest(o, d, face, excl_prim, excl_face, active,
+                                           tb, best_t, best_i, best_bf)
+    return hit_attributes(o, d, active, tb, best_t, best_i, best_bf, tri_rows, tri_row)
+
+
+def hit_attributes(o, d, active, tb: Tables, best_t, best_i, best_bf,
+                   tri_rows, tri_row):
+    """The winner's hit point, shading normal, uv and object, by gathers.
+    best_t is BIG on a miss.  tri_rows[tri_row] is the winning triangle's
+    packed row (the dense table by prim id, or the blocked table by blocked
+    row).  Returns full_sweep's dict."""
     ox, oy, oz = o
     dx, dy, dz = d
-    dev = ox.device
     n_tri, n_sph = tb.n_tri, tb.n_sph
-    if n_sph > 0:
-        sph = tb.sph
-        wx, wy, wz = _col(sph, 0) - ox, _col(sph, 1) - oy, _col(sph, 2) - oz
-        qx = wy * dz - wz * dy
-        qy = wz * dx - wx * dz
-        qz = wx * dy - wy * dx
-        dist2 = qx * qx + qy * qy + qz * qz
-        tc = dx * wx + dy * wy + dz * wz
-        kk = torch.sqrt(torch.clamp_min(_col(sph, 3) - dist2, 0.0))
-        is_back = face == FACE_BACK
-        is_front = face == FACE_FRONT
-        backface = is_back | (~is_front & ~is_back & (tc < kk))
-        t = torch.where(backface, tc + kk, tc - kk)
-        prim = n_tri + torch.arange(n_sph, dtype=torch.int32, device=dev)[:, None]
-        excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
-        ok = active & (dist2 <= _col(sph, 3)) & (t > 0.0) & ~excl & torch.isfinite(t)
-        t_min, win = _winner(torch.where(ok, t, BIG), prim)
-        bf = torch.gather(backface, 0, (win - n_tri).clamp(min=0).long()[None])[0]
-        found = (t_min < BIG) & (t_min <= best_t)
-        best_t = torch.where(found, t_min, best_t)
-        best_i = torch.where(found, win, best_i)
-        best_bf = torch.where(found, bf, best_bf)
-
     valid = best_t < BIG
     t_hit = torch.where(valid, best_t, 0.0)
     px, py, pz = ox + t_hit * dx, oy + t_hit * dy, oz + t_hit * dz
@@ -936,9 +984,3 @@ def kernel_geometry(tb: Tables, bt: BlkTables | None = None) -> tuple:
     if bt is not None:
         geo += (bt.tri, bt.box, bt.sup, bt.n_chunks)
     return geo
-
-
-def is_default_textures(textures) -> bool:
-    """The CUDA kernels hold exactly the demo textures (csrc/common.cuh)."""
-    return tuple(t.name for t in textures) == tuple(t.name for t in DEFAULT_TEXTURES)
-

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from raytracer_tpu_torch.ops import kernel_common as kc
+from raytracer_tpu_torch.scene.textures import kernel_textures_ok
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, Scene
 from raytracer_tpu_torch.utils import kernels
 
@@ -163,7 +164,7 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
         return contrib, rch, fch, casts.sum()
     if dev.type != "cuda":
         raise ValueError(f"level_kernel.process_level: unsupported device {dev}")
-    if not kc.is_default_textures(scene.textures):
+    if not kernel_textures_ok(scene.textures):
         raise ValueError("the level kernel holds only DEFAULT_TEXTURES")
     tb = scene.tables
     bt = scene.blk_tables if scene.blocked else None

@@ -46,6 +46,7 @@ import torch
 
 from raytracer_tpu_torch.ops import kernel_common as kc
 from raytracer_tpu_torch.ops import mc_kernel
+from raytracer_tpu_torch.scene.textures import kernel_textures_ok
 from raytracer_tpu_torch.scene.types import FACE_FRONT, NO_EXCLUDE, Scene
 from raytracer_tpu_torch.utils import kernels
 
@@ -236,7 +237,7 @@ def _cuda_args(scene: Scene, dev, name: str):
         raise ValueError(f"mc_binned.{name}: unsupported device {dev}")
     if not scene.blocked:
         raise ValueError("the binned MC kernels take blocked scenes only")
-    if not kc.is_default_textures(scene.textures):
+    if not kernel_textures_ok(scene.textures):
         raise ValueError("the binned MC kernels hold only DEFAULT_TEXTURES")
     tb, bt = scene.tables, scene.blk_tables
     kc.check_tables(tb, dev, bt)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from raytracer_tpu_torch.ops import kernel_common as kc
+from raytracer_tpu_torch.scene.textures import kernel_textures_ok
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, NO_EXCLUDE, Scene
 from raytracer_tpu_torch.utils import kernels
 
@@ -216,7 +217,7 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
                            depth, max_distance, max_retries)
     if dev.type != "cuda":
         raise ValueError(f"mc_kernel.trace: unsupported device {dev}")
-    if not kc.is_default_textures(scene.textures):
+    if not kernel_textures_ok(scene.textures):
         raise ValueError("the MC kernel holds only DEFAULT_TEXTURES")
     tb = scene.tables
     bt = scene.blk_tables if scene.blocked else None

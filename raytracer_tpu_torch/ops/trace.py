@@ -1,6 +1,8 @@
-"""Wavefront Whitted tracer: the level ladder over the level kernel.
+"""Wavefront Whitted tracer: the level ladder over the level kernel, or,
+on the unfused path, over the standalone sweep and march kernels.
 
-Counterpart of raytracer_tpu/ops/trace.py:359-542 (_trace_whitted_packed).
+Counterpart of raytracer_tpu/ops/trace.py:359-542 (_trace_whitted_packed),
+:545-772 (the Pool ladder of the unfused path) and :56-212 (refract_march).
 The reference's per-pixel recursion (src/main.rs:466-519, depth 5)
 flattens into a fixed-depth loop of levels over bounded ray pools:
 
@@ -17,6 +19,16 @@ flattens into a fixed-depth loop of levels over bounded ray pools:
 Group compaction keeps a group of `group` lanes iff any lane is alive or
 owes pending radiance; destinations are a cumsum prefix sum; groups past
 the pool's capacity are dropped and COUNTED (`dropped`), never silently.
+
+Routing (`fused_ok`, trace.py:383-394): a dense or blocked scene with a
+primitive, whose textures the kernels hold, runs its levels in the fused
+level kernel.  Every other scene — a texture set that is not the kernels'
+own, a BVH without the blocked layout — takes the unfused path: the same
+ladder over the same packed pools, each level run by
+`process_level_unfused` (cast, material, shade, reflect child, interior
+march, refract child as separate steps, trace.py:545-653).  The JAX
+package keeps a second ladder over a Pool of [K, 3] fields for that; here
+one ladder serves both, since compaction and delivery are the same.
 """
 
 from __future__ import annotations
@@ -26,21 +38,221 @@ from typing import NamedTuple
 import torch
 
 from raytracer_tpu_torch.config import RenderConfig
+from raytracer_tpu_torch.ops import march_kernel
+from raytracer_tpu_torch.ops import materials as mat_ops
+from raytracer_tpu_torch.ops.intersect import cast
 from raytracer_tpu_torch.ops.level_kernel import (
+    F_C,
     F_PEND,
+    F_S,
     I_ALIVE,
+    I_EXCL_FACE,
+    I_EXCL_PRIM,
+    I_FACE,
     I_SLOT,
+    N_F,
     N_I,
     Pool,
     process_level,
 )
-from raytracer_tpu_torch.scene.types import NO_EXCLUDE, Scene
+from raytracer_tpu_torch.ops.shade import get_shade
+from raytracer_tpu_torch.scene.textures import kernel_textures_ok
+from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, NO_EXCLUDE, Rays, Scene
+from raytracer_tpu_torch.utils import vec
 
 
 class TraceResult(NamedTuple):
     color: torch.Tensor  # [N, 3]
     casts: torch.Tensor  # 0-d: rays cast, incl. shadow rays and marches
     dropped: torch.Tensor  # 0-d: rays lost to pool overflow (want 0)
+
+
+def fused_ok(scene: Scene) -> bool:
+    """Do the fused kernels (level, MC, binned) take this scene?
+    (trace.py:383-394, distributed.py:112-114, with the port's texture
+    test.)  Otherwise it renders through the unfused path."""
+    return ((scene.bvh_node_min is None or scene.blk_perm is not None)
+            and scene.n_prim > 0 and kernel_textures_ok(scene.textures))
+
+
+def refract_dir(normal, direction, k):
+    """Snell refraction (src/main.rs:344-352) -> (refracted unit direction
+    [N, 3], ok [N]); ok=False is total internal reflection.  cos = -l.n;
+    refract iff k^2 >= 1 - cos^2; t = (l + n cos)/k - n sqrt(1 -
+    (1-cos^2)/k^2), normalized."""
+    cos = -vec.dot(direction, normal)
+    sin2 = 1.0 - cos * cos
+    ok = k * k >= sin2
+    inner = torch.clamp_min(1.0 - sin2 / (k * k), 0.0)
+    t = (direction + normal * cos[:, None]) / k[:, None] - normal * torch.sqrt(inner)[:, None]
+    return t / torch.clamp_min(vec.norm(t), 1e-30)[:, None], ok
+
+
+class MarchResult(NamedTuple):
+    escaped: torch.Tensor  # [N] bool: Refraction::Escaped
+    travel: torch.Tensor  # [N] accumulated interior distance
+    esc_o: torch.Tensor  # [N, 3] escape origin
+    esc_d: torch.Tensor  # [N, 3] escape direction (unit)
+    esc_prim: torch.Tensor  # [N] primitive to exclude on its BACK face
+    casts: torch.Tensor  # 0-d: rays cast during the march
+
+
+def _unit_reflect(d, n):
+    r = vec.reflect(d, n)
+    return r / torch.clamp_min(vec.norm(r), 1e-30)[:, None]
+
+
+def refract_march(scene: Scene, pos, normal, ray_d, prim, k, want,
+                  max_distance: float, max_retries: int) -> MarchResult:
+    """World::get_refract flattened (src/main.rs:343-405; trace.py:84-212).
+
+    pos / normal / ray_d / prim: the entry hit; k: the refraction index
+    sample; want: the lanes that refract.  Misses inside the dielectric
+    (Refraction::Infinite) and rays still trapped both give escaped=False:
+    both call sites treat them as black (508-511, 605-611).
+
+    On a dense scene the whole march runs in one launch of the march
+    kernel (ops/march_kernel.py); a scene with a BVH runs the masked loop
+    below over `cast`, one iteration per interior bounce while any lane
+    still marches."""
+    if scene.bvh_node_min is None and scene.n_prim > 0:
+        return MarchResult(*march_kernel.march(scene, pos, normal, ray_d, prim, k, want,
+                                               max_distance, max_retries))
+    n = pos.shape[0]
+    back = torch.full((n,), FACE_BACK, dtype=torch.int32, device=pos.device)
+    front = torch.full_like(back, FACE_FRONT)
+
+    rin, ok_in = refract_dir(normal, ray_d, k)
+    active0 = want & ok_in  # TIR at entry -> Trapped
+    h = cast(scene, Rays(o=pos, d=rin, face=back, excl_prim=prim, excl_face=front),
+             active=active0, attrs="geom")
+    casts = active0.sum()
+    alive = active0 & h.valid  # miss -> Infinite -> black
+    travel = torch.where(alive, vec.distance(h.pos, pos), 0.0)
+    rout, ok_out = refract_dir(h.normal, rin, 1.0 / k)
+    has_out = alive & ok_out
+    cur_pos, cur_normal, cur_prim, cur_d = h.pos, h.normal, h.prim, rin
+    retry = torch.zeros_like(back)
+
+    def pending():
+        return alive & ~has_out & (travel <= max_distance) & (retry < max_retries)
+
+    p = pending()
+    while bool(p.any()):
+        # get_reflect on the interior hit (src/main.rs:380): the new ray
+        # keeps face=Back and excludes the hit primitive's FRONT side
+        refl = _unit_reflect(cur_d, cur_normal)
+        h2 = cast(scene, Rays(o=cur_pos, d=refl, face=back, excl_prim=cur_prim,
+                              excl_face=front), active=p, attrs="geom")
+        step_alive = p & h2.valid  # interior miss -> Infinite -> dead
+        travel = torch.where(step_alive, travel + vec.distance(h2.pos, cur_pos), travel)
+        rout2, ok2 = refract_dir(h2.normal, refl, 1.0 / k)
+        upd = step_alive[:, None]
+        cur_pos = torch.where(upd, h2.pos, cur_pos)
+        cur_normal = torch.where(upd, h2.normal, cur_normal)
+        cur_prim = torch.where(step_alive, h2.prim, cur_prim)
+        cur_d = torch.where(upd, refl, cur_d)
+        rout = torch.where(upd, rout2, rout)
+        has_out = torch.where(step_alive, ok2, has_out)
+        alive = torch.where(p, step_alive, alive)
+        retry = retry + p.to(torch.int32)
+        casts = casts + p.sum()
+        p = pending()
+
+    return MarchResult(escaped=alive & has_out, travel=travel, esc_o=cur_pos,
+                       esc_d=rout, esc_prim=cur_prim, casts=casts)
+
+
+def process_level_unfused(scene: Scene, pool: Pool, last: bool, direct: bool,
+                          threshold: float, max_distance: float, max_retries: int):
+    """One Whitted level of the unfused path (trace.py:545-653), with
+    level_kernel.process_level's signature and results: (contrib [3, K],
+    reflect child Pool, refract child Pool, casts 0-d tensor).
+
+    The level's steps are separate calls: `cast` (the nearest-hit kernel),
+    the material's host textures, `get_shade` (the shadow kernel),
+    `refract_march` (the march kernel).  A lane that is not alive gives
+    what the level kernel gives it: children zero, its pending radiance
+    delivered through `contrib` on direct levels, otherwise carried on the
+    (dead) reflect child together with its slot."""
+    f, i = pool.f, pool.i
+    k = pool.width
+    c, s = f[F_C], f[F_S]
+    pend = f[F_PEND:F_PEND + 3].t()
+    face, slot = i[I_FACE], i[I_SLOT]
+    alive = i[I_ALIVE] != 0
+    rays = Rays(o=f[0:3].t().contiguous(), d=f[3:6].t().contiguous(), face=face,
+                excl_prim=i[I_EXCL_PRIM], excl_face=i[I_EXCL_FACE])
+
+    hits = cast(scene, rays, active=alive)
+    casts = alive.sum()
+    live = alive & hits.valid
+
+    mat = mat_ops.eval_material(scene, scene.textures, hits.obj, hits.uv)
+    shade_c = (1.0 - mat.shiness) * (1.0 - mat.transparency)
+    refl_c = mat.shiness * (1.0 - mat.transparency)
+    refr_c = mat.transparency
+
+    # direct shade iff c*shade_c >= THRESHOLD (main.rs:482); at the last
+    # level the local shade weight does not apply (488-490)
+    need_shade = live & (c * shade_c >= threshold)
+    counters: list = []
+    shade = get_shade(scene, scene.textures, hits.pos, hits.normal, hits.uv, hits.prim,
+                      hits.obj, rays.d, need_shade, counters)
+    for sc in counters:
+        casts = casts + sc
+    coef = s if last else s * shade_c
+    p_new = pend + torch.where(need_shade[:, None], shade * coef[:, None], 0.0)
+
+    zero3 = torch.zeros_like(p_new)
+    if last:  # final level: no children (main.rs:488-490)
+        none = Pool(f.new_zeros((N_F, k)), i.new_zeros((N_I, k)))
+        return p_new.t().contiguous(), none, none, casts
+
+    # reflect child (main.rs:493-500, get_reflect 328-341); its exclusion
+    # face is the hit's face inverted (341)
+    c_r = c * refl_c
+    want_r = live & (c_r >= threshold)
+    refl = _unit_reflect(rays.d, hits.normal)
+    excl_face_r = torch.where(hits.backface, FACE_FRONT, FACE_BACK).to(torch.int32)
+
+    # refract child (main.rs:502-514): the whole interior march
+    c_f = c * refr_c
+    want_f = live & (c_f > threshold)  # strict > (504)
+    march = refract_march(scene, hits.pos, hits.normal, rays.d, hits.prim,
+                          mat.refraction, want_f, max_distance, max_retries)
+    casts = casts + march.casts
+    decay = torch.pow(mat.decay, march.travel)  # opaque_decay^travel (508)
+    alive_f = want_f & march.escaped
+
+    # radiance delivery: direct levels emit through contrib; pooled levels
+    # ride p_new on exactly one child (reflect by default, also when both
+    # children are dead; the refract child when only it lives)
+    if direct:
+        contrib, pend_r, pend_f = p_new, zero3, zero3
+    else:
+        carrier_f = (~want_r & alive_f)[:, None]
+        contrib = zero3
+        pend_r = torch.where(carrier_f, 0.0, p_new)
+        pend_f = torch.where(carrier_f, p_new, 0.0)
+
+    def child(o, d, c_, s_, pending, face_, excl_prim, excl_face, alive_):
+        cf = torch.cat([o.t(), d.t(), c_[None], s_[None], pending.t()])
+        ci = torch.stack([face_, excl_prim, excl_face, slot, alive_.to(torch.int32)])
+        # lanes that are not alive: zero, but for the pending they carry
+        cf = torch.where(alive, cf, 0.0)
+        ci = torch.where(alive, ci, 0)
+        return cf, ci
+
+    rf, ri = child(hits.pos, refl, c_r, s * refl_c, pend_r, face, hits.prim,
+                   excl_face_r, want_r)
+    ff, fi = child(march.esc_o, march.esc_d, c_f, s * refr_c * decay, pend_f,
+                   torch.full_like(face, FACE_FRONT), march.esc_prim,
+                   torch.full_like(face, FACE_BACK), alive_f)
+    if not direct:
+        rf[F_PEND:] = torch.where(alive, rf[F_PEND:], pend.t())
+        ri[I_SLOT] = slot
+    return contrib.t().contiguous(), Pool(rf, ri), Pool(ff, fi), casts
 
 
 def _group(cfg: RenderConfig) -> int:
@@ -114,13 +326,16 @@ def _compact(cands: Pool, k: int, group: int):
 
 
 def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
-                  level_fn=process_level) -> TraceResult:
+                  level_fn=None) -> TraceResult:
     """Whitted-trace a primary ray batch [N, 3] -> per-ray linear RGB.
 
     Equivalent to World::ray_trace(depth=cfg.depth, contribution=1) per
     pixel (src/main.rs:1096-1102).  `level_fn` runs one level
-    (level_kernel.process_level's signature); a caller that compares the
-    kernel with its plain version on the card passes a plain stand-in."""
+    (level_kernel.process_level's signature): by default the level kernel
+    where `fused_ok(scene)`, else the unfused level; a caller that compares
+    a kernel with its plain version on the card passes a plain stand-in."""
+    if level_fn is None:
+        level_fn = process_level if fused_ok(scene) else process_level_unfused
 
     def level(pool, last, direct):
         return level_fn(scene, pool, last, direct, cfg.threshold,

@@ -24,7 +24,13 @@ def from_jax_scene(fields: Mapping[str, np.ndarray],
     """Scene from a mapping of raytracer_tpu Scene field names to numpy
     arrays.  The BVH and blocked fields are carried where the mapping has
     them (with `bvh_depth`), so both packages traverse the same tables;
-    other names are ignored."""
+    other names are ignored.
+
+    `textures`: the port's counterparts of the JAX scene's texture tuple,
+    in the same order, since `mat_tex` indexes it (0 = the constant
+    placeholder).  A tuple of textures with host forms only (e.g.
+    textures.host_only(DEFAULT_TEXTURES), or user textures) makes a scene
+    that renders through the unfused path."""
     def conv(name):
         dtype = np.int32 if name in _INT_FIELDS else np.float32
         return torch.tensor(np.asarray(fields[name], dtype=dtype))
@@ -33,8 +39,11 @@ def from_jax_scene(fields: Mapping[str, np.ndarray],
            if fields.get(name) is not None}
     if "bvh_depth" in fields:
         opt["bvh_depth"] = int(fields["bvh_depth"])
-    return Scene(**{name: conv(name) for name in SCENE_FIELDS}, **opt,
-                 textures=tuple(textures))
+    textures = tuple(textures)
+    top = int(np.max(fields["mat_tex"], initial=0))
+    if top >= len(textures):
+        raise ValueError(f"mat_tex names texture {top}, but only {len(textures)} given")
+    return Scene(**{name: conv(name) for name in SCENE_FIELDS}, **opt, textures=textures)
 
 
 def from_jax_camera(fovy, center, toward, up, near) -> Camera:

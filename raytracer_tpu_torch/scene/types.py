@@ -106,6 +106,10 @@ class Scene:
         return self.sph_c.shape[0]
 
     @property
+    def n_prim(self) -> int:
+        return self.n_tri + self.n_sph
+
+    @property
     def n_obj(self) -> int:
         return self.mat_shiness.shape[0]
 
@@ -150,6 +154,40 @@ class Scene:
         if self.blocked:
             return BlockedGeom(self.tables, self.blk_tables)
         return DenseGeom(self.tables)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rays:
+    """SoA ray batch (reference Ray struct: src/main.rs:69-81)."""
+
+    o: torch.Tensor  # [N, 3] origin
+    d: torch.Tensor  # [N, 3] direction (unit)
+    face: torch.Tensor  # [N] int32 FaceDirection
+    excl_prim: torch.Tensor  # [N] int32 global primitive id or NO_EXCLUDE
+    excl_face: torch.Tensor  # [N] int32 FaceDirection of the exclusion
+
+    @staticmethod
+    def primary(o, d) -> "Rays":
+        full = lambda v: torch.full((o.shape[0],), v, dtype=torch.int32, device=o.device)
+        return Rays(o=o, d=d, face=full(FACE_FRONT), excl_prim=full(NO_EXCLUDE),
+                    excl_face=full(FACE_FRONT))
+
+
+@dataclasses.dataclass(frozen=True)
+class Hits:
+    """SoA hit records (reference Hit struct: src/main.rs:139-147).  `valid`
+    is False for misses; all other fields of such a lane are garbage and
+    must stay masked downstream."""
+
+    valid: torch.Tensor  # [N] bool
+    t: torch.Tensor  # [N] travel distance (+inf on a miss)
+    prim: torch.Tensor  # [N] int32 global primitive id (-1 on a miss)
+    obj: torch.Tensor  # [N] int32 object id
+    pos: torch.Tensor  # [N, 3]
+    normal: torch.Tensor  # [N, 3] interpolated shading normal, backface-
+    # flipped and NOT renormalized (src/main.rs:248-251)
+    uv: torch.Tensor  # [N, 2]
+    backface: torch.Tensor  # [N] bool (hit.face_direction == Back)
 
 
 @dataclasses.dataclass(frozen=True)

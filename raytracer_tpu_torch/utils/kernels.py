@@ -29,7 +29,8 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
-SOURCES = ("level_kernel.cu", "mc_kernel.cu", "mc_binned.cu")
+SOURCES = ("level_kernel.cu", "mc_kernel.cu", "mc_binned.cu", "intersect_kernels.cu",
+           "march_kernel.cu")
 HEADERS = ("common.cuh", "mc_walk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -41,6 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (WORK_ROWS); None runs the main path's, which counts nothing.
 _TABLES = "p" + "ip" * 3 + "i"  # tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light
 _BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
+_GEO = "pipi"  # tri, n_tri, sph, n_sph
+_RAYS = "pppppp"  # ray_o, ray_d, face, excl_prim, excl_face, active
 SIGNATURES = {
     # ray_o, ray_d, unifs, tables, photon, casts, work, n, depth,
     # max_distance, max_retries
@@ -57,6 +60,16 @@ SIGNATURES = {
     "rt_binned_bounce": "ppp" + _TABLES + _BLK + "pppo" + "ii" + "fi",
     # st_f, st_i, tables, photon, casts, work, n, first
     "rt_binned_terminal": "pp" + _TABLES + _BLK + "ppo" + "ii",
+    # rays, geometry, t, idx, bf, valid, work, n
+    "rt_nearest_hit": _RAYS + _GEO + "pppp" + "o" + "i",
+    # rays, limit, geometry, blocked, work, n
+    "rt_any_hit": _RAYS + "p" + _GEO + "p" + "o" + "i",
+    # pos, dirs, excl_prim, limits, actives, geometry, lights, n_light,
+    # blocked, work, n
+    "rt_shadow_any_hit": "ppppp" + _GEO + "pi" + "p" + "o" + "i",
+    # pos, nrm, dir, k, want, geometry, esc_o, esc_d, prim, escaped, travel,
+    # iters, work, n, max_distance, max_retries
+    "rt_march": "ppppp" + _GEO + "pppppp" + "o" + "i" + "fi",
 }
 # Rows of a `work` output (csrc/common.cuh Work), per lane: triangle tests
 # begun, those that went on to the plane's t, edge tests, sphere tests,
@@ -71,6 +84,8 @@ ATTRS = {
     "binned_bounce": ("rt_binned_attrs", 2),
     "binned_terminal_first": ("rt_binned_attrs", 3),
     "binned_terminal": ("rt_binned_attrs", 4),
+    "nearest_hit": ("rt_intersect_attrs", 0), "any_hit": ("rt_intersect_attrs", 1),
+    "shadow_any_hit": ("rt_intersect_attrs", 2), "march": ("rt_march_attrs", 0),
 }
 _CTYPES = {"p": ctypes.c_void_p, "o": ctypes.c_void_p, "i": ctypes.c_int,
            "f": ctypes.c_float}

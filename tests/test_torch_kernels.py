@@ -37,6 +37,10 @@ def test_c_entries_match_signatures():
     """Every bound entry exists with SIGNATURES' types in order, the stream
     last, and `work` is its one optional pointer."""
     entries = _c_entries()
+    assert {"rt_nearest_hit", "rt_any_hit", "rt_shadow_any_hit", "rt_march"} <= set(entries)
+    assert {"intersect_kernels.cu", "march_kernel.cu"} <= set(kernels.SOURCES)
+    # every C entry in the sources is bound, and nothing else
+    assert set(entries) == set(kernels.SIGNATURES) | {e for e, _ in kernels.ATTRS.values()}
     for name, sig in kernels.SIGNATURES.items():
         params = entries[name]
         assert params[-1] == "void* stream", (name, params[-1])
@@ -46,20 +50,21 @@ def test_c_entries_match_signatures():
         assert entries[entry] == ["int which", "int* out"], entry
 
 
-def test_launch_refuses_missing_or_host_pointers():
+@pytest.mark.parametrize("entry", sorted(kernels.SIGNATURES))
+def test_launch_refuses_missing_or_host_pointers(entry):
     """None passes only for the optional `work`; a required pointer that is
     None or a CPU tensor raises before any library is built or loaded."""
-    sig = kernels.SIGNATURES["rt_mc_trace"]
+    sig = kernels.SIGNATURES[entry]
     host = torch.zeros(4)
     args = [None if c in "po" else (0.0 if c == "f" else 0) for c in sig]
     with pytest.raises(TypeError, match="CUDA tensors"):
-        kernels.launch("rt_mc_trace", *args)
+        kernels.launch(entry, *args)
     args = [host if c == "p" else (0.0 if c == "f" else 0) for c in sig]
     args[sig.index("o")] = host
     with pytest.raises(TypeError, match="CUDA tensors"):
-        kernels.launch("rt_mc_trace", *args)
+        kernels.launch(entry, *args)
     with pytest.raises(TypeError, match="takes"):
-        kernels.launch("rt_mc_trace", *args[:-1])
+        kernels.launch(entry, *args[:-1])
 
 
 def test_check_work_shape():
