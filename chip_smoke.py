@@ -7,13 +7,19 @@ main paths once.
 Phases (each asserts; none catches a failure):
   1. device and toolchain: nvidia-smi name and power limit, CUDA and nvcc
      versions; build the kernels (raytracer_tpu_torch/csrc, nvcc, sm_90a)
-     and print each instantiation's registers and local (spill) bytes;
+     and print each instantiation's registers, local (spill) bytes and
+     dynamic shared bytes;
   2. each kernel against its plain PyTorch version on the card, same
      inputs: the demo scene (dense kernels) at 64x48, 256x192 and one
      65536-ray tile of 1280x960; mesh_scene(24) at 64x48 and one
      65536-ray tile of the 1024x1024 mesh11k frame (blocked level kernel,
      blocked MC kernel, the three binned kernels), and the binned path
-     against the blocked MC kernel; the four standalone kernels of the
+     against the blocked MC kernel; the warp-cooperative walks (blocked MC
+     kernel, binned bounce) against their per-thread instantiations on the
+     same inputs (photons, state and casts equal on every lane, test totals
+     equal to the unit) on those tiles, on a ragged tile and on a state with
+     dead lanes scattered through it, and their two traversal counters
+     against the plain versions' chunk log; the four standalone kernels of the
      unfused path (nearest hit, any hit, multi-light shadow, interior
      march) on the demo's primary hits at 64x48 and on that 65536-ray tile
      (their shadow rays to all three lights, the glass lanes' marches) and
@@ -31,7 +37,7 @@ Phases (each asserts; none catches a failure):
      render_distributed_epoch on mesh_scene(75), 1024x1024, depth 5,
      tile_rays 65536: blocked level and binned kernels); an MC epoch of
      mesh_scene(24) at 1024x1024 (the blocked MC kernel); a Whitted frame
-     of mesh_scene(160); the unfused path (render_progressive on the demo
+     and an MC epoch through both routes of mesh_scene(160); the unfused path (render_progressive on the demo
      scene with row-less textures, 1280x960, depth 5, Whitted + 2 epochs:
      nearest-hit, shadow and march kernels, no fused kernel), its frame
      and one epoch held against the fused path's on the same draws; the
@@ -78,6 +84,9 @@ PEAK_FP32 = 67e12  # FLOP/s
 # sampling and the march's refractions are not counted, so the operation
 # bound is low.
 OPS = {"tri": 6, "plane": 10, "edge": 14, "sph": 30, "box": 31}
+# The other rows of a `work` output are charged nothing: the chunks a lane's
+# rays entered, the chunks its warp staged, two clock readings and four
+# cycle counts.
 DEPTH, MD, MR = 5, 100.0, 10
 
 
@@ -113,21 +122,32 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps, name):
-    """Mean device milliseconds per fn() call of the kernels whose name
-    holds `name`, from torch.profiler over reps calls after a warm-up
-    (CUDA events around a short kernel measure the host's launch pace)."""
+    """Mean device milliseconds per launch of the kernel whose name holds
+    `name` (fn() launches it once), from torch.profiler over reps calls
+    after a warm-up (CUDA events around a short kernel measure the host's
+    launch pace).  The mean is over the launches the profiler reports: late
+    in a long process it has reported 0 to 4 of 5, and dividing by reps then
+    read up to 5 times too low.  Where three passes report none at all, the
+    time is taken with CUDA events instead, and says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if name in e.key)
-    assert us > 0, f"the profiler saw no device time of {name}"
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if name in e.key]
+        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                 for e in events)
+        seen = sum(e.count for e in events)
+        if seen != reps:
+            print(f"(torch.profiler reported {seen} of {reps} launches of {name})")
+        if us > 0 and seen > 0:
+            return us / seen / 1e3
+    print(f"(no device time of {name} from torch.profiler: CUDA events instead)")
+    return cuda_ms(fn, reps)
 
 
 def profile_breakdown(label, fn):
@@ -176,10 +196,56 @@ def bound(in_out_bytes, work):
     move and the tests its lanes ran (work: [len(WORK_ROWS), n] counts)."""
     from raytracer_tpu_torch.utils.kernels import WORK_ROWS
 
-    ops = sum(int(work[i].sum()) * OPS[k] for i, k in enumerate(WORK_ROWS))
+    ops = sum(int(work[i].sum()) * OPS[k] for i, k in enumerate(WORK_ROWS) if k in OPS)
     t_bytes = in_out_bytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def totals(work):
+    """{row name: total} of the counting rows of a `work` output."""
+    from raytracer_tpu_torch.utils.kernels import WORK_ROWS
+
+    counts = WORK_ROWS.index("t_in")  # the rows before the clocks are counts
+    return dict(zip(WORK_ROWS[:counts], work[:counts].sum(1).tolist()))
+
+
+def sharing(tests):
+    """Chunks staged by warps x 32 over the chunks single rays entered: 1
+    when all 32 lanes of a warp enter the same chunks, 32 when no two do
+    (below 1 where a shading point's rays to several lights share)."""
+    return tests["wchunk"] * 32 / max(tests["chunk"], 1)
+
+
+def phase_shares(work):
+    """Where the warps of a cooperative launch spent their cycles, from the
+    cycle rows of its `work` (one lane a warp): the shares of box tests and
+    votes, of waiting for staged chunks, of testing staged rows, and of all
+    the rest (shading, sampling, state), and the mean cycles a warp lived."""
+    from raytracer_tpu_torch.utils.kernels import WORK_ROWS
+
+    rows = work[:, ::32].double()
+    total = rows[WORK_ROWS.index("cyc_all")].sum()
+    out = {k: float(rows[WORK_ROWS.index("cyc_" + k)].sum() / total)
+           for k in ("box", "stage", "rows")}
+    out["rest"] = 1.0 - sum(out.values())
+    out["warp_cycles"] = float(total / rows.shape[1])
+    return out
+
+
+def block_spread(work, threads=128):
+    """(median, longest) microseconds from a block's first thread's start to
+    its last thread's end, from the clock rows of one launch's `work`."""
+    from raytracer_tpu_torch.utils.kernels import WORK_ROWS
+
+    t_in = work[WORK_ROWS.index("t_in")].to(torch.int64) & 0xFFFFFFFF
+    t_out = work[WORK_ROWS.index("t_out")].to(torch.int64) & 0xFFFFFFFF
+    base = t_in.min()
+    n = work.shape[1] // threads * threads  # whole blocks
+    start = ((t_in - base) & 0xFFFFFFFF)[:n].view(-1, threads).min(dim=1).values
+    end = ((t_out - base) & 0xFFFFFFFF)[:n].view(-1, threads).max(dim=1).values
+    dur = (end - start).float() / 1e3
+    return float(dur.median()), float(dur.max())
 
 
 def golden_gate(img, name, min_psnr, max_bad):
@@ -337,6 +403,7 @@ def main() -> int:
         mc_binned,
         mc_kernel,
     )
+    from raytracer_tpu_torch.ops import kernel_common
     from raytracer_tpu_torch.ops.intersect import cast_any_hit
     from raytracer_tpu_torch.ops.kernel_common import BIG
     from raytracer_tpu_torch.ops.trace import _pack_primary, fused_ok, trace_whitted
@@ -387,7 +454,8 @@ def main() -> int:
     attrs = {k: kernels.kernel_attrs(k) for k in kernels.ATTRS}
     for k, a in attrs.items():
         print(f"{k} kernel: {a['registers']} registers/thread, "
-              f"{a['local_bytes']} local (spill+stack) bytes/thread")
+              f"{a['local_bytes']} local (spill+stack) bytes/thread, "
+              f"{a['dynamic_shared_bytes']} dynamic shared bytes/block")
 
     demo = demo_scene().to(dev)
     demo_cam = demo_camera().to(dev)
@@ -448,17 +516,23 @@ def main() -> int:
         assert casts_close(rk.casts, rp.casts), (int(rk.casts), int(rp.casts))
         assert int(rk.dropped) == 0 and int(rp.dropped) == 0
 
-    def binned_walk(scene, o, d, unifs):
+    def binned_walk(scene, o, d, unifs, order="dealt"):
         """mc_binned.trace step by step -> (photon [n, 3], casts, the inputs
         each kernel got: ("primary", o_t, d_t) / ("bounce", sf, si, u,
-        first) / ("terminal", sf, si, first))."""
+        first) / ("terminal", sf, si, first)).  order: "dealt" as
+        mc_binned.trace (sorted, then dealt over the warps), "sorted" (the
+        sort alone) or "pixel" (the lanes left as they are); any order is
+        correct."""
         calls = []
         o_t, d_t = o.t().contiguous(), d.t().contiguous()
         calls.append(("primary", o_t, d_t))
         sf, si, c0 = mc_binned.primary(scene, o_t, d_t)
         casts = c0.sum()
         for step in range(DEPTH):
-            sf, si = mc_binned.sort_state(scene, sf, si, unifs[step])
+            if order != "pixel":
+                sf, si = mc_binned.sort_state(scene, sf, si, unifs[step])
+            if order == "dealt":
+                sf, si = mc_binned.deal_lanes(sf, si)
             u = unifs[step][:, si[mc_binned.I_SLOT].long()].contiguous()
             calls.append(("bounce", sf, si, u, step == 0))
             sf, si, dc = mc_binned.bounce(scene, sf, si, u, step == 0, MD, MR)
@@ -521,6 +595,77 @@ def main() -> int:
             assert casts_close(ck.sum(), cp.sum()), (int(ck.sum()), int(cp.sum()))
         return errs
 
+    def new_work(n):
+        return torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
+
+    def same_tests(label, coop, thread):
+        """The cooperative walk runs the per-thread walk's tests: the five
+        kinds of test and the chunks entered, equal in total to the unit."""
+        a, b = totals(coop), totals(thread)
+        assert b["wchunk"] == 0 and a["wchunk"] > 0, (label, a, b)
+        assert all(a[k] == b[k] for k in a if k != "wchunk"), (label, a, b)
+        return a
+
+    def check_coop_mc(label, scene, o, d, unifs, plain_log=False):
+        """The blocked MC kernel's cooperative walk against its per-thread
+        instantiation: photons and casts equal on every lane, test totals
+        equal; with plain_log, its two traversal counters against the plain
+        version's chunk log (within 2 %: the kernel contracts multiply-adds,
+        and it stages a chunk on a box test that a later, nearer hit may
+        undo)."""
+        n = o.shape[0]
+        wc, wt = new_work(n), new_work(n)
+        got, casts = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR, work=wc)
+        ref, ref_casts = mc_kernel.trace_per_thread(scene, o, d, unifs, DEPTH, MD, MR, work=wt)
+        torch.cuda.synchronize()
+        same = float((got == ref).all(dim=1).float().mean())
+        tests = same_tests(label, wc, wt)
+        print(f"mc {label}, cooperative vs per-thread walk: {same:.6f} of lanes equal, casts "
+              f"{int(casts)} vs {int(ref_casts)}, tests {tests}; warp chunks x 32 / lane chunks "
+              f"{sharing(tests):.3f} (pixel order)")
+        assert same == 1.0 and int(casts) == int(ref_casts), (same, int(casts), int(ref_casts))
+        if plain_log:
+            with kernel_common.count_chunks(n, dev) as log:
+                plain_mc(scene, o, d, unifs)
+            lane, staged = int(log.lane.sum()), int(log.group[32].sum())
+            print(f"mc {label}, traversal counters vs the plain chunk log: lane chunks "
+                  f"{tests['chunk']} vs {lane}, warp chunks {tests['wchunk']} vs {staged}")
+            assert abs(tests["chunk"] - lane) <= 0.02 * lane, (tests["chunk"], lane)
+            assert abs(tests["wchunk"] - staged) <= 0.02 * staged, (tests["wchunk"], staged)
+        return tests
+
+    def check_coop_bounces(label, scene, calls, plain_log=False):
+        """Every bounce of a captured walk: the cooperative kernel against
+        its per-thread instantiation (ints, casts and every float row that is
+        read again equal on every lane; test totals equal) -> the summed
+        tests."""
+        total = {}
+        for call in (c for c in calls if c[0] == "bounce"):
+            _, sf, si, u, first = call
+            n = sf.shape[1]
+            wc, wt = new_work(n), new_work(n)
+            fc, ic, cc = mc_binned.bounce(scene, sf, si, u, first, MD, MR, work=wc)
+            ft, it, ct = mc_binned.bounce_per_thread(scene, sf, si, u, first, MD, MR, work=wt)
+            torch.cuda.synchronize()
+            read = torch.ones_like(fc, dtype=torch.bool)
+            read[3:, ic[mc_binned.I_ALIVE] == 0] = False  # a dead lane keeps its photon only
+            same = float((((fc == ft) | ~read).all(dim=0) & (ic == it).all(dim=0)
+                          & (cc == ct)).float().mean())
+            assert same == 1.0, (label, same)
+            for k, v in same_tests(label, wc, wt).items():
+                total[k] = total.get(k, 0) + v
+            if plain_log:
+                with kernel_common.count_chunks(n, dev) as log:
+                    run_binned(scene, call, plain=True)
+                lane, staged = int(log.lane.sum()), int(log.group[32].sum())
+                t = totals(wc)
+                assert abs(t["chunk"] - lane) <= max(0.02 * lane, 8), (t["chunk"], lane)
+                assert abs(t["wchunk"] - staged) <= max(0.02 * staged, 8), (t["wchunk"], staged)
+        print(f"binned bounces {label}, cooperative vs per-thread walk: all lanes equal, tests "
+              f"{total}; warp chunks x 32 / lane chunks {sharing(total):.3f}"
+              + ("; traversal counters within 2 % of the plain chunk log" if plain_log else ""))
+        return total
+
     # ---- 2. kernels against their plain versions, same inputs -----------
     rng = np.random.default_rng(0)
     full = RenderConfig(depth=5, epochs=3)  # 1280x960, tile_rays 65536
@@ -550,6 +695,31 @@ def main() -> int:
         print(f"binned path vs blocked mc kernel {label}: {close:.5f} of lanes agree, "
               f"casts {int(casts)} vs {int(mega_casts)}")
         assert close >= 0.995 and int(casts) == int(mega_casts), (close, int(casts))
+        # the cooperative walks against the per-thread ones and the plain log
+        check_coop_mc(label, scene, o, d, unifs, plain_log=True)
+        check_coop_bounces(label + " (sorted and dealt)", scene, calls, plain_log=True)
+        # a tile whose lane count is no multiple of 32
+        cut = o.shape[0] * 5 // 8 - 19
+        oc, dc, uc = o[:cut].contiguous(), d[:cut].contiguous(), unifs[:, :, :cut].contiguous()
+        check_mc(f"{label} (blocked), first {cut} lanes", scene, oc, dc, uc)
+        check_coop_mc(f"{label}, first {cut} lanes", scene, oc, dc, uc)
+        _, _, ragged = binned_walk(scene, oc, dc, uc)
+        check_binned_kernels(f"{label}, first {cut} lanes", scene,
+                             [c for c in ragged if c[0] == "bounce"])
+        check_coop_bounces(f"{label}, first {cut} lanes", scene, ragged)
+        # the lanes sorted but not dealt, and left in pixel order
+        for order in ("sorted", "pixel"):
+            _, _, other = binned_walk(scene, o, d, unifs, order=order)
+            check_coop_bounces(f"{label} ({order} order)", scene, other)
+        # dead lanes scattered through a bounce's state
+        holed = []
+        for kind, sf, si, u, first in [c for c in calls if c[0] == "bounce"][:3]:
+            si = si.clone()
+            si[mc_binned.I_ALIVE, torch.as_tensor(rng.uniform(size=si.shape[1]) < 0.3,
+                                                  device=dev)] = 0
+            holed.append((kind, sf, si, u, first))
+        check_binned_kernels(label + ", 30 % of lanes killed", scene, holed)
+        check_coop_bounces(label + ", 30 % of lanes killed", scene, holed)
 
     # the unfused path's four kernels: the demo's primary hits, their
     # shadow rays and marches, and random rays
@@ -660,6 +830,15 @@ def main() -> int:
     assert not any("dropped" in m for m in lines), lines
     assert demo_launches["level"] > 0 and demo_launches["mc"] > 0, demo_launches
 
+    def mega_route(fn):
+        """fn() with the binned route switched off: blocked scenes of any
+        size then walk through the blocked MC kernel."""
+        threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 1 << 30
+        try:
+            return fn()
+        finally:
+            mc_binned.BINNED_MIN_TRIS = threshold
+
     reset_counts()
     (wimg, wst), mw_s = timed(lambda: render_whitted(mesh11k, mesh11k_cam, mesh_cfg))
     (eimg, est), me_s = timed(lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg))
@@ -675,6 +854,17 @@ def main() -> int:
     assert mesh_launches["level_blk"] > 0, mesh_launches
     assert all(mesh_launches[k] > 0 for k in ("binned_primary", "binned_bounce",
                                                "binned_terminal")), mesh_launches
+    tiles = len(_clips(mesh_cfg, dev)[0])
+    assert mesh_launches["binned_bounce"] == tiles * DEPTH and mesh_launches["mc_blk"] == 0
+    # the same epoch through the other route: the blocked MC kernel
+    reset_counts()
+    (gimg, gst), mg_s = timed(lambda: mega_route(
+        lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg)))
+    mega_launches = read_counts()
+    print(f"main path (mesh11k mc epoch through the blocked mc kernel): {mg_s:.3f} s; "
+          f"launches {mega_launches}")
+    assert mega_launches["mc_blk"] == tiles and mega_launches["binned_bounce"] == 0
+    assert gst["casts"] == est["casts"] and torch.isfinite(gimg).all()
 
     reset_counts()
     (m24img, m24st), m24_s = timed(lambda: render_distributed_epoch(mesh24, mesh24_cam,
@@ -693,6 +883,19 @@ def main() -> int:
           f"({w51['casts'] / w51_s:,.0f} casts/s, dropped {w51['dropped']}); "
           f"launches {w51_launches}")
     assert w51["dropped"] == 0 and w51_launches["level_blk"] > 0
+
+    # the MC epoch of mesh51k through both routes (numbers only)
+    epoch51 = lambda: render_distributed_epoch(mesh51k, mesh51k_cam, mesh_cfg, epoch=7)
+    epoch51()  # first-call set-up
+    reset_counts()
+    (e51img, e51), e51_s = timed(epoch51)
+    e51_launches = read_counts()
+    (_, e51m), e51m_s = timed(lambda: mega_route(epoch51))
+    print(f"mc epoch mesh51k ({mesh51k.n_tri} triangles) 1024x1024: binned {e51_s:.3f} s, "
+          f"through the blocked mc kernel {e51m_s:.3f} s ({e51['casts'] / e51m_s:,.0f} casts/s); "
+          f"launches {e51_launches}")
+    assert torch.isfinite(e51img).all() and float(e51img.max()) > 0
+    assert e51m["casts"] == e51["casts"] and e51_launches["binned_bounce"] > 0
 
     # the unfused path at the reference schedule's full width: the demo
     # scene with row-less textures, Whitted + 2 epochs
@@ -746,8 +949,8 @@ def main() -> int:
     assert fc >= 0.99 and casts_close(uest["casts"], fest["casts"])
     assert torch.isfinite(uep).all() and float(uep.max()) > 0
 
-    launches = {k: demo_launches[k] + mesh_launches[k] + m24_launches[k] + w51_launches[k]
-                + unfused_launches[k] + any_launches[k] for k in counts}
+    launches = {k: demo_launches[k] + mesh_launches[k] + mega_launches[k] + m24_launches[k]
+                + w51_launches[k] + e51_launches[k] + unfused_launches[k] + any_launches[k] for k in counts}
 
     # frames and epochs, kernel vs plain, host clock around a sync
     def whitted_plain_frame(scene, cam, cfg):
@@ -771,9 +974,8 @@ def main() -> int:
         frames[name] = {"whitted_frame_s": w_s, "whitted_frame_plain_s": wp_s,
                         "mc_epoch_s": e_s, "mc_epoch_plain_s": ep_s}
         if scene.n_tri >= mc_binned.BINNED_MIN_TRIS:  # the same epoch on the other route
-            threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, scene.n_tri + 1
-            (_, est2), e2_s = timed(lambda: render_distributed_epoch(scene, cam, cfg, epoch=7))
-            mc_binned.BINNED_MIN_TRIS = threshold
+            (_, est2), e2_s = timed(lambda: mega_route(
+                lambda: render_distributed_epoch(scene, cam, cfg, epoch=7)))
             assert est2["casts"] == est["casts"], (est2["casts"], est["casts"])
             frames[name]["mc_epoch_mega_kernel_s"] = e2_s
             print(f"mc epoch {name} through the blocked mc kernel instead: {e2_s:.3f} s")
@@ -781,7 +983,18 @@ def main() -> int:
               f"plain {wp_s:.3f} s")
         print(f"mc epoch {name}: kernel {e_s:.3f} s ({est['casts'] / e_s:,.0f} casts/s), "
               f"plain {ep_s:.3f} s")
-    frames["mesh51k 1024x1024"] = {"whitted_frame_s": w51_s}
+    frames["mesh51k 1024x1024"] = {"whitted_frame_s": w51_s, "mc_epoch_s": e51_s,
+                                   "mc_epoch_mega_kernel_s": e51m_s}
+    (_, e24), e24_s = timed(lambda: render_distributed_epoch(mesh24, mesh24_cam, mesh_cfg,
+                                                             epoch=7))
+    threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 0
+    (_, e24b), e24b_s = timed(lambda: render_distributed_epoch(mesh24, mesh24_cam, mesh_cfg,
+                                                               epoch=7))
+    mc_binned.BINNED_MIN_TRIS = threshold
+    print(f"mc epoch mesh24 ({mesh24.n_tri} triangles) 1024x1024: through the blocked mc kernel "
+          f"{e24_s:.3f} s, binned instead {e24b_s:.3f} s")
+    assert e24b["casts"] == e24["casts"]
+    frames["mesh24 1024x1024"] = {"mc_epoch_s": e24b_s, "mc_epoch_mega_kernel_s": e24_s}
     frames["demo unfused 1280x960"] = {"whitted_frame_s": uw_s, "mc_epoch_s": ue_s,
                                        "fused_whitted_frame_s": fw_s, "fused_mc_epoch_s": fe_s}
 
@@ -798,11 +1011,9 @@ def main() -> int:
         profiles[f"{name} mc"] = profile_breakdown(
             f"{name} mc epoch",
             lambda: render_distributed_epoch(scene, demo_cam, full, epoch=7))
-    threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, mesh11k.n_tri + 1
-    profiles["mesh11k mc mega"] = profile_breakdown(
+    profiles["mesh11k mc mega"] = mega_route(lambda: profile_breakdown(
         "mesh11k mc epoch (blocked mc kernel)",
-        lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7))
-    mc_binned.BINNED_MIN_TRIS = threshold
+        lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7)))
 
     # per-launch times at the main paths' shapes: one 65536-ray tile each
     def time_mc(scene, cam, cfg):
@@ -819,11 +1030,14 @@ def main() -> int:
         io = nbytes(o, d, unifs, *scene_tables(scene)) + 16 * n  # photon + casts
         b_ms, b_by, ops = bound(io, work)
         return dict(max_abs_err=float((mk - mp).abs().max()),
+                    phases=phase_shares(work) if scene.blocked else None,
                     ms=device_ms(lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR), 5,
                                  "mc_kernel"),
+                    events_ms=cuda_ms(lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR),
+                                      5),
                     plain_ms=cuda_ms(lambda: plain_mc(scene, o, d, unifs), 1),
                     bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
-                    tests=dict(zip(kernels.WORK_ROWS, work.sum(1).tolist())))
+                    tests=totals(work))
 
     def time_level(scene, cam, cfg):
         clip = _clips(cfg, dev)[0][0]
@@ -842,7 +1056,7 @@ def main() -> int:
                                                                     *args), 10, "level_kernel"),
                     plain_ms=cuda_ms(lambda: plain_level(scene, pool, False, True, *args), 1),
                     bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
-                    tests=dict(zip(kernels.WORK_ROWS, work.sum(1).tolist())))
+                    tests=totals(work))
 
     def scene_tables(scene):
         tb = scene.tables
@@ -855,17 +1069,42 @@ def main() -> int:
     def time_binned(scene, cam, cfg):
         """Each binned kernel on the inputs it got in one 65536-ray tile's
         walk: ms and bound per launch (bounces: the mean over the walk's
-        five), plain_ms likewise."""
+        five), plain_ms likewise.  ms is taken with CUDA events around 5
+        back-to-back launches (each kernel takes 0.2 ms or more, far above
+        the host's launch pace); profiler_ms is torch.profiler's reading of
+        the same launches, which has lost launches in long runs."""
         clip = _clips(cfg, dev)[0][0]
         normals, unifs = tile_draws(cfg, 0, 0, 0, clip.shape[0], dev)
         o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
-        _, _, calls = binned_walk(scene, o.contiguous(), d.contiguous(), unifs)
+        o, d = o.contiguous(), d.contiguous()
+        _, _, calls = binned_walk(scene, o, d, unifs)
         out = {}
+        # the bounces of the same walk in the other lane orders, and the
+        # per-thread instantiation
+        bounces = lambda cs: [c for c in cs if c[0] == "bounce"]
+        mean_ms = lambda cs, fn: sum(cuda_ms(lambda: fn(c), 5) for c in bounces(cs)) / DEPTH
+        coop = lambda c: run_binned(scene, c)
+        thread = lambda c: mc_binned.bounce_per_thread(scene, *c[1:], MD, MR)
+        out["bounce_orders"] = {"dealt_ms": mean_ms(calls, coop),
+                                "per_thread_dealt_ms": mean_ms(calls, thread)}
+        for order in ("sorted", "pixel"):
+            _, _, other = binned_walk(scene, o, d, unifs, order=order)
+            out["bounce_orders"][f"{order}_ms"] = mean_ms(other, coop)
+            out["bounce_orders"][f"per_thread_{order}_ms"] = mean_ms(other, thread)
+            work = new_work(o.shape[0])
+            tests, spread = {}, []
+            for c in bounces(other):
+                run_binned(scene, c, work=work)
+                tests = {k: tests.get(k, 0) + v for k, v in totals(work).items()}
+                spread.append(block_spread(work))
+            out["bounce_orders"][f"{order}_sharing"] = sharing(tests)
+            out["bounce_orders"][f"{order}_block_us_median_longest"] = spread
+        spreads, phases = [], []
         for kind in ("primary", "bounce", "terminal"):
             mine = [c for c in calls if c[0] == kind]
-            ms = plain_ms = b_ms = io = ops = 0.0
+            ms = prof_ms = plain_ms = b_ms = io = ops = 0.0
             by = set()
-            tests = dict.fromkeys(kernels.WORK_ROWS, 0)
+            tests = {}
             for call in mine:
                 n = call[1].shape[1]
                 work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
@@ -879,15 +1118,22 @@ def main() -> int:
                 b, b_by, call_ops = bound(call_io, work)
                 b_ms, io, ops = b_ms + b, io + call_io, ops + call_ops
                 by.add(b_by)
-                for k, v in zip(kernels.WORK_ROWS, work.sum(1).tolist()):
-                    tests[k] += v
-                ms += device_ms(lambda: run_binned(scene, call), 5, f"binned_{kind}")
+                for k, v in totals(work).items():
+                    tests[k] = tests.get(k, 0) + v
+                if kind == "bounce":
+                    spreads.append(block_spread(work))
+                    phases.append(phase_shares(work))
+                ms += cuda_ms(lambda: run_binned(scene, call), 5)
+                prof_ms += device_ms(lambda: run_binned(scene, call), 5, f"binned_{kind}")
                 plain_ms += cuda_ms(lambda: run_binned(scene, call, plain=True), 1)
             k = len(mine)
-            out[f"binned_{kind}"] = dict(ms=ms / k, plain_ms=plain_ms / k, bound_ms=b_ms / k,
+            out[f"binned_{kind}"] = dict(ms=ms / k, profiler_ms=prof_ms / k,
+                                         plain_ms=plain_ms / k, bound_ms=b_ms / k,
                                          bound_by="operations" if "operations" in by else "bytes",
                                          bytes=io / k, ops=ops / k,
                                          tests={t: v / k for t, v in tests.items()})
+        out["bounce_orders"]["dealt_block_us_median_longest"] = spreads
+        out["bounce_orders"]["dealt_phases"] = phases
         return out
 
     def time_unfused(u):
@@ -934,21 +1180,49 @@ def main() -> int:
             out[name] = dict(max_abs_err=unfused_err[name], ms=device_ms(kernel, 10, kname),
                              plain_ms=cuda_ms(plain, 1), bound_ms=b_ms, bound_by=b_by,
                              bytes=io, ops=ops,
-                             tests=dict(zip(kernels.WORK_ROWS, work.sum(1).tolist())))
+                             tests=totals(work))
         return out
 
     per = {"mc": time_mc(demo, demo_cam, full), "level": time_level(demo, demo_cam, full),
            "mc_blk": time_mc(mesh11k, mesh11k_cam, mesh_cfg),
            "level_blk": time_level(mesh11k, mesh11k_cam, mesh_cfg)}
-    per.update(time_binned(mesh11k, mesh11k_cam, mesh_cfg))
+    binned_times = time_binned(mesh11k, mesh11k_cam, mesh_cfg)
+    orders = binned_times.pop("bounce_orders")
+    per.update(binned_times)
     per.update(time_unfused(tile_u))
+    for order in ("dealt", "sorted", "pixel"):
+        print(f"binned_bounce on one mesh11k tile's walk, lanes in {order} order, mean of its "
+              f"five launches (CUDA events): cooperative {orders[order + '_ms']:.3f} ms, "
+              f"per-thread {orders['per_thread_' + order + '_ms']:.3f} ms; block durations "
+              f"(median/longest us) per bounce: "
+              + ", ".join(f"{m:.0f}/{x:.0f}"
+                          for m, x in orders[order + "_block_us_median_longest"])
+              + (f"; warp chunks x 32 / lane chunks {orders[order + '_sharing']:.3f}"
+                 if order != "dealt" else ""))
+    share = lambda ph: (f"box tests {ph['box']:.2f}, staging {ph['stage']:.2f}, row tests "
+                        f"{ph['rows']:.2f}, the rest {ph['rest']:.2f} of "
+                        f"{ph['warp_cycles']:,.0f} cycles a warp")
+    print(f"where a warp's cycles go, mesh11k tile: mc_kernel (blocked) "
+          f"{share(per['mc_blk']['phases'])}; binned_bounce per launch: "
+          + "; ".join(share(ph) for ph in orders["dealt_phases"]))
+    bounce_prof = [(ms, c) for k, ms, c in profiles["mesh11k mc binned"]["top"]
+                   if "binned_bounce" in k]
+    if bounce_prof:
+        print(f"binned_bounce: CUDA events {per['binned_bounce']['ms']:.3f} ms and torch.profiler "
+              f"{per['binned_bounce']['profiler_ms']:.3f} ms per launch on tile 0's states; the "
+              f"profiled epoch's {sum(c for _, c in bounce_prof)} largest launches "
+              f"{sum(m for m, _ in bounce_prof) / sum(c for _, c in bounce_prof):.3f} ms each")
+    print(f"mc_kernel (blocked) on one mesh11k tile: torch.profiler {per['mc_blk']['ms']:.3f} ms, "
+          f"CUDA events {per['mc_blk']['events_ms']:.3f} ms; warp chunks x 32 / lane chunks "
+          f"{sharing(per['mc_blk']['tests']):.3f} (pixel order), binned bounces "
+          f"{sharing(per['binned_bounce']['tests']):.3f} (sorted and dealt)")
     for k, v in per.items():
         print(f"per launch, 65536 rays, {k}: kernel {v['ms']:.3f} ms vs plain "
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
               f"{v['bytes']:,.0f} B, {v['ops']:,.0f} FP32 operations; tests {v['tests']})")
 
     print(json.dumps({"frames": frames, "attrs": attrs, "per_launch": per,
-                      "profiles": profiles}))
+                      "profiles": profiles, "bounce_orders": orders}))
 
     def entry(name, source, replaces, key, blk_key=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,

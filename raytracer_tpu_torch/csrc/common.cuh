@@ -17,14 +17,36 @@
 // non-finite t is a miss, the 3e38 sentinel, kpowf's "0 for base <= 0",
 // and the factored-target shadow algebra.
 //
-// Geometry is a policy type (DenseGeom, BlockedGeom) the kernels are
-// templated on.  DenseGeom tests the whole [T, 34] table per sweep.
+// Geometry is a policy type (DenseGeom, BlockedGeom, CoopGeom) the kernels
+// are templated on.  DenseGeom tests the whole [T, 34] table per sweep.
 // BlockedGeom walks the blocked layout (scene/blocked.py): per lane, a
 // supergroup's box, then each of its chunks' boxes, bounded by the lane's
 // current best hit (or shadow limit), then the chunk's 128 rows; ties go
 // to the larger ORIGINAL triangle id, so the visit order cannot change a
 // winner.  The TPU's per-tile gates, supergroup visit order and HBM chunk
 // streaming are not ported: the permuted table stays in global memory.
+//
+// BlockedGeom is one thread alone: every row costs it a dependent load
+// from a 144-byte row in global memory, a warp runs the 128-row loop once
+// for every chunk that any of its lanes entered, and a launch lasts as
+// long as its slowest warp's chain of such loops.  CoopGeom is the same
+// walk made by the 32 lanes of a warp together (the MC walks take it):
+// each lane tests the boxes for its own ray, the warp ORs the lanes'
+// chunk masks and copies each chunk of the union once into its own shared
+// memory buffer (cp.async, 16 bytes a lane: the 64-byte hot rows of Hot,
+// which hold only what decides a hit, and their ids).  Then the warp takes
+// the rays of the lanes whose own box test admitted the chunk one by one,
+// and its 32 lanes test 32 rows at once: 4 steps where one thread makes
+// 128, the winner found by two warp reductions.  A shading point's
+// shadow rays to all lights make one such pass.  Every ray meets exactly
+// the tests of the per-thread walk, so hits, photons and the Work totals
+// are those of BlockedGeom.  What it demands: all 32 lanes of a warp call a
+// sweep together, each with a `want` flag, so the kernels that take it have
+// no per-lane return, continue or loop around a sweep (G::COOP, G::any
+// below).  Measured and left out (PERF.md): every lane testing the staged
+// rows for its own ray (2.2x over BlockedGeom, against 9x), a second buffer
+// that prefetches the next chunk, straight-line row tests, a supergroup's
+// 32 box tests under one vote.
 //
 // Every sweep reports the tests it runs to a counter policy W (Work or
 // NoWork, below); chip_smoke.py derives each kernel's operation bound from
@@ -61,6 +83,19 @@ constexpr int SUP_CHUNKS = 8;
 constexpr int BLK_COLS = 36;
 constexpr int BLK_ID = 34;  // original triangle id, as float (-1 = pad row)
 
+// The lanes that sweep together (CoopGeom).  32 on the card; a host
+// emulation that steps the threads one by one builds with 1: every thread
+// is then a warp of its own, and the votes below are the identity.
+#ifndef RT_WARP
+#define RT_WARP 32
+#endif
+constexpr int WARP = RT_WARP;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int HOT_F4 = 4;                     // float4 per hot row (16 floats)
+constexpr int ROWS_F4 = BLK_CHUNK * HOT_F4;   // a staged chunk's rows: 8 KB
+constexpr int STAGE_F4 = ROWS_F4 + BLK_CHUNK / 4;  // and its ids: 8.5 KB a warp
+constexpr int LIGHT_GROUP = 4;                // lights per cooperative shadow pass
+
 struct Tables {
   const float* __restrict__ tri;     // [n_tri, 34]
   const float* __restrict__ sph;     // [n_sph, 8]
@@ -77,21 +112,83 @@ struct Blk {
   int n_chunks;                   // chunks that hold a triangle
 };
 
+// What the cooperative sweeps read of the same rows (kernel_common.pack_hot).
+struct Hot {
+  const float4* __restrict__ rows;     // [NCH * 128, 4]: columns 0:16 of Blk::tri
+  const int* __restrict__ ids;         // [NCH * 128] original triangle id (-1 = pad row)
+  const int* __restrict__ live;        // [NCH] live rows of each chunk (pad rows trail)
+  const int* __restrict__ row_of_tri;  // [n_tri] blocked row of a triangle: a ray's
+                                       // excluded triangle by row, not by id
+};
+
+// The low 32 bits of the card's nanosecond clock (%globaltimer), and of
+// the SM's cycle counter.
+__device__ __forceinline__ int timer_ns() {
+#ifdef __CUDACC__
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (int)(unsigned)t;
+#else
+  return 0;
+#endif
+}
+
+__device__ __forceinline__ int cycles() {
+#ifdef __CUDACC__
+  return (int)clock64();
+#else
+  return 0;
+#endif
+}
+
 // Tests one thread ran, by how far each got, so that an operation bound
 // can charge each kind its own cost: triangle tests begun (one dot product
 // and its rejection test), those that went on to the plane's t, edge tests
-// evaluated, sphere tests and box (slab) tests.  Counting is chosen at
-// compile time: the main path's instantiations take NoWork, whose calls
-// compile to nothing; a launch given a `work` output takes Work.
-constexpr int WORK_ROWS = 5;
+// evaluated, sphere tests and box (slab) tests.  Then how the lanes of a
+// warp diverge on a blocked mesh: the chunks whose rows one of the thread's
+// rays tested, and the chunks its warp staged in shared memory (counted by
+// the warp's first lane; 0 in the per-thread walks).  Then the card's
+// clock when the thread began and when it wrote its counts, for the spread
+// of block durations inside one launch.  Last, where a cooperative walk's
+// cycles go: in its box tests and votes, in waiting for chunks to arrive in
+// shared memory, in testing staged rows (with the shuffles and reductions
+// around them), and from the thread's start to its end.  Counting is
+// chosen at compile time: the main path's instantiations take NoWork, whose
+// calls compile to nothing; a launch given a `work` output takes Work.
+constexpr int WORK_ROWS = 13;
 
 struct Work {
-  int tri, plane, edge, sph, box;
+  int tri, plane, edge, sph, box, chunks, staged, t_in;
+  int cyc_box, cyc_stage, cyc_rows, cyc_in;
+  __device__ __forceinline__ Work()
+      : tri(0), plane(0), edge(0), sph(0), box(0), chunks(0), staged(0), t_in(timer_ns()),
+        cyc_box(0), cyc_stage(0), cyc_rows(0), cyc_in(cycles()) {}
+  // t = tic(); ...; box_cycles(t): the cycles since then go to that phase
+  __device__ __forceinline__ int tic() const { return cycles(); }
+  __device__ __forceinline__ void box_cycles(int t) { cyc_box += cycles() - t; }
+  __device__ __forceinline__ void stage_cycles(int t) { cyc_stage += cycles() - t; }
+  __device__ __forceinline__ void row_cycles(int t) { cyc_rows += cycles() - t; }
   __device__ __forceinline__ void tri_test() { ++tri; }
   __device__ __forceinline__ void plane_test() { ++plane; }
   __device__ __forceinline__ void edge_test() { ++edge; }
   __device__ __forceinline__ void sph_test() { ++sph; }
   __device__ __forceinline__ void box_test() { ++box; }
+  __device__ __forceinline__ void box_tests(int n) { box += n; }
+  __device__ __forceinline__ void chunk(int n = 1) { chunks += n; }
+  __device__ __forceinline__ void stage() { ++staged; }
+  // Triangle tests kept apart until it is known whether they count (rows
+  // that a warp tests at once, past a shadow ray's first occluder).
+  struct Part {
+    int tri = 0, plane = 0, edge = 0;
+    __device__ __forceinline__ void tri_test() { ++tri; }
+    __device__ __forceinline__ void plane_test() { ++plane; }
+    __device__ __forceinline__ void edge_test() { ++edge; }
+  };
+  __device__ __forceinline__ void add(const Part& p) {
+    tri += p.tri;
+    plane += p.plane;
+    edge += p.edge;
+  }
   // into rows of out [WORK_ROWS, n], in the order above
   __device__ __forceinline__ void put(int* __restrict__ out, int n, int lane) const {
     out[lane] = tri;
@@ -99,6 +196,21 @@ struct Work {
     out[2 * n + lane] = edge;
     out[3 * n + lane] = sph;
     out[4 * n + lane] = box;
+    out[5 * n + lane] = chunks;
+    out[6 * n + lane] = staged;
+    out[7 * n + lane] = t_in;
+    out[8 * n + lane] = timer_ns();
+    out[9 * n + lane] = cyc_box;
+    out[10 * n + lane] = cyc_stage;
+    out[11 * n + lane] = cyc_rows;
+    out[12 * n + lane] = cycles() - cyc_in;
+  }
+  // A thread past the tile's end that tested rows for other lanes' rays:
+  // its tests go to column `lane` (the tile's last), after that lane's put.
+  __device__ __forceinline__ void put_helped(int* __restrict__ out, int n, int lane) const {
+    atomicAdd(out + lane, tri);
+    atomicAdd(out + n + lane, plane);
+    atomicAdd(out + 2 * n + lane, edge);
   }
 };
 
@@ -108,7 +220,21 @@ struct NoWork {
   __device__ __forceinline__ void edge_test() {}
   __device__ __forceinline__ void sph_test() {}
   __device__ __forceinline__ void box_test() {}
+  __device__ __forceinline__ void box_tests(int) {}
+  __device__ __forceinline__ void chunk(int = 1) {}
+  __device__ __forceinline__ void stage() {}
+  __device__ __forceinline__ int tic() const { return 0; }
+  __device__ __forceinline__ void box_cycles(int) {}
+  __device__ __forceinline__ void stage_cycles(int) {}
+  __device__ __forceinline__ void row_cycles(int) {}
+  struct Part {
+    __device__ __forceinline__ void tri_test() {}
+    __device__ __forceinline__ void plane_test() {}
+    __device__ __forceinline__ void edge_test() {}
+  };
+  __device__ __forceinline__ void add(const Part&) {}
   __device__ __forceinline__ void put(int*, int, int) const {}
+  __device__ __forceinline__ void put_helped(int*, int, int) const {}
 };
 
 struct V3 {
@@ -352,6 +478,7 @@ __device__ inline void blocked_tris(const Blk& bk, V3 o, V3 d, int face, int exc
     for (int c = c0; c < c1; ++c) {
       w.box_test();
       if (!slab(bk.box + c * 8, o, inv, b.t)) continue;
+      w.chunk();
       const float* r = bk.tri + (size_t)c * BLK_CHUNK * BLK_COLS;
       for (int k = 0; k < BLK_CHUNK; ++k, r += BLK_COLS) {
         int id = (int)r[BLK_ID];
@@ -493,6 +620,7 @@ __device__ inline bool blocked_tri_occluded(const Blk& bk, V3 p, int self_prim, 
     for (int c = c0; c < c1; ++c) {
       w.box_test();
       if (!slab(bk.box + c * 8, p, inv, tlim)) continue;
+      w.chunk();
       const float* r = bk.tri + (size_t)c * BLK_CHUNK * BLK_COLS;
       for (int k = 0; k < BLK_CHUNK; ++k, r += BLK_COLS) {
         int id = (int)r[BLK_ID];
@@ -621,11 +749,376 @@ __device__ inline BackHit blocked_back_sweep(const Tables& tb, const Blk& bk, V3
 }
 
 // ---------------------------------------------------------------------------
+// The warp-cooperative walk over the blocked layout (CoopGeom)
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory without a register in between
+// (cp.async), and the wait until the calling thread's copies have landed.
+__device__ __forceinline__ void cp_async16(float4* smem, const float4* gmem) {
+#ifdef __CUDACC__
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+#else
+  *smem = *gmem;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
+}
+
+// The calling warp's staging buffer in the block's dynamic shared memory:
+// a chunk's hot rows, then its ids.
+__device__ __forceinline__ float4* warp_stage() {
+  extern __shared__ float4 rt_stage[];
+  return rt_stage + (threadIdx.x / WARP) * STAGE_F4;
+}
+
+// Dynamic shared bytes a cooperative kernel needs per block (host).
+inline int coop_shared_bytes(int threads) {
+  return threads / WARP * STAGE_F4 * (int)sizeof(float4);
+}
+
+// A chunk as the warp has it in shared memory.
+struct Staged {
+  const float4* __restrict__ rows;  // [nrows, 4]
+  const int* __restrict__ ids;      // [nrows]
+  int nrows, row0;                  // live rows, the first one's blocked row index
+};
+
+// body(j, chunk) for every set bit j of `chunks` (a mask over the supergroup
+// that starts at chunk c0, the same in all lanes of the warp), in index
+// order, with the live rows and ids of chunk c0 + j copied into the warp's
+// shared memory, all lanes copying 16 bytes at a time.
+template <class W, class Body>
+__device__ __forceinline__ void for_staged_chunks(const Hot& hot, int c0, unsigned chunks, W& w,
+                                                  Body&& body) {
+  const int wl = threadIdx.x % WARP;
+  float4* stage = warp_stage();
+  for (; chunks; chunks &= chunks - 1) {
+    int j = __ffs(chunks) - 1;
+    int c = c0 + j;
+    int nrows = hot.live[c];
+    const float4* rows = hot.rows + (size_t)c * ROWS_F4;
+    const float4* ids = (const float4*)(hot.ids + (size_t)c * BLK_CHUNK);
+    int t0 = w.tic();
+    __syncwarp();  // no lane still reads the buffer
+    for (int i = wl; i < nrows * HOT_F4; i += WARP) cp_async16(stage + i, rows + i);
+    for (int i = wl; i < (nrows + 3) / 4; i += WARP) cp_async16(stage + ROWS_F4 + i, ids + i);
+    cp_async_wait_all();
+    __syncwarp();  // every lane's part has landed
+    w.stage_cycles(t0);
+    if (wl == 0) w.stage();
+    t0 = w.tic();
+    body(j, Staged{stage, (const int*)(stage + ROWS_F4), nrows, c * BLK_CHUNK});
+    w.row_cycles(t0);
+  }
+}
+
+// inside_tri's vectors from the last three quarters of a hot row: g0 =
+// q1.xyz, g1 = (q1.w, q2.x, q2.y), g2 = (q2.z, q2.w, q3.x), h = q3.yzw.
+struct HotEdges {
+  V3 g[3];
+  float h[3];
+};
+
+__device__ __forceinline__ HotEdges hot_edges(const float4* __restrict__ r) {
+  float4 q1 = r[1], q2 = r[2], q3 = r[3];
+  return HotEdges{{v3(q1.x, q1.y, q1.z), v3(q1.w, q2.x, q2.y), v3(q2.z, q2.w, q3.x)},
+                  {q3.y, q3.z, q3.w}};
+}
+
+__device__ __forceinline__ V3 shfl3(V3 a, int src) {
+  return v3(__shfl_sync(FULL, a.x, src), __shfl_sync(FULL, a.y, src), __shfl_sync(FULL, a.z, src));
+}
+
+// One staged row (at r, original id `id`, blocked row index `row`) against
+// a ray: the body of blocked_tris' row loop.  excl_row: the excluded
+// triangle's blocked row (-1: none).  C counts: a Work or a Work::Part.
+// (Computing every term whether or not an earlier test failed, so that the
+// rows of several steps and rays overlap, measured 17 % slower: most rows
+// fail the first test in all 32 lanes.)
+template <bool BACK_ONLY, class C>
+__device__ __forceinline__ void nearest_row(const float4* __restrict__ r, int id, int row,
+                                            int excl_row, V3 o, V3 d, int face, int excl_face,
+                                            TriBest& b, C& w) {
+  w.tri_test();
+  float4 a = r[0];
+  V3 fn = v3(a.x, a.y, a.z);
+  float no_d = dot3(fn, d);
+  bool bf = no_d > 0.0f;
+  if (BACK_ONLY) {
+    if (!bf) return;
+  } else {
+    if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) return;
+    if (row == excl_row && excl_crit(excl_face, bf)) return;
+  }
+  w.plane_test();
+  float t = (a.w - dot3(fn, o)) / no_d;
+  if (!(t > 0.0f) || !isfinite(t) || !(t < BIG)) return;
+  HotEdges eg = hot_edges(r);
+  bool inside = true;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    if (inside) w.edge_test();
+    inside = inside && (dot3(eg.g[e], o) + eg.h[e] + t * dot3(eg.g[e], d) >= 0.0f);
+  }
+  if (inside && (t < b.t || (t == b.t && id > b.id))) {
+    b.t = t;
+    b.id = id;
+    b.row = row;
+    b.bf = bf;
+  }
+}
+
+// A staged chunk against the rays of the lanes `goers` of the warp: the
+// warp takes the rays one by one, its lanes test 32 rows at a time (4 steps
+// for a chunk, where one thread alone makes 128), and the winner by (t,
+// larger id) goes back to the ray's lane.  Every lane of the warp calls it;
+// the tests are those of blocked_tris' row loop, run (and counted) by the
+// lanes that hold the rows.  (Two or four rays at a time measured the same.)
+template <bool BACK_ONLY, class W>
+__device__ __forceinline__ void rows_nearest(const Staged& ch, unsigned goers, int excl_row, V3 o,
+                                             V3 d, int face, int excl_face, TriBest& b, W& w) {
+  const int wl = threadIdx.x % WARP;
+  for (unsigned rest = goers; rest; rest &= rest - 1) {
+    int src = __ffs(rest) - 1;
+    V3 ro = shfl3(o, src), rd = shfl3(d, src);
+    int rface = __shfl_sync(FULL, face, src);
+    int rexcl = __shfl_sync(FULL, excl_row, src);
+    int rexcl_face = __shfl_sync(FULL, excl_face, src);
+    TriBest lb{BIG, -1, 0, false};
+    for (int k = wl; k < ch.nrows; k += WARP)  // (unrolled, it measured 35 % slower)
+      nearest_row<BACK_ONLY>(ch.rows + HOT_F4 * k, ch.ids[k], ch.row0 + k, rexcl, ro, rd, rface,
+                             rexcl_face, lb, w);
+    // t > 0: its bits order as unsigned; BIG (no hit) is above every hit
+    unsigned t_bits = __float_as_uint(lb.t);
+    unsigned t_min = __reduce_min_sync(FULL, t_bits);
+    int id = __reduce_max_sync(FULL, t_bits == t_min ? lb.id : -1);
+    if (id < 0) continue;  // no lane hit a row
+    int from = __ffs(__ballot_sync(FULL, t_bits == t_min && lb.id == id)) - 1;
+    int row = __shfl_sync(FULL, lb.row, from);
+    int bf = __shfl_sync(FULL, (int)lb.bf, from);
+    float t = __uint_as_float(t_min);
+    if (wl == src && (t < b.t || (t == b.t && id > b.id))) {
+      b.t = t;
+      b.id = id;
+      b.row = row;
+      b.bf = bf != 0;
+    }
+  }
+}
+
+// blocked_tris by a whole warp: every lane calls it, with its own ray and
+// `want` (false: the lane only helps to copy and to test rows).
+template <bool BACK_ONLY, class W>
+__device__ inline void coop_tris(const Tables& tb, const Blk& bk, const Hot& hot, V3 o, V3 d,
+                                 int face, int excl_prim, int excl_face, bool want, TriBest& b,
+                                 W& w) {
+  V3 inv = inv3(d);
+  int excl_row = -1;
+  if (!BACK_ONLY && want && excl_prim >= 0 && excl_prim < tb.n_tri)
+    excl_row = hot.row_of_tri[excl_prim];
+  for (int c0 = 0; c0 < bk.n_chunks; c0 += SUP_CHUNKS) {
+    int t0 = w.tic();
+    bool in_sup = false;
+    if (want) {
+      w.box_test();
+      in_sup = slab(bk.sup + (c0 / SUP_CHUNKS) * 8, o, inv, b.t);
+    }
+    bool any_in = __any_sync(FULL, in_sup);
+    w.box_cycles(t0);
+    if (!any_in) continue;
+    t0 = w.tic();
+    int nc = bk.n_chunks - c0 < SUP_CHUNKS ? bk.n_chunks - c0 : SUP_CHUNKS;
+    // the lane's chunks of this supergroup, against its best hit so far
+    unsigned mine = 0;
+    float t_seen = b.t;
+    if (in_sup) {
+      w.box_tests(nc);  // the per-thread walk tests each chunk's box once
+      for (int j = 0; j < nc; ++j)
+        if (slab(bk.box + (c0 + j) * 8, o, inv, b.t)) mine |= 1u << j;
+    }
+    unsigned chunks = __reduce_or_sync(FULL, mine);
+    w.box_cycles(t0);
+    for_staged_chunks(hot, c0, chunks, w, [&](int j, const Staged& ch) {
+      bool go = (mine >> j) & 1;
+      // the best hit moved since the masks were taken: test the box again,
+      // as the per-thread walk tests it only now
+      if (go && b.t != t_seen) go = slab(bk.box + (c0 + j) * 8, o, inv, b.t);
+      if (go) w.chunk();
+      rows_nearest<BACK_ONLY>(ch, __ballot_sync(FULL, go), excl_row, o, d, face, excl_face, b, w);
+    });
+  }
+}
+
+// One staged row (at r) against the shadow rays `act` (a bit per light of
+// the group) of one shading point p, the body of blocked_tri_occluded's row
+// loop -> the lights it occludes.  The terms of the origin are shared
+// between the lights.  counter(l) counts light l's tests.
+template <class Counter>
+__device__ __forceinline__ unsigned shadow_row(const float4* __restrict__ r, V3 p,
+                                               const V3 (&dd)[LIGHT_GROUP],
+                                               const float (&tlim)[LIGHT_GROUP], unsigned act,
+                                               Counter&& counter) {
+  unsigned hit = 0;
+  float4 a = r[0];
+  V3 fn = v3(a.x, a.y, a.z);
+  float num = a.w - dot3(fn, p);
+  HotEdges eg;
+  bool have_edges = false;  // read for the first light that gets that far
+#pragma unroll
+  for (int l = 0; l < LIGHT_GROUP; ++l) {
+    if (!((act >> l) & 1)) continue;
+    auto& w = counter(l);
+    w.tri_test();
+    float no_d = dot3(fn, dd[l]);
+    float t = num / no_d;
+    if (!(no_d > 0.0f) || !(t > 0.0f)) continue;
+    w.plane_test();
+    if (!have_edges) {
+      eg = hot_edges(r);
+      have_edges = true;
+    }
+    bool inside = true;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      float ogh = dot3(eg.g[e], p) + eg.h[e];
+      if (inside) w.edge_test();
+      inside = inside && (ogh + t * dot3(eg.g[e], dd[l]) >= 0.0f);
+    }
+    if (inside && isfinite(t) && t < tlim[l]) hit |= 1u << l;
+  }
+  return hit;
+}
+
+// A staged chunk against the shadow rays of the lanes `goers` of the warp
+// (`act`: the calling lane's own lights in this chunk): the warp takes the
+// shading points one by one and its lanes test 32 rows at a time -> the
+// calling lane's lights that found an occluder.  A ray stops at its first
+// occluder in row order, as alone: tests of rows past it, which the
+// per-thread walk does not make, are not counted.  Every lane of the warp
+// calls it.
+template <class W>
+__device__ __forceinline__ unsigned rows_shadow(const Staged& ch, unsigned goers, int self_row,
+                                                V3 p, const V3 (&dd)[LIGHT_GROUP],
+                                                const float (&tlim)[LIGHT_GROUP], unsigned act,
+                                                W& w) {
+  const int wl = threadIdx.x % WARP;
+  unsigned mine = 0;
+  for (unsigned rest = goers; rest; rest &= rest - 1) {
+    int src = __ffs(rest) - 1;
+    unsigned ract = __shfl_sync(FULL, act, src);
+    V3 rp = shfl3(p, src);
+    int rself = __shfl_sync(FULL, self_row, src);
+    V3 rdd[LIGHT_GROUP];
+    float rtlim[LIGHT_GROUP];
+#pragma unroll
+    for (int l = 0; l < LIGHT_GROUP; ++l) {
+      rdd[l] = v3(0.0f, 0.0f, 0.0f);
+      rtlim[l] = 0.0f;
+      if (!((ract >> l) & 1)) continue;
+      rdd[l] = shfl3(dd[l], src);
+      rtlim[l] = __shfl_sync(FULL, tlim[l], src);
+    }
+    unsigned rhit = 0;
+    for (int k0 = 0; k0 < ch.nrows && ract; k0 += WARP) {
+      int k = k0 + wl;
+      typename W::Part parts[LIGHT_GROUP];
+      unsigned found = 0;
+      if (k < ch.nrows && ch.row0 + k != rself)
+        found = shadow_row(ch.rows + HOT_F4 * k, rp, rdd, rtlim, ract,
+                           [&](int l) -> typename W::Part& { return parts[l]; });
+      unsigned todo = ract;
+#pragma unroll
+      for (int l = 0; l < LIGHT_GROUP; ++l) {
+        if (!((todo >> l) & 1)) continue;
+        unsigned occluders = __ballot_sync(FULL, (found >> l) & 1);
+        if (!occluders || wl <= __ffs(occluders) - 1) w.add(parts[l]);
+        if (occluders) {
+          rhit |= 1u << l;
+          ract &= ~(1u << l);
+        }
+      }
+    }
+    if (wl == src) mine = rhit;
+  }
+  return mine;
+}
+
+// blocked_tri_occluded by a whole warp, for up to LIGHT_GROUP shadow rays
+// of each lane's shading point p in ONE pass over the chunks: dd[l] and
+// tlim[l] are light l's unnormalized direction and limit, `pending` the
+// lights the lane wants tested (0: it only helps) -> the lights that are
+// occluded.  A chunk is staged once for all lights of all lanes.
+template <class W>
+__device__ __forceinline__ unsigned coop_occluded(const Tables& tb, const Blk& bk, const Hot& hot,
+                                                  V3 p, int self_prim,
+                                                  const V3 (&dd)[LIGHT_GROUP],
+                                                  const float (&tlim)[LIGHT_GROUP],
+                                                  unsigned pending, W& w) {
+  V3 inv[LIGHT_GROUP];
+#pragma unroll
+  for (int l = 0; l < LIGHT_GROUP; ++l) inv[l] = inv3(dd[l]);
+  int self_row = -1;
+  if (pending && self_prim >= 0 && self_prim < tb.n_tri) self_row = hot.row_of_tri[self_prim];
+  unsigned hit = 0;
+  for (int c0 = 0; c0 < bk.n_chunks; c0 += SUP_CHUNKS) {
+    int t0 = w.tic();
+    unsigned in_sup = 0;
+#pragma unroll
+    for (int l = 0; l < LIGHT_GROUP; ++l) {
+      if (!((pending >> l) & 1)) continue;
+      w.box_test();
+      if (slab(bk.sup + (c0 / SUP_CHUNKS) * 8, p, inv[l], tlim[l])) in_sup |= 1u << l;
+    }
+    bool any_in = __any_sync(FULL, in_sup != 0);
+    w.box_cycles(t0);
+    if (!any_in) continue;
+    t0 = w.tic();
+    int nc = bk.n_chunks - c0 < SUP_CHUNKS ? bk.n_chunks - c0 : SUP_CHUNKS;
+    // bit 8 l + j: light l's ray enters chunk j (a shadow limit does not move)
+    unsigned m = 0;
+#pragma unroll
+    for (int l = 0; l < LIGHT_GROUP; ++l) {
+      if (!((in_sup >> l) & 1)) continue;
+      for (int j = 0; j < nc; ++j)
+        if (slab(bk.box + (c0 + j) * 8, p, inv[l], tlim[l])) m |= 1u << (SUP_CHUNKS * l + j);
+    }
+    unsigned chunks = __reduce_or_sync(FULL, (m | (m >> 8) | (m >> 16) | (m >> 24)) & 0xffu);
+    w.box_cycles(t0);
+    for_staged_chunks(hot, c0, chunks, w, [&](int j, const Staged& ch) {
+      unsigned act = 0;
+#pragma unroll
+      for (int l = 0; l < LIGHT_GROUP; ++l)
+        if ((m >> (SUP_CHUNKS * l + j)) & (pending >> l) & 1) act |= 1u << l;
+      w.chunk(__popc(act));
+      unsigned got =
+          rows_shadow(ch, __ballot_sync(FULL, act != 0), self_row, p, dd, tlim, act, w);
+      // a ray that found its occluder in chunk j had tested j + 1 boxes
+      w.box_tests((j + 1) * __popc(got));
+      hit |= got;
+      pending &= ~got;
+    });
+    w.box_tests(nc * __popc(in_sup & pending));  // the others tested every chunk's box
+  }
+  return hit;
+}
+
+// ---------------------------------------------------------------------------
 // Geometry policies (kernel_common.DenseGeom :1715 / BlockedGeom :1739)
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ BackHit no_back(V3 p) { return BackHit{BIG, -1, p, v3(0.0f, 0.0f, 0.0f)}; }
+
+// COOP: do all lanes of a warp make every sweep together?  any(x): does
+// any lane that sweeps with this one hold x?
 struct DenseGeom {
+  static constexpr bool COOP = false;
   Tables tb;
+  static __device__ __forceinline__ bool any(bool x) { return x; }
   template <class W>
   __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
                          W& w) const {
@@ -636,12 +1129,17 @@ struct DenseGeom {
     return rt::tri_occluded(tb, p, self_prim, s, tg, tlim, w);
   }
   template <class W>
-  __device__ BackHit back(V3 p, V3 d, W& w) const { return back_sweep(tb, p, d, w); }
+  __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
+    if (!want) return no_back(p);
+    return back_sweep(tb, p, d, w);
+  }
 };
 
 struct BlockedGeom {
+  static constexpr bool COOP = false;
   Tables tb;  // spheres, materials, lights (tb.tri is not read)
   Blk bk;
+  static __device__ __forceinline__ bool any(bool x) { return x; }
   template <class W>
   __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
                          W& w) const {
@@ -652,57 +1150,163 @@ struct BlockedGeom {
     return blocked_tri_occluded(bk, p, self_prim, s, tg, tlim, w);
   }
   template <class W>
-  __device__ BackHit back(V3 p, V3 d, W& w) const { return blocked_back_sweep(tb, bk, p, d, w); }
+  __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
+    if (!want) return no_back(p);
+    return blocked_back_sweep(tb, bk, p, d, w);
+  }
+};
+
+// The blocked layout walked by a warp together.  Every method is called by
+// all 32 lanes of the warp; a lane whose flag (active, want, pending) is
+// off gets a miss and runs no test.
+struct CoopGeom {
+  static constexpr bool COOP = true;
+  Tables tb;
+  Blk bk;
+  Hot hot;
+  static __device__ __forceinline__ bool any(bool x) { return __any_sync(FULL, x); }
+  template <class W>
+  __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
+                         W& w) const {
+    TriBest b{BIG, -1, 0, false};
+    coop_tris<false>(tb, bk, hot, o, d, face, excl_prim, excl_face, active, b, w);
+    if (active) sph_nearest(tb, o, d, face, excl_prim, excl_face, b.t, b.id, b.bf, w);
+    const float* row =
+        (b.id >= 0 && b.id < tb.n_tri) ? bk.tri + (size_t)b.row * BLK_COLS : nullptr;
+    return finish_hit(tb, row, o, d, b.t, b.id, b.bf, active);
+  }
+  template <class W>
+  __device__ __forceinline__ unsigned occluded(V3 p, int self_prim, const V3 (&dd)[LIGHT_GROUP],
+                               const float (&tlim)[LIGHT_GROUP], unsigned pending, W& w) const {
+    return coop_occluded(tb, bk, hot, p, self_prim, dd, tlim, pending, w);
+  }
+  template <class W>
+  __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
+    TriBest b{BIG, -1, 0, false};
+    coop_tris<true>(tb, bk, hot, p, d, FACE_BACK, -1, FACE_BACK, want, b, w);
+    if (!want) return no_back(p);
+    const float* row = (b.id >= 0) ? bk.tri + (size_t)b.row * BLK_COLS : nullptr;
+    return finish_back(tb, row, p, d, b.t, b.id, w);
+  }
 };
 
 // ---------------------------------------------------------------------------
 // Direct shading (kernel_common.get_shade)
 // ---------------------------------------------------------------------------
 
+// One light seen from the shading point p with the adjusted normal na
+// (approximate_into_directional, lights.rs:44-93).
+struct LightTerm {
+  bool consider, is_dir;  // consider: p in the cone and turned to the light
+  float att, cosine, limit;  // attenuation, -ld.na, the shadow ray's limit
+  V3 ld;                     // the light's direction at p
+};
+
+__device__ __forceinline__ LightTerm light_term(const float* __restrict__ L, V3 p, V3 na) {
+  LightTerm t;
+  t.is_dir = L[0] == 0.0f;
+  bool is_spot = L[0] == 1.0f;
+  V3 lo = v3(L[1], L[2], L[3]), ldir = v3(L[4], L[5], L[6]);
+  V3 off = v3(p.x - lo.x, p.y - lo.y, p.z - lo.z);
+  float mag = sqrtf(off.x * off.x + off.y * off.y + off.z * off.z);
+  float inv_mag = 1.0f / fmaxf(mag, 1e-30f);
+  float cos_ang = dot3(ldir, off) * inv_mag;
+  float angle = fabsf(acosf(fminf(fmaxf(cos_ang, -1.0f), 1.0f)));
+  bool in_cone = angle <= L[10];
+  float ang_att = kpowf(fmaxf(1.0f - angle / fmaxf(L[10], 1e-30f), 0.0f), L[11] + F32_EPS);
+  float dist_att = 1.0f / (mag + F32_EPS);
+  t.att = t.is_dir ? 1.0f : (is_spot ? ang_att * dist_att : dist_att);
+  t.ld = t.is_dir ? ldir : v3(off.x * inv_mag, off.y * inv_mag, off.z * inv_mag);
+  t.cosine = -(t.ld.x * na.x + t.ld.y * na.y + t.ld.z * na.z);
+  t.consider = (!is_spot || in_cone) && t.cosine > 0.0f;
+  t.limit = L[12] > 0.5f ? mag : BIG;
+  return t;
+}
+
+// The shadow ray's triangle test in the factored-target form: position
+// lights aim at the light's origin (s = 1) under the scaled limit 1
+// (= |L - p| / |L - p|), directional ones along -dir (s = 0) under the
+// real limit.
+__device__ __forceinline__ float shadow_s(const LightTerm& t) { return t.is_dir ? 0.0f : 1.0f; }
+__device__ __forceinline__ V3 shadow_target(const float* __restrict__ L, const LightTerm& t) {
+  return t.is_dir ? v3(-L[4], -L[5], -L[6]) : v3(L[1], L[2], L[3]);
+}
+__device__ __forceinline__ float shadow_tlim(const LightTerm& t) {
+  return t.is_dir ? t.limit : 1.0f;
+}
+
+// get_diffuse / get_specular of an unoccluded light (materials.rs:46-66).
+__device__ __forceinline__ void phong_add(V3& out, const Mat& m, const float* __restrict__ L,
+                                          const LightTerm& t, V3 na, V3 vd, float e,
+                                          float energy) {
+  float lam = t.cosine;
+  V3 ld = t.ld;
+  V3 ref = v3(2.0f * lam * na.x + ld.x, 2.0f * lam * na.y + ld.y, 2.0f * lam * na.z + ld.z);
+  float amount = kpowf(fmaxf(ref.x * vd.x + ref.y * vd.y + ref.z * vd.z, 0.0f), e) * energy;
+  float dterm = lam * (1.0f - m.shiness);
+  float sterm = amount * m.shiness;
+  out.x += (m.diffuse.x * dterm + m.specular.x * sterm) * L[7] * t.att;
+  out.y += (m.diffuse.y * dterm + m.specular.y * sterm) * L[8] * t.att;
+  out.z += (m.diffuse.z * dterm + m.specular.z * sterm) * L[9] * t.att;
+}
+
 // Direct radiance at p (get_shade): na = bump-ADJUSTED normal, vd = view
-// (-ray direction).  Adds the shadow rays cast to `count`.
+// (-ray direction).  Adds the shadow rays cast to `count`.  One thread
+// sweeps once per light; a cooperative geometry takes the lights in groups
+// of LIGHT_GROUP: each lane prepares its shadow rays, the warp makes one
+// pass over the chunks for all of them, then the unoccluded lights' terms
+// add up in the lights' order.
 template <class G, class W>
 __device__ inline V3 get_shade(const G& g, const Mat& m, V3 p, V3 na, V3 vd, bool active,
                                int self_prim, int& count, W& w) {
   const Tables& tb = g.tb;
   V3 out = v3(0.0f, 0.0f, 0.0f);
-  if (!active) return out;
+  if constexpr (!G::COOP) {
+    if (!active) return out;
+  }
   float e = 1.0f / (m.smoothness + F32_EPS);
   float energy = (e + 8.0f) / EIGHT_PI;
-  for (int li = 0; li < tb.n_light; ++li) {
-    const float* L = tb.lights + li * LIGHT_COLS;
-    bool is_dir = L[0] == 0.0f, is_spot = L[0] == 1.0f;
-    V3 lo = v3(L[1], L[2], L[3]), ldir = v3(L[4], L[5], L[6]);
-    // approximate_into_directional (lights.rs:44-93)
-    V3 off = v3(p.x - lo.x, p.y - lo.y, p.z - lo.z);
-    float mag = sqrtf(off.x * off.x + off.y * off.y + off.z * off.z);
-    float inv_mag = 1.0f / fmaxf(mag, 1e-30f);
-    float cos_ang = dot3(ldir, off) * inv_mag;
-    float angle = fabsf(acosf(fminf(fmaxf(cos_ang, -1.0f), 1.0f)));
-    bool in_cone = angle <= L[10];
-    float ang_att = kpowf(fmaxf(1.0f - angle / fmaxf(L[10], 1e-30f), 0.0f), L[11] + F32_EPS);
-    float dist_att = 1.0f / (mag + F32_EPS);
-    float att = is_dir ? 1.0f : (is_spot ? ang_att * dist_att : dist_att);
-    V3 ld = is_dir ? ldir : v3(off.x * inv_mag, off.y * inv_mag, off.z * inv_mag);
-    float cosine = -(ld.x * na.x + ld.y * na.y + ld.z * na.z);
-    if (!((!is_spot || in_cone) && cosine > 0.0f)) continue;
-    ++count;
-    float limit = L[12] > 0.5f ? mag : BIG;
-    // position lights: target L, scaled t limit 1 (= |L - p| / |L - p|);
-    // directional: target -dir, real limit
-    if (g.tri_occluded(p, self_prim, is_dir ? 0.0f : 1.0f, is_dir ? neg(ldir) : lo,
-                       is_dir ? limit : 1.0f, w) ||
-        sph_occluded(tb, p, self_prim, neg(ld), limit, w))
-      continue;
-    // get_diffuse / get_specular (materials.rs:46-66)
-    float lam = cosine;
-    V3 ref = v3(2.0f * lam * na.x + ld.x, 2.0f * lam * na.y + ld.y, 2.0f * lam * na.z + ld.z);
-    float amount = kpowf(fmaxf(ref.x * vd.x + ref.y * vd.y + ref.z * vd.z, 0.0f), e) * energy;
-    float dterm = lam * (1.0f - m.shiness);
-    float sterm = amount * m.shiness;
-    out.x += (m.diffuse.x * dterm + m.specular.x * sterm) * L[7] * att;
-    out.y += (m.diffuse.y * dterm + m.specular.y * sterm) * L[8] * att;
-    out.z += (m.diffuse.z * dterm + m.specular.z * sterm) * L[9] * att;
+  if constexpr (G::COOP) {
+    for (int base = 0; base < tb.n_light; base += LIGHT_GROUP) {
+      unsigned pending = 0;
+      V3 dd[LIGHT_GROUP];
+      float tlim[LIGHT_GROUP];
+#pragma unroll
+      for (int l = 0; l < LIGHT_GROUP; ++l) {
+        dd[l] = v3(0.0f, 0.0f, 0.0f);
+        tlim[l] = 0.0f;
+        if (!active || base + l >= tb.n_light) continue;
+        const float* L = tb.lights + (base + l) * LIGHT_COLS;
+        LightTerm t = light_term(L, p, na);
+        if (!t.consider) continue;
+        ++count;
+        pending |= 1u << l;
+        float s = shadow_s(t);
+        V3 tg = shadow_target(L, t);
+        dd[l] = v3(tg.x - s * p.x, tg.y - s * p.y, tg.z - s * p.z);
+        tlim[l] = shadow_tlim(t);
+      }
+      unsigned lit = pending & ~g.occluded(p, self_prim, dd, tlim, pending, w);
+#pragma unroll
+      for (int l = 0; l < LIGHT_GROUP; ++l) {
+        if (!((lit >> l) & 1)) continue;
+        const float* L = tb.lights + (base + l) * LIGHT_COLS;
+        LightTerm t = light_term(L, p, na);
+        if (sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w)) continue;
+        phong_add(out, m, L, t, na, vd, e, energy);
+      }
+    }
+  } else {
+    for (int li = 0; li < tb.n_light; ++li) {
+      const float* L = tb.lights + li * LIGHT_COLS;
+      LightTerm t = light_term(L, p, na);
+      if (!t.consider) continue;
+      ++count;
+      if (g.tri_occluded(p, self_prim, shadow_s(t), shadow_target(L, t), shadow_tlim(t), w) ||
+          sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w))
+        continue;
+      phong_add(out, m, L, t, na, vd, e, energy);
+    }
   }
   return out;
 }
@@ -729,6 +1333,9 @@ struct March {
 // The whole get_refract march (src/main.rs:343-405): entry refraction, the
 // interior reflective bounce loop (retries and distance budget), exit
 // refraction.  Misses inside the dielectric and trapped rays do not escape.
+// One thread leaves as soon as it has nothing to march; under a cooperative
+// geometry every lane stays while any lane of its warp marches, and passes
+// its own flag down to the sweeps.
 template <class G, class W>
 __device__ inline March march(const G& g, V3 p, V3 n0, V3 d0, float k, bool want,
                               float max_distance, int max_retries, W& w) {
@@ -739,14 +1346,19 @@ __device__ inline March march(const G& g, V3 p, V3 n0, V3 d0, float k, bool want
   mm.od = d0;
   mm.prim = -1;
   mm.iters = 0;
-  if (!want) return mm;
+  if constexpr (!G::COOP) {
+    if (!want) return mm;
+  }
   bool ok_in;
   V3 r = refract3(n0, d0, k, ok_in);
-  if (!ok_in) return mm;  // TIR at entry -> Trapped (main.rs:354-358)
-  mm.iters = 1;
+  bool go = want && ok_in;  // TIR at entry -> Trapped (main.rs:354-358)
+  if constexpr (!G::COOP) {
+    if (!go) return mm;
+  }
+  mm.iters = go ? 1 : 0;
   float inv_k = 1.0f / k;
-  BackHit b = g.back(p, r, w);
-  bool alive = b.t < BIG;  // miss -> Infinite
+  BackHit b = g.back(p, r, go, w);
+  bool alive = go && b.t < BIG;  // miss -> Infinite
   bool has_out;
   V3 out = refract3(b.n, r, inv_k, has_out);
   has_out = alive && has_out;
@@ -754,14 +1366,17 @@ __device__ inline March march(const G& g, V3 p, V3 n0, V3 d0, float k, bool want
   int prim = b.prim;
   float travel = alive ? b.t : 0.0f;
   int retry = 0;
-  while (alive && !has_out && travel <= max_distance && retry < max_retries) {
+  for (;;) {
+    bool run = alive && !has_out && travel <= max_distance && retry < max_retries;
+    if (!G::any(run)) break;
     V3 f = reflect3(d, n);  // get_reflect on the interior hit (main.rs:380)
-    BackHit b2 = g.back(c, f, w);
+    BackHit b2 = g.back(c, f, run, w);
+    if (!run) continue;
     ++retry;
     ++mm.iters;
     if (!(b2.t < BIG)) {
       alive = false;
-      break;
+      continue;
     }
     bool ok2;
     V3 out2 = refract3(b2.n, f, inv_k, ok2);
@@ -773,18 +1388,20 @@ __device__ inline March march(const G& g, V3 p, V3 n0, V3 d0, float k, bool want
     travel = travel + b2.t;
     has_out = ok2;
   }
-  mm.escaped = alive && has_out;
-  mm.travel = travel;
-  mm.e = c;
-  mm.od = out;
-  mm.prim = prim;
+  if (go) {
+    mm.escaped = alive && has_out;
+    mm.travel = travel;
+    mm.e = c;
+    mm.od = out;
+    mm.prim = prim;
+  }
   return mm;
 }
 
 // Compiled attributes of kernel `fn` (host): out = {registers per thread,
 // local (spill + stack) bytes per thread, static shared bytes, max threads
-// per block}.
-inline int attrs_of(const void* fn, int* out) {
+// per block, the dynamic shared bytes `dynamic` its launches ask for}.
+inline int attrs_of(const void* fn, int* out, int dynamic = 0) {
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
@@ -792,7 +1409,15 @@ inline int attrs_of(const void* fn, int* out) {
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
   out[3] = a.maxThreadsPerBlock;
+  out[4] = dynamic;
   return 0;
+}
+
+// Launch set-up of a cooperative kernel (host): opt in to its dynamic
+// shared memory (above 48 KB a launch is refused without) -> CUDA error.
+inline int coop_opt_in(const void* fn, int shared_bytes) {
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   shared_bytes);
 }
 
 }  // namespace rt

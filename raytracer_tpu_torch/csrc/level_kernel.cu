@@ -231,7 +231,8 @@ int rt_level_blk(const float* pf, const int* pi, const float* tri, int n_tri, co
 
 // Compiled attributes of the main path's instantiation `which` (0 dense, 1
 // blocked): out = {registers per thread, local (spill + stack) bytes per
-// thread, static shared bytes, max threads per block}.
+// thread, static shared bytes, max threads per block, dynamic shared bytes
+// per launch}.
 int rt_level_attrs(int which, int* out) {
   return rt::attrs_of(which ? (const void*)rt::level_kernel<rt::BlockedGeom, rt::NoWork>
                             : (const void*)rt::level_kernel<rt::DenseGeom, rt::NoWork>,

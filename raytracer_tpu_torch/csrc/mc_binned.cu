@@ -26,12 +26,26 @@
 //                       from one shadow sweep, both counted as casts.
 //
 // What bounds them on an H100: as the whole-walk kernel, issue throughput
-// of the per-thread chunk traversal and warp divergence; the sort only
-// makes a warp's lanes enter the same chunks.  State I/O is 104 bytes in
-// and out per lane per bounce.  128 threads per block, the blocked table
-// read from global memory; shared-memory chunk staging and warp-cooperative
-// gating are later work.  W is the test counter (common.cuh): NoWork on
-// the main path, Work when the caller asks for the per-lane test counts.
+// and load latency of the chunk traversal and warp divergence.  State I/O
+// is 104 bytes in and out per lane per bounce.  128 threads per block.  The
+// primary and the terminal kernel traverse per thread, the blocked table
+// read from global memory (BlockedGeom).  The bounce kernel, which makes
+// nearly all of the walk's sweeps, walks the chunks warp by warp
+// (common.cuh CoopGeom): a chunk that any of the 32 lanes enters is staged
+// once in the warp's shared memory and its rows tested 32 at a time for one
+// ray after the other, each of its two shades makes one pass for all
+// lights, and its control flow is the same in all lanes of a warp (dead
+// lanes and the lanes past the end pass `false` down instead of leaving).
+// A launch lasts as long as its slowest warp, and the sort packs the lanes
+// that march into neighbouring warps, so the wrapper deals the sorted lanes
+// round-robin over the warps (ops/mc_binned.py deal_lanes): 0.26 ms a
+// launch on a mesh11k tile where the sorted order takes 1.2 and the
+// per-thread walk 7.4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  The bounce
+// kernel's per-thread instantiation is kept as the yardstick chip_smoke.py
+// holds the cooperative one against (rt_binned_bounce_thread); no wrapper
+// of the main path launches it.  W is the test counter (common.cuh):
+// NoWork on the main path, Work when the caller asks for the per-lane test
+// counts.
 #include "mc_walk.cuh"
 
 namespace rt {
@@ -120,35 +134,44 @@ binned_primary(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
   w.put(work_out, n, lane);
 }
 
-template <bool FIRST, class W>
-__global__ void __launch_bounds__(128)
+constexpr int BOUNCE_THREADS = 128;
+
+// Every lane runs every statement: `alive` (and what follows from it) is
+// passed down to the sweeps, which a cooperative geometry makes warp by
+// warp.  A lane past the end reads the last lane's state and stores nothing.
+template <class G, bool FIRST, class W>
+__global__ void __launch_bounds__(BOUNCE_THREADS)
 binned_bounce(const float* __restrict__ sf, const int* __restrict__ si,
-              const float* __restrict__ unifs, BlockedGeom g, float* __restrict__ out_f,
+              const float* __restrict__ unifs, G g, float* __restrict__ out_f,
               int* __restrict__ out_i, int* __restrict__ casts_out, int* __restrict__ work_out,
               int n, float max_distance, int max_retries) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const bool in_tile = lane < n;
+  if (!in_tile) lane = n - 1;
   W w{};
   State s = load_state(sf, si, n, lane);
+  const bool alive = in_tile && s.alive;
   int casts = 0;
-  if (s.alive) {
-    const Cur& c = s.c;
-    Mat m = eval_material(g.tb, c.obj, c.u, c.v);
-    V3 na = rotate_from_z(c.n, m.tn);  // the adjusted normal at the current hit
-    if (!FIRST) {
-      // the previous bounce's hit-shade, view = -incoming
-      V3 sh = get_shade(g, m, c.p, na, neg(c.d), true, c.prim, casts, w);
+  const Cur c = s.c;
+  Mat m = eval_material(g.tb, c.obj, c.u, c.v);
+  V3 na = rotate_from_z(c.n, m.tn);  // the adjusted normal at the current hit
+  if (!FIRST) {
+    // the previous bounce's hit-shade, view = -incoming
+    V3 sh = get_shade(g, m, c.p, na, neg(c.d), alive, c.prim, casts, w);
+    if (alive) {
       s.acc.x += s.pre.x * (s.df * sh.x);
       s.acc.y += s.pre.y * (s.df * sh.y);
       s.acc.z += s.pre.z * (s.df * sh.z);
     }
-    Lobe lb = scatter(m, c, true, unifs[lane], unifs[n + lane], unifs[2 * n + lane]);
-    Advance a = advance(g, m, c, lb, max_distance, max_retries, casts, w);
-    bool use_next = a.nx.valid;
-    bool is_rb = !lb.sel_f;
-    // advance misses shade the scattered self now (refract misses: black)
-    bool ns_miss = a.active && !use_next && is_rb;
-    V3 sh = get_shade(g, m, c.p, na, neg(lb.sd), ns_miss, c.prim, casts, w);
+  }
+  Lobe lb = scatter(m, c, alive, unifs[lane], unifs[n + lane], unifs[2 * n + lane]);
+  Advance a = advance(g, m, c, lb, max_distance, max_retries, casts, w);
+  bool use_next = a.nx.valid;
+  bool is_rb = !lb.sel_f;
+  // advance misses shade the scattered self now (refract misses: black)
+  bool ns_miss = a.active && !use_next && is_rb;
+  V3 sh = get_shade(g, m, c.p, na, neg(lb.sd), ns_miss, c.prim, casts, w);
+  if (alive) {  // a dead lane's state is final
     if (ns_miss) {
       s.acc.x += s.scale.x * sh.x;
       s.acc.y += s.scale.y * sh.y;
@@ -166,9 +189,15 @@ binned_bounce(const float* __restrict__ sf, const int* __restrict__ si,
     s.alive = a.active && use_next;
     s.c = cur_of(a.nx, a.d);
   }
-  store_state(out_f, out_i, n, lane, s);
-  casts_out[lane] = casts;
-  w.put(work_out, n, lane);
+  if (in_tile) {
+    store_state(out_f, out_i, n, lane, s);
+    casts_out[lane] = casts;
+    w.put(work_out, n, lane);
+  }
+  if constexpr (G::COOP) {
+    __syncwarp();
+    if (!in_tile) w.put_helped(work_out, n, n - 1);
+  }
 }
 
 template <bool FIRST, class W>
@@ -214,6 +243,27 @@ rt::BlockedGeom blocked_geom(const float* tri, int n_tri, const float* sph, int 
                          rt::Blk{btri, box, sup, n_chunks}};
 }
 
+template <class G>
+int launch_bounce(const float* st_f, const int* st_i, const float* unifs, G g, float* out_f,
+                  int* out_i, int* casts, int* work, int n, int first, float max_distance,
+                  int max_retries, void* stream) {
+  using rt::NoWork;
+  using rt::Work;
+  auto kernel = first ? (work ? &rt::binned_bounce<G, true, Work>
+                              : &rt::binned_bounce<G, true, NoWork>)
+                      : (work ? &rt::binned_bounce<G, false, Work>
+                              : &rt::binned_bounce<G, false, NoWork>);
+  int shared = G::COOP ? rt::coop_shared_bytes(rt::BOUNCE_THREADS) : 0;
+  if (shared) {
+    int err = rt::coop_opt_in((const void*)kernel, shared);
+    if (err) return err;
+  }
+  int blocks = (n + rt::BOUNCE_THREADS - 1) / rt::BOUNCE_THREADS;
+  kernel<<<blocks, rt::BOUNCE_THREADS, shared, (cudaStream_t)stream>>>(
+      st_f, st_i, unifs, g, out_f, out_i, casts, work, n, max_distance, max_retries);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -234,22 +284,36 @@ int rt_binned_primary(const float* ray_o, const float* ray_d, const float* tri, 
   return (int)cudaGetLastError();
 }
 
-// unifs: [3, n] this bounce's uniforms in the state's lane order.
+// unifs: [3, n] this bounce's uniforms in the state's lane order.  The
+// warp-cooperative walk: after the blocked tables, the hot rows
+// [NCH * 128, 16], their ids [NCH * 128], the chunks' live row counts [NCH]
+// and the triangles' rows [n_tri].
 int rt_binned_bounce(const float* st_f, const int* st_i, const float* unifs, const float* tri,
                      int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
                      const float* lights, int n_light, const float* btri, const float* box,
-                     const float* sup, int n_chunks, float* out_f, int* out_i, int* casts,
-                     int* work, int n, int first, float max_distance, int max_retries,
-                     void* stream) {
+                     const float* sup, int n_chunks, const float* hot, const int* ids,
+                     const int* live, const int* row_of_tri, float* out_f, int* out_i,
+                     int* casts, int* work, int n, int first, float max_distance,
+                     int max_retries, void* stream) {
+  rt::BlockedGeom bg = blocked_geom(tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light, btri,
+                                    box, sup, n_chunks);
+  rt::CoopGeom g{bg.tb, bg.bk, rt::Hot{(const float4*)hot, ids, live, row_of_tri}};
+  return launch_bounce(st_f, st_i, unifs, g, out_f, out_i, casts, work, n, first, max_distance,
+                       max_retries, stream);
+}
+
+// The same bounce with every thread traversing the blocked table alone
+// (BlockedGeom): what the cooperative walk is held against.
+int rt_binned_bounce_thread(const float* st_f, const int* st_i, const float* unifs,
+                            const float* tri, int n_tri, const float* sph, int n_sph,
+                            const float* mat, int n_obj, const float* lights, int n_light,
+                            const float* btri, const float* box, const float* sup, int n_chunks,
+                            float* out_f, int* out_i, int* casts, int* work, int n, int first,
+                            float max_distance, int max_retries, void* stream) {
   rt::BlockedGeom g = blocked_geom(tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light, btri,
                                    box, sup, n_chunks);
-  auto kernel = first ? (work ? &rt::binned_bounce<true, rt::Work>
-                              : &rt::binned_bounce<true, rt::NoWork>)
-                      : (work ? &rt::binned_bounce<false, rt::Work>
-                              : &rt::binned_bounce<false, rt::NoWork>);
-  kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-      st_f, st_i, unifs, g, out_f, out_i, casts, work, n, max_distance, max_retries);
-  return (int)cudaGetLastError();
+  return launch_bounce(st_f, st_i, unifs, g, out_f, out_i, casts, work, n, first, max_distance,
+                       max_retries, stream);
 }
 
 // photon: [3, n] in the state's lane order.
@@ -269,18 +333,23 @@ int rt_binned_terminal(const float* st_f, const int* st_i, const float* tri, int
   return (int)cudaGetLastError();
 }
 
-// Compiled attributes of the main path's instantiations: which = 0
-// primary, 1 bounce<first>, 2 bounce, 3 terminal<first>, 4 terminal (layout
-// as rt_level_attrs).
+// Compiled attributes of the instantiations that count nothing: which = 0
+// primary, 1 bounce<first>, 2 bounce (both the cooperative walk), 3
+// terminal<first>, 4 terminal, 5 the per-thread bounce (layout as
+// rt_level_attrs).
 int rt_binned_attrs(int which, int* out) {
+  using rt::BlockedGeom;
+  using rt::CoopGeom;
   using rt::NoWork;
   const void* fns[] = {(const void*)rt::binned_primary<NoWork>,
-                       (const void*)rt::binned_bounce<true, NoWork>,
-                       (const void*)rt::binned_bounce<false, NoWork>,
+                       (const void*)rt::binned_bounce<CoopGeom, true, NoWork>,
+                       (const void*)rt::binned_bounce<CoopGeom, false, NoWork>,
                        (const void*)rt::binned_terminal<true, NoWork>,
-                       (const void*)rt::binned_terminal<false, NoWork>};
-  if (which < 0 || which > 4) return -1;
-  return rt::attrs_of(fns[which], out);
+                       (const void*)rt::binned_terminal<false, NoWork>,
+                       (const void*)rt::binned_bounce<BlockedGeom, false, NoWork>};
+  if (which < 0 || which > 5) return -1;
+  bool coop = which == 1 || which == 2;
+  return rt::attrs_of(fns[which], out, coop ? rt::coop_shared_bytes(rt::BOUNCE_THREADS) : 0);
 }
 
 }  // extern "C"

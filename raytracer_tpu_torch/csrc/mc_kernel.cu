@@ -3,7 +3,7 @@
 // Replaces the TPU kernel raytracer_tpu/ops/mc_pallas.py:474 `_mc_kernel`
 // (wrapper `trace` :541; `mc_step` :58, `mc_terminal` :449), both of its
 // branches: one instantiation per geometry policy (common.cuh DenseGeom;
-// BlockedGeom for the large-mesh blocked layout, mc_pallas.py:485-487).
+// CoopGeom for the large-mesh blocked layout, mc_pallas.py:485-487).
 // Plain version: raytracer_tpu_torch/ops/mc_kernel.py `trace_plain`.
 //
 // One thread per ray walks the whole path: the primary cast, `depth`
@@ -13,38 +13,58 @@
 //
 // What bounds it on an H100: neither DRAM bytes (each ray reads 12 + 12 *
 // depth bytes of rays and draws and writes 16) nor FLOP peak, but issue
-// throughput over long, divergent, data-dependent loops — every bounce
-// runs up to ~15 sweeps (advance cast, 3 lights' shadow rays, up to 11
-// march casts): all 64 triangles and 4 spheres on the dense demo scene,
-// the entered chunks on a blocked mesh — and lanes of a warp take
-// different roulette branches, march lengths and chunks.  The design keeps
-// it simple and correct first: 128 threads per block, the scene tables
-// read from global memory through const __restrict__ pointers, the depth
-// loop a runtime loop (not unrolled) to hold register pressure down,
-// any-hit shadow loops that stop at the first occluder, and per-lane cast
-// counts summed by the wrapper.  Staging tables or chunks in shared memory
-// and regrouping lanes by branch are later work.  W is the test counter
-// (common.cuh): NoWork on the main path, Work when the caller asks for
-// the per-lane test counts.
+// throughput and load latency over long, divergent, data-dependent loops
+// — every bounce runs up to ~15 sweeps (advance cast, 3 lights' shadow
+// rays, up to 11 march casts): all 64 triangles and 4 spheres on the dense
+// demo scene, the entered chunks on a blocked mesh — and lanes of a warp
+// take different roulette branches, march lengths and chunks.  Dense: 128
+// threads per block, the scene tables read from global memory through
+// const __restrict__ pointers, the depth loop a runtime loop (not
+// unrolled) to hold register pressure down, any-hit shadow loops that stop
+// at the first occluder, per-lane cast counts summed by the wrapper.
+// Blocked: one thread alone pays a dependent global load for every row of
+// every chunk it enters, and the launch waits for the warp with the longest
+// chain of 128-row loops, so the blocked instantiation walks the chunks
+// warp by warp (common.cuh CoopGeom): the 32 lanes stage each chunk that
+// any of them enters once in the warp's shared memory and test 32 of its
+// rows at a time for one ray after the other, a shading point's three
+// shadow rays share one pass, and the kernel's control flow is the same in
+// all lanes of a warp (a lane past the tile's end, a dead lane and a lane
+// that does not march only pass `false` down).  On a mesh11k tile it takes
+// 1.8 ms where the per-thread walk takes 16.5 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md); half of a warp's
+// cycles are still row tests, a fifth box tests, each a chain of dependent
+// instructions.  The per-thread BlockedGeom instantiation is kept as the
+// yardstick that chip_smoke.py holds the cooperative walk against
+// (rt_mc_trace_blk_thread); no wrapper of the main path launches it.  W is
+// the test counter (common.cuh): NoWork on the main path, Work when the
+// caller asks for the per-lane test counts.
 #include "mc_walk.cuh"
 
 namespace rt {
 
+constexpr int MC_THREADS = 128;
+
 template <class G, class W>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(MC_THREADS)
 mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
           const float* __restrict__ unifs, G g, float* __restrict__ photon,
           int* __restrict__ casts_out, int* __restrict__ work_out, int n, int depth,
           float max_distance, int max_retries) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const bool in_tile = lane < n;
+  if constexpr (G::COOP) {
+    if (!in_tile) lane = n - 1;  // sweeps along with its warp, wants nothing, writes nothing
+  } else {
+    if (!in_tile) return;
+  }
   const Tables& tb = g.tb;
   W w{};
   V3 o0 = v3(ray_o[lane], ray_o[n + lane], ray_o[2 * n + lane]);
   V3 d0 = v3(ray_d[lane], ray_d[n + lane], ray_d[2 * n + lane]);
 
   // primary cast (main.rs:1150)
-  Hit h = g.nearest(o0, d0, FACE_FRONT, -1, FACE_FRONT, true, w);
+  Hit h = g.nearest(o0, d0, FACE_FRONT, -1, FACE_FRONT, in_tile, w);
   int casts = 1;
   bool alive = h.valid;
   V3 acc = v3(0.0f, 0.0f, 0.0f), scale = v3(1.0f, 1.0f, 1.0f);
@@ -89,21 +109,32 @@ mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
   // depth exhausted: terminate with shade(self) (main.rs:524-527)
   Mat m3 = eval_material(tb, c.obj, c.u, c.v);
   V3 sh = shade_at(g, m3, c.p, c.n, c.d, alive, c.prim, casts, w);
-  photon[lane] = acc.x + (alive ? scale.x * sh.x : 0.0f);
-  photon[n + lane] = acc.y + (alive ? scale.y * sh.y : 0.0f);
-  photon[2 * n + lane] = acc.z + (alive ? scale.z * sh.z : 0.0f);
-  casts_out[lane] = casts;
-  w.put(work_out, n, lane);
+  if (in_tile) {
+    photon[lane] = acc.x + (alive ? scale.x * sh.x : 0.0f);
+    photon[n + lane] = acc.y + (alive ? scale.y * sh.y : 0.0f);
+    photon[2 * n + lane] = acc.z + (alive ? scale.z * sh.z : 0.0f);
+    casts_out[lane] = casts;
+    w.put(work_out, n, lane);
+  }
+  if constexpr (G::COOP) {
+    __syncwarp();
+    if (!in_tile) w.put_helped(work_out, n, n - 1);
+  }
 }
 
 template <class G>
 int launch_mc(const float* ray_o, const float* ray_d, const float* unifs, G g, float* photon,
               int* casts, int* work, int n, int depth, float max_distance, int max_retries,
               void* stream) {
-  int blocks = (n + 127) / 128;
+  int blocks = (n + MC_THREADS - 1) / MC_THREADS;
   auto kernel = work ? &mc_kernel<G, Work> : &mc_kernel<G, NoWork>;
-  kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(ray_o, ray_d, unifs, g, photon, casts, work, n,
-                                                  depth, max_distance, max_retries);
+  int shared = G::COOP ? coop_shared_bytes(MC_THREADS) : 0;
+  if (shared) {
+    int err = coop_opt_in((const void*)kernel, shared);
+    if (err) return err;
+  }
+  kernel<<<blocks, MC_THREADS, shared, (cudaStream_t)stream>>>(
+      ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance, max_retries);
   return (int)cudaGetLastError();
 }
 
@@ -123,23 +154,46 @@ int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, cons
                        max_retries, stream);
 }
 
-// The blocked instantiation (tables as rt_level_blk).
+// The blocked instantiation: the warp-cooperative walk (tables as
+// rt_level_blk, then the hot rows [NCH * 128, 16], their ids [NCH * 128],
+// the chunks' live row counts [NCH] and the triangles' rows [n_tri]).
 int rt_mc_trace_blk(const float* ray_o, const float* ray_d, const float* unifs, const float* tri,
                     int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
                     const float* lights, int n_light, const float* btri, const float* box,
-                    const float* sup, int n_chunks, float* photon, int* casts, int* work, int n,
-                    int depth, float max_distance, int max_retries, void* stream) {
+                    const float* sup, int n_chunks, const float* hot, const int* ids,
+                    const int* live, const int* row_of_tri, float* photon, int* casts, int* work,
+                    int n, int depth, float max_distance, int max_retries, void* stream) {
+  rt::CoopGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light},
+                 rt::Blk{btri, box, sup, n_chunks},
+                 rt::Hot{(const float4*)hot, ids, live, row_of_tri}};
+  return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance,
+                       max_retries, stream);
+}
+
+// The same walk with every thread traversing the blocked table alone
+// (BlockedGeom): what the cooperative walk is held against.
+int rt_mc_trace_blk_thread(const float* ray_o, const float* ray_d, const float* unifs,
+                           const float* tri, int n_tri, const float* sph, int n_sph,
+                           const float* mat, int n_obj, const float* lights, int n_light,
+                           const float* btri, const float* box, const float* sup, int n_chunks,
+                           float* photon, int* casts, int* work, int n, int depth,
+                           float max_distance, int max_retries, void* stream) {
   rt::BlockedGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light},
                     rt::Blk{btri, box, sup, n_chunks}};
   return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance,
                        max_retries, stream);
 }
 
-// Compiled attributes of the main path's instantiation `which` (0 dense, 1
-// blocked), layout as rt_level_attrs.
+// Compiled attributes of instantiation `which` (0 dense, 1 blocked: the
+// cooperative walk, 2 the per-thread blocked walk), layout as
+// rt_level_attrs.
 int rt_mc_attrs(int which, int* out) {
-  return rt::attrs_of(which ? (const void*)rt::mc_kernel<rt::BlockedGeom, rt::NoWork>
-                            : (const void*)rt::mc_kernel<rt::DenseGeom, rt::NoWork>,
+  using rt::NoWork;
+  if (which == 1)
+    return rt::attrs_of((const void*)rt::mc_kernel<rt::CoopGeom, NoWork>, out,
+                        rt::coop_shared_bytes(rt::MC_THREADS));
+  return rt::attrs_of(which ? (const void*)rt::mc_kernel<rt::BlockedGeom, NoWork>
+                            : (const void*)rt::mc_kernel<rt::DenseGeom, NoWork>,
                       out);
 }
 

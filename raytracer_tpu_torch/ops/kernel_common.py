@@ -31,6 +31,7 @@ the factored-target shadow algebra (_ShadowSweep below).
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -50,6 +51,9 @@ TRI_COLS, SPH_COLS, MAT_COLS, LIGHT_COLS = 34, 8, 16, 16
 # Blocked triangle rows: pack_tri's 34 columns, the original triangle id
 # (34, as float32: exact below 2^24) and one pad column (a 144-byte row).
 BLK_COLS, BLK_ID = 36, 34
+# The hot table of the warp-cooperative sweeps: the 16 columns of a blocked
+# row that decide a hit (fn 0:3, d 3, g0..g2 4:13, h 13:16), a 64-byte row.
+HOT_COLS = 16
 
 
 class Tables(NamedTuple):
@@ -128,6 +132,12 @@ class BlkTables(NamedTuple):
     sup: torch.Tensor  # [NCH / 8, 8] supergroup AABBs (pack_sup)
     chunk_of_prim: torch.Tensor  # [T + max(S, 1)] int64: chunk per primitive
     n_chunks: int  # chunks that hold at least one triangle
+    # what the warp-cooperative sweeps read (pack_hot); the plain sweeps and
+    # the per-thread kernels read `tri` alone
+    hot: torch.Tensor | None = None  # [T_pad, 16] columns 0:16 of `tri`
+    ids: torch.Tensor | None = None  # [T_pad] int32 original id (-1 = pad row)
+    live: torch.Tensor | None = None  # [NCH] int32 live rows of each chunk
+    row_of_tri: torch.Tensor | None = None  # [T] int32 blocked row of a triangle
 
 
 def pack_tri_blocked(scene: Scene, base: torch.Tensor) -> torch.Tensor:
@@ -149,17 +159,34 @@ def pack_sup(box: torch.Tensor) -> torch.Tensor:
                       box.new_zeros((g.shape[0], 2))], dim=1).contiguous()
 
 
+def pack_hot(tri: torch.Tensor, perm: torch.Tensor, n_tri: int):
+    """The cooperative sweeps' tables from the blocked rows `tri` [T_pad, 36]
+    and blk_perm -> (hot [T_pad, 16] float32, the columns of a row that
+    decide a hit, as 64-byte rows; ids [T_pad] int32, the original triangle
+    of each row, -1 on pad rows; live [NCH] int32, each chunk's row count:
+    pad rows trail the live ones, so a row loop runs to a bound it knows
+    before it starts; row_of_tri [T] int32, the inverse of ids, by which a
+    lane finds its excluded triangle's row without reading an id)."""
+    perm = perm.long()
+    is_live = perm >= 0
+    hot = tri[:, :HOT_COLS].contiguous()
+    ids = torch.where(is_live, perm, -1).to(torch.int32)
+    live = is_live.view(-1, BLK_CHUNK).sum(dim=1).to(torch.int32)
+    rows = torch.arange(perm.shape[0], dtype=torch.int32, device=perm.device)
+    row_of_tri = torch.zeros(n_tri, dtype=torch.int32, device=perm.device)
+    row_of_tri[perm[is_live]] = rows[is_live]
+    return hot, ids, live, row_of_tri
+
+
 def pack_blocked(scene: Scene) -> BlkTables:
     box = scene.blk_box.float().contiguous()
-    perm = scene.blk_perm.long()
-    live = perm >= 0
-    rows = torch.arange(perm.shape[0], device=perm.device)
-    chunk_of_tri = torch.zeros(scene.n_tri, dtype=torch.int64, device=perm.device)
-    chunk_of_tri[perm[live]] = rows[live] // BLK_CHUNK
+    tri = pack_tri_blocked(scene, scene.tables.tri)
+    hot, ids, live, row_of_tri = pack_hot(tri, scene.blk_perm, scene.n_tri)
+    chunk_of_tri = row_of_tri.long() // BLK_CHUNK
     chunk_of_prim = torch.cat([chunk_of_tri, box.shape[0] + torch.arange(
-        max(scene.n_sph, 1), dtype=torch.int64, device=perm.device)])
-    return BlkTables(pack_tri_blocked(scene, scene.tables.tri), box, pack_sup(box),
-                     chunk_of_prim, -(-scene.n_tri // BLK_CHUNK))
+        max(scene.n_sph, 1), dtype=torch.int64, device=box.device)])
+    return BlkTables(tri, box, pack_sup(box), chunk_of_prim,
+                     -(-scene.n_tri // BLK_CHUNK), hot, ids, live, row_of_tri)
 
 
 # ---------------------------------------------------------------------------
@@ -561,61 +588,62 @@ def get_shade(m, geom, px, py, pz, nax, nay, naz, vdx, vdy, vdz,
     e = 1.0 / (m["smoothness"] + F32_EPS)
     energy = (e + 8.0) / _EIGHT_PI
 
-    for li in range(tb.n_light):
-        L = tb.lights[li]
-        ltype = L[0]
-        LOX, LOY, LOZ = L[1], L[2], L[3]
-        LDX, LDY, LDZ = L[4], L[5], L[6]
-        LCR, LCG, LCB = L[7], L[8], L[9]
-        ANGLE, SOFT, HAS_O = L[10], L[11], L[12]
+    with _shared_pass():  # the lights of one shading point share their chunks
+        for li in range(tb.n_light):
+            L = tb.lights[li]
+            ltype = L[0]
+            LOX, LOY, LOZ = L[1], L[2], L[3]
+            LDX, LDY, LDZ = L[4], L[5], L[6]
+            LCR, LCG, LCB = L[7], L[8], L[9]
+            ANGLE, SOFT, HAS_O = L[10], L[11], L[12]
 
-        # approximate_into_directional (lights.rs:44-93)
-        offx, offy, offz = px - LOX, py - LOY, pz - LOZ
-        mag = torch.sqrt(offx * offx + offy * offy + offz * offz)
-        inv_mag = 1.0 / torch.clamp_min(mag, 1e-30)
-        odx, ody, odz = offx * inv_mag, offy * inv_mag, offz * inv_mag
-        cos_ang = (LDX * offx + LDY * offy + LDZ * offz) * inv_mag
-        angle = torch.abs(torch.acos(torch.clamp(cos_ang, -1.0, 1.0)))
-        in_cone = angle <= ANGLE
-        ang_att = powf(torch.clamp_min(1.0 - angle / torch.clamp_min(ANGLE, 1e-30), 0.0),
-                       SOFT + F32_EPS)
-        dist_att = 1.0 / (mag + F32_EPS)
+            # approximate_into_directional (lights.rs:44-93)
+            offx, offy, offz = px - LOX, py - LOY, pz - LOZ
+            mag = torch.sqrt(offx * offx + offy * offy + offz * offz)
+            inv_mag = 1.0 / torch.clamp_min(mag, 1e-30)
+            odx, ody, odz = offx * inv_mag, offy * inv_mag, offz * inv_mag
+            cos_ang = (LDX * offx + LDY * offy + LDZ * offz) * inv_mag
+            angle = torch.abs(torch.acos(torch.clamp(cos_ang, -1.0, 1.0)))
+            in_cone = angle <= ANGLE
+            ang_att = powf(torch.clamp_min(1.0 - angle / torch.clamp_min(ANGLE, 1e-30), 0.0),
+                           SOFT + F32_EPS)
+            dist_att = 1.0 / (mag + F32_EPS)
 
-        is_dir = ltype == 0.0
-        is_spot = ltype == 1.0
-        att = torch.where(is_dir, 1.0, torch.where(is_spot, ang_att * dist_att, dist_att))
-        ldx = torch.where(is_dir, LDX, odx)
-        ldy = torch.where(is_dir, LDY, ody)
-        ldz = torch.where(is_dir, LDZ, odz)
-        lvalid = ~is_spot | in_cone
+            is_dir = ltype == 0.0
+            is_spot = ltype == 1.0
+            att = torch.where(is_dir, 1.0, torch.where(is_spot, ang_att * dist_att, dist_att))
+            ldx = torch.where(is_dir, LDX, odx)
+            ldy = torch.where(is_dir, LDY, ody)
+            ldz = torch.where(is_dir, LDZ, odz)
+            lvalid = ~is_spot | in_cone
 
-        cosine = -(ldx * nax + ldy * nay + ldz * naz)
-        consider = active & lvalid & (cosine > 0.0)
-        limit = torch.where(HAS_O > 0.5, mag, BIG)
-        s = torch.where(is_dir, 0.0, 1.0)
-        occ = dict(
-            s=s,
-            tx=torch.where(is_dir, -LDX, LOX),
-            ty=torch.where(is_dir, -LDY, LOY),
-            tz=torch.where(is_dir, -LDZ, LOZ),
-            tlim=torch.where(is_dir, limit, 1.0),
-            ndx=-ldx, ndy=-ldy, ndz=-ldz,
-            slim=limit, act=consider,
-        )
-        count = count + consider.to(torch.int32)
-        lit = consider & ~sweep.blocked(occ)
+            cosine = -(ldx * nax + ldy * nay + ldz * naz)
+            consider = active & lvalid & (cosine > 0.0)
+            limit = torch.where(HAS_O > 0.5, mag, BIG)
+            s = torch.where(is_dir, 0.0, 1.0)
+            occ = dict(
+                s=s,
+                tx=torch.where(is_dir, -LDX, LOX),
+                ty=torch.where(is_dir, -LDY, LOY),
+                tz=torch.where(is_dir, -LDZ, LOZ),
+                tlim=torch.where(is_dir, limit, 1.0),
+                ndx=-ldx, ndy=-ldy, ndz=-ldz,
+                slim=limit, act=consider,
+            )
+            count = count + consider.to(torch.int32)
+            lit = consider & ~sweep.blocked(occ)
 
-        # get_diffuse / get_specular (materials.rs:46-66)
-        lam = cosine
-        refx = 2.0 * lam * nax + ldx
-        refy = 2.0 * lam * nay + ldy
-        refz = 2.0 * lam * naz + ldz
-        amount = powf(torch.clamp_min(refx * vdx + refy * vdy + refz * vdz, 0.0), e) * energy
-        dterm = lam * (1.0 - m["shiness"])
-        sterm = amount * m["shiness"]
-        r = r + torch.where(lit, (m["dr"] * dterm + m["sr"] * sterm) * LCR * att, 0.0)
-        g = g + torch.where(lit, (m["dg"] * dterm + m["sg"] * sterm) * LCG * att, 0.0)
-        b = b + torch.where(lit, (m["db"] * dterm + m["sb"] * sterm) * LCB * att, 0.0)
+            # get_diffuse / get_specular (materials.rs:46-66)
+            lam = cosine
+            refx = 2.0 * lam * nax + ldx
+            refy = 2.0 * lam * nay + ldy
+            refz = 2.0 * lam * naz + ldz
+            amount = powf(torch.clamp_min(refx * vdx + refy * vdy + refz * vdz, 0.0), e) * energy
+            dterm = lam * (1.0 - m["shiness"])
+            sterm = amount * m["shiness"]
+            r = r + torch.where(lit, (m["dr"] * dterm + m["sr"] * sterm) * LCR * att, 0.0)
+            g = g + torch.where(lit, (m["dg"] * dterm + m["sg"] * sterm) * LCG * att, 0.0)
+            b = b + torch.where(lit, (m["db"] * dterm + m["sb"] * sterm) * LCB * att, 0.0)
 
     return r, g, b, count
 
@@ -793,6 +821,68 @@ def slab(box, ox, oy, oz, ix, iy, iz, tmax):
     return (tn <= torch.minimum(tf, torch.as_tensor(tmax, device=tf.device))) & (tf >= 0.0)
 
 
+class ChunkLog:
+    """What the blocked plain sweeps of R lanes entered while it was the
+    active log (count_chunks): the plain version of the kernels' two
+    traversal counters (utils/kernels.py WORK_ROWS).
+
+    lane [R]: per lane, the chunks whose rows one of its rays tested (a
+    shading point's rays to several lights count one each): `chunk`.
+    group[g] [ceil(R / g)]: per g consecutive lanes, the chunks that any of
+    their rays entered in one pass: with g = 32, what a warp of the
+    cooperative kernels stages, `wchunk`.  A pass is one nearest or interior
+    sweep, or the shadow sweeps to all lights of one shading point."""
+
+    def __init__(self, n_lanes: int, device, groups=(32,)):
+        self.lane = torch.zeros(n_lanes, dtype=torch.int64, device=device)
+        self.group = {g: torch.zeros(-(-n_lanes // g), dtype=torch.int64, device=device)
+                      for g in groups}
+        self._pass = None  # chunk -> lanes that entered it in the open pass
+
+    def enter(self, c: int, lanes: torch.Tensor) -> None:
+        self.lane += lanes
+        if self._pass is None:
+            self._staged(lanes)
+        else:
+            self._pass[c] = self._pass[c] | lanes if c in self._pass else lanes
+
+    def _staged(self, lanes: torch.Tensor) -> None:
+        for g, acc in self.group.items():
+            pad = acc.shape[0] * g - lanes.shape[0]
+            acc += torch.nn.functional.pad(lanes, (0, pad)).view(-1, g).any(dim=1)
+
+    @contextlib.contextmanager
+    def one_pass(self):
+        """Sweeps inside share their chunks: each chunk counts once a group."""
+        self._pass = {}
+        try:
+            yield
+        finally:
+            for lanes in self._pass.values():
+                self._staged(lanes)
+            self._pass = None
+
+
+_chunk_log: ChunkLog | None = None
+
+
+@contextlib.contextmanager
+def count_chunks(n_lanes: int, device="cpu", groups=(32,)):
+    """Log the chunks that the blocked plain sweeps enter inside the block
+    -> the ChunkLog.  Every sweep inside must run on these n_lanes lanes."""
+    global _chunk_log
+    log = _chunk_log = ChunkLog(n_lanes, device, groups)
+    try:
+        yield log
+    finally:
+        _chunk_log = None
+
+
+def _shared_pass():
+    """One pass for the sweeps inside, where a ChunkLog is active."""
+    return _chunk_log.one_pass() if _chunk_log is not None else contextlib.nullcontext()
+
+
 def _chunks(bt: BlkTables, o, inv, tmax_fn, gate):
     """Walk the two gate tiers for lanes `gate`: yields (chunk index, [R]
     mask of lanes whose ray enters the supergroup's and the chunk's box
@@ -808,6 +898,8 @@ def _chunks(bt: BlkTables, o, inv, tmax_fn, gate):
         for c in range(c0, min(c0 + SUP_CHUNKS, bt.n_chunks)):
             enter = slab(bt.box[c], *o, *inv, tmax_fn()) & in_sup & gate()
             if bool(enter.any()):
+                if _chunk_log is not None:
+                    _chunk_log.enter(c, enter)
                 yield c, enter
 
 
@@ -972,15 +1064,27 @@ def check_tables(tb: Tables, device, bt: BlkTables | None = None) -> None:
         check("blk_sup", bt.sup, torch.float32, (nch // SUP_CHUNKS, 8), device)
         if nch % SUP_CHUNKS or bt.n_chunks != -(-tb.n_tri // BLK_CHUNK):
             raise ValueError("blocked tables do not fit the scene")
+        if bt.hot is not None:  # the cooperative walks' tables (pack_hot)
+            check("blk_hot", bt.hot, torch.float32, (nch * BLK_CHUNK, HOT_COLS), device)
+            check("blk_ids", bt.ids, torch.int32, (nch * BLK_CHUNK,), device)
+            check("blk_live", bt.live, torch.int32, (nch,), device)
+            check("blk_row_of_tri", bt.row_of_tri, torch.int32, (tb.n_tri,), device)
+            if bt.hot.data_ptr() % 16 or bt.ids.data_ptr() % 16:  # copied 16 bytes at a time
+                raise ValueError("blk_hot and blk_ids must be 16-byte aligned")
 
 
-def kernel_geometry(tb: Tables, bt: BlkTables | None = None) -> tuple:
+def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False) -> tuple:
     """The scene arguments of a kernel's C entry (utils/kernels.py
     SIGNATURES): the dense tables and their counts, then, for a blocked
     instantiation, the blocked rows, chunk and supergroup boxes and the
-    chunk count."""
+    chunk count, then, for a warp-cooperative one (`hot`), the hot rows,
+    their ids, the chunks' live row counts and the triangles' rows."""
     geo = (tb.tri, tb.n_tri, tb.sph, tb.n_sph, tb.mat, tb.mat.shape[0],
            tb.lights, tb.n_light)
     if bt is not None:
         geo += (bt.tri, bt.box, bt.sup, bt.n_chunks)
+    if hot:
+        if bt is None or bt.hot is None:
+            raise ValueError("the cooperative kernels need the hot tables (pack_blocked)")
+        geo += (bt.hot, bt.ids, bt.live, bt.row_of_tri)
     return geo

@@ -8,14 +8,21 @@ keeps a lane's rays in one thread from the primary cast to the terminal;
 on a large mesh the bounce rays of neighbouring lanes scatter, so here the
 walk is cut at every bounce: the walk state lives in device memory and,
 before every bounce, lanes are sorted by (dead?, the blocked chunk of the
-current hit, the predicted outgoing octant) so that neighbouring threads
-start their casts from the same leaf boxes.
+current hit, the predicted outgoing octant), as on the TPU, and then dealt
+round-robin over the warps (`deal_lanes`): on the GPU a launch waits for
+its slowest warp, so an even mix of live, marching and dead lanes in every
+warp is worth more than neighbours that start from the same leaf boxes.
 
 Three CUDA kernels (csrc/mc_binned.cu), each with its plain version here:
 
   * primary:  the primary cast into the walk state;
   * bounce:   one deferred-shading bounce (`first` skips the deferred
-              shade of bounce 0, where nothing is deferred yet);
+              shade of bounce 0, where nothing is deferred yet); its warps
+              walk the chunks together out of shared memory
+              (csrc/common.cuh CoopGeom), which the sort makes pay: the
+              lanes of a warp then enter the same chunks.
+              `bounce_per_thread` launches it with every thread
+              traversing alone, as a yardstick; the walk never takes it;
   * terminal: the last deferred shade and the depth-exhausted terminal
               shade in one shadow sweep -> photons in sorted lane order.
 
@@ -41,6 +48,8 @@ ported: the key is always the origin chunk.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -227,12 +236,34 @@ def sort_state(scene: Scene, sf, si, u_step):
     return sf[:, perm].contiguous(), si[:, perm].contiguous()
 
 
+@functools.lru_cache(maxsize=8)
+def _deal_order(n: int, device) -> torch.Tensor:
+    """[n] gather index that deals lanes 0, 1, 2, ... round-robin to the
+    ceil(n / 32) warps of a launch: warp w gets lanes w, w + W, w + 2 W, ..."""
+    warps = -(-n // 32)
+    return torch.argsort(torch.arange(n, device=device) % warps, stable=True)
+
+
+def deal_lanes(sf, si):
+    """The sorted lanes dealt round-robin over the warps.  The sort packs
+    the lanes that will march, and the live lanes of late bounces, into a
+    few neighbouring warps, and a launch lasts as long as its slowest warp:
+    on an NVIDIA H100 (80GB HBM3, 700 W) the bounce kernel of a mesh11k tile
+    then takes 1.2 ms a launch with the median block done after 0.03 ms,
+    and 0.26 ms dealt.  Dealt, every warp
+    holds the same mix of live, marching and dead lanes.  The cooperative
+    sweeps lose the chunks that sorted neighbours share, which costs less
+    than the tail (PERF.md).  Any permutation is correct."""
+    order = _deal_order(sf.shape[1], sf.device)
+    return sf[:, order].contiguous(), si[:, order].contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: plain on CPU tensors, the kernel on CUDA tensors
 # ---------------------------------------------------------------------------
 
 
-def _cuda_args(scene: Scene, dev, name: str):
+def _cuda_args(scene: Scene, dev, name: str, hot: bool = False):
     if dev.type != "cuda":
         raise ValueError(f"mc_binned.{name}: unsupported device {dev}")
     if not scene.blocked:
@@ -241,7 +272,7 @@ def _cuda_args(scene: Scene, dev, name: str):
         raise ValueError("the binned MC kernels hold only DEFAULT_TEXTURES")
     tb, bt = scene.tables, scene.blk_tables
     kc.check_tables(tb, dev, bt)
-    return kc.kernel_geometry(tb, bt)
+    return kc.kernel_geometry(tb, bt, hot)
 
 
 def _check_state(sf, si, n, dev):
@@ -274,21 +305,40 @@ def bounce(scene: Scene, sf, si, u, first: bool, max_distance: float,
            max_retries: int, work=None):
     """One deferred-shading bounce -> (sf, si, casts [N]); u: [3, N]
     uniforms in the state's lane order."""
-    dev, n = sf.device, sf.shape[1]
-    if dev.type == "cpu":
+    if sf.device.type == "cpu":
         COUNTS_BOUNCE.plain += 1
         return bounce_plain(scene.geom, scene.textures, sf, si, u, first,
                             max_distance, max_retries)
-    geo = _cuda_args(scene, dev, "bounce")
+    return _launch_bounce("rt_binned_bounce", True, COUNTS_BOUNCE, scene, sf, si, u, first,
+                          max_distance, max_retries, work)
+
+
+def bounce_per_thread(scene: Scene, sf, si, u, first: bool, max_distance: float,
+                      max_retries: int, work=None):
+    """`bounce` on CUDA tensors through the kernel's per-thread instantiation
+    (every thread walks its own chunk list out of global memory).  The
+    cooperative bounce must give its state, casts and test counts; the walk
+    never calls this."""
+    return _launch_bounce("rt_binned_bounce_thread", False, None, scene, sf, si, u, first,
+                          max_distance, max_retries, work)
+
+
+def _launch_bounce(entry: str, hot: bool, counts, scene: Scene, sf, si, u, first,
+                   max_distance, max_retries, work):
+    """Check the operands and launch C entry `entry` (`hot`: it takes the
+    cooperative walk's tables); `counts`: the launch counter to advance."""
+    dev, n = sf.device, sf.shape[1]
+    geo = _cuda_args(scene, dev, "bounce", hot)
     _check_state(sf, si, n, dev)
     kernels.check("u", u, torch.float32, (3, n), dev)
     kernels.check_work(work, n, dev)
     out_f, out_i = torch.empty_like(sf), torch.empty_like(si)
     casts = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        kernels.launch("rt_binned_bounce", sf, si, u, *geo, out_f, out_i, casts,
-                       work, n, int(first), float(max_distance), int(max_retries))
-        COUNTS_BOUNCE.launches += 1
+        kernels.launch(entry, sf, si, u, *geo, out_f, out_i, casts, work, n, int(first),
+                       float(max_distance), int(max_retries))
+        if counts is not None:
+            counts.launches += 1
     return out_f, out_i, casts
 
 
@@ -322,7 +372,7 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     sf, si, c0 = primary(scene, ray_o.t().contiguous(), ray_d.t().contiguous())
     casts = c0.sum()
     for step in range(depth):
-        sf, si = sort_state(scene, sf, si, unifs[step])
+        sf, si = deal_lanes(*sort_state(scene, sf, si, unifs[step]))
         u = unifs[step][:, si[I_SLOT].long()].contiguous()  # draws by slot
         sf, si, dc = bounce(scene, sf, si, u, step == 0, max_distance, max_retries)
         casts = casts + dc.sum()

@@ -7,8 +7,12 @@ march, advance cast, merged next-hit shade, the recurrence accum +=
 scale*A; scale *= B), then the depth-exhausted terminal shade
 (mc_terminal).  The CUDA kernel is csrc/mc_kernel.cu, one instantiation per
 geometry: dense scenes launch `rt_mc_trace`, blocked (large-mesh) scenes
-`rt_mc_trace_blk` (mc_pallas.py:474-533, the BlockedGeom branch).
-`trace_plain` below is the same walk in plain PyTorch over either geometry.
+`rt_mc_trace_blk` (mc_pallas.py:474-533, the BlockedGeom branch), whose
+warps walk the chunks together out of shared memory (csrc/common.cuh
+CoopGeom).  `trace_plain` below is the same walk in plain PyTorch over
+either geometry.  `trace_per_thread` launches the blocked walk with every
+thread traversing alone, as a yardstick for the cooperative one; `trace`
+never takes it.
 
 The random draws are an operand ([depth, 3, N] uniforms: roulette u, lobe
 u_phi, lobe theta), so the kernel, the plain version and the JAX package
@@ -204,17 +208,37 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     0-d tensor).  unifs: [depth, 3, N] float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/mc_kernel.cu, the blocked instantiation on a blocked scene) or
-    raise — there is no fallback.  `work`: an optional int32
+    (csrc/mc_kernel.cu, the cooperative blocked instantiation on a blocked
+    scene) or raise — there is no fallback.  `work`: an optional int32
     [len(kernels.WORK_ROWS), N] tensor; given one, the kernel's counting
     instantiation fills it with each lane's tests by kind."""
-    dev = ray_o.device
-    n = ray_o.shape[0]
     counts = COUNTS_BLK if scene.blocked else COUNTS
-    if dev.type == "cpu":
+    if ray_o.device.type == "cpu":
         counts.plain += 1
         return trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
                            depth, max_distance, max_retries)
+    return _launch("rt_mc_trace_blk" if scene.blocked else "rt_mc_trace", scene.blocked,
+                   counts, scene, ray_o, ray_d, unifs, depth, max_distance, max_retries, work)
+
+
+def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
+                     max_retries: int, work: torch.Tensor | None = None):
+    """`trace` of a blocked scene on CUDA tensors through the kernel's
+    per-thread blocked instantiation (every thread walks its own chunk
+    list out of global memory).  The cooperative walk must give its
+    photons, casts and test counts; nothing on the main path calls this."""
+    if not scene.blocked:
+        raise ValueError("the per-thread blocked walk takes blocked scenes only")
+    return _launch("rt_mc_trace_blk_thread", False, None, scene, ray_o, ray_d, unifs,
+                   depth, max_distance, max_retries, work)
+
+
+def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, depth,
+            max_distance, max_retries, work):
+    """Check the operands and launch C entry `entry` (`hot`: it takes the
+    cooperative walk's tables); `counts`: the launch counter to advance."""
+    dev = ray_o.device
+    n = ray_o.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"mc_kernel.trace: unsupported device {dev}")
     if not kernel_textures_ok(scene.textures):
@@ -231,10 +255,8 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     photon = torch.empty((3, n), dtype=torch.float32, device=dev)
     casts = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        kernels.launch(
-            "rt_mc_trace_blk" if bt is not None else "rt_mc_trace",
-            o_t, d_t, unifs, *kc.kernel_geometry(tb, bt), photon, casts, work,
-            n, depth, float(max_distance), int(max_retries),
-        )
-        counts.launches += 1
+        kernels.launch(entry, o_t, d_t, unifs, *kc.kernel_geometry(tb, bt, hot), photon,
+                       casts, work, n, depth, float(max_distance), int(max_retries))
+        if counts is not None:
+            counts.launches += 1
     return photon.t(), casts.sum()

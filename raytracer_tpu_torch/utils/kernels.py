@@ -42,13 +42,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (WORK_ROWS); None runs the main path's, which counts nothing.
 _TABLES = "p" + "ip" * 3 + "i"  # tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light
 _BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
+# what the warp-cooperative walks read besides: hot rows, their ids, the
+# chunks' live row counts, the triangles' blocked rows
+_HOT = "pppp"
 _GEO = "pipi"  # tri, n_tri, sph, n_sph
 _RAYS = "pppppp"  # ray_o, ray_d, face, excl_prim, excl_face, active
 SIGNATURES = {
     # ray_o, ray_d, unifs, tables, photon, casts, work, n, depth,
     # max_distance, max_retries
     "rt_mc_trace": "ppp" + _TABLES + "ppo" + "ii" + "fi",
-    "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + "ppo" + "ii" + "fi",
+    "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + _HOT + "ppo" + "ii" + "fi",
+    "rt_mc_trace_blk_thread": "ppp" + _TABLES + _BLK + "ppo" + "ii" + "fi",
     # pf, pi, tables, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
     # threshold, max_distance, max_retries
     "rt_level": "pp" + _TABLES + "ppppppo" + "iii" + "ffi",
@@ -57,7 +61,8 @@ SIGNATURES = {
     "rt_binned_primary": "pp" + _TABLES + _BLK + "pppo" + "i",
     # st_f, st_i, unifs, tables, out_f, out_i, casts, work, n, first,
     # max_distance, max_retries
-    "rt_binned_bounce": "ppp" + _TABLES + _BLK + "pppo" + "ii" + "fi",
+    "rt_binned_bounce": "ppp" + _TABLES + _BLK + _HOT + "pppo" + "ii" + "fi",
+    "rt_binned_bounce_thread": "ppp" + _TABLES + _BLK + "pppo" + "ii" + "fi",
     # st_f, st_i, tables, photon, casts, work, n, first
     "rt_binned_terminal": "pp" + _TABLES + _BLK + "ppo" + "ii",
     # rays, geometry, t, idx, bf, valid, work, n
@@ -73,17 +78,28 @@ SIGNATURES = {
 }
 # Rows of a `work` output (csrc/common.cuh Work), per lane: triangle tests
 # begun, those that went on to the plane's t, edge tests, sphere tests,
-# box (slab) tests.
-WORK_ROWS = ("tri", "plane", "edge", "sph", "box")
-# kernel name -> (C entry that reports its attributes, instantiation index)
+# box (slab) tests; the chunks of a blocked mesh whose rows one of the
+# lane's rays tested, and the chunks its warp staged in shared memory
+# (counted on the warp's first lane; 0 in the per-thread walks); the low 32
+# bits of the card's nanosecond clock when the lane's thread began and when
+# it wrote its counts; the SM cycles the thread spent in a cooperative
+# walk's box tests and votes, in waiting for staged chunks, in testing
+# staged rows, and from its start to its end (0 in the per-thread walks).
+WORK_ROWS = ("tri", "plane", "edge", "sph", "box", "chunk", "wchunk", "t_in", "t_out",
+             "cyc_box", "cyc_stage", "cyc_rows", "cyc_all")
+# kernel name -> (C entry that reports its attributes, instantiation index).
+# "mc_blk" and the two "binned_bounce" are the warp-cooperative walks of the
+# main path; the "*_thread" ones are their per-thread yardsticks.
 ATTRS = {
     "level": ("rt_level_attrs", 0), "level_blk": ("rt_level_attrs", 1),
     "mc": ("rt_mc_attrs", 0), "mc_blk": ("rt_mc_attrs", 1),
+    "mc_blk_thread": ("rt_mc_attrs", 2),
     "binned_primary": ("rt_binned_attrs", 0),
     "binned_bounce_first": ("rt_binned_attrs", 1),
     "binned_bounce": ("rt_binned_attrs", 2),
     "binned_terminal_first": ("rt_binned_attrs", 3),
     "binned_terminal": ("rt_binned_attrs", 4),
+    "binned_bounce_thread": ("rt_binned_attrs", 5),
     "nearest_hit": ("rt_intersect_attrs", 0), "any_hit": ("rt_intersect_attrs", 1),
     "shadow_any_hit": ("rt_intersect_attrs", 2), "march": ("rt_march_attrs", 0),
 }
@@ -213,10 +229,10 @@ def launch(name: str, *args) -> None:
 def kernel_attrs(which: str) -> dict:
     """Compiled attributes of kernel instantiation `which` (a key of
     ATTRS)."""
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     entry, index = ATTRS[which]
     err = getattr(library(), entry)(index, out)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: {err}")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],
-            "max_threads": out[3]}
+            "max_threads": out[3], "dynamic_shared_bytes": out[4]}

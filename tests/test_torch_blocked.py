@@ -37,7 +37,9 @@ from raytracer_tpu_torch.scene.blocked import (
     validate_blocked,
 )
 from raytracer_tpu_torch.scene.bvh import build_bvh, validate_bvh
+from raytracer_tpu_torch.scene.convert import from_jax_scene
 from raytracer_tpu_torch.scene.types import BVH_FIELDS
+from raytracer_tpu_torch.utils import kernels
 
 torch.set_num_threads(1)
 
@@ -208,3 +210,112 @@ def test_slab_test_keeps_the_nan_miss_and_inclusive_tmax():
     # enters at t == tmax: inclusive; origin in the x = 0 face plane with
     # dx = 0 gives 0 * inf = NaN: a miss; box beyond tmax; box behind
     assert got.tolist() == [True, False, False, False]
+
+
+def _check_hot_tables(scene):
+    """The cooperative sweeps' tables against the blocked rows they mirror."""
+    bt = scene.blk_tables
+    nch = bt.box.shape[0]
+    assert torch.equal(bt.hot, bt.tri[:, :kc.HOT_COLS])
+    assert bt.ids.dtype == torch.int32 and torch.equal(bt.ids, bt.tri[:, kc.BLK_ID].to(torch.int32))
+    assert torch.equal(bt.ids, scene.blk_perm)
+    ids = bt.ids.view(nch, BLK_CHUNK)
+    assert bt.live.dtype == torch.int32 and torch.equal(bt.live, (ids >= 0).sum(1).to(torch.int32))
+    assert int(bt.live.sum()) == scene.n_tri and int(bt.live[bt.n_chunks:].sum()) == 0
+    # every pad row lies after its chunk's live rows: a row loop that runs to
+    # live[c] sees exactly the rows a loop that stops at the first pad row sees
+    k = torch.arange(BLK_CHUNK)[None, :]
+    assert torch.equal(ids >= 0, k < bt.live[:, None])
+    # 64-byte rows on a 16-byte-aligned base, as the kernels' float4 loads need
+    assert bt.hot.dtype == torch.float32 and bt.hot.is_contiguous()
+    assert bt.hot.stride(0) * bt.hot.element_size() == 64 and bt.hot.data_ptr() % 16 == 0
+    # the triangles' rows invert the ids
+    assert bt.row_of_tri.dtype == torch.int32 and bt.row_of_tri.shape == (scene.n_tri,)
+    assert torch.equal(bt.ids[bt.row_of_tri.long()], torch.arange(scene.n_tri, dtype=torch.int32))
+    assert torch.equal(bt.chunk_of_prim[:scene.n_tri], bt.row_of_tri.long() // BLK_CHUNK)
+    kc.check_tables(scene.tables, scene.device, bt)
+    geo = kc.kernel_geometry(scene.tables, bt, hot=True)
+    assert geo[-4:] == (bt.hot, bt.ids, bt.live, bt.row_of_tri)
+    assert len(geo) == len(kernels._TABLES + kernels._BLK + kernels._HOT)
+
+
+@pytest.mark.parametrize("grid", [8, 24])
+def test_hot_tables_mirror_the_blocked_rows(grid):
+    scene, _ = tpresets.mesh_scene(grid)
+    _check_hot_tables(scene)
+    # a scene moved to a device rebuilds them from its blk_perm
+    _check_hot_tables(scene.to("cpu"))
+
+
+def test_hot_tables_of_a_scene_carried_over_from_jax():
+    jscene, _, _ = jpresets.mesh_scene(8)
+    fields = {f.name: np.asarray(getattr(jscene, f.name)) for f in dataclasses.fields(jscene)
+              if isinstance(getattr(jscene, f.name), jnp.ndarray)}
+    scene = from_jax_scene(fields)
+    assert scene.blocked
+    _check_hot_tables(scene)
+    ours, _ = tpresets.mesh_scene(8)
+    for name in ("hot", "ids", "live", "row_of_tri"):
+        assert torch.equal(getattr(scene.blk_tables, name), getattr(ours.blk_tables, name)), name
+
+
+def test_check_tables_refuses_hot_tables_the_kernels_cannot_read():
+    scene, _ = tpresets.mesh_scene(8)
+    tb, bt = scene.tables, scene.blk_tables
+    with pytest.raises(ValueError):
+        kc.check_tables(tb, scene.device, bt._replace(ids=bt.ids.long()))
+    with pytest.raises(ValueError):
+        kc.check_tables(tb, scene.device, bt._replace(live=bt.live[:-1]))
+    with pytest.raises(ValueError):  # rows cut out of a wider table: not contiguous
+        kc.check_tables(tb, scene.device, bt._replace(hot=bt.tri[:, :kc.HOT_COLS]))
+    with pytest.raises(ValueError):
+        kc.kernel_geometry(tb, bt._replace(hot=None), hot=True)
+
+
+def test_chunk_log_reduces_lanes_per_group_and_per_pass():
+    log = kc.ChunkLog(70, "cpu", groups=(32, 64))
+    a = torch.zeros(70, dtype=torch.bool)
+    a[[0, 1, 40, 69]] = True
+    b = torch.zeros(70, dtype=torch.bool)
+    b[[1, 2]] = True
+    log.enter(3, a)  # a sweep of its own: groups 0, 1 and 2 of 32 enter chunk 3
+    with log.one_pass():  # two lights: chunk 3 twice, chunk 5 once
+        log.enter(3, a)
+        log.enter(3, b)
+        log.enter(5, b)
+    assert log.lane.tolist()[:3] == [2, 4, 2] and int(log.lane.sum()) == 4 + 4 + 2 + 2
+    assert log.group[32].tolist() == [1 + 1 + 1, 1 + 1, 1 + 1]
+    assert log.group[64].tolist() == [1 + 1 + 1, 1 + 1]
+
+
+def test_plain_blocked_sweeps_report_the_chunks_they_enter(mesh):
+    scene, _, blocked = mesh
+    o, d, face = _rays(N, 4)
+    n = o.shape[0]
+    args = (o, d, face, np.full(n, -1, np.int32), np.zeros(n, np.int32))
+    ref = _sweep(blocked, *args)
+    with kc.count_chunks(n) as log:
+        got = _sweep(blocked, *args)
+    assert kc._chunk_log is None
+    for k in ref:  # logging changes no result
+        assert torch.equal(got[k], ref[k]), k
+    lane, warp = log.lane, log.group[32]
+    # a lane that hit a triangle entered the winner's chunk
+    tri_hit = ref["valid"] & (ref["prim"] < scene.n_tri)
+    assert bool((lane[tri_hit] >= 1).all()) and int(lane.max()) <= scene.blk_tables.n_chunks
+    # a warp stages the union of its lanes' chunks
+    per_warp = lane.view(-1, 32)
+    assert bool((warp >= per_warp.max(dim=1).values).all())
+    assert bool((warp <= per_warp.sum(dim=1)).all()) and int(warp.sum()) < int(lane.sum())
+    # the shadow rays of one shading point share one pass over the chunks
+    h = ref
+    m = kc.eval_material(scene.tables, scene.textures, h["obj"], h["u"], h["v"])
+    dt = tuple(torch.as_tensor(d.T.copy()))
+    shade = lambda: kc.shade_at(blocked, m, h["px"], h["py"], h["pz"], h["nx"], h["ny"], h["nz"],
+                                *dt, h["valid"], h["prim"])
+    with kc.count_chunks(n, groups=(1,)) as log:
+        got = shade()
+    assert all(torch.equal(a, b) for a, b in zip(got, shade()))
+    rays = got[3]  # shadow rays per lane
+    assert int(log.lane.sum()) > int(log.group[1].sum()) > 0  # lights share chunks
+    assert bool((log.lane[rays == 0] == 0).all()) and bool((log.group[1] <= log.lane).all())

@@ -75,3 +75,41 @@ def test_check_work_shape():
         kernels.check_work(torch.zeros((2, 8), dtype=torch.int32), 8, cpu)
     with pytest.raises(ValueError):
         kernels.check_work(torch.zeros((len(kernels.WORK_ROWS), 8)), 8, cpu)
+
+
+def _header() -> str:
+    with open(os.path.join(kernels.CSRC, "common.cuh")) as f:
+        return f.read()
+
+
+def test_work_rows_follow_the_header():
+    """WORK_ROWS names the rows Work::put writes, in its order."""
+    text = _header()
+    assert int(re.search(r"constexpr int WORK_ROWS = (\d+);", text).group(1)) == len(kernels.WORK_ROWS)
+    put = text[text.index("void put(int* __restrict__ out"):text.index("void put_helped")]
+    written = re.findall(r"out\[(.*?)lane\] = (\w+)", put)
+    row = lambda prefix: 0 if not prefix else int(prefix.split("*")[0]) if "*" in prefix else 1
+    assert [row(pre) for pre, _ in written] == list(range(len(kernels.WORK_ROWS)))
+    names = {"chunks": "chunk", "staged": "wchunk", "timer_ns": "t_out", "cycles": "cyc_all"}
+    assert tuple(names.get(v, v) for _, v in written) == kernels.WORK_ROWS
+
+
+@pytest.mark.parametrize("entry,thread", [("rt_mc_trace_blk", "rt_mc_trace_blk_thread"),
+                                          ("rt_binned_bounce", "rt_binned_bounce_thread")])
+def test_cooperative_entries_take_the_hot_tables(entry, thread):
+    """The cooperative walk's entry is its per-thread yardstick's plus the
+    four hot tables right after the blocked ones, in kernel_geometry's order."""
+    entries = _c_entries()
+    coop, ref = entries[entry], entries[thread]
+    at = coop.index("int n_chunks") + 1
+    assert coop[at:at + 4] == ["const float* hot", "const int* ids", "const int* live",
+                               "const int* row_of_tri"]
+    assert coop[:at] + coop[at + 4:] == ref
+    sig, ref_sig = kernels.SIGNATURES[entry], kernels.SIGNATURES[thread]
+    assert sig.replace(kernels._BLK + kernels._HOT, kernels._BLK, 1) == ref_sig
+
+
+def test_attrs_name_both_walks_of_the_redesigned_kernels():
+    assert kernels.ATTRS["mc_blk"] != kernels.ATTRS["mc_blk_thread"]
+    assert kernels.ATTRS["binned_bounce"] != kernels.ATTRS["binned_bounce_thread"]
+    assert len(set(kernels.ATTRS.values())) == len(kernels.ATTRS)

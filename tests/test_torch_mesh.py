@@ -154,6 +154,28 @@ def test_binned_state_sort_keeps_slots_and_sends_dead_lanes_last():
     assert not bool(alive[int(alive.sum()):].any())  # dead lanes form the tail
 
 
+@pytest.mark.parametrize("n", [500, 512])
+def test_deal_lanes_spreads_sorted_neighbours_over_the_warps(n):
+    """deal_lanes is a permutation of the lanes that puts consecutive lanes
+    into different warps of 32 and gives every warp its share of a run."""
+    sf = torch.arange(n, dtype=torch.float32).repeat(mc_binned.N_F, 1)
+    si = torch.arange(n, dtype=torch.int32).repeat(mc_binned.N_I, 1)
+    f2, i2 = mc_binned.deal_lanes(sf, si)
+    lane = i2[mc_binned.I_SLOT].long()
+    assert sorted(lane.tolist()) == list(range(n))
+    assert torch.equal(f2, sf[:, lane]) and torch.equal(i2, si[:, lane])
+    warp_of = torch.empty(n, dtype=torch.long)
+    warp_of[lane] = torch.arange(n) // 32
+    warps = -(-n // 32)
+    if n % 32 == 0:  # whole warps: neighbours part
+        assert bool((warp_of[1:warps] != warp_of[:warps - 1]).all())
+    # a run of 100 sorted lanes: 6 or 7 to each of 16 warps (where the last
+    # warp is ragged, the shares straddle warps)
+    share = torch.bincount(warp_of[:100], minlength=warps)
+    assert int(share.max()) <= -(-100 // warps) + (n % 32 != 0)
+    assert n % 32 != 0 or int(share.min()) >= 100 // warps
+
+
 def test_mesh24_goldens():
     """whitted_mesh24_64x48.npy and mc_mesh24_64x48.npy (scripts/tpu_check.py
     :41-91) through the port's plain path.  The MC golden's draws are
