@@ -14,12 +14,16 @@ Phases (each asserts; none catches a failure):
      65536-ray tile of 1280x960; mesh_scene(24) at 64x48 and one
      65536-ray tile of the 1024x1024 mesh11k frame (blocked level kernel,
      blocked MC kernel, the three binned kernels), and the binned path
-     against the blocked MC kernel; the warp-cooperative walks (blocked MC
-     kernel, binned bounce) against their per-thread instantiations on the
-     same inputs (photons, state and casts equal on every lane, test totals
-     equal to the unit) on those tiles, on a ragged tile and on a state with
-     dead lanes scattered through it, and their two traversal counters
-     against the plain versions' chunk log; the four standalone kernels of the
+     against the blocked MC kernel; the warp-cooperative walks (blocked
+     level kernel, blocked MC kernel, binned bounce and terminal) against
+     their per-thread instantiations on the same inputs (outputs and casts
+     equal on every lane, test totals equal to the unit): every level's pool
+     of those tiles, a ragged pool and pools with 30 % of lanes killed but
+     owing radiance (direct and pooled levels); MC on those tiles and a
+     ragged tile; bounces and terminals in dealt, sorted and pixel order,
+     ragged and with dead lanes scattered through the state; and the MC
+     walks' two traversal counters against the plain versions' chunk log;
+     the four standalone kernels of the
      unfused path (nearest hit, any hit, multi-light shadow, interior
      march) on the demo's primary hits at 64x48 and on that 65536-ray tile
      (their shadow rays to all three lights, the glass lanes' marches) and
@@ -35,7 +39,8 @@ Phases (each asserts; none catches a failure):
      (render_progressive on the demo scene, 1280x960, depth 5, Whitted +
      3 epochs); the mesh11k path (render_whitted and
      render_distributed_epoch on mesh_scene(75), 1024x1024, depth 5,
-     tile_rays 65536: blocked level and binned kernels); an MC epoch of
+     tile_rays 65536: the cooperative blocked level kernel 96 times a frame,
+     the binned kernels, no per-thread yardstick); an MC epoch of
      mesh_scene(24) at 1024x1024 (the blocked MC kernel); a Whitted frame
      and an MC epoch through both routes of mesh_scene(160); the unfused path (render_progressive on the demo
      scene with row-less textures, 1280x960, depth 5, Whitted + 2 epochs:
@@ -44,9 +49,11 @@ Phases (each asserts; none catches a failure):
      per-light shadow test of a tile through cast_any_hit (the any-hit
      kernel); then frame / epoch and per-launch times of
      kernels (device time, torch.profiler) and plain versions (CUDA
-     events) at the main paths' shapes, the mesh11k epoch also through the
-     blocked MC kernel, and each kernel's bound (the least time the card
-     could take for its work).
+     events) at the main paths' shapes (the blocked level kernel on each of
+     the six pools of the first mesh11k tile), the mesh11k epoch also
+     through the blocked MC kernel, the cooperative kernels' per-thread
+     yardsticks on the same inputs, and each kernel's bound (the least time
+     the card could take for its work).
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when CUDA is not available.
@@ -189,6 +196,34 @@ def timed(fn):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def scene_tables(scene):
+    """The scene tables a kernel reads: the dense ones, or the blocked rows
+    and boxes with the spheres, materials and lights."""
+    tb = scene.tables
+    if scene.blocked:
+        bt = scene.blk_tables
+        return [bt.tri, bt.box, bt.sup, tb.sph, tb.mat, tb.lights]
+    return [tb.tri, tb.sph, tb.mat, tb.lights]
+
+
+def level_pools(scene, cam, clip, cfg):
+    """The pools that one tile's Whitted ladder hands the level kernel (the
+    primary level, the level-1 peel, the deep level, the tail levels and the
+    last level) -> [(pool, last, direct)], in level order."""
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import level_kernel
+    from raytracer_tpu_torch.ops.trace import trace_whitted
+
+    pools = []
+
+    def record(sc, pool, last, direct, *args):
+        pools.append((pool, last, direct))
+        return level_kernel.process_level(sc, pool, last, direct, *args)
+
+    trace_whitted(scene, *camera_ops.shoot(cam, clip), cfg, level_fn=record)
+    return pools
 
 
 def bound(in_out_bytes, work):
@@ -406,6 +441,7 @@ def main() -> int:
     from raytracer_tpu_torch.ops import kernel_common
     from raytracer_tpu_torch.ops.intersect import cast_any_hit
     from raytracer_tpu_torch.ops.kernel_common import BIG
+    from raytracer_tpu_torch.ops.level_kernel import Pool
     from raytracer_tpu_torch.ops.trace import _pack_primary, fused_ok, trace_whitted
     from raytracer_tpu_torch.parallel.progressive import render_progressive
     from raytracer_tpu_torch.render import (
@@ -426,6 +462,12 @@ def main() -> int:
         "binned_primary": mc_binned.COUNTS_PRIMARY,
         "binned_bounce": mc_binned.COUNTS_BOUNCE,
         "binned_terminal": mc_binned.COUNTS_TERMINAL,
+        # the per-thread yardsticks of the cooperative walks: no main path
+        # launches them
+        "level_blk_thread": level_kernel.COUNTS_BLK_THREAD,
+        "mc_blk_thread": mc_kernel.COUNTS_BLK_THREAD,
+        "binned_bounce_thread": mc_binned.COUNTS_BOUNCE_THREAD,
+        "binned_terminal_thread": mc_binned.COUNTS_TERMINAL_THREAD,
         "nearest_hit": intersect_kernel.COUNTS_NEAREST, "any_hit": intersect_kernel.COUNTS_ANY,
         "shadow_any_hit": intersect_kernel.COUNTS_SHADOW, "march": march_kernel.COUNTS,
     }
@@ -439,6 +481,7 @@ def main() -> int:
     def read_counts():
         launches = {k: c.launches for k, c in counts.items()}
         assert all(c.plain == 0 for c in counts.values()), {k: c.plain for k, c in counts.items()}
+        assert not any(launches[k] for k in launches if k.endswith("_thread")), launches
         return launches
 
     # ---- 1. device and toolchain ----------------------------------------
@@ -600,9 +643,10 @@ def main() -> int:
 
     def same_tests(label, coop, thread):
         """The cooperative walk runs the per-thread walk's tests: the five
-        kinds of test and the chunks entered, equal in total to the unit."""
+        kinds of test and the chunks entered, equal in total to the unit
+        (and it staged chunks wherever a ray entered one)."""
         a, b = totals(coop), totals(thread)
-        assert b["wchunk"] == 0 and a["wchunk"] > 0, (label, a, b)
+        assert b["wchunk"] == 0 and (a["wchunk"] > 0 or a["chunk"] == 0), (label, a, b)
         assert all(a[k] == b[k] for k in a if k != "wchunk"), (label, a, b)
         return a
 
@@ -666,6 +710,57 @@ def main() -> int:
               + ("; traversal counters within 2 % of the plain chunk log" if plain_log else ""))
         return total
 
+    def check_coop_levels(label, scene, pools, lv, killed=None):
+        """Each (pool, last, direct): the blocked level kernel's cooperative
+        walk against its per-thread instantiation (contrib, both children's
+        f and i rows and casts equal on every lane, test totals equal); with
+        `killed` (a lane mask), the killed lanes' outputs also equal the
+        plain version's (a dead lane's contract) -> the summed tests."""
+        total = {}
+        for pool, last, direct in pools:
+            k = pool.width
+            wc, wt = new_work(k), new_work(k)
+            got = level_kernel.process_level(scene, pool, last, direct, *lv, work=wc,
+                                             lane_casts=True)
+            ref = level_kernel.process_level_per_thread(scene, pool, last, direct, *lv, work=wt,
+                                                        lane_casts=True)
+            torch.cuda.synchronize()
+            rows = lambda r: (r[0], r[1].f, r[1].i, r[2].f, r[2].i, r[3][None])
+            same = torch.ones(k, dtype=torch.bool, device=dev)
+            for a, b in zip(rows(got), rows(ref)):
+                same &= (a == b).all(dim=0)
+            assert bool(same.all()), (label, k, last, direct, float(same.float().mean()))
+            for key, v in same_tests(label, wc, wt).items():
+                total[key] = total.get(key, 0) + v
+            if killed is not None:
+                plain = plain_level(scene, pool, last, direct, *lv)
+                for a, b in zip(rows(got)[:5], rows(plain)[:5]):
+                    assert bool((a == b)[:, killed].all()), (label, direct)
+        print(f"level {label}, cooperative vs per-thread walk: {len(pools)} pools "
+              f"({', '.join(str(p.width) for p, _, _ in pools)} lanes), all lanes equal, tests "
+              f"{total}; warp chunks x 32 / lane chunks {sharing(total):.3f}"
+              + ("; killed lanes equal the plain version's" if killed is not None else ""))
+        return total
+
+    def check_coop_terminals(label, scene, calls):
+        """Every terminal call of captured walks, with `first` both ways: the
+        cooperative kernel against its per-thread instantiation (photons and
+        casts equal on every lane, test totals equal)."""
+        total = {}
+        for _, sf, si, first in (c for c in calls if c[0] == "terminal"):
+            for fst in (first, not first):
+                n = sf.shape[1]
+                wc, wt = new_work(n), new_work(n)
+                pc, cc = mc_binned.terminal(scene, sf, si, fst, work=wc)
+                pt, ct = mc_binned.terminal_per_thread(scene, sf, si, fst, work=wt)
+                torch.cuda.synchronize()
+                assert torch.equal(pc, pt) and torch.equal(cc, ct), (label, fst)
+                for key, v in same_tests(label, wc, wt).items():
+                    total[key] = total.get(key, 0) + v
+        print(f"binned terminals {label}, cooperative vs per-thread walk: all lanes equal, tests "
+              f"{total}; warp chunks x 32 / lane chunks {sharing(total):.3f}")
+        return total
+
     # ---- 2. kernels against their plain versions, same inputs -----------
     rng = np.random.default_rng(0)
     full = RenderConfig(depth=5, epochs=3)  # 1280x960, tile_rays 65536
@@ -696,8 +791,28 @@ def main() -> int:
               f"casts {int(casts)} vs {int(mega_casts)}")
         assert close >= 0.995 and int(casts) == int(mega_casts), (close, int(casts))
         # the cooperative walks against the per-thread ones and the plain log
+        lv = (cfg.threshold, cfg.max_refract_distance, cfg.max_tir_retries)
+        pools = level_pools(scene, cam, clip, cfg)
+        assert len(pools) == DEPTH + 1
+        check_coop_levels(label + ", every level", scene, pools, lv)
+        wide = pools[1][0]  # the level-1 pool: its first lanes, and lanes killed
+        cut = wide.width * 5 // 8 - 19
+        check_coop_levels(f"{label}, level 1's first {cut} lanes", scene,
+                          [(Pool(wide.f[:, :cut].contiguous(), wide.i[:, :cut].contiguous()),
+                            False, True)], lv)
+        for j in (0, 2):
+            pool = pools[j][0]
+            kill = torch.as_tensor(rng.uniform(size=pool.width) < 0.3, device=dev)
+            f, i = pool.f.clone(), pool.i.clone()
+            i[level_kernel.I_ALIVE, kill] = 0
+            f[level_kernel.F_PEND:, kill] = torch.as_tensor(
+                rng.uniform(size=(3, int(kill.sum()))).astype(np.float32), device=dev)
+            check_coop_levels(f"{label}, level {j} with 30 % of lanes killed owing radiance",
+                              scene, [(Pool(f, i), False, True), (Pool(f, i), False, False)], lv,
+                              killed=kill)
         check_coop_mc(label, scene, o, d, unifs, plain_log=True)
         check_coop_bounces(label + " (sorted and dealt)", scene, calls, plain_log=True)
+        terminals = [c for c in calls if c[0] == "terminal"]
         # a tile whose lane count is no multiple of 32
         cut = o.shape[0] * 5 // 8 - 19
         oc, dc, uc = o[:cut].contiguous(), d[:cut].contiguous(), unifs[:, :, :cut].contiguous()
@@ -705,12 +820,14 @@ def main() -> int:
         check_coop_mc(f"{label}, first {cut} lanes", scene, oc, dc, uc)
         _, _, ragged = binned_walk(scene, oc, dc, uc)
         check_binned_kernels(f"{label}, first {cut} lanes", scene,
-                             [c for c in ragged if c[0] == "bounce"])
+                             [c for c in ragged if c[0] != "primary"])
         check_coop_bounces(f"{label}, first {cut} lanes", scene, ragged)
+        terminals += [c for c in ragged if c[0] == "terminal"]
         # the lanes sorted but not dealt, and left in pixel order
         for order in ("sorted", "pixel"):
             _, _, other = binned_walk(scene, o, d, unifs, order=order)
             check_coop_bounces(f"{label} ({order} order)", scene, other)
+            terminals += [c for c in other if c[0] == "terminal"]
         # dead lanes scattered through a bounce's state
         holed = []
         for kind, sf, si, u, first in [c for c in calls if c[0] == "bounce"][:3]:
@@ -718,8 +835,17 @@ def main() -> int:
             si[mc_binned.I_ALIVE, torch.as_tensor(rng.uniform(size=si.shape[1]) < 0.3,
                                                   device=dev)] = 0
             holed.append((kind, sf, si, u, first))
+        # and through the terminal's state (after the bounce before it)
+        _, sf, si, first = [c for c in calls if c[0] == "terminal"][0]
+        si = si.clone()
+        si[mc_binned.I_ALIVE, torch.as_tensor(rng.uniform(size=si.shape[1]) < 0.3,
+                                              device=dev)] = 0
+        holed.append(("terminal", sf, si, first))
+        terminals.append(holed[-1])
         check_binned_kernels(label + ", 30 % of lanes killed", scene, holed)
         check_coop_bounces(label + ", 30 % of lanes killed", scene, holed)
+        check_coop_terminals(label + " (dealt, ragged, sorted, pixel order, holed)", scene,
+                             terminals)
 
     # the unfused path's four kernels: the demo's primary hits, their
     # shadow rays and marches, and random rays
@@ -851,10 +977,11 @@ def main() -> int:
         assert tuple(img.shape) == (1024, 1024, 3) and torch.isfinite(img).all()
         assert float(img.max()) > 0
     assert wst["dropped"] == 0
-    assert mesh_launches["level_blk"] > 0, mesh_launches
-    assert all(mesh_launches[k] > 0 for k in ("binned_primary", "binned_bounce",
-                                               "binned_terminal")), mesh_launches
     tiles = len(_clips(mesh_cfg, dev)[0])
+    # every level of every tile through the cooperative blocked level kernel
+    # (read_counts: no per-thread yardstick ran)
+    assert mesh_launches["level_blk"] == tiles * (DEPTH + 1), mesh_launches
+    assert all(mesh_launches[k] == tiles for k in ("binned_primary", "binned_terminal"))
     assert mesh_launches["binned_bounce"] == tiles * DEPTH and mesh_launches["mc_blk"] == 0
     # the same epoch through the other route: the blocked MC kernel
     reset_counts()
@@ -882,7 +1009,7 @@ def main() -> int:
     print(f"mesh51k ({mesh51k.n_tri} triangles) whitted frame 1024x1024: {w51_s:.3f} s "
           f"({w51['casts'] / w51_s:,.0f} casts/s, dropped {w51['dropped']}); "
           f"launches {w51_launches}")
-    assert w51["dropped"] == 0 and w51_launches["level_blk"] > 0
+    assert w51["dropped"] == 0 and w51_launches["level_blk"] == tiles * (DEPTH + 1), w51_launches
 
     # the MC epoch of mesh51k through both routes (numbers only)
     epoch51 = lambda: render_distributed_epoch(mesh51k, mesh51k_cam, mesh_cfg, epoch=7)
@@ -896,6 +1023,7 @@ def main() -> int:
           f"launches {e51_launches}")
     assert torch.isfinite(e51img).all() and float(e51img.max()) > 0
     assert e51m["casts"] == e51["casts"] and e51_launches["binned_bounce"] > 0
+    assert e51_launches["binned_terminal"] == tiles, e51_launches
 
     # the unfused path at the reference schedule's full width: the demo
     # scene with row-less textures, Whitted + 2 epochs
@@ -1035,35 +1163,53 @@ def main() -> int:
                                  "mc_kernel"),
                     events_ms=cuda_ms(lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR),
                                       5),
+                    per_thread_ms=cuda_ms(lambda: mc_kernel.trace_per_thread(
+                        scene, o, d, unifs, DEPTH, MD, MR), 3) if scene.blocked else None,
                     plain_ms=cuda_ms(lambda: plain_mc(scene, o, d, unifs), 1),
                     bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
                     tests=totals(work))
 
     def time_level(scene, cam, cfg):
+        """The level kernel on the pools of the first tile's Whitted ladder:
+        the primary level on the dense demo; on a blocked mesh each of the
+        six levels, through both walks.  Per level: ms (torch.profiler) and
+        events_ms (CUDA events around 5 back-to-back launches: below ~0.2 ms
+        they read the host's launch pace), the per-thread walk's ms, the
+        plain version's, the bound, the tests, a warp's cycles by phase and
+        the block durations.  The blocked fields are the means over the six
+        levels (each level launches once a tile); max_abs_err is the primary
+        level's contrib against the plain version's."""
         clip = _clips(cfg, dev)[0][0]
-        o, d = camera_ops.shoot(cam, clip)
-        pool = _pack_primary(o, d)
         args = (cfg.threshold, cfg.max_refract_distance, cfg.max_tir_retries)
-        work = torch.zeros((len(kernels.WORK_ROWS), pool.width), dtype=torch.int32, device=dev)
-        lk = level_kernel.process_level(scene, pool, False, True, *args)
-        lw = level_kernel.process_level(scene, pool, False, True, *args, work=work)
-        assert torch.equal(lk[0], lw[0])  # counting changes no result
-        lp = plain_level(scene, pool, False, True, *args)
-        io = nbytes(pool.f, pool.i, *scene_tables(scene)) + (3 + 2 * 16 + 1) * 4 * pool.width
-        b_ms, b_by, ops = bound(io, work)
-        return dict(max_abs_err=float((lk[0] - lp[0]).abs().max()),
-                    ms=device_ms(lambda: level_kernel.process_level(scene, pool, False, True,
-                                                                    *args), 10, "level_kernel"),
-                    plain_ms=cuda_ms(lambda: plain_level(scene, pool, False, True, *args), 1),
-                    bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
-                    tests=totals(work))
-
-    def scene_tables(scene):
-        tb = scene.tables
-        out = [tb.tri, tb.sph, tb.mat, tb.lights]
+        pools = level_pools(scene, cam, clip, cfg)
+        levels = []
+        for pool, last, direct in (pools if scene.blocked else pools[:1]):
+            run = lambda fn=level_kernel.process_level, **kw: fn(scene, pool, last, direct, *args,
+                                                                 **kw)
+            work = new_work(pool.width)
+            lk, lw = run(), run(work=work)
+            assert torch.equal(lk[0], lw[0])  # counting changes no result
+            lp = plain_level(scene, pool, last, direct, *args)
+            io = nbytes(pool.f, pool.i, *scene_tables(scene)) + (3 + 2 * 16 + 1) * 4 * pool.width
+            b_ms, b_by, ops = bound(io, work)
+            lv = dict(k=pool.width, max_abs_err=float((lk[0] - lp[0]).abs().max()),
+                      ms=device_ms(run, 10, "level_kernel"), events_ms=cuda_ms(run, 5),
+                      plain_ms=cuda_ms(lambda: plain_level(scene, pool, last, direct, *args), 1),
+                      bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops, tests=totals(work))
+            if scene.blocked:
+                thread = lambda: run(level_kernel.process_level_per_thread)
+                lv.update(per_thread_ms=device_ms(thread, 3, "level_kernel"),
+                          per_thread_events_ms=cuda_ms(thread, 3),
+                          phases=phase_shares(work), block_us=block_spread(work))
+            levels.append(lv)
+        mean = lambda key: sum(lv[key] for lv in levels) / len(levels)
+        out = dict(levels[0], levels=levels)
         if scene.blocked:
-            bt = scene.blk_tables
-            out = [bt.tri, bt.box, bt.sup, tb.sph, tb.mat, tb.lights]
+            out.update({key: mean(key) for key in ("ms", "events_ms", "plain_ms", "bound_ms",
+                                                   "per_thread_ms", "per_thread_events_ms")},
+                       ms_primary=levels[0]["ms"],
+                       bound_by="operations" if any(lv["bound_by"] == "operations"
+                                                    for lv in levels) else "bytes")
         return out
 
     def time_binned(scene, cam, cfg):
@@ -1134,6 +1280,13 @@ def main() -> int:
                                          tests={t: v / k for t, v in tests.items()})
         out["bounce_orders"]["dealt_block_us_median_longest"] = spreads
         out["bounce_orders"]["dealt_phases"] = phases
+        _, sf, si, first = [c for c in calls if c[0] == "terminal"][0]
+        term = out["binned_terminal"]
+        term["per_thread_ms"] = cuda_ms(lambda: mc_binned.terminal_per_thread(scene, sf, si, first),
+                                        5)
+        work = new_work(sf.shape[1])
+        mc_binned.terminal(scene, sf, si, first, work=work)
+        term["phases"], term["block_us"] = phase_shares(work), block_spread(work)
         return out
 
     def time_unfused(u):
@@ -1216,6 +1369,16 @@ def main() -> int:
           f"CUDA events {per['mc_blk']['events_ms']:.3f} ms; warp chunks x 32 / lane chunks "
           f"{sharing(per['mc_blk']['tests']):.3f} (pixel order), binned bounces "
           f"{sharing(per['binned_bounce']['tests']):.3f} (sorted and dealt)")
+    for j, lv in enumerate(per["level_blk"]["levels"]):
+        print(f"level_kernel (blocked), mesh11k tile 0, level {j} ({lv['k']} lanes): cooperative "
+              f"{lv['ms']:.4f} ms (events {lv['events_ms']:.4f}), per-thread "
+              f"{lv['per_thread_ms']:.4f} ms; bound {lv['bound_ms']:.4f} ms; {share(lv['phases'])}; "
+              f"block durations (median/longest us) {lv['block_us'][0]:.0f}/{lv['block_us'][1]:.0f}; "
+              f"warp chunks x 32 / lane chunks {sharing(lv['tests']):.3f}")
+    term = per["binned_terminal"]
+    print(f"binned_terminal on tile 0's dealt states: cooperative {term['ms']:.3f} ms, per-thread "
+          f"{term['per_thread_ms']:.3f} ms (CUDA events); {share(term['phases'])}; block durations "
+          f"(median/longest us) {term['block_us'][0]:.0f}/{term['block_us'][1]:.0f}")
     for k, v in per.items():
         print(f"per launch, 65536 rays, {k}: kernel {v['ms']:.3f} ms vs plain "
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
@@ -1224,7 +1387,10 @@ def main() -> int:
     print(json.dumps({"frames": frames, "attrs": attrs, "per_launch": per,
                       "profiles": profiles, "bounce_orders": orders}))
 
-    def entry(name, source, replaces, key, blk_key=None):
+    def entry(name, source, replaces, key, blk_key=None, thread_ms=None):
+        """The kernel's line: with `blk_key`, the blocked instantiation's own
+        fields; with `thread_ms`, the per-thread yardstick's launches on the
+        main paths and its ms beside the cooperative walk's."""
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key] + (launches[blk_key] if blk_key else 0),
              "max_abs_err": per[key].get("max_abs_err", binned_err.get(key)),
@@ -1238,20 +1404,25 @@ def main() -> int:
                       "plain_ms_blocked": per[blk_key]["plain_ms"],
                       "bound_ms_blocked": per[blk_key]["bound_ms"],
                       "bound_by_blocked": per[blk_key]["bound_by"]})
+        if thread_ms is not None:
+            e.update({"launches_per_thread": launches[(blk_key or key) + "_thread"],
+                      "ms_per_thread": thread_ms})
         return e
 
     csrc = "raytracer_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         entry("mc_kernel", csrc + "mc_kernel.cu", "raytracer_tpu/ops/mc_pallas.py:474",
-              "mc", "mc_blk"),
-        entry("level_kernel", csrc + "level_kernel.cu", "raytracer_tpu/ops/level_pallas.py:73",
-              "level", "level_blk"),
+              "mc", "mc_blk", per["mc_blk"]["per_thread_ms"]),
+        dict(entry("level_kernel", csrc + "level_kernel.cu",
+                   "raytracer_tpu/ops/level_pallas.py:73", "level", "level_blk",
+                   per["level_blk"]["per_thread_ms"]),
+             ms_blocked_primary=per["level_blk"]["ms_primary"]),
         entry("binned_primary", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:131",
               "binned_primary"),
         entry("binned_bounce", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:157",
-              "binned_bounce"),
+              "binned_bounce", thread_ms=orders["per_thread_dealt_ms"]),
         entry("binned_terminal", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:190",
-              "binned_terminal"),
+              "binned_terminal", thread_ms=per["binned_terminal"]["per_thread_ms"]),
         entry("nearest_hit", csrc + "intersect_kernels.cu",
               "raytracer_tpu/ops/intersect_pallas.py:172", "nearest_hit"),
         entry("any_hit", csrc + "intersect_kernels.cu",

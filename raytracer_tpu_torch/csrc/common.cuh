@@ -30,11 +30,12 @@
 // from a 144-byte row in global memory, a warp runs the 128-row loop once
 // for every chunk that any of its lanes entered, and a launch lasts as
 // long as its slowest warp's chain of such loops.  CoopGeom is the same
-// walk made by the 32 lanes of a warp together (the MC walks take it):
-// each lane tests the boxes for its own ray, the warp ORs the lanes'
-// chunk masks and copies each chunk of the union once into its own shared
-// memory buffer (cp.async, 16 bytes a lane: the 64-byte hot rows of Hot,
-// which hold only what decides a hit, and their ids).  Then the warp takes
+// walk made by the 32 lanes of a warp together (every blocked kernel but
+// the binned primary takes it): each lane tests the boxes for its own ray,
+// the warp ORs the lanes' chunk masks and copies each chunk of the union
+// once into its own shared memory buffer (cp.async, 16 bytes a lane: the
+// 64-byte hot rows of Hot, which hold only what decides a hit, and their
+// ids).  Then the warp takes
 // the rays of the lanes whose own box test admitted the chunk one by one,
 // and its 32 lanes test 32 rows at once: 4 steps where one thread makes
 // 128, the winner found by two warp reductions.  A shading point's
@@ -264,9 +265,19 @@ __device__ __forceinline__ void store3(float* __restrict__ a, int lane, V3 x) {
   a[3 * lane + 2] = x.z;
 }
 
+// The reflected and refracted directions below are rounded as written
+// (__fmaf_rn / __fmul_rn, which the compiler neither fuses nor splits):
+// left to nvcc, which fuses a multiply and an add wherever it sees fit, the
+// same source rounded differently in a cooperative and a per-thread
+// instantiation (the surrounding code decides what it shares), and the two
+// walks of the level kernel parted by an ulp on a tenth of the lanes.
+__device__ __forceinline__ float dot3_rn(V3 a, V3 b) {
+  return __fmaf_rn(a.z, b.z, __fmaf_rn(a.y, b.y, __fmul_rn(a.x, b.x)));
+}
+
 __device__ __forceinline__ V3 normalize3(V3 a) {
-  float inv = rsqrtf(fmaxf(a.x * a.x + a.y * a.y + a.z * a.z, 1e-30f));
-  return V3{a.x * inv, a.y * inv, a.z * inv};
+  float inv = rsqrtf(fmaxf(dot3_rn(a, a), 1e-30f));
+  return V3{__fmul_rn(a.x, inv), __fmul_rn(a.y, inv), __fmul_rn(a.z, inv)};
 }
 
 // base**expo with kernel_common.powf's rule: 0 wherever base <= 0.
@@ -289,19 +300,22 @@ __device__ __forceinline__ V3 rotate_from_z(V3 n, V3 v) {
 
 // l - 2 (l.n) n, normalized (main.rs:329).
 __device__ __forceinline__ V3 reflect3(V3 d, V3 n) {
-  float dn = dot3(d, n);
-  return normalize3(V3{d.x - 2.0f * dn * n.x, d.y - 2.0f * dn * n.y, d.z - 2.0f * dn * n.z});
+  float dn2 = -2.0f * dot3_rn(d, n);  // exact: a power of two
+  return normalize3(V3{__fmaf_rn(dn2, n.x, d.x), __fmaf_rn(dn2, n.y, d.y),
+                       __fmaf_rn(dn2, n.z, d.z)});
 }
 
 // Snell refraction (src/main.rs:344-352); ok=false is total internal
 // reflection.
 __device__ __forceinline__ V3 refract3(V3 n, V3 d, float k, bool& ok) {
-  float cs = -(d.x * n.x + d.y * n.y + d.z * n.z);
-  float sin2 = 1.0f - cs * cs;
-  ok = k * k >= sin2;
-  float root = sqrtf(fmaxf(1.0f - sin2 / (k * k), 0.0f));
-  return normalize3(V3{(d.x + n.x * cs) / k - n.x * root, (d.y + n.y * cs) / k - n.y * root,
-                       (d.z + n.z * cs) / k - n.z * root});
+  float cs = -dot3_rn(d, n);
+  float sin2 = __fmaf_rn(-cs, cs, 1.0f);
+  float kk = __fmul_rn(k, k);
+  ok = kk >= sin2;
+  float root = sqrtf(fmaxf(1.0f - sin2 / kk, 0.0f));
+  return normalize3(V3{__fmaf_rn(-n.x, root, __fmaf_rn(n.x, cs, d.x) / k),
+                       __fmaf_rn(-n.y, root, __fmaf_rn(n.y, cs, d.y) / k),
+                       __fmaf_rn(-n.z, root, __fmaf_rn(n.z, cs, d.z) / k)});
 }
 
 __device__ __forceinline__ bool excl_crit(int excl_face, bool backface) {

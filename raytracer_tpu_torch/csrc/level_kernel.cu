@@ -4,7 +4,7 @@
 // Replaces the TPU kernel raytracer_tpu/ops/level_pallas.py:73
 // `_level_kernel` / :127 `_level_body` (wrapper `process_level` :261),
 // both of its branches: one instantiation per geometry policy
-// (common.cuh DenseGeom, BlockedGeom for the large-mesh blocked layout).
+// (common.cuh DenseGeom; CoopGeom for the large-mesh blocked layout).
 // Plain version: raytracer_tpu_torch/ops/level_kernel.py
 // `process_level_plain`.
 //
@@ -20,18 +20,31 @@
 // triangles + 4 spheres per cast; blocked: the box tests and the 128-row
 // chunks a ray enters; up to 3 shadow rays and 11 march casts per lane)
 // and warp divergence between lanes that march and lanes that do not; the
-// pool I/O is 128 bytes in and ~260 bytes out per lane.  On the blocked
-// layout the lanes of a warp also diverge in which chunks they enter; the
-// warp serialises their union (staging chunks in shared memory and
-// warp-cooperative gating are later work).  The design: 128
+// pool I/O is 128 bytes in and ~260 bytes out per lane.  Dense: 128
 // threads per block, scene tables through const __restrict__ global
 // pointers (L1-resident), and a per-lane early exit in place of the TPU's
 // dead-tile skip — a lane that is not alive writes exactly what a dead
 // TPU tile writes (children zero; pending delivered through contrib on
 // direct levels, otherwise carried on the reflect child with its slot).
-// The TPU's 512-lane tiles, bit-cast int rows and one-hot attribute
-// matmuls are gone.  W is the test counter (common.cuh): NoWork on the
-// main path, Work when the caller asks for the per-lane test counts.
+// Blocked: one thread alone pays a dependent global load for every row of
+// every chunk it enters, its warp runs the 128-row loop once for every
+// chunk that any lane enters, and a launch waits for its slowest warp (the
+// lanes that march through the glass), so the blocked instantiation walks
+// the chunks warp by warp (common.cuh CoopGeom, as mc_kernel.cu): a chunk
+// is staged once in the warp's shared memory and its rows tested 32 at a
+// time for one ray after the other, a shading point's shadow rays make one
+// pass for all lights, and no lane leaves early — a dead lane and a lane
+// past the pool's end pass `false` down to the sweeps and write what they
+// owe at the end.  The warps of a launch take the pool dealt round-robin
+// (the lanes that march, and the dead ones, come in runs).  Over a mesh11k
+// frame's 96 level launches that takes 0.35 ms a launch, 0.68 undealt,
+// where the per-thread walk takes 1.73 (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md).  The per-thread BlockedGeom instantiation is kept as the
+// yardstick that chip_smoke.py holds the cooperative walk against
+// (rt_level_blk_thread); no wrapper of the main path launches it.  The
+// TPU's 512-lane tiles, bit-cast int rows and one-hot attribute matmuls
+// are gone.  W is the test counter (common.cuh): NoWork on the main path,
+// Work when the caller asks for the per-lane test counts.
 #include "common.cuh"
 
 namespace rt {
@@ -46,23 +59,43 @@ __device__ __forceinline__ void put_i(int* __restrict__ a, int row, int k, int l
   a[(size_t)row * k + lane] = x;
 }
 
+constexpr int LEVEL_THREADS = 128;
+
+// Under a cooperative geometry every lane runs every statement that sweeps:
+// a dead lane and a lane past the pool's end pass `false` down to the
+// sweeps and only write at the end (`mine`: the lane writes a live lane's
+// outputs); the per-thread policies keep their early returns.
 template <class G, class W>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(LEVEL_THREADS)
 level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
              float* __restrict__ contrib, float* __restrict__ rf, int* __restrict__ ri,
              float* __restrict__ ff, int* __restrict__ fi, int* __restrict__ casts_out,
              int* __restrict__ work_out, int k, bool last, bool direct, float threshold,
              float max_distance, int max_retries) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= k) return;
+  bool in_tile = lane < k;
+  int helped = -1;  // the pool position of this warp's first lane, if any
+  if constexpr (G::COOP) {
+    // the pool dealt round-robin over the launch's W = ceil(K / 32) warps:
+    // warp w takes pool lanes w, w + W, w + 2 W, ... (outputs keep the
+    // pool's order)
+    const int warps = (k + WARP - 1) / WARP, warp = lane / WARP;
+    lane = (lane % WARP) * warps + warp;
+    in_tile = lane < k && warp < warps;
+    if (warp < warps) helped = warp;
+    if (!in_tile) lane = k - 1;  // sweeps along with its warp, wants nothing, writes nothing
+  } else {
+    if (!in_tile) return;
+  }
   const Tables& tb = g.tb;
   W w{};
   auto f_at = [&](int row) { return pf[(size_t)row * k + lane]; };
   auto i_at = [&](int row) { return pi[(size_t)row * k + lane]; };
   V3 pend = v3(f_at(F_PEND), f_at(F_PEND + 1), f_at(F_PEND + 2));
   int slot = i_at(I_SLOT);
+  const bool alive = i_at(I_ALIVE) != 0;
 
-  if (i_at(I_ALIVE) == 0) {  // what a dead TPU tile gives
+  auto put_dead = [&] {  // what a dead TPU tile gives
     for (int r = 0; r < 11; ++r) {
       put_f(rf, r, k, lane, 0.0f);
       put_f(ff, r, k, lane, 0.0f);
@@ -83,15 +116,31 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
     }
     casts_out[lane] = 0;
     w.put(work_out, k, lane);
-    return;
+  };
+  if constexpr (!G::COOP) {
+    if (!alive) {
+      put_dead();
+      return;
+    }
   }
+  const bool mine = !G::COOP || (in_tile && alive);
+  // the lanes of a cooperative warp that wrote nothing above: dead lanes
+  // write what a dead tile gives, and lanes past the end hand the row tests
+  // they made for others to the warp's first lane (after its own put)
+  auto settle = [&] {
+    if constexpr (G::COOP) {
+      if (in_tile && !alive) put_dead();
+      __syncwarp();
+      if (!in_tile && helped >= 0) w.put_helped(work_out, k, helped);
+    }
+  };
 
   V3 o = v3(f_at(0), f_at(1), f_at(2));
   V3 d = v3(f_at(3), f_at(4), f_at(5));
   float c = f_at(6), s = f_at(7);
   int face = i_at(I_FACE);
 
-  Hit h = g.nearest(o, d, face, i_at(I_EXCL_PRIM), i_at(I_EXCL_FACE), true, w);
+  Hit h = g.nearest(o, d, face, i_at(I_EXCL_PRIM), i_at(I_EXCL_FACE), mine, w);
   bool live = h.valid;
   int casts = 1;
 
@@ -109,92 +158,105 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
                 pend.y + (need_shade ? sh.y * coef : 0.0f),
                 pend.z + (need_shade ? sh.z * coef : 0.0f));
 
-  if (last) {  // final level: no children, deliver pending + shade
-    for (int r = 0; r < 11; ++r) {
-      put_f(rf, r, k, lane, 0.0f);
-      put_f(ff, r, k, lane, 0.0f);
+  if (last) {  // final level (the same in every lane): no children, deliver pending + shade
+    if (mine) {
+      for (int r = 0; r < 11; ++r) {
+        put_f(rf, r, k, lane, 0.0f);
+        put_f(ff, r, k, lane, 0.0f);
+      }
+      for (int r = 0; r < 5; ++r) {
+        put_i(ri, r, k, lane, 0);
+        put_i(fi, r, k, lane, 0);
+      }
+      put_f(contrib, 0, k, lane, p_new.x);
+      put_f(contrib, 1, k, lane, p_new.y);
+      put_f(contrib, 2, k, lane, p_new.z);
+      casts_out[lane] = casts;
+      w.put(work_out, k, lane);
     }
-    for (int r = 0; r < 5; ++r) {
-      put_i(ri, r, k, lane, 0);
-      put_i(fi, r, k, lane, 0);
-    }
-    put_f(contrib, 0, k, lane, p_new.x);
-    put_f(contrib, 1, k, lane, p_new.y);
-    put_f(contrib, 2, k, lane, p_new.z);
-    casts_out[lane] = casts;
-    w.put(work_out, k, lane);
+    settle();
     return;
   }
 
   // reflect child (main.rs:493-500, get_reflect 328-341)
   float c_r = c * refl_c;
   bool want_r = live && c_r >= threshold;
-  V3 fr = reflect3(d, h.n);
-  put_f(rf, 0, k, lane, h.p.x);
-  put_f(rf, 1, k, lane, h.p.y);
-  put_f(rf, 2, k, lane, h.p.z);
-  put_f(rf, 3, k, lane, fr.x);
-  put_f(rf, 4, k, lane, fr.y);
-  put_f(rf, 5, k, lane, fr.z);
-  put_f(rf, 6, k, lane, c_r);
-  put_f(rf, 7, k, lane, s * refl_c);
-  put_i(ri, I_FACE, k, lane, face);  // the child keeps the incoming face (341)
-  put_i(ri, I_EXCL_PRIM, k, lane, h.prim);
-  put_i(ri, I_EXCL_FACE, k, lane, h.back ? FACE_FRONT : FACE_BACK);
-  put_i(ri, I_SLOT, k, lane, slot);
-  put_i(ri, I_ALIVE, k, lane, want_r ? 1 : 0);
+  if (mine) {
+    V3 fr = reflect3(d, h.n);
+    put_f(rf, 0, k, lane, h.p.x);
+    put_f(rf, 1, k, lane, h.p.y);
+    put_f(rf, 2, k, lane, h.p.z);
+    put_f(rf, 3, k, lane, fr.x);
+    put_f(rf, 4, k, lane, fr.y);
+    put_f(rf, 5, k, lane, fr.z);
+    put_f(rf, 6, k, lane, c_r);
+    put_f(rf, 7, k, lane, s * refl_c);
+    put_i(ri, I_FACE, k, lane, face);  // the child keeps the incoming face (341)
+    put_i(ri, I_EXCL_PRIM, k, lane, h.prim);
+    put_i(ri, I_EXCL_FACE, k, lane, h.back ? FACE_FRONT : FACE_BACK);
+    put_i(ri, I_SLOT, k, lane, slot);
+    put_i(ri, I_ALIVE, k, lane, want_r ? 1 : 0);
+  }
 
   // refract child (main.rs:502-514): the whole interior march
   float c_f = c * refr_c;
   bool want_f = live && c_f > threshold;  // strict > (504)
   March mm = march(g, h.p, h.n, d, m.refraction, want_f, max_distance, max_retries, w);
-  casts += mm.iters;
-  float decay = kpowf(m.decay, mm.travel);  // opaque_decay^travel (508)
-  bool alive_f = want_f && mm.escaped;
-  put_f(ff, 0, k, lane, mm.e.x);
-  put_f(ff, 1, k, lane, mm.e.y);
-  put_f(ff, 2, k, lane, mm.e.z);
-  put_f(ff, 3, k, lane, mm.od.x);
-  put_f(ff, 4, k, lane, mm.od.y);
-  put_f(ff, 5, k, lane, mm.od.z);
-  put_f(ff, 6, k, lane, c_f);
-  put_f(ff, 7, k, lane, s * refr_c * decay);
-  put_i(fi, I_FACE, k, lane, FACE_FRONT);
-  put_i(fi, I_EXCL_PRIM, k, lane, mm.prim);
-  put_i(fi, I_EXCL_FACE, k, lane, FACE_BACK);
-  put_i(fi, I_SLOT, k, lane, slot);
-  put_i(fi, I_ALIVE, k, lane, alive_f ? 1 : 0);
+  if (mine) {
+    casts += mm.iters;
+    float decay = kpowf(m.decay, mm.travel);  // opaque_decay^travel (508)
+    bool alive_f = want_f && mm.escaped;
+    put_f(ff, 0, k, lane, mm.e.x);
+    put_f(ff, 1, k, lane, mm.e.y);
+    put_f(ff, 2, k, lane, mm.e.z);
+    put_f(ff, 3, k, lane, mm.od.x);
+    put_f(ff, 4, k, lane, mm.od.y);
+    put_f(ff, 5, k, lane, mm.od.z);
+    put_f(ff, 6, k, lane, c_f);
+    put_f(ff, 7, k, lane, s * refr_c * decay);
+    put_i(fi, I_FACE, k, lane, FACE_FRONT);
+    put_i(fi, I_EXCL_PRIM, k, lane, mm.prim);
+    put_i(fi, I_EXCL_FACE, k, lane, FACE_BACK);
+    put_i(fi, I_SLOT, k, lane, slot);
+    put_i(fi, I_ALIVE, k, lane, alive_f ? 1 : 0);
 
-  // radiance delivery: direct levels emit through contrib; pooled levels
-  // carry p_new on exactly one child (reflect by default, refract when
-  // only it lives)
-  V3 zero = v3(0.0f, 0.0f, 0.0f);
-  bool carrier_f = !want_r && alive_f;
-  V3 out_c = direct ? p_new : zero;
-  V3 out_r = (direct || carrier_f) ? zero : p_new;
-  V3 out_f = (!direct && carrier_f) ? p_new : zero;
-  put_f(contrib, 0, k, lane, out_c.x);
-  put_f(contrib, 1, k, lane, out_c.y);
-  put_f(contrib, 2, k, lane, out_c.z);
-  put_f(rf, F_PEND, k, lane, out_r.x);
-  put_f(rf, F_PEND + 1, k, lane, out_r.y);
-  put_f(rf, F_PEND + 2, k, lane, out_r.z);
-  put_f(ff, F_PEND, k, lane, out_f.x);
-  put_f(ff, F_PEND + 1, k, lane, out_f.y);
-  put_f(ff, F_PEND + 2, k, lane, out_f.z);
-  casts_out[lane] = casts;
-  w.put(work_out, k, lane);
+    // radiance delivery: direct levels emit through contrib; pooled levels
+    // carry p_new on exactly one child (reflect by default, refract when
+    // only it lives)
+    V3 zero = v3(0.0f, 0.0f, 0.0f);
+    bool carrier_f = !want_r && alive_f;
+    V3 out_c = direct ? p_new : zero;
+    V3 out_r = (direct || carrier_f) ? zero : p_new;
+    V3 out_f = (!direct && carrier_f) ? p_new : zero;
+    put_f(contrib, 0, k, lane, out_c.x);
+    put_f(contrib, 1, k, lane, out_c.y);
+    put_f(contrib, 2, k, lane, out_c.z);
+    put_f(rf, F_PEND, k, lane, out_r.x);
+    put_f(rf, F_PEND + 1, k, lane, out_r.y);
+    put_f(rf, F_PEND + 2, k, lane, out_r.z);
+    put_f(ff, F_PEND, k, lane, out_f.x);
+    put_f(ff, F_PEND + 1, k, lane, out_f.y);
+    put_f(ff, F_PEND + 2, k, lane, out_f.z);
+    casts_out[lane] = casts;
+    w.put(work_out, k, lane);
+  }
+  settle();
 }
 
 template <class G>
 int launch_level(const float* pf, const int* pi, G g, float* contrib, float* rf, int* ri,
                  float* ff, int* fi, int* casts, int* work, int k, int last, int direct,
                  float threshold, float max_distance, int max_retries, void* stream) {
-  int blocks = (k + 127) / 128;
+  int blocks = (k + LEVEL_THREADS - 1) / LEVEL_THREADS;
   auto kernel = work ? &level_kernel<G, Work> : &level_kernel<G, NoWork>;
-  kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(pf, pi, g, contrib, rf, ri, ff, fi, casts,
-                                                  work, k, last != 0, direct != 0, threshold,
-                                                  max_distance, max_retries);
+  int shared = G::COOP ? coop_shared_bytes(LEVEL_THREADS) : 0;
+  if (shared) {
+    int err = coop_opt_in((const void*)kernel, shared);
+    if (err) return err;
+  }
+  kernel<<<blocks, LEVEL_THREADS, shared, (cudaStream_t)stream>>>(
+      pf, pi, g, contrib, rf, ri, ff, fi, casts, work, k, last != 0, direct != 0, threshold,
+      max_distance, max_retries);
   return (int)cudaGetLastError();
 }
 
@@ -215,27 +277,50 @@ int rt_level(const float* pf, const int* pi, const float* tri, int n_tri, const 
                           threshold, max_distance, max_retries, stream);
 }
 
-// The blocked instantiation: btri [NCH*128, 36], box [NCH, 8], sup
-// [NCH/8, 8], n_chunks = chunks that hold a triangle.
+// The blocked instantiation: the warp-cooperative walk.  btri [NCH*128,
+// 36], box [NCH, 8], sup [NCH/8, 8], n_chunks = chunks that hold a
+// triangle; then the hot rows [NCH * 128, 16], their ids [NCH * 128], the
+// chunks' live row counts [NCH] and the triangles' rows [n_tri].
 int rt_level_blk(const float* pf, const int* pi, const float* tri, int n_tri, const float* sph,
                  int n_sph, const float* mat, int n_obj, const float* lights, int n_light,
                  const float* btri, const float* box, const float* sup, int n_chunks,
+                 const float* hot, const int* ids, const int* live, const int* row_of_tri,
                  float* contrib, float* rf, int* ri, float* ff, int* fi, int* casts, int* work,
                  int k, int last, int direct, float threshold, float max_distance,
                  int max_retries, void* stream) {
+  rt::CoopGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light},
+                 rt::Blk{btri, box, sup, n_chunks},
+                 rt::Hot{(const float4*)hot, ids, live, row_of_tri}};
+  return rt::launch_level(pf, pi, g, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
+                          threshold, max_distance, max_retries, stream);
+}
+
+// The same level with every thread traversing the blocked table alone
+// (BlockedGeom): what the cooperative walk is held against.
+int rt_level_blk_thread(const float* pf, const int* pi, const float* tri, int n_tri,
+                        const float* sph, int n_sph, const float* mat, int n_obj,
+                        const float* lights, int n_light, const float* btri, const float* box,
+                        const float* sup, int n_chunks, float* contrib, float* rf, int* ri,
+                        float* ff, int* fi, int* casts, int* work, int k, int last, int direct,
+                        float threshold, float max_distance, int max_retries, void* stream) {
   rt::BlockedGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light},
                     rt::Blk{btri, box, sup, n_chunks}};
   return rt::launch_level(pf, pi, g, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
                           threshold, max_distance, max_retries, stream);
 }
 
-// Compiled attributes of the main path's instantiation `which` (0 dense, 1
-// blocked): out = {registers per thread, local (spill + stack) bytes per
-// thread, static shared bytes, max threads per block, dynamic shared bytes
-// per launch}.
+// Compiled attributes of the instantiation `which` that counts nothing (0
+// dense, 1 blocked: the cooperative walk, 2 the per-thread blocked walk):
+// out = {registers per thread, local (spill + stack) bytes per thread,
+// static shared bytes, max threads per block, dynamic shared bytes per
+// launch}.
 int rt_level_attrs(int which, int* out) {
-  return rt::attrs_of(which ? (const void*)rt::level_kernel<rt::BlockedGeom, rt::NoWork>
-                            : (const void*)rt::level_kernel<rt::DenseGeom, rt::NoWork>,
+  using rt::NoWork;
+  if (which == 1)
+    return rt::attrs_of((const void*)rt::level_kernel<rt::CoopGeom, NoWork>, out,
+                        rt::coop_shared_bytes(rt::LEVEL_THREADS));
+  return rt::attrs_of(which ? (const void*)rt::level_kernel<rt::BlockedGeom, NoWork>
+                            : (const void*)rt::level_kernel<rt::DenseGeom, NoWork>,
                       out);
 }
 

@@ -28,24 +28,24 @@
 // What bounds them on an H100: as the whole-walk kernel, issue throughput
 // and load latency of the chunk traversal and warp divergence.  State I/O
 // is 104 bytes in and out per lane per bounce.  128 threads per block.  The
-// primary and the terminal kernel traverse per thread, the blocked table
-// read from global memory (BlockedGeom).  The bounce kernel, which makes
-// nearly all of the walk's sweeps, walks the chunks warp by warp
+// primary kernel traverses per thread, the blocked table read from global
+// memory (BlockedGeom).  The bounce kernel, which makes nearly all of the
+// walk's sweeps, and the terminal kernel walk the chunks warp by warp
 // (common.cuh CoopGeom): a chunk that any of the 32 lanes enters is staged
 // once in the warp's shared memory and its rows tested 32 at a time for one
-// ray after the other, each of its two shades makes one pass for all
-// lights, and its control flow is the same in all lanes of a warp (dead
-// lanes and the lanes past the end pass `false` down instead of leaving).
-// A launch lasts as long as its slowest warp, and the sort packs the lanes
-// that march into neighbouring warps, so the wrapper deals the sorted lanes
-// round-robin over the warps (ops/mc_binned.py deal_lanes): 0.26 ms a
-// launch on a mesh11k tile where the sorted order takes 1.2 and the
-// per-thread walk 7.4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  The bounce
-// kernel's per-thread instantiation is kept as the yardstick chip_smoke.py
-// holds the cooperative one against (rt_binned_bounce_thread); no wrapper
-// of the main path launches it.  W is the test counter (common.cuh):
-// NoWork on the main path, Work when the caller asks for the per-lane test
-// counts.
+// ray after the other, each shade makes one pass for all lights, and their
+// control flow is the same in all lanes of a warp (dead lanes and the lanes
+// past the end pass `false` down instead of leaving).  A launch lasts as
+// long as its slowest warp, and the sort packs the lanes that march into
+// neighbouring warps, so the wrapper deals the sorted lanes round-robin
+// over the warps (ops/mc_binned.py deal_lanes): 0.26 ms a bounce launch on
+// a mesh11k tile where the sorted order takes 1.2 and the per-thread walk
+// 7.4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  The per-thread
+// instantiations of the bounce and the terminal kernel are kept as the
+// yardsticks chip_smoke.py holds the cooperative ones against
+// (rt_binned_bounce_thread, rt_binned_terminal_thread); no wrapper of the
+// main path launches them.  W is the test counter (common.cuh): NoWork on
+// the main path, Work when the caller asks for the per-lane test counts.
 #include "mc_walk.cuh"
 
 namespace rt {
@@ -200,20 +200,28 @@ binned_bounce(const float* __restrict__ sf, const int* __restrict__ si,
   }
 }
 
-template <bool FIRST, class W>
-__global__ void __launch_bounds__(128)
-binned_terminal(const float* __restrict__ sf, const int* __restrict__ si, BlockedGeom g,
+// As binned_bounce, every lane runs the shade: a dead lane and a lane past
+// the end pass `false` down.
+template <class G, bool FIRST, class W>
+__global__ void __launch_bounds__(BOUNCE_THREADS)
+binned_terminal(const float* __restrict__ sf, const int* __restrict__ si, G g,
                 float* __restrict__ photon, int* __restrict__ casts_out,
                 int* __restrict__ work_out, int n) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const bool in_tile = lane < n;
+  if constexpr (G::COOP) {
+    if (!in_tile) lane = n - 1;
+  } else {
+    if (!in_tile) return;
+  }
   W w{};
   State s = load_state(sf, si, n, lane);
+  const bool alive = in_tile && s.alive;
   int casts = 0;
   V3 out = s.acc;  // a dead lane's accumulation is its photon
-  if (s.alive) {
-    Mat m = eval_material(g.tb, s.c.obj, s.c.u, s.c.v);
-    V3 sh = shade_at(g, m, s.c.p, s.c.n, s.c.d, true, s.c.prim, casts, w);
+  Mat m = eval_material(g.tb, s.c.obj, s.c.u, s.c.v);
+  V3 sh = shade_at(g, m, s.c.p, s.c.n, s.c.d, alive, s.c.prim, casts, w);
+  if (alive) {
     if (!FIRST) {
       out.x += s.pre.x * (s.df * sh.x);
       out.y += s.pre.y * (s.df * sh.y);
@@ -224,11 +232,17 @@ binned_terminal(const float* __restrict__ sf, const int* __restrict__ si, Blocke
     out.y += s.scale.y * sh.y;
     out.z += s.scale.z * sh.z;
   }
-  photon[lane] = out.x;
-  photon[n + lane] = out.y;
-  photon[2 * n + lane] = out.z;
-  casts_out[lane] = casts;
-  w.put(work_out, n, lane);
+  if (in_tile) {
+    photon[lane] = out.x;
+    photon[n + lane] = out.y;
+    photon[2 * n + lane] = out.z;
+    casts_out[lane] = casts;
+    w.put(work_out, n, lane);
+  }
+  if constexpr (G::COOP) {
+    __syncwarp();
+    if (!in_tile) w.put_helped(work_out, n, n - 1);
+  }
 }
 
 }  // namespace rt
@@ -243,6 +257,14 @@ rt::BlockedGeom blocked_geom(const float* tri, int n_tri, const float* sph, int 
                          rt::Blk{btri, box, sup, n_chunks}};
 }
 
+// Launch set-up of the bounce and terminal kernels: a cooperative geometry
+// asks for its staging buffers (dynamic shared memory) -> CUDA error.
+template <class G>
+int shared_for(const void* kernel, int& shared) {
+  shared = G::COOP ? rt::coop_shared_bytes(rt::BOUNCE_THREADS) : 0;
+  return shared ? rt::coop_opt_in(kernel, shared) : 0;
+}
+
 template <class G>
 int launch_bounce(const float* st_f, const int* st_i, const float* unifs, G g, float* out_f,
                   int* out_i, int* casts, int* work, int n, int first, float max_distance,
@@ -253,14 +275,28 @@ int launch_bounce(const float* st_f, const int* st_i, const float* unifs, G g, f
                               : &rt::binned_bounce<G, true, NoWork>)
                       : (work ? &rt::binned_bounce<G, false, Work>
                               : &rt::binned_bounce<G, false, NoWork>);
-  int shared = G::COOP ? rt::coop_shared_bytes(rt::BOUNCE_THREADS) : 0;
-  if (shared) {
-    int err = rt::coop_opt_in((const void*)kernel, shared);
-    if (err) return err;
-  }
+  int shared;
+  if (int err = shared_for<G>((const void*)kernel, shared)) return err;
   int blocks = (n + rt::BOUNCE_THREADS - 1) / rt::BOUNCE_THREADS;
   kernel<<<blocks, rt::BOUNCE_THREADS, shared, (cudaStream_t)stream>>>(
       st_f, st_i, unifs, g, out_f, out_i, casts, work, n, max_distance, max_retries);
+  return (int)cudaGetLastError();
+}
+
+template <class G>
+int launch_terminal(const float* st_f, const int* st_i, G g, float* photon, int* casts,
+                    int* work, int n, int first, void* stream) {
+  using rt::NoWork;
+  using rt::Work;
+  auto kernel = first ? (work ? &rt::binned_terminal<G, true, Work>
+                              : &rt::binned_terminal<G, true, NoWork>)
+                      : (work ? &rt::binned_terminal<G, false, Work>
+                              : &rt::binned_terminal<G, false, NoWork>);
+  int shared;
+  if (int err = shared_for<G>((const void*)kernel, shared)) return err;
+  int blocks = (n + rt::BOUNCE_THREADS - 1) / rt::BOUNCE_THREADS;
+  kernel<<<blocks, rt::BOUNCE_THREADS, shared, (cudaStream_t)stream>>>(st_f, st_i, g, photon,
+                                                                       casts, work, n);
   return (int)cudaGetLastError();
 }
 
@@ -316,27 +352,36 @@ int rt_binned_bounce_thread(const float* st_f, const int* st_i, const float* uni
                        max_retries, stream);
 }
 
-// photon: [3, n] in the state's lane order.
+// photon: [3, n] in the state's lane order.  The warp-cooperative walk;
+// tables as rt_binned_bounce.
 int rt_binned_terminal(const float* st_f, const int* st_i, const float* tri, int n_tri,
                        const float* sph, int n_sph, const float* mat, int n_obj,
                        const float* lights, int n_light, const float* btri, const float* box,
-                       const float* sup, int n_chunks, float* photon, int* casts, int* work,
-                       int n, int first, void* stream) {
+                       const float* sup, int n_chunks, const float* hot, const int* ids,
+                       const int* live, const int* row_of_tri, float* photon, int* casts,
+                       int* work, int n, int first, void* stream) {
+  rt::BlockedGeom bg = blocked_geom(tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light, btri,
+                                    box, sup, n_chunks);
+  rt::CoopGeom g{bg.tb, bg.bk, rt::Hot{(const float4*)hot, ids, live, row_of_tri}};
+  return launch_terminal(st_f, st_i, g, photon, casts, work, n, first, stream);
+}
+
+// The same terminal with every thread traversing the blocked table alone
+// (BlockedGeom): what the cooperative walk is held against.
+int rt_binned_terminal_thread(const float* st_f, const int* st_i, const float* tri, int n_tri,
+                              const float* sph, int n_sph, const float* mat, int n_obj,
+                              const float* lights, int n_light, const float* btri,
+                              const float* box, const float* sup, int n_chunks, float* photon,
+                              int* casts, int* work, int n, int first, void* stream) {
   rt::BlockedGeom g = blocked_geom(tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light, btri,
                                    box, sup, n_chunks);
-  auto kernel = first ? (work ? &rt::binned_terminal<true, rt::Work>
-                              : &rt::binned_terminal<true, rt::NoWork>)
-                      : (work ? &rt::binned_terminal<false, rt::Work>
-                              : &rt::binned_terminal<false, rt::NoWork>);
-  kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(st_f, st_i, g, photon, casts, work,
-                                                            n);
-  return (int)cudaGetLastError();
+  return launch_terminal(st_f, st_i, g, photon, casts, work, n, first, stream);
 }
 
 // Compiled attributes of the instantiations that count nothing: which = 0
-// primary, 1 bounce<first>, 2 bounce (both the cooperative walk), 3
-// terminal<first>, 4 terminal, 5 the per-thread bounce (layout as
-// rt_level_attrs).
+// primary, 1 bounce<first>, 2 bounce, 3 terminal<first>, 4 terminal (these
+// four the cooperative walk), 5 the per-thread bounce, 6 the per-thread
+// terminal (layout as rt_level_attrs).
 int rt_binned_attrs(int which, int* out) {
   using rt::BlockedGeom;
   using rt::CoopGeom;
@@ -344,11 +389,12 @@ int rt_binned_attrs(int which, int* out) {
   const void* fns[] = {(const void*)rt::binned_primary<NoWork>,
                        (const void*)rt::binned_bounce<CoopGeom, true, NoWork>,
                        (const void*)rt::binned_bounce<CoopGeom, false, NoWork>,
-                       (const void*)rt::binned_terminal<true, NoWork>,
-                       (const void*)rt::binned_terminal<false, NoWork>,
-                       (const void*)rt::binned_bounce<BlockedGeom, false, NoWork>};
-  if (which < 0 || which > 5) return -1;
-  bool coop = which == 1 || which == 2;
+                       (const void*)rt::binned_terminal<CoopGeom, true, NoWork>,
+                       (const void*)rt::binned_terminal<CoopGeom, false, NoWork>,
+                       (const void*)rt::binned_bounce<BlockedGeom, false, NoWork>,
+                       (const void*)rt::binned_terminal<BlockedGeom, false, NoWork>};
+  if (which < 0 || which > 6) return -1;
+  bool coop = which >= 1 && which <= 4;
   return rt::attrs_of(fns[which], out, coop ? rt::coop_shared_bytes(rt::BOUNCE_THREADS) : 0);
 }
 

@@ -8,8 +8,14 @@ nearest cast with attributes, direct shade with all shadow sweeps
 interior march, and the pending-radiance carry or `contrib` delivery.
 The CUDA kernel is csrc/level_kernel.cu, one instantiation per geometry:
 dense scenes launch `rt_level`, blocked (large-mesh) scenes `rt_level_blk`
-(level_pallas.py:127-253, the BlockedGeom branch).  `process_level_plain`
-below is the same level in plain PyTorch over either geometry.
+(level_pallas.py:127-253, the BlockedGeom branch), whose warps walk the
+chunks together out of shared memory (csrc/common.cuh CoopGeom) and take
+the pool's lanes dealt round-robin (a map inside the kernel: the outputs
+keep the pool's order).
+`process_level_plain` below is the same level in plain PyTorch over either
+geometry.  `process_level_per_thread` launches the blocked level with every
+thread traversing alone, as a yardstick for the cooperative one; the
+Whitted ladder never takes it.
 
 Pool layout: `Pool.f` [11, K] float32 and `Pool.i` [5, K] int32 (the TPU
 kernel bit-casts the int rows into one f32 array; here they stay int32):
@@ -41,6 +47,7 @@ N_F, N_I = 11, 5
 
 COUNTS = kernels.LaunchCounts()  # the dense instantiation
 COUNTS_BLK = kernels.LaunchCounts()  # the blocked instantiation
+COUNTS_BLK_THREAD = kernels.LaunchCounts()  # its per-thread yardstick
 
 
 class Pool(NamedTuple):
@@ -144,13 +151,14 @@ def process_level_plain(geom, textures, pool: Pool, last: bool,
 
 def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
                   threshold: float, max_distance: float, max_retries: int,
-                  work: torch.Tensor | None = None):
+                  work: torch.Tensor | None = None, lane_casts: bool = False):
     """One Whitted level over a pool -> (contrib [3, K], reflect child Pool,
-    refract child Pool, casts 0-d tensor).
+    refract child Pool, casts 0-d tensor; with `lane_casts`, each lane's
+    casts [K] int32 instead of their sum).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/level_kernel.cu, the blocked instantiation on a blocked scene)
-    or raise — there is no fallback.  `work`: an optional int32
+    (csrc/level_kernel.cu, the cooperative blocked instantiation on a
+    blocked scene) or raise — there is no fallback.  `work`: an optional int32
     [len(kernels.WORK_ROWS), K] tensor; given one, the kernel's counting
     instantiation fills it with each lane's tests by kind (chip_smoke.py
     derives the operation bound from it)."""
@@ -161,7 +169,34 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
         contrib, rch, fch, casts = process_level_plain(
             scene.geom, scene.textures, pool, last, direct, threshold,
             max_distance, max_retries)
-        return contrib, rch, fch, casts.sum()
+    else:
+        contrib, rch, fch, casts = _launch(
+            "rt_level_blk" if scene.blocked else "rt_level", scene.blocked, counts, scene, pool,
+            last, direct, threshold, max_distance, max_retries, work)
+    return contrib, rch, fch, casts if lane_casts else casts.sum()
+
+
+def process_level_per_thread(scene: Scene, pool: Pool, last: bool, direct: bool,
+                             threshold: float, max_distance: float, max_retries: int,
+                             work: torch.Tensor | None = None, lane_casts: bool = False):
+    """`process_level` of a blocked scene on CUDA tensors through the
+    kernel's per-thread blocked instantiation (every thread walks its own
+    chunk list out of global memory).  The cooperative level must give its
+    outputs, casts and test counts; nothing on the main path calls this."""
+    if not scene.blocked:
+        raise ValueError("the per-thread blocked level takes blocked scenes only")
+    contrib, rch, fch, casts = _launch("rt_level_blk_thread", False, COUNTS_BLK_THREAD, scene,
+                                       pool, last, direct, threshold, max_distance,
+                                       max_retries, work)
+    return contrib, rch, fch, casts if lane_casts else casts.sum()
+
+
+def _launch(entry: str, hot: bool, counts, scene: Scene, pool: Pool, last, direct, threshold,
+            max_distance, max_retries, work):
+    """Check the operands and launch C entry `entry` (`hot`: it takes the
+    cooperative walk's tables) and advance its launch counter `counts` ->
+    (contrib, reflect child, refract child, casts per lane)."""
+    dev = pool.f.device
     if dev.type != "cuda":
         raise ValueError(f"level_kernel.process_level: unsupported device {dev}")
     if not kernel_textures_ok(scene.textures):
@@ -180,10 +215,9 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
     casts = torch.empty((k,), dtype=torch.int32, device=dev)
     if k:
         kernels.launch(
-            "rt_level_blk" if bt is not None else "rt_level",
-            pool.f, pool.i, *kc.kernel_geometry(tb, bt), contrib, rch.f, rch.i,
+            entry, pool.f, pool.i, *kc.kernel_geometry(tb, bt, hot), contrib, rch.f, rch.i,
             fch.f, fch.i, casts, work, k, int(last), int(direct),
             float(threshold), float(max_distance), int(max_retries),
         )
         counts.launches += 1
-    return contrib, rch, fch, casts.sum()
+    return contrib, rch, fch, casts

@@ -24,7 +24,9 @@ Three CUDA kernels (csrc/mc_binned.cu), each with its plain version here:
               `bounce_per_thread` launches it with every thread
               traversing alone, as a yardstick; the walk never takes it;
   * terminal: the last deferred shade and the depth-exhausted terminal
-              shade in one shadow sweep -> photons in sorted lane order.
+              shade in one shadow sweep -> photons in sorted lane order;
+              cooperative as the bounce (`terminal_per_thread`: the
+              per-thread yardstick).
 
 Walk state: `sf` [21, N] float32 and `si` [5, N] int32 (the TPU bit-casts
 the int rows into one [26, N] f32 array; here ints stay ints):
@@ -74,6 +76,9 @@ _I_KEYS = ("alive", "cprim", "cobj", "cback", "slot")
 COUNTS_PRIMARY = kernels.LaunchCounts()
 COUNTS_BOUNCE = kernels.LaunchCounts()
 COUNTS_TERMINAL = kernels.LaunchCounts()
+# the per-thread yardsticks of the cooperative bounce and terminal
+COUNTS_BOUNCE_THREAD = kernels.LaunchCounts()
+COUNTS_TERMINAL_THREAD = kernels.LaunchCounts()
 
 
 def unpack(sf, si) -> dict:
@@ -319,14 +324,14 @@ def bounce_per_thread(scene: Scene, sf, si, u, first: bool, max_distance: float,
     (every thread walks its own chunk list out of global memory).  The
     cooperative bounce must give its state, casts and test counts; the walk
     never calls this."""
-    return _launch_bounce("rt_binned_bounce_thread", False, None, scene, sf, si, u, first,
-                          max_distance, max_retries, work)
+    return _launch_bounce("rt_binned_bounce_thread", False, COUNTS_BOUNCE_THREAD, scene, sf, si,
+                          u, first, max_distance, max_retries, work)
 
 
 def _launch_bounce(entry: str, hot: bool, counts, scene: Scene, sf, si, u, first,
                    max_distance, max_retries, work):
     """Check the operands and launch C entry `entry` (`hot`: it takes the
-    cooperative walk's tables); `counts`: the launch counter to advance."""
+    cooperative walk's tables) and advance its launch counter `counts`."""
     dev, n = sf.device, sf.shape[1]
     geo = _cuda_args(scene, dev, "bounce", hot)
     _check_state(sf, si, n, dev)
@@ -337,27 +342,39 @@ def _launch_bounce(entry: str, hot: bool, counts, scene: Scene, sf, si, u, first
     if n:
         kernels.launch(entry, sf, si, u, *geo, out_f, out_i, casts, work, n, int(first),
                        float(max_distance), int(max_retries))
-        if counts is not None:
-            counts.launches += 1
+        counts.launches += 1
     return out_f, out_i, casts
 
 
 def terminal(scene: Scene, sf, si, first: bool, work=None):
     """The last deferred shade + terminal -> (photon [3, N] in the state's
     lane order, casts [N])."""
-    dev, n = sf.device, sf.shape[1]
-    if dev.type == "cpu":
+    if sf.device.type == "cpu":
         COUNTS_TERMINAL.plain += 1
         return terminal_plain(scene.geom, scene.textures, sf, si, first)
-    geo = _cuda_args(scene, dev, "terminal")
+    return _launch_terminal("rt_binned_terminal", True, COUNTS_TERMINAL, scene, sf, si, first,
+                            work)
+
+
+def terminal_per_thread(scene: Scene, sf, si, first: bool, work=None):
+    """`terminal` on CUDA tensors through the kernel's per-thread
+    instantiation.  The cooperative terminal must give its photons, casts
+    and test counts; the walk never calls this."""
+    return _launch_terminal("rt_binned_terminal_thread", False, COUNTS_TERMINAL_THREAD, scene,
+                            sf, si, first, work)
+
+
+def _launch_terminal(entry: str, hot: bool, counts, scene: Scene, sf, si, first, work):
+    """As _launch_bounce, for the terminal kernel."""
+    dev, n = sf.device, sf.shape[1]
+    geo = _cuda_args(scene, dev, "terminal", hot)
     _check_state(sf, si, n, dev)
     kernels.check_work(work, n, dev)
     photon = torch.empty((3, n), dtype=torch.float32, device=dev)
     casts = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        kernels.launch("rt_binned_terminal", sf, si, *geo, photon, casts, work, n,
-                       int(first))
-        COUNTS_TERMINAL.launches += 1
+        kernels.launch(entry, sf, si, *geo, photon, casts, work, n, int(first))
+        counts.launches += 1
     return photon, casts
 
 

@@ -31,6 +31,7 @@ from raytracer_tpu_torch.utils import kernels
 
 COUNTS = kernels.LaunchCounts()  # the dense instantiation
 COUNTS_BLK = kernels.LaunchCounts()  # the blocked instantiation
+COUNTS_BLK_THREAD = kernels.LaunchCounts()  # its per-thread yardstick
 
 
 def _i32(n, value, device):
@@ -229,14 +230,14 @@ def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance
     photons, casts and test counts; nothing on the main path calls this."""
     if not scene.blocked:
         raise ValueError("the per-thread blocked walk takes blocked scenes only")
-    return _launch("rt_mc_trace_blk_thread", False, None, scene, ray_o, ray_d, unifs,
+    return _launch("rt_mc_trace_blk_thread", False, COUNTS_BLK_THREAD, scene, ray_o, ray_d, unifs,
                    depth, max_distance, max_retries, work)
 
 
 def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, depth,
             max_distance, max_retries, work):
     """Check the operands and launch C entry `entry` (`hot`: it takes the
-    cooperative walk's tables); `counts`: the launch counter to advance."""
+    cooperative walk's tables) and advance its launch counter `counts`."""
     dev = ray_o.device
     n = ray_o.shape[0]
     if dev.type != "cuda":
@@ -257,6 +258,5 @@ def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, de
     if n:
         kernels.launch(entry, o_t, d_t, unifs, *kc.kernel_geometry(tb, bt, hot), photon,
                        casts, work, n, depth, float(max_distance), int(max_retries))
-        if counts is not None:
-            counts.launches += 1
+        counts.launches += 1
     return photon.t(), casts.sum()

@@ -56,7 +56,8 @@ SIGNATURES = {
     # pf, pi, tables, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
     # threshold, max_distance, max_retries
     "rt_level": "pp" + _TABLES + "ppppppo" + "iii" + "ffi",
-    "rt_level_blk": "pp" + _TABLES + _BLK + "ppppppo" + "iii" + "ffi",
+    "rt_level_blk": "pp" + _TABLES + _BLK + _HOT + "ppppppo" + "iii" + "ffi",
+    "rt_level_blk_thread": "pp" + _TABLES + _BLK + "ppppppo" + "iii" + "ffi",
     # ray_o, ray_d, tables, st_f, st_i, casts, work, n
     "rt_binned_primary": "pp" + _TABLES + _BLK + "pppo" + "i",
     # st_f, st_i, unifs, tables, out_f, out_i, casts, work, n, first,
@@ -64,7 +65,8 @@ SIGNATURES = {
     "rt_binned_bounce": "ppp" + _TABLES + _BLK + _HOT + "pppo" + "ii" + "fi",
     "rt_binned_bounce_thread": "ppp" + _TABLES + _BLK + "pppo" + "ii" + "fi",
     # st_f, st_i, tables, photon, casts, work, n, first
-    "rt_binned_terminal": "pp" + _TABLES + _BLK + "ppo" + "ii",
+    "rt_binned_terminal": "pp" + _TABLES + _BLK + _HOT + "ppo" + "ii",
+    "rt_binned_terminal_thread": "pp" + _TABLES + _BLK + "ppo" + "ii",
     # rays, geometry, t, idx, bf, valid, work, n
     "rt_nearest_hit": _RAYS + _GEO + "pppp" + "o" + "i",
     # rays, limit, geometry, blocked, work, n
@@ -88,10 +90,12 @@ SIGNATURES = {
 WORK_ROWS = ("tri", "plane", "edge", "sph", "box", "chunk", "wchunk", "t_in", "t_out",
              "cyc_box", "cyc_stage", "cyc_rows", "cyc_all")
 # kernel name -> (C entry that reports its attributes, instantiation index).
-# "mc_blk" and the two "binned_bounce" are the warp-cooperative walks of the
-# main path; the "*_thread" ones are their per-thread yardsticks.
+# "level_blk", "mc_blk" and the binned bounce and terminal kernels are the
+# warp-cooperative walks of the main path; the "*_thread" ones are their
+# per-thread yardsticks.
 ATTRS = {
     "level": ("rt_level_attrs", 0), "level_blk": ("rt_level_attrs", 1),
+    "level_blk_thread": ("rt_level_attrs", 2),
     "mc": ("rt_mc_attrs", 0), "mc_blk": ("rt_mc_attrs", 1),
     "mc_blk_thread": ("rt_mc_attrs", 2),
     "binned_primary": ("rt_binned_attrs", 0),
@@ -100,6 +104,7 @@ ATTRS = {
     "binned_terminal_first": ("rt_binned_attrs", 3),
     "binned_terminal": ("rt_binned_attrs", 4),
     "binned_bounce_thread": ("rt_binned_attrs", 5),
+    "binned_terminal_thread": ("rt_binned_attrs", 6),
     "nearest_hit": ("rt_intersect_attrs", 0), "any_hit": ("rt_intersect_attrs", 1),
     "shadow_any_hit": ("rt_intersect_attrs", 2), "march": ("rt_march_attrs", 0),
 }

@@ -95,7 +95,9 @@ def test_work_rows_follow_the_header():
 
 
 @pytest.mark.parametrize("entry,thread", [("rt_mc_trace_blk", "rt_mc_trace_blk_thread"),
-                                          ("rt_binned_bounce", "rt_binned_bounce_thread")])
+                                          ("rt_binned_bounce", "rt_binned_bounce_thread"),
+                                          ("rt_level_blk", "rt_level_blk_thread"),
+                                          ("rt_binned_terminal", "rt_binned_terminal_thread")])
 def test_cooperative_entries_take_the_hot_tables(entry, thread):
     """The cooperative walk's entry is its per-thread yardstick's plus the
     four hot tables right after the blocked ones, in kernel_geometry's order."""
@@ -110,6 +112,7 @@ def test_cooperative_entries_take_the_hot_tables(entry, thread):
 
 
 def test_attrs_name_both_walks_of_the_redesigned_kernels():
-    assert kernels.ATTRS["mc_blk"] != kernels.ATTRS["mc_blk_thread"]
-    assert kernels.ATTRS["binned_bounce"] != kernels.ATTRS["binned_bounce_thread"]
+    for coop in ("level_blk", "mc_blk", "binned_bounce", "binned_terminal"):
+        assert kernels.ATTRS[coop] != kernels.ATTRS[coop + "_thread"]
+        assert kernels.ATTRS[coop][0] == kernels.ATTRS[coop + "_thread"][0]
     assert len(set(kernels.ATTRS.values())) == len(kernels.ATTRS)

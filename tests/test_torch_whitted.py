@@ -13,6 +13,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from raytracer_tpu.config import RenderConfig as JaxConfig
@@ -23,7 +24,8 @@ from raytracer_tpu.scene.presets import demo_camera, demo_scene
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops import level_kernel
 from raytracer_tpu_torch.ops.level_kernel import Pool
-from raytracer_tpu_torch.ops.trace import _compact, trace_whitted
+from raytracer_tpu_torch.ops.camera import shoot as tshoot
+from raytracer_tpu_torch.ops.trace import _compact, _pack_primary, trace_whitted
 from raytracer_tpu_torch.render import render_whitted
 from raytracer_tpu_torch.scene import presets as tpresets
 
@@ -73,10 +75,14 @@ def _pool(alive, pend, slot):
     return Pool(f, i)
 
 
-def test_level_dead_lanes_pass_pending_through():
+@pytest.mark.parametrize("scene_name", ["demo", "mesh24"])
+def test_level_dead_lanes_pass_pending_through(scene_name):
     """A lane that is not alive does no work and gives what a dead TPU tile
-    gives (level_pallas.py:98-113)."""
-    scene = tpresets.demo_scene()
+    gives (level_pallas.py:98-113), on the dense and on the blocked
+    geometry (whose CUDA kernel keeps that contract by flags, not by an
+    early return)."""
+    scene = tpresets.demo_scene() if scene_name == "demo" else tpresets.mesh_scene(24)[0]
+    assert scene.blocked == (scene_name == "mesh24")
     pend = [[0.0, 0.0, 0.0], [0.25, 0.5, 0.75], [1.0, 2.0, 3.0]]
     pool = _pool([1, 0, 0], pend, [5, 6, 7])
     args = (0.001, 100.0, 10)
@@ -96,6 +102,29 @@ def test_level_dead_lanes_pass_pending_through():
                 assert int(rch.i[3, lane]) == 5 + lane
     # the live lane hits the floor below and carries its slot
     assert int(rch.i[3, 0]) == 5 and float(rch.f[1, 0]) < 3.0
+
+
+def test_blocked_level_of_a_ragged_pool_equals_the_same_lanes_in_a_wider_pool():
+    """A pool whose width is no multiple of the kernels' 128-lane blocks (or
+    of a warp) gives, lane for lane, what its lanes give inside a wider
+    pool: a lane's outputs do not depend on its neighbours, live or dead."""
+    scene, cam = tpresets.mesh_scene(24)
+    o, d = tshoot(cam, torch.as_tensor(clip_coords(16, 12)))
+    pool = _pack_primary(o, d)
+    rng = np.random.default_rng(3)
+    dead = torch.as_tensor(rng.uniform(size=pool.width) < 0.3)
+    pool.i[4, dead] = 0
+    pool.f[8:11, dead] = torch.as_tensor(rng.uniform(size=(3, int(dead.sum()))), dtype=torch.float32)
+    cut = pool.width - 45  # 147 lanes
+    ragged = Pool(pool.f[:, :cut].contiguous(), pool.i[:, :cut].contiguous())
+    args = (0.001, 100.0, 10)
+    for direct in (True, False):
+        wide = level_kernel.process_level(scene, pool, False, direct, *args, lane_casts=True)
+        part = level_kernel.process_level(scene, ragged, False, direct, *args, lane_casts=True)
+        assert torch.equal(part[0], wide[0][:, :cut])
+        for a, b in ((part[1], wide[1]), (part[2], wide[2])):
+            assert torch.equal(a.f, b.f[:, :cut]) and torch.equal(a.i, b.i[:, :cut])
+        assert torch.equal(part[3], wide[3][:cut]) and int(wide[3][cut:].sum()) > 0
 
 
 def test_compaction_keeps_live_and_pending_groups_and_counts_drops():
