@@ -128,31 +128,38 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def profiled_ms(fn, name):
+    """fn() once under torch.profiler -> (mean device milliseconds per
+    launch of the kernels whose name holds `name`, the launches the profiler
+    reported).  The mean is over the launches it reports: late in a long
+    process it has reported 0 to 4 of 5, and dividing by the launches made
+    then read up to 5 times too low."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name in e.key]
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in events)
+    seen = sum(e.count for e in events)
+    return (us / seen / 1e3 if seen else 0.0), seen
+
+
 def device_ms(fn, reps, name):
     """Mean device milliseconds per launch of the kernel whose name holds
     `name` (fn() launches it once), from torch.profiler over reps calls
     after a warm-up (CUDA events around a short kernel measure the host's
-    launch pace).  The mean is over the launches the profiler reports: late
-    in a long process it has reported 0 to 4 of 5, and dividing by reps then
-    read up to 5 times too low.  Where three passes report none at all, the
-    time is taken with CUDA events instead, and says so."""
-    from torch.profiler import ProfilerActivity, profile
-
+    launch pace; profiled_ms).  Where three passes report no launch at
+    all, the time is taken with CUDA events instead, and says so."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if name in e.key]
-        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                 for e in events)
-        seen = sum(e.count for e in events)
+        ms, seen = profiled_ms(lambda: [fn() for _ in range(reps)], name)
         if seen != reps:
             print(f"(torch.profiler reported {seen} of {reps} launches of {name})")
-        if us > 0 and seen > 0:
-            return us / seen / 1e3
+        if ms > 0:
+            return ms
     print(f"(no device time of {name} from torch.profiler: CUDA events instead)")
     return cuda_ms(fn, reps)
 
@@ -208,6 +215,21 @@ def scene_tables(scene):
     return [tb.tri, tb.sph, tb.mat, tb.lights]
 
 
+def level_bytes(scene, pool):
+    """The bytes one launch of the level kernel must move on `pool`: the
+    alive row of every lane; a dead lane's pending radiance and slot; every
+    input row of a live lane, and the scene tables if any lane is live;
+    every output row of every lane (contrib, both children, casts)."""
+    from raytracer_tpu_torch.ops.level_kernel import I_ALIVE, N_F, N_I
+
+    k = pool.width
+    live = int((pool.i[I_ALIVE] != 0).sum())
+    rows_in = N_F + N_I
+    read = 4 * k + 4 * 4 * (k - live) + 4 * (rows_in - 1) * live
+    tables = nbytes(*scene_tables(scene)) if live else 0
+    return read + tables + (3 + 2 * rows_in + 1) * 4 * k
+
+
 def level_pools(scene, cam, clip, cfg):
     """The pools that one tile's Whitted ladder hands the level kernel (the
     primary level, the level-1 peel, the deep level, the tail levels and the
@@ -254,7 +276,8 @@ def sharing(tests):
 
 def phase_shares(work):
     """Where the warps of a cooperative launch spent their cycles, from the
-    cycle rows of its `work` (one lane a warp): the shares of box tests and
+    cycle rows of its `work` (one thread a warp: a column is a thread, and
+    the cycles are alike across a warp): the shares of box tests and
     votes, of waiting for staged chunks, of testing staged rows, and of all
     the rest (shading, sampling, state), and the mean cycles a warp lived."""
     from raytracer_tpu_torch.utils.kernels import WORK_ROWS
@@ -270,7 +293,8 @@ def phase_shares(work):
 
 def block_spread(work, threads=128):
     """(median, longest) microseconds from a block's first thread's start to
-    its last thread's end, from the clock rows of one launch's `work`."""
+    its last thread's end, from the clock rows of one launch's `work` (a
+    column is a thread; `threads` a block)."""
     from raytracer_tpu_torch.utils.kernels import WORK_ROWS
 
     t_in = work[WORK_ROWS.index("t_in")].to(torch.int64) & 0xFFFFFFFF
@@ -710,6 +734,15 @@ def main() -> int:
               + ("; traversal counters within 2 % of the plain chunk log" if plain_log else ""))
         return total
 
+    def level_lanes(entry, scene, pool, last, direct, lv, work):
+        """One launch of the blocked level's C entry `entry` (the
+        cooperative or the per-thread walk) -> its outputs with the casts
+        of each lane."""
+        counts = {"rt_level_blk": level_kernel.COUNTS_BLK,
+                  "rt_level_blk_thread": level_kernel.COUNTS_BLK_THREAD}[entry]
+        return level_kernel._launch(entry, entry == "rt_level_blk", counts, scene, pool, last,
+                                    direct, *lv, work)
+
     def check_coop_levels(label, scene, pools, lv, killed=None):
         """Each (pool, last, direct): the blocked level kernel's cooperative
         walk against its per-thread instantiation (contrib, both children's
@@ -720,10 +753,8 @@ def main() -> int:
         for pool, last, direct in pools:
             k = pool.width
             wc, wt = new_work(k), new_work(k)
-            got = level_kernel.process_level(scene, pool, last, direct, *lv, work=wc,
-                                             lane_casts=True)
-            ref = level_kernel.process_level_per_thread(scene, pool, last, direct, *lv, work=wt,
-                                                        lane_casts=True)
+            got = level_lanes("rt_level_blk", scene, pool, last, direct, lv, wc)
+            ref = level_lanes("rt_level_blk_thread", scene, pool, last, direct, lv, wt)
             torch.cuda.synchronize()
             rows = lambda r: (r[0], r[1].f, r[1].i, r[2].f, r[2].i, r[3][None])
             same = torch.ones(k, dtype=torch.bool, device=dev)
@@ -1190,7 +1221,7 @@ def main() -> int:
             lk, lw = run(), run(work=work)
             assert torch.equal(lk[0], lw[0])  # counting changes no result
             lp = plain_level(scene, pool, last, direct, *args)
-            io = nbytes(pool.f, pool.i, *scene_tables(scene)) + (3 + 2 * 16 + 1) * 4 * pool.width
+            io = level_bytes(scene, pool)
             b_ms, b_by, ops = bound(io, work)
             lv = dict(k=pool.width, max_abs_err=float((lk[0] - lp[0]).abs().max()),
                       ms=device_ms(run, 10, "level_kernel"), events_ms=cuda_ms(run, 5),

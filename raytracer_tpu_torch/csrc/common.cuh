@@ -206,12 +206,17 @@ struct Work {
     out[11 * n + lane] = cyc_rows;
     out[12 * n + lane] = cycles() - cyc_in;
   }
-  // A thread past the tile's end that tested rows for other lanes' rays:
-  // its tests go to column `lane` (the tile's last), after that lane's put.
+  // A thread past the tile's end that tested rows for other lanes' rays
+  // (or, in the level kernel, ran a lane dealt to it): its tests and the
+  // chunks its ray entered go to column `lane` (the tile's last), after
+  // that lane's put.
   __device__ __forceinline__ void put_helped(int* __restrict__ out, int n, int lane) const {
     atomicAdd(out + lane, tri);
     atomicAdd(out + n + lane, plane);
     atomicAdd(out + 2 * n + lane, edge);
+    atomicAdd(out + 3 * n + lane, sph);
+    atomicAdd(out + 4 * n + lane, box);
+    atomicAdd(out + 5 * n + lane, chunks);
   }
 };
 

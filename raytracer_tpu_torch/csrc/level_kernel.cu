@@ -33,18 +33,21 @@
 // the chunks warp by warp (common.cuh CoopGeom, as mc_kernel.cu): a chunk
 // is staged once in the warp's shared memory and its rows tested 32 at a
 // time for one ray after the other, a shading point's shadow rays make one
-// pass for all lights, and no lane leaves early — a dead lane and a lane
-// past the pool's end pass `false` down to the sweeps and write what they
-// owe at the end.  The warps of a launch take the pool dealt round-robin
-// (the lanes that march, and the dead ones, come in runs).  Over a mesh11k
-// frame's 96 level launches that takes 0.35 ms a launch, 0.68 undealt,
-// where the per-thread walk takes 1.73 (NVIDIA H100 80GB HBM3, 700 W;
-// PERF.md).  The per-thread BlockedGeom instantiation is kept as the
-// yardstick that chip_smoke.py holds the cooperative walk against
-// (rt_level_blk_thread); no wrapper of the main path launches it.  The
-// TPU's 512-lane tiles, bit-cast int rows and one-hot attribute matmuls
-// are gone.  W is the test counter (common.cuh): NoWork on the main path,
-// Work when the caller asks for the per-lane test counts.
+// pass for all lights, and no lane of a warp leaves early.  The lanes that
+// march, and the dead ones, come in runs in the pool, so the warps of a
+// launch take its live lanes dealt round-robin, while each dead lane is
+// written by the thread of its own position, coalesced (dealt, the dead
+// lanes' writes touched 32 sectors a warp, and the nearly dead tail levels
+// took 15 times the per-thread walk's time).  Over a mesh11k frame's 96
+// level launches that takes 0.32 ms a launch (0.35 with the dead lanes
+// dealt too, 0.68 undealt), where the per-thread walk takes 1.73 (NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md).  The per-thread BlockedGeom
+// instantiation is kept as the yardstick that chip_smoke.py holds the
+// cooperative walk against (rt_level_blk_thread); no wrapper of the main
+// path launches it.  The TPU's 512-lane tiles, bit-cast int rows and
+// one-hot attribute matmuls are gone.  W is the test counter (common.cuh):
+// NoWork on the main path, Work when the caller asks for the test counts
+// (a column a thread).
 #include "common.cuh"
 
 namespace rt {
@@ -61,10 +64,15 @@ __device__ __forceinline__ void put_i(int* __restrict__ a, int row, int k, int l
 
 constexpr int LEVEL_THREADS = 128;
 
-// Under a cooperative geometry every lane runs every statement that sweeps:
-// a dead lane and a lane past the pool's end pass `false` down to the
-// sweeps and only write at the end (`mine`: the lane writes a live lane's
-// outputs); the per-thread policies keep their early returns.
+// Under a cooperative geometry every lane runs every statement that sweeps;
+// the per-thread policies keep their early returns.  Its threads take the
+// pool twice.  In pool order, thread t writes what pool lane t owes if that
+// lane is dead (coalesced, as the per-thread walks write a dead lane).  Dealt
+// round-robin over the launch's V = ceil(K / 32) warps (warp v takes pool
+// lanes v, v + V, v + 2 V, ...), it runs the live lane it is dealt and
+// writes that lane's outputs; a thread dealt a dead lane or none reads
+// nothing more and passes `false` down to the sweeps (`mine`), and a warp
+// dealt no live lane leaves at once.  The outputs keep the pool's order.
 template <class G, class W>
 __global__ void __launch_bounds__(LEVEL_THREADS)
 level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
@@ -72,68 +80,77 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
              float* __restrict__ ff, int* __restrict__ fi, int* __restrict__ casts_out,
              int* __restrict__ work_out, int k, bool last, bool direct, float threshold,
              float max_distance, int max_retries) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  bool in_tile = lane < k;
-  int helped = -1;  // the pool position of this warp's first lane, if any
-  if constexpr (G::COOP) {
-    // the pool dealt round-robin over the launch's W = ceil(K / 32) warps:
-    // warp w takes pool lanes w, w + W, w + 2 W, ... (outputs keep the
-    // pool's order)
-    const int warps = (k + WARP - 1) / WARP, warp = lane / WARP;
-    lane = (lane % WARP) * warps + warp;
-    in_tile = lane < k && warp < warps;
-    if (warp < warps) helped = warp;
-    if (!in_tile) lane = k - 1;  // sweeps along with its warp, wants nothing, writes nothing
-  } else {
-    if (!in_tile) return;
-  }
-  const Tables& tb = g.tb;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   W w{};
-  auto f_at = [&](int row) { return pf[(size_t)row * k + lane]; };
-  auto i_at = [&](int row) { return pi[(size_t)row * k + lane]; };
-  V3 pend = v3(f_at(F_PEND), f_at(F_PEND + 1), f_at(F_PEND + 2));
-  int slot = i_at(I_SLOT);
-  const bool alive = i_at(I_ALIVE) != 0;
-
-  auto put_dead = [&] {  // what a dead TPU tile gives
+  auto pend_at = [&](int at) {
+    return v3(pf[(size_t)F_PEND * k + at], pf[(size_t)(F_PEND + 1) * k + at],
+              pf[(size_t)(F_PEND + 2) * k + at]);
+  };
+  auto put_dead = [&](int at, V3 pend, int slot) {  // what a dead TPU tile gives
     for (int r = 0; r < 11; ++r) {
-      put_f(rf, r, k, lane, 0.0f);
-      put_f(ff, r, k, lane, 0.0f);
+      put_f(rf, r, k, at, 0.0f);
+      put_f(ff, r, k, at, 0.0f);
     }
     for (int r = 0; r < 5; ++r) {
-      put_i(ri, r, k, lane, 0);
-      put_i(fi, r, k, lane, 0);
+      put_i(ri, r, k, at, 0);
+      put_i(fi, r, k, at, 0);
     }
     V3 c = direct ? pend : v3(0.0f, 0.0f, 0.0f);
-    put_f(contrib, 0, k, lane, c.x);
-    put_f(contrib, 1, k, lane, c.y);
-    put_f(contrib, 2, k, lane, c.z);
+    put_f(contrib, 0, k, at, c.x);
+    put_f(contrib, 1, k, at, c.y);
+    put_f(contrib, 2, k, at, c.z);
     if (!direct) {  // pending rides the (dead) reflect child
-      put_f(rf, F_PEND, k, lane, pend.x);
-      put_f(rf, F_PEND + 1, k, lane, pend.y);
-      put_f(rf, F_PEND + 2, k, lane, pend.z);
-      put_i(ri, I_SLOT, k, lane, slot);
+      put_f(rf, F_PEND, k, at, pend.x);
+      put_f(rf, F_PEND + 1, k, at, pend.y);
+      put_f(rf, F_PEND + 2, k, at, pend.z);
+      put_i(ri, I_SLOT, k, at, slot);
     }
-    casts_out[lane] = 0;
-    w.put(work_out, k, lane);
+    casts_out[at] = 0;
   };
-  if constexpr (!G::COOP) {
-    if (!alive) {
-      put_dead();
+  int lane = t;
+  bool dealt = t < k;
+  if constexpr (G::COOP) {
+    if (t < k && pi[(size_t)I_ALIVE * k + t] == 0)
+      put_dead(t, pend_at(t), pi[(size_t)I_SLOT * k + t]);
+    const int warps = (k + WARP - 1) / WARP, warp = t / WARP;
+    lane = (t % WARP) * warps + warp;
+    dealt = lane < k && warp < warps;
+    if (!dealt) lane = k - 1;  // reads nothing, writes nothing
+  } else {
+    if (!dealt) return;
+  }
+  // The thread's test counts: at its lane, or (cooperative) in its own
+  // column, where a thread past the pool's end hands its tests (those of
+  // the lane it was dealt, and rows it tested for other lanes' rays) to
+  // the last column after that column's put.
+  auto finish = [&] {
+    if constexpr (G::COOP) {
+      if (t < k) w.put(work_out, k, t);
+      __syncwarp();
+      if (t >= k) w.put_helped(work_out, k, k - 1);
+    } else {
+      w.put(work_out, k, lane);
+    }
+  };
+  const bool mine = dealt && pi[(size_t)I_ALIVE * k + lane] != 0;
+  if constexpr (G::COOP) {
+    if (!G::any(mine)) {
+      finish();
       return;
     }
   }
-  const bool mine = !G::COOP || (in_tile && alive);
-  // the lanes of a cooperative warp that wrote nothing above: dead lanes
-  // write what a dead tile gives, and lanes past the end hand the row tests
-  // they made for others to the warp's first lane (after its own put)
-  auto settle = [&] {
-    if constexpr (G::COOP) {
-      if (in_tile && !alive) put_dead();
-      __syncwarp();
-      if (!in_tile && helped >= 0) w.put_helped(work_out, k, helped);
+  const Tables& tb = g.tb;
+  auto f_at = [&](int row) { return !G::COOP || mine ? pf[(size_t)row * k + lane] : 0.0f; };
+  auto i_at = [&](int row) { return !G::COOP || mine ? pi[(size_t)row * k + lane] : 0; };
+  V3 pend = v3(f_at(F_PEND), f_at(F_PEND + 1), f_at(F_PEND + 2));
+  int slot = i_at(I_SLOT);
+  if constexpr (!G::COOP) {
+    if (!mine) {
+      put_dead(lane, pend, slot);
+      finish();
+      return;
     }
-  };
+  }
 
   V3 o = v3(f_at(0), f_at(1), f_at(2));
   V3 d = v3(f_at(3), f_at(4), f_at(5));
@@ -172,9 +189,8 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
       put_f(contrib, 1, k, lane, p_new.y);
       put_f(contrib, 2, k, lane, p_new.z);
       casts_out[lane] = casts;
-      w.put(work_out, k, lane);
     }
-    settle();
+    finish();
     return;
   }
 
@@ -238,9 +254,8 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
     put_f(ff, F_PEND + 1, k, lane, out_f.y);
     put_f(ff, F_PEND + 2, k, lane, out_f.z);
     casts_out[lane] = casts;
-    w.put(work_out, k, lane);
   }
-  settle();
+  finish();
 }
 
 template <class G>

@@ -9,9 +9,10 @@ interior march, and the pending-radiance carry or `contrib` delivery.
 The CUDA kernel is csrc/level_kernel.cu, one instantiation per geometry:
 dense scenes launch `rt_level`, blocked (large-mesh) scenes `rt_level_blk`
 (level_pallas.py:127-253, the BlockedGeom branch), whose warps walk the
-chunks together out of shared memory (csrc/common.cuh CoopGeom) and take
-the pool's lanes dealt round-robin (a map inside the kernel: the outputs
-keep the pool's order).
+chunks together out of shared memory (csrc/common.cuh CoopGeom): its
+threads write the dead lanes in pool order and take the live ones dealt
+round-robin over the warps (a map inside the kernel: the outputs keep the
+pool's order).
 `process_level_plain` below is the same level in plain PyTorch over either
 geometry.  `process_level_per_thread` launches the blocked level with every
 thread traversing alone, as a yardstick for the cooperative one; the
@@ -151,17 +152,18 @@ def process_level_plain(geom, textures, pool: Pool, last: bool,
 
 def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
                   threshold: float, max_distance: float, max_retries: int,
-                  work: torch.Tensor | None = None, lane_casts: bool = False):
+                  work: torch.Tensor | None = None):
     """One Whitted level over a pool -> (contrib [3, K], reflect child Pool,
-    refract child Pool, casts 0-d tensor; with `lane_casts`, each lane's
-    casts [K] int32 instead of their sum).
+    refract child Pool, casts 0-d tensor).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (csrc/level_kernel.cu, the cooperative blocked instantiation on a
     blocked scene) or raise — there is no fallback.  `work`: an optional int32
     [len(kernels.WORK_ROWS), K] tensor; given one, the kernel's counting
-    instantiation fills it with each lane's tests by kind (chip_smoke.py
-    derives the operation bound from it)."""
+    instantiation fills it with each thread's tests by kind, a column a
+    thread: the dense kernel's thread runs one lane, the blocked kernel's
+    threads share their lanes' tests, so only the totals are the lanes'
+    (chip_smoke.py derives the operation bound from them)."""
     dev = pool.f.device
     counts = COUNTS_BLK if scene.blocked else COUNTS
     if dev.type == "cpu":
@@ -173,12 +175,12 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
         contrib, rch, fch, casts = _launch(
             "rt_level_blk" if scene.blocked else "rt_level", scene.blocked, counts, scene, pool,
             last, direct, threshold, max_distance, max_retries, work)
-    return contrib, rch, fch, casts if lane_casts else casts.sum()
+    return contrib, rch, fch, casts.sum()
 
 
 def process_level_per_thread(scene: Scene, pool: Pool, last: bool, direct: bool,
                              threshold: float, max_distance: float, max_retries: int,
-                             work: torch.Tensor | None = None, lane_casts: bool = False):
+                             work: torch.Tensor | None = None):
     """`process_level` of a blocked scene on CUDA tensors through the
     kernel's per-thread blocked instantiation (every thread walks its own
     chunk list out of global memory).  The cooperative level must give its
@@ -188,7 +190,7 @@ def process_level_per_thread(scene: Scene, pool: Pool, last: bool, direct: bool,
     contrib, rch, fch, casts = _launch("rt_level_blk_thread", False, COUNTS_BLK_THREAD, scene,
                                        pool, last, direct, threshold, max_distance,
                                        max_retries, work)
-    return contrib, rch, fch, casts if lane_casts else casts.sum()
+    return contrib, rch, fch, casts.sum()
 
 
 def _launch(entry: str, hot: bool, counts, scene: Scene, pool: Pool, last, direct, threshold,

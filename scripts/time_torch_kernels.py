@@ -59,8 +59,8 @@ _SPEC.loader.exec_module(SMOKE)
 
 def level_work(scene, pools, cfg):
     """Per level: the pool's width, its lanes' test totals and the bound of
-    one launch (chip_smoke.bound: each input and output once, the counted
-    tests at the FP32 peak)."""
+    one launch (chip_smoke.bound: the bytes chip_smoke.level_bytes counts,
+    the counted tests at the FP32 peak)."""
     from raytracer_tpu_torch.ops import level_kernel
     from raytracer_tpu_torch.utils import kernels
 
@@ -70,7 +70,7 @@ def level_work(scene, pools, cfg):
         work = torch.zeros((len(kernels.WORK_ROWS), k), dtype=torch.int32, device=pool.f.device)
         level_kernel.process_level(scene, pool, last, direct, cfg.threshold,
                                    cfg.max_refract_distance, cfg.max_tir_retries, work=work)
-        io = SMOKE.nbytes(pool.f, pool.i, *SMOKE.scene_tables(scene)) + (3 + 2 * 16 + 1) * 4 * k
+        io = SMOKE.level_bytes(scene, pool)
         b_ms, b_by, ops = SMOKE.bound(io, work)
         out.append({"k": k, "last": last, "direct": direct, "tests": SMOKE.totals(work),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops})
@@ -148,8 +148,6 @@ def frame_times(scene, cam, cfg, rounds):
     (all tiles' levels) with the launches the profiler reported."""
     import time
 
-    from torch.profiler import ProfilerActivity, profile
-
     from raytracer_tpu_torch.render import render_whitted
 
     frame = lambda: render_whitted(scene, cam, cfg)
@@ -164,14 +162,8 @@ def frame_times(scene, cam, cfg, rounds):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
         out["host_s"].append(min(walls))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            frame()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if "level_kernel" in e.key]
-        us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-                 for e in events)
-        seen = sum(e.count for e in events)
-        out["level_ms"].append(us / max(seen, 1) / 1e3)
+        ms, seen = SMOKE.profiled_ms(frame, "level_kernel")
+        out["level_ms"].append(ms)
         out["level_launches"].append(seen)
     return out
 

@@ -119,8 +119,10 @@ def test_blocked_level_of_a_ragged_pool_equals_the_same_lanes_in_a_wider_pool():
     ragged = Pool(pool.f[:, :cut].contiguous(), pool.i[:, :cut].contiguous())
     args = (0.001, 100.0, 10)
     for direct in (True, False):
-        wide = level_kernel.process_level(scene, pool, False, direct, *args, lane_casts=True)
-        part = level_kernel.process_level(scene, ragged, False, direct, *args, lane_casts=True)
+        wide = level_kernel.process_level_plain(scene.geom, scene.textures, pool, False, direct,
+                                                *args)
+        part = level_kernel.process_level_plain(scene.geom, scene.textures, ragged, False,
+                                                direct, *args)
         assert torch.equal(part[0], wide[0][:, :cut])
         for a, b in ((part[1], wide[1]), (part[2], wide[2])):
             assert torch.equal(a.f, b.f[:, :cut]) and torch.equal(a.i, b.i[:, :cut])
