@@ -11,7 +11,12 @@ Phases (each asserts; none catches a failure):
      dynamic shared bytes;
   2. each kernel against its plain PyTorch version on the card, same
      inputs: the demo scene (dense kernels) at 64x48, 256x192 and one
-     65536-ray tile of 1280x960; mesh_scene(24) at 64x48 and one
+     65536-ray tile of 1280x960, and there the staged dense walks against
+     their per-thread instantiations (outputs and casts equal on every
+     lane, test totals equal: MC, and every level's pool), also on a ragged
+     tile, level pools with 30 % of lanes killed owing radiance, the whole
+     1280x960 frame's rays in one MC launch, and an epoch in one launch
+     against the same epoch tile by tile; mesh_scene(24) at 64x48 and one
      65536-ray tile of the 1024x1024 mesh11k frame (blocked level kernel,
      blocked MC kernel, the three binned kernels), and the binned path
      against the blocked MC kernel; the warp-cooperative walks (blocked
@@ -37,7 +42,8 @@ Phases (each asserts; none catches a failure):
   4. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: the reference schedule
      (render_progressive on the demo scene, 1280x960, depth 5, Whitted +
-     3 epochs); the mesh11k path (render_whitted and
+     3 epochs: the staged level kernel 114 times, the staged MC kernel once
+     an epoch, no per-thread yardstick); the mesh11k path (render_whitted and
      render_distributed_epoch on mesh_scene(75), 1024x1024, depth 5,
      tile_rays 65536: the cooperative blocked level kernel 96 times a frame,
      the binned kernels, no per-thread yardstick); an MC epoch of
@@ -291,6 +297,23 @@ def phase_shares(work):
     return out
 
 
+def walk_phases(work):
+    """Where the threads of a launch spent their cycles by phase of the walk,
+    from the cycle rows of its `work` (a column a thread): the shares of
+    nearest-hit sweeps, shadow tests, interior marches and all the rest
+    (shading, materials, sampling, the state), and the mean cycles a thread
+    lived."""
+    from raytracer_tpu_torch.utils.kernels import WORK_ROWS
+
+    rows = work.double()
+    total = rows[WORK_ROWS.index("cyc_all")].sum()
+    out = {k: float(rows[WORK_ROWS.index("cyc_" + k)].sum() / total)
+           for k in ("near", "shadow", "march")}
+    out["rest"] = 1.0 - sum(out.values())
+    out["thread_cycles"] = float(total / rows.shape[1])
+    return out
+
+
 def block_spread(work, threads=128):
     """(median, longest) microseconds from a block's first thread's start to
     its last thread's end, from the clock rows of one launch's `work` (a
@@ -470,6 +493,9 @@ def main() -> int:
     from raytracer_tpu_torch.parallel.progressive import render_progressive
     from raytracer_tpu_torch.render import (
         _clips,
+        epoch_frame,
+        epoch_tiles,
+        frame_draws,
         render_distributed_epoch,
         render_whitted,
         tile_draws,
@@ -486,8 +512,9 @@ def main() -> int:
         "binned_primary": mc_binned.COUNTS_PRIMARY,
         "binned_bounce": mc_binned.COUNTS_BOUNCE,
         "binned_terminal": mc_binned.COUNTS_TERMINAL,
-        # the per-thread yardsticks of the cooperative walks: no main path
-        # launches them
+        # the per-thread yardsticks of the staged and cooperative walks: no
+        # main path launches them
+        "level_thread": level_kernel.COUNTS_THREAD, "mc_thread": mc_kernel.COUNTS_THREAD,
         "level_blk_thread": level_kernel.COUNTS_BLK_THREAD,
         "mc_blk_thread": mc_kernel.COUNTS_BLK_THREAD,
         "binned_bounce_thread": mc_binned.COUNTS_BOUNCE_THREAD,
@@ -522,7 +549,8 @@ def main() -> int:
     for k, a in attrs.items():
         print(f"{k} kernel: {a['registers']} registers/thread, "
               f"{a['local_bytes']} local (spill+stack) bytes/thread, "
-              f"{a['dynamic_shared_bytes']} dynamic shared bytes/block")
+              f"{a['dynamic_shared_bytes']} dynamic shared bytes/block, "
+              f"{a['blocks_per_sm']} blocks of 128 threads an SM")
 
     demo = demo_scene().to(dev)
     demo_cam = demo_camera().to(dev)
@@ -675,7 +703,8 @@ def main() -> int:
         return a
 
     def check_coop_mc(label, scene, o, d, unifs, plain_log=False):
-        """The blocked MC kernel's cooperative walk against its per-thread
+        """The MC kernel's main-path walk (the cooperative one on a blocked
+        scene, the staged one on a dense scene) against its per-thread
         instantiation: photons and casts equal on every lane, test totals
         equal; with plain_log, its two traversal counters against the plain
         version's chunk log (within 2 %: the kernel contracts multiply-adds,
@@ -688,9 +717,11 @@ def main() -> int:
         torch.cuda.synchronize()
         same = float((got == ref).all(dim=1).float().mean())
         tests = same_tests(label, wc, wt)
-        print(f"mc {label}, cooperative vs per-thread walk: {same:.6f} of lanes equal, casts "
-              f"{int(casts)} vs {int(ref_casts)}, tests {tests}; warp chunks x 32 / lane chunks "
-              f"{sharing(tests):.3f} (pixel order)")
+        walk = "cooperative" if scene.blocked else "staged"
+        print(f"mc {label}, {walk} vs per-thread walk: {same:.6f} of lanes equal, casts "
+              f"{int(casts)} vs {int(ref_casts)}, tests {tests}"
+              + (f"; warp chunks x 32 / lane chunks {sharing(tests):.3f} (pixel order)"
+                 if scene.blocked else ""))
         assert same == 1.0 and int(casts) == int(ref_casts), (same, int(casts), int(ref_casts))
         if plain_log:
             with kernel_common.count_chunks(n, dev) as log:
@@ -735,26 +766,29 @@ def main() -> int:
         return total
 
     def level_lanes(entry, scene, pool, last, direct, lv, work):
-        """One launch of the blocked level's C entry `entry` (the
-        cooperative or the per-thread walk) -> its outputs with the casts
-        of each lane."""
-        counts = {"rt_level_blk": level_kernel.COUNTS_BLK,
+        """One launch of the level's C entry `entry` (the staged dense, the
+        cooperative blocked or a per-thread walk) -> its outputs with the
+        casts of each lane."""
+        counts = {"rt_level": level_kernel.COUNTS, "rt_level_thread": level_kernel.COUNTS_THREAD,
+                  "rt_level_blk": level_kernel.COUNTS_BLK,
                   "rt_level_blk_thread": level_kernel.COUNTS_BLK_THREAD}[entry]
-        return level_kernel._launch(entry, entry == "rt_level_blk", counts, scene, pool, last,
-                                    direct, *lv, work)
+        return level_kernel._launch(entry, not entry.endswith("_thread"), counts, scene, pool,
+                                    last, direct, *lv, work)
 
     def check_coop_levels(label, scene, pools, lv, killed=None):
-        """Each (pool, last, direct): the blocked level kernel's cooperative
-        walk against its per-thread instantiation (contrib, both children's
-        f and i rows and casts equal on every lane, test totals equal); with
+        """Each (pool, last, direct): the level kernel's main-path walk (the
+        cooperative one on a blocked scene, the staged one on a dense scene)
+        against its per-thread instantiation (contrib, both children's f and
+        i rows and casts equal on every lane, test totals equal); with
         `killed` (a lane mask), the killed lanes' outputs also equal the
         plain version's (a dead lane's contract) -> the summed tests."""
         total = {}
+        entry = "rt_level_blk" if scene.blocked else "rt_level"
         for pool, last, direct in pools:
             k = pool.width
             wc, wt = new_work(k), new_work(k)
-            got = level_lanes("rt_level_blk", scene, pool, last, direct, lv, wc)
-            ref = level_lanes("rt_level_blk_thread", scene, pool, last, direct, lv, wt)
+            got = level_lanes(entry, scene, pool, last, direct, lv, wc)
+            ref = level_lanes(entry + "_thread", scene, pool, last, direct, lv, wt)
             torch.cuda.synchronize()
             rows = lambda r: (r[0], r[1].f, r[1].i, r[2].f, r[2].i, r[3][None])
             same = torch.ones(k, dtype=torch.bool, device=dev)
@@ -767,9 +801,11 @@ def main() -> int:
                 plain = plain_level(scene, pool, last, direct, *lv)
                 for a, b in zip(rows(got)[:5], rows(plain)[:5]):
                     assert bool((a == b)[:, killed].all()), (label, direct)
-        print(f"level {label}, cooperative vs per-thread walk: {len(pools)} pools "
+        walk = "cooperative" if scene.blocked else "staged"
+        print(f"level {label}, {walk} vs per-thread walk: {len(pools)} pools "
               f"({', '.join(str(p.width) for p, _, _ in pools)} lanes), all lanes equal, tests "
-              f"{total}; warp chunks x 32 / lane chunks {sharing(total):.3f}"
+              f"{total}"
+              + (f"; warp chunks x 32 / lane chunks {sharing(total):.3f}" if scene.blocked else "")
               + ("; killed lanes equal the plain version's" if killed is not None else ""))
         return total
 
@@ -799,13 +835,64 @@ def main() -> int:
     cases = [(f"{w}x{h}", RenderConfig(width=w, height=h, depth=5, tile_rays=w * h), 0)
              for w, h in ((64, 48), (256, 192))]
     cases.append(("1280x960 tile 9", full, 9))  # a main-path tile, mid-frame
+    demo_lv = (full.threshold, full.max_refract_distance, full.max_tir_retries)
+    small = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
     for label, cfg, tile in cases:
         clip = _clips(cfg, dev)[0][tile]
-        check_mc(label, demo, *tile_rays(demo_cam, clip, rng, cfg))
+        o, d, unifs = tile_rays(demo_cam, clip, rng, cfg)
+        check_mc(label, demo, o, d, unifs)
         check_whitted(label, demo, demo_cam, clip, cfg)
+        # the staged dense walks against the per-thread ones, lane for lane
+        check_coop_mc(label, demo, o, d, unifs)
+        check_coop_levels(label + ", every level", demo, level_pools(demo, demo_cam, clip, cfg),
+                          demo_lv)
+    # a ragged tile, and pools with 30 % of lanes killed but owing radiance
+    o, d, unifs = tile_rays(demo_cam, _clips(full, dev)[0][9][:3821], rng, full)
+    check_coop_mc("1280x960 tile 9, first 3821 lanes", demo, o, d, unifs)
+    tile9 = level_pools(demo, demo_cam, _clips(full, dev)[0][9], full)
+    wide = tile9[1][0]
+    check_coop_levels("1280x960 tile 9, level 1's first 3821 lanes", demo,
+                      [(Pool(wide.f[:, :3821].contiguous(), wide.i[:, :3821].contiguous()),
+                        False, True)], demo_lv)
+    for j in (0, 2):
+        pool = tile9[j][0]
+        kill = torch.as_tensor(rng.uniform(size=pool.width) < 0.3, device=dev)
+        f, i = pool.f.clone(), pool.i.clone()
+        i[level_kernel.I_ALIVE, kill] = 0
+        f[level_kernel.F_PEND:, kill] = torch.as_tensor(
+            rng.uniform(size=(3, int(kill.sum()))).astype(np.float32), device=dev)
+        check_coop_levels(f"1280x960 tile 9, level {j} with 30 % of lanes killed owing radiance",
+                          demo, [(Pool(f, i), False, True), (Pool(f, i), False, False)], demo_lv,
+                          killed=kill)
+    # a dense table too large to stage in shared memory: mesh_scene(30)
+    # without its blocked layout, whose 1,812 hot rows the same walk reads
+    # from global memory
+    big, big_cam = (x.to(dev) for x in mesh_scene(30))
+    big = dataclasses.replace(big, blk_perm=None, blk_box=None)
+    assert not big.blocked and big.n_tri * 64 > 96 * 1024, big.n_tri
+    clip = _clips(small, dev)[0][0]
+    check_coop_mc(f"mesh_scene(30) dense ({big.n_tri} triangles, rows in global memory) 64x48",
+                  big, *tile_rays(big_cam, clip, rng, small))
+    check_coop_levels(f"mesh_scene(30) dense ({big.n_tri} triangles, rows in global memory) "
+                      f"64x48, every level", big, level_pools(big, big_cam, clip, small), demo_lv)
+    # the whole 1280x960 frame's padded rays (19 tiles) in one launch, as
+    # an epoch on the main path makes it
+    frame_clips = _clips(full, dev)[0]
+    o, d, unifs = tile_rays(demo_cam, frame_clips.reshape(-1, 2), rng, full)
+    assert o.shape[0] == 19 * 65536
+    check_coop_mc(f"1280x960, the frame's {o.shape[0]} rays in one launch", demo, o, d, unifs)
+    # the epoch in one launch against the epoch tile by tile: every lane
+    tile_in = [tile_draws(full, 3, 5, t, 65536, dev) for t in range(len(frame_clips))]
+    one = epoch_frame(demo, demo_cam, full, frame_clips, tile_in)
+    per_tile = epoch_tiles(demo, demo_cam, full, frame_clips, tile_in)
+    torch.cuda.synchronize()
+    print(f"mc epoch 1280x960 in one launch vs tile by tile: "
+          f"{float((one[0] == per_tile[0]).all(dim=1).float().mean()):.6f} of lanes equal, casts "
+          f"{int(one[1])} vs {int(per_tile[1])}, filtered {int(one[2])} vs {int(per_tile[2])}")
+    assert torch.equal(one[0], per_tile[0]) and int(one[1]) == int(per_tile[1])
+    assert int(one[2]) == int(per_tile[2])
 
     binned_err = {}
-    small = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
     for label, scene, cam, cfg, tile in (
             ("mesh24 64x48", mesh24, mesh24_cam, small, 0),
             ("mesh11k 1024x1024 tile 6", mesh11k, mesh11k_cam, mesh_cfg, 6)):
@@ -985,7 +1072,20 @@ def main() -> int:
     assert png.shape == (960, 1280, 3) and png.max() > 0, png.shape
     assert torch.isfinite(state.img).all()
     assert not any("dropped" in m for m in lines), lines
-    assert demo_launches["level"] > 0 and demo_launches["mc"] > 0, demo_launches
+    # the Whitted frame: six levels a tile; each epoch: ONE launch of the
+    # staged MC walk for the whole frame (read_counts: no per-thread
+    # yardstick ran)
+    demo_tiles = len(_clips(full, dev)[0])
+    assert demo_launches["level"] == demo_tiles * (DEPTH + 1), demo_launches
+    assert demo_launches["mc"] == full.epochs, demo_launches
+
+    # the demo epoch's host seconds here, early in phase 4, for comparison
+    # with the same epoch profiled after the mesh paths below
+    demo_epoch_early_s = min(timed(lambda: render_distributed_epoch(demo, demo_cam, full,
+                                                                     epoch=7))[1]
+                             for _ in range(3))
+    print(f"demo mc epoch 1280x960, early in phase 4: {demo_epoch_early_s:.4f} s host "
+          f"(least of three)")
 
     def mega_route(fn):
         """fn() with the binned route switched off: blocked scenes of any
@@ -1021,7 +1121,8 @@ def main() -> int:
     mega_launches = read_counts()
     print(f"main path (mesh11k mc epoch through the blocked mc kernel): {mg_s:.3f} s; "
           f"launches {mega_launches}")
-    assert mega_launches["mc_blk"] == tiles and mega_launches["binned_bounce"] == 0
+    # the epoch's 16 tiles in ONE launch of the cooperative walk
+    assert mega_launches["mc_blk"] == 1 and mega_launches["binned_bounce"] == 0, mega_launches
     assert gst["casts"] == est["casts"] and torch.isfinite(gimg).all()
 
     reset_counts()
@@ -1154,6 +1255,7 @@ def main() -> int:
           f"{e24_s:.3f} s, binned instead {e24b_s:.3f} s")
     assert e24b["casts"] == e24["casts"]
     frames["mesh24 1024x1024"] = {"mc_epoch_s": e24b_s, "mc_epoch_mega_kernel_s": e24_s}
+    frames["demo 1280x960"]["mc_epoch_early_s"] = demo_epoch_early_s
     frames["demo unfused 1280x960"] = {"whitted_frame_s": uw_s, "mc_epoch_s": ue_s,
                                        "fused_whitted_frame_s": fw_s, "fused_mc_epoch_s": fe_s}
 
@@ -1174,11 +1276,16 @@ def main() -> int:
         "mesh11k mc epoch (blocked mc kernel)",
         lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7)))
 
-    # per-launch times at the main paths' shapes: one 65536-ray tile each
+    # per-launch times at the main paths' shapes: the dense MC walk on the
+    # whole 1280x960 frame (19 tiles in one launch), the blocked one on one
+    # 65536-ray tile
     def time_mc(scene, cam, cfg):
-        clip = _clips(cfg, dev)[0][0]
-        normals, unifs = tile_draws(cfg, 0, 0, 0, clip.shape[0], dev)
-        o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
+        clips = _clips(cfg, dev)[0]
+        if scene.blocked:
+            clips = clips[:1]
+        tile_in = [tile_draws(cfg, 0, 0, t, clip.shape[0], dev) for t, clip in enumerate(clips)]
+        normals, unifs = frame_draws(tile_in)
+        o, d = camera_ops.shoot_focus(cam, clips.reshape(-1, 2), normals * cfg.blur, cfg.focus)
         o, d = o.contiguous(), d.contiguous()
         n = o.shape[0]
         work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
@@ -1188,17 +1295,24 @@ def main() -> int:
         mp, _ = plain_mc(scene, o, d, unifs)
         io = nbytes(o, d, unifs, *scene_tables(scene)) + 16 * n  # photon + casts
         b_ms, b_by, ops = bound(io, work)
-        return dict(max_abs_err=float((mk - mp).abs().max()),
-                    phases=phase_shares(work) if scene.blocked else None,
-                    ms=device_ms(lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR), 5,
-                                 "mc_kernel"),
-                    events_ms=cuda_ms(lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR),
-                                      5),
-                    per_thread_ms=cuda_ms(lambda: mc_kernel.trace_per_thread(
-                        scene, o, d, unifs, DEPTH, MD, MR), 3) if scene.blocked else None,
-                    plain_ms=cuda_ms(lambda: plain_mc(scene, o, d, unifs), 1),
-                    bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
-                    tests=totals(work))
+        run = lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR)
+        out = dict(rays=n, max_abs_err=float((mk - mp).abs().max()),
+                   phases=phase_shares(work) if scene.blocked else walk_phases(work),
+                   ms=device_ms(run, 5, "mc_kernel"), events_ms=cuda_ms(run, 5),
+                   per_thread_ms=cuda_ms(lambda: mc_kernel.trace_per_thread(
+                       scene, o, d, unifs, DEPTH, MD, MR), 3),
+                   plain_ms=cuda_ms(lambda: plain_mc(scene, o, d, unifs), 1),
+                   bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
+                   tests=totals(work))
+        if not scene.blocked:  # and the first tile alone, as one launch took it before
+            t0 = slice(0, clips.shape[1])
+            o0, d0, u0 = o[t0].contiguous(), d[t0].contiguous(), unifs[:, :, t0].contiguous()
+            out.update(block_us=block_spread(work), ms_per_65536=out["ms"] * 65536 / n,
+                       ms_tile=device_ms(lambda: mc_kernel.trace(scene, o0, d0, u0, DEPTH, MD,
+                                                                 MR), 5, "mc_kernel"),
+                       per_thread_ms_tile=device_ms(lambda: mc_kernel.trace_per_thread(
+                           scene, o0, d0, u0, DEPTH, MD, MR), 5, "mc_kernel"))
+        return out
 
     def time_level(scene, cam, cfg):
         """The level kernel on the pools of the first tile's Whitted ladder:
@@ -1227,14 +1341,17 @@ def main() -> int:
                       ms=device_ms(run, 10, "level_kernel"), events_ms=cuda_ms(run, 5),
                       plain_ms=cuda_ms(lambda: plain_level(scene, pool, last, direct, *args), 1),
                       bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops, tests=totals(work))
-            if scene.blocked:
-                thread = lambda: run(level_kernel.process_level_per_thread)
-                lv.update(per_thread_ms=device_ms(thread, 3, "level_kernel"),
-                          per_thread_events_ms=cuda_ms(thread, 3),
-                          phases=phase_shares(work), block_us=block_spread(work))
+            thread = lambda: run(level_kernel.process_level_per_thread)
+            lv.update(per_thread_ms=device_ms(thread, 3, "level_kernel"),
+                      per_thread_events_ms=cuda_ms(thread, 3),
+                      phases=phase_shares(work) if scene.blocked else walk_phases(work),
+                      block_us=block_spread(work))
             levels.append(lv)
         mean = lambda key: sum(lv[key] for lv in levels) / len(levels)
         out = dict(levels[0], levels=levels)
+        if not scene.blocked:  # the mean over a whole frame's launches
+            ms, seen = profiled_ms(lambda: render_whitted(scene, cam, cfg), "level_kernel")
+            out.update(frame_mean_ms=ms, frame_launches=seen)
         if scene.blocked:
             out.update({key: mean(key) for key in ("ms", "events_ms", "plain_ms", "bound_ms",
                                                    "per_thread_ms", "per_thread_events_ms")},
@@ -1406,12 +1523,27 @@ def main() -> int:
               f"{lv['per_thread_ms']:.4f} ms; bound {lv['bound_ms']:.4f} ms; {share(lv['phases'])}; "
               f"block durations (median/longest us) {lv['block_us'][0]:.0f}/{lv['block_us'][1]:.0f}; "
               f"warp chunks x 32 / lane chunks {sharing(lv['tests']):.3f}")
+    dense_share = lambda ph: (f"nearest sweeps {ph['near']:.2f}, shadow tests "
+                              f"{ph['shadow']:.2f}, marches {ph['march']:.2f}, the rest "
+                              f"{ph['rest']:.2f} of {ph['thread_cycles']:,.0f} cycles a thread")
+    mc, lvl = per["mc"], per["level"]
+    print(f"mc_kernel (dense), the 1280x960 frame's {mc['rays']} rays in one launch: staged "
+          f"{mc['ms']:.3f} ms ({mc['ms_per_65536']:.4f} ms per 65536 rays; events "
+          f"{mc['events_ms']:.3f}), per-thread {mc['per_thread_ms']:.3f} ms (events); tile 0 "
+          f"alone: staged {mc['ms_tile']:.4f} ms, per-thread {mc['per_thread_ms_tile']:.4f} ms; "
+          f"{dense_share(mc['phases'])}; block durations (median/longest us) "
+          f"{mc['block_us'][0]:.0f}/{mc['block_us'][1]:.0f}")
+    print(f"level_kernel (dense), demo tile 0's primary level: staged {lvl['ms']:.4f} ms, "
+          f"per-thread {lvl['per_thread_ms']:.4f} ms; over a Whitted frame's "
+          f"{lvl['frame_launches']} launches {lvl['frame_mean_ms']:.4f} ms each; "
+          f"{dense_share(lvl['phases'])}; block durations (median/longest us) "
+          f"{lvl['block_us'][0]:.0f}/{lvl['block_us'][1]:.0f}")
     term = per["binned_terminal"]
     print(f"binned_terminal on tile 0's dealt states: cooperative {term['ms']:.3f} ms, per-thread "
           f"{term['per_thread_ms']:.3f} ms (CUDA events); {share(term['phases'])}; block durations "
           f"(median/longest us) {term['block_us'][0]:.0f}/{term['block_us'][1]:.0f}")
     for k, v in per.items():
-        print(f"per launch, 65536 rays, {k}: kernel {v['ms']:.3f} ms vs plain "
+        print(f"per launch, {v.get('rays', 65536)} rays, {k}: kernel {v['ms']:.3f} ms vs plain "
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
               f"{v['bytes']:,.0f} B, {v['ops']:,.0f} FP32 operations; tests {v['tests']})")
 
@@ -1438,16 +1570,22 @@ def main() -> int:
         if thread_ms is not None:
             e.update({"launches_per_thread": launches[(blk_key or key) + "_thread"],
                       "ms_per_thread": thread_ms})
+        if blk_key:  # the dense instantiation's per-thread yardstick
+            e.update({"launches_dense_per_thread": launches[key + "_thread"],
+                      "ms_dense_per_thread": per[key]["per_thread_ms"]})
         return e
 
     csrc = "raytracer_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        entry("mc_kernel", csrc + "mc_kernel.cu", "raytracer_tpu/ops/mc_pallas.py:474",
-              "mc", "mc_blk", per["mc_blk"]["per_thread_ms"]),
+        dict(entry("mc_kernel", csrc + "mc_kernel.cu", "raytracer_tpu/ops/mc_pallas.py:474",
+                   "mc", "mc_blk", per["mc_blk"]["per_thread_ms"]),
+             rays=per["mc"]["rays"], ms_per_65536=per["mc"]["ms_per_65536"],
+             ms_tile=per["mc"]["ms_tile"]),
         dict(entry("level_kernel", csrc + "level_kernel.cu",
                    "raytracer_tpu/ops/level_pallas.py:73", "level", "level_blk",
                    per["level_blk"]["per_thread_ms"]),
-             ms_blocked_primary=per["level_blk"]["ms_primary"]),
+             ms_blocked_primary=per["level_blk"]["ms_primary"],
+             ms_frame_mean=per["level"]["frame_mean_ms"]),
         entry("binned_primary", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:131",
               "binned_primary"),
         entry("binned_bounce", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:157",

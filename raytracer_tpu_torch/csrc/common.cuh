@@ -17,8 +17,20 @@
 // non-finite t is a miss, the 3e38 sentinel, kpowf's "0 for base <= 0",
 // and the factored-target shadow algebra.
 //
-// Geometry is a policy type (DenseGeom, BlockedGeom, CoopGeom) the kernels
-// are templated on.  DenseGeom tests the whole [T, 34] table per sweep.
+// Geometry is a policy type (DenseGeom, DenseRowsGeom, BlockedGeom,
+// CoopGeom) the kernels are templated on.  DenseGeom tests the whole
+// [T, 34] table per sweep, one thread alone out of global memory, and
+// sweeps once per light of a shading point: the standalone kernels take it,
+// and it is the yardstick of the dense level and MC kernels, which take
+// DenseRowsGeom: the same rows in the same order for every ray, but read
+// out of the block's shared memory (the 64-byte hot rows, staged once per
+// block, one broadcast float4 load where DenseGeom makes four scalar ones
+// through L1), and, in the level kernel, all lights of a shading point in
+// one pass over the rows.  On a dense scene a thread's time goes to chains
+// of dependent loads and arithmetic over every row, and to shading math;
+// what hides their latency is warps in flight, so registers decide (the MC
+// kernel's one-pass shadow took 32 more registers, a block an SM, and
+// lost; the level kernel, a wave at most, gains from it).
 // BlockedGeom walks the blocked layout (scene/blocked.py): per lane, a
 // supergroup's box, then each of its chunks' boxes, bounded by the lane's
 // current best hit (or shadow limit), then the chunk's 128 rows; ties go
@@ -53,9 +65,9 @@
 // NoWork, below); chip_smoke.py derives each kernel's operation bound from
 // what Work counts.
 //
-// Scene tables are read straight from global memory.  Build without
-// --use_fast_math: the photon filter needs subnormals, and division/sqrt
-// must stay IEEE.
+// Scene tables are read from global memory, but for what DenseRowsGeom
+// and CoopGeom stage in shared memory.  Build without --use_fast_math: the
+// photon filter needs subnormals, and division/sqrt must stay IEEE.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -153,22 +165,29 @@ __device__ __forceinline__ int cycles() {
 // of block durations inside one launch.  Last, where a cooperative walk's
 // cycles go: in its box tests and votes, in waiting for chunks to arrive in
 // shared memory, in testing staged rows (with the shuffles and reductions
-// around them), and from the thread's start to its end.  Counting is
-// chosen at compile time: the main path's instantiations take NoWork, whose
-// calls compile to nothing; a launch given a `work` output takes Work.
-constexpr int WORK_ROWS = 13;
+// around them), and from the thread's start to its end.  Last, the same
+// cycles by phase of the walk, in any geometry: in nearest-hit sweeps, in
+// shadow tests, and in interior marches (the rest of cyc_all is shading,
+// materials, sampling and the state).  Counting is chosen at compile time:
+// the main path's instantiations take NoWork, whose calls compile to
+// nothing; a launch given a `work` output takes Work.
+constexpr int WORK_ROWS = 16;
 
 struct Work {
   int tri, plane, edge, sph, box, chunks, staged, t_in;
-  int cyc_box, cyc_stage, cyc_rows, cyc_in;
+  int cyc_box, cyc_stage, cyc_rows, cyc_in, cyc_near, cyc_shadow, cyc_march;
   __device__ __forceinline__ Work()
       : tri(0), plane(0), edge(0), sph(0), box(0), chunks(0), staged(0), t_in(timer_ns()),
-        cyc_box(0), cyc_stage(0), cyc_rows(0), cyc_in(cycles()) {}
+        cyc_box(0), cyc_stage(0), cyc_rows(0), cyc_in(cycles()), cyc_near(0), cyc_shadow(0),
+        cyc_march(0) {}
   // t = tic(); ...; box_cycles(t): the cycles since then go to that phase
   __device__ __forceinline__ int tic() const { return cycles(); }
   __device__ __forceinline__ void box_cycles(int t) { cyc_box += cycles() - t; }
   __device__ __forceinline__ void stage_cycles(int t) { cyc_stage += cycles() - t; }
   __device__ __forceinline__ void row_cycles(int t) { cyc_rows += cycles() - t; }
+  __device__ __forceinline__ void near_cycles(int t) { cyc_near += cycles() - t; }
+  __device__ __forceinline__ void shadow_cycles(int t) { cyc_shadow += cycles() - t; }
+  __device__ __forceinline__ void march_cycles(int t) { cyc_march += cycles() - t; }
   __device__ __forceinline__ void tri_test() { ++tri; }
   __device__ __forceinline__ void plane_test() { ++plane; }
   __device__ __forceinline__ void edge_test() { ++edge; }
@@ -205,6 +224,9 @@ struct Work {
     out[10 * n + lane] = cyc_stage;
     out[11 * n + lane] = cyc_rows;
     out[12 * n + lane] = cycles() - cyc_in;
+    out[13 * n + lane] = cyc_near;
+    out[14 * n + lane] = cyc_shadow;
+    out[15 * n + lane] = cyc_march;
   }
   // A thread past the tile's end that tested rows for other lanes' rays
   // (or, in the level kernel, ran a lane dealt to it): its tests and the
@@ -233,6 +255,9 @@ struct NoWork {
   __device__ __forceinline__ void box_cycles(int) {}
   __device__ __forceinline__ void stage_cycles(int) {}
   __device__ __forceinline__ void row_cycles(int) {}
+  __device__ __forceinline__ void near_cycles(int) {}
+  __device__ __forceinline__ void shadow_cycles(int) {}
+  __device__ __forceinline__ void march_cycles(int) {}
   struct Part {
     __device__ __forceinline__ void tri_test() {}
     __device__ __forceinline__ void plane_test() {}
@@ -1132,16 +1157,35 @@ __device__ __forceinline__ unsigned coop_occluded(const Tables& tb, const Blk& b
 
 __device__ __forceinline__ BackHit no_back(V3 p) { return BackHit{BIG, -1, p, v3(0.0f, 0.0f, 0.0f)}; }
 
+// The shadow rays of one shading point p to a group of lights, in both of
+// the forms the sweeps take: light l's factored target tg (s = 1: the
+// light's origin under the scaled limit 1; s = 0: the negated direction
+// under the real limit), and the unnormalized direction dd = tg - s p.
+struct ShadowGroup {
+  V3 dd[LIGHT_GROUP], tg[LIGHT_GROUP];
+  float s[LIGHT_GROUP], tlim[LIGHT_GROUP];
+};
+
 // COOP: do all lanes of a warp make every sweep together?  any(x): does
-// any lane that sweeps with this one hold x?
+// any lane that sweeps with this one hold x?  GROUPED: does a shading point
+// test its shadow rays to all lights in one pass (occluded) or light by
+// light (tri_occluded)?  stage(): called by every thread of a block before
+// any of them leaves (nothing but for a staged DenseRowsGeom, which copies
+// its rows to shared memory); smem(threads): the dynamic shared bytes a
+// block of `threads` threads needs (host).
 struct DenseGeom {
-  static constexpr bool COOP = false;
+  static constexpr bool COOP = false, GROUPED = false;
+  __device__ __forceinline__ void stage() const {}
+  int smem(int) const { return 0; }
   Tables tb;
   static __device__ __forceinline__ bool any(bool x) { return x; }
   template <class W>
   __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
                          W& w) const {
-    return full_sweep(tb, o, d, face, excl_prim, excl_face, active, w);
+    int t0 = w.tic();
+    Hit h = full_sweep(tb, o, d, face, excl_prim, excl_face, active, w);
+    w.near_cycles(t0);
+    return h;
   }
   template <class W>
   __device__ bool tri_occluded(V3 p, int self_prim, float s, V3 tg, float tlim, W& w) const {
@@ -1155,14 +1199,19 @@ struct DenseGeom {
 };
 
 struct BlockedGeom {
-  static constexpr bool COOP = false;
+  static constexpr bool COOP = false, GROUPED = false;
+  __device__ __forceinline__ void stage() const {}
+  int smem(int) const { return 0; }
   Tables tb;  // spheres, materials, lights (tb.tri is not read)
   Blk bk;
   static __device__ __forceinline__ bool any(bool x) { return x; }
   template <class W>
   __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
                          W& w) const {
-    return blocked_full_sweep(tb, bk, o, d, face, excl_prim, excl_face, active, w);
+    int t0 = w.tic();
+    Hit h = blocked_full_sweep(tb, bk, o, d, face, excl_prim, excl_face, active, w);
+    w.near_cycles(t0);
+    return h;
   }
   template <class W>
   __device__ bool tri_occluded(V3 p, int self_prim, float s, V3 tg, float tlim, W& w) const {
@@ -1179,7 +1228,9 @@ struct BlockedGeom {
 // all 32 lanes of the warp; a lane whose flag (active, want, pending) is
 // off gets a miss and runs no test.
 struct CoopGeom {
-  static constexpr bool COOP = true;
+  static constexpr bool COOP = true, GROUPED = true;
+  __device__ __forceinline__ void stage() const {}
+  int smem(int threads) const { return coop_shared_bytes(threads); }
   Tables tb;
   Blk bk;
   Hot hot;
@@ -1187,17 +1238,20 @@ struct CoopGeom {
   template <class W>
   __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
                          W& w) const {
+    int t0 = w.tic();
     TriBest b{BIG, -1, 0, false};
     coop_tris<false>(tb, bk, hot, o, d, face, excl_prim, excl_face, active, b, w);
     if (active) sph_nearest(tb, o, d, face, excl_prim, excl_face, b.t, b.id, b.bf, w);
     const float* row =
         (b.id >= 0 && b.id < tb.n_tri) ? bk.tri + (size_t)b.row * BLK_COLS : nullptr;
-    return finish_hit(tb, row, o, d, b.t, b.id, b.bf, active);
+    Hit h = finish_hit(tb, row, o, d, b.t, b.id, b.bf, active);
+    w.near_cycles(t0);
+    return h;
   }
   template <class W>
-  __device__ __forceinline__ unsigned occluded(V3 p, int self_prim, const V3 (&dd)[LIGHT_GROUP],
-                               const float (&tlim)[LIGHT_GROUP], unsigned pending, W& w) const {
-    return coop_occluded(tb, bk, hot, p, self_prim, dd, tlim, pending, w);
+  __device__ __forceinline__ unsigned occluded(V3 p, int self_prim, const ShadowGroup& sg,
+                                               unsigned pending, W& w) const {
+    return coop_occluded(tb, bk, hot, p, self_prim, sg.dd, sg.tlim, pending, w);
   }
   template <class W>
   __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
@@ -1208,6 +1262,201 @@ struct CoopGeom {
     return finish_back(tb, row, p, d, b.t, b.id, w);
   }
 };
+
+// ---------------------------------------------------------------------------
+// The dense scene out of the block's shared memory (DenseRowsGeom)
+// ---------------------------------------------------------------------------
+
+// A hot row (kernel_common.Tables.hot: columns 0:16 of the [T, 34] table)
+// as float4s: q0 = (fn, d), then inside_tri's vectors (hot_edges).  The
+// tests below are those of tri_nearest, tri_occluded and back_sweep, term
+// for term in the same order, so that they round alike.
+
+// nearest: one row against a ray (the body of tri_nearest's loop)
+template <bool BACK_ONLY, class W>
+__device__ __forceinline__ void dense_nearest_row(const float4* __restrict__ r, int i, V3 o, V3 d,
+                                                  int face, int excl_prim, int excl_face,
+                                                  float& best_t, int& best_i, bool& best_bf,
+                                                  W& w) {
+  w.tri_test();
+  float4 a = r[0];
+  V3 fn = v3(a.x, a.y, a.z);
+  float no_d = dot3(fn, d);
+  bool bf = no_d > 0.0f;
+  if (BACK_ONLY) {
+    if (!bf) return;  // Back rays only hit backfaces
+  } else {
+    if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) return;  // culled
+    if (excl_prim == i && excl_crit(excl_face, bf)) return;
+  }
+  w.plane_test();
+  float t = (a.w - dot3(fn, o)) / no_d;
+  if (!(t > 0.0f) || !isfinite(t) || !(t < BIG)) return;
+  HotEdges eg = hot_edges(r);
+  bool inside = true;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    if (inside) w.edge_test();
+    inside = inside && (dot3(eg.g[e], o) + eg.h[e] + t * dot3(eg.g[e], d) >= 0.0f);
+  }
+  if (inside && t <= best_t) {
+    best_t = t;
+    best_i = i;
+    best_bf = bf;
+  }
+}
+
+// The whole dense table, staged in shared memory: 64-byte hot rows read as
+// four broadcast float4 loads.  Every ray makes the tests of DenseGeom's
+// per-thread sweeps (the same rows in the same order, the same early exits),
+// so hits, photons, level outputs and the Work totals are DenseGeom's.
+// GROUPED: a shading point's shadow rays to all lights make one pass over
+// the rows, which ends when every light it tests has found an occluder
+// (else one pass per light, as DenseGeom).  STAGED: each block copies the
+// hot rows from global memory to its shared memory first (stage), and the
+// sweeps read them there; a table too large to stage (fits) is read from
+// global memory by the same walk.
+constexpr int DENSE_SMEM_MAX = 96 * 1024;  // bytes of staged rows a block may take
+
+template <bool STAGED, bool GROUP>
+struct DenseRowsGeom {
+  static constexpr bool COOP = false, GROUPED = GROUP;
+  Tables tb;  // tb.tri: the winners' whole rows (finish_hit), spheres, materials, lights
+  const float4* __restrict__ rows;  // [n_tri, 4] hot rows in global memory
+  static __device__ __forceinline__ bool any(bool x) { return x; }
+  static int smem_bytes(int n_tri) { return (int)sizeof(float4) * HOT_F4 * n_tri; }
+  static bool fits(int n_tri) { return smem_bytes(n_tri) <= DENSE_SMEM_MAX; }
+  int smem(int) const { return STAGED ? smem_bytes(tb.n_tri) : 0; }
+  __device__ __forceinline__ void stage() const {
+    if constexpr (STAGED) {
+      extern __shared__ float4 rt_stage[];
+      for (int i = threadIdx.x; i < HOT_F4 * tb.n_tri; i += blockDim.x) rt_stage[i] = rows[i];
+      __syncthreads();
+    }
+  }
+  // hot row i, where the sweeps read it
+  __device__ __forceinline__ const float4* row(int i) const {
+    if constexpr (STAGED) {
+      extern __shared__ float4 rt_stage[];
+      return rt_stage + HOT_F4 * i;
+    } else {
+      return rows + HOT_F4 * i;
+    }
+  }
+  template <class W>
+  __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
+                         W& w) const {
+    int t0 = w.tic();
+    float best_t = BIG;
+    int best_i = -1;
+    bool best_bf = false;
+    if (active) {
+      for (int i = 0; i < tb.n_tri; ++i)
+        dense_nearest_row<false>(row(i), i, o, d, face, excl_prim, excl_face, best_t, best_i,
+                                 best_bf, w);
+      sph_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
+    }
+    const float* r = (best_i >= 0 && best_i < tb.n_tri) ? tb.tri + best_i * TRI_COLS : nullptr;
+    Hit h = finish_hit(tb, r, o, d, best_t, best_i, best_bf, active);
+    w.near_cycles(t0);
+    return h;
+  }
+  // tri_occluded, term for term, over the rows where the sweeps read them
+  template <class W>
+  __device__ bool tri_occluded(V3 p, int self_prim, float s, V3 tg, float tlim, W& w) const {
+    for (int i = 0; i < tb.n_tri; ++i) {
+      if (i == self_prim) continue;
+      w.tri_test();
+      const float4* r = row(i);
+      float4 a = r[0];
+      V3 fn = v3(a.x, a.y, a.z);
+      float o_fn = dot3(fn, p);
+      float num = a.w - o_fn;
+      if (!(num > 0.0f)) continue;
+      w.plane_test();
+      float no_d = dot3(fn, tg) - s * o_fn;
+      if (!(no_d > 0.0f)) continue;
+      float t = num / no_d;
+      if (!isfinite(t) || !(t < tlim)) continue;
+      HotEdges eg = hot_edges(r);
+      bool inside = true;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        float ogh = dot3(eg.g[e], p) + eg.h[e];
+        float c_g = dot3(eg.g[e], tg) + s * eg.h[e];
+        if (inside) w.edge_test();
+        inside = inside && (ogh + t * (c_g - s * ogh) >= 0.0f);
+      }
+      if (inside) return true;
+    }
+    return false;
+  }
+  // tri_occluded for the lights `pending` of one group, in one pass: the
+  // terms of the origin are shared, each light's are its own, and a light
+  // leaves the pass at its first occluder (its tests counted up to there)
+  // -> the lights occluded by a triangle.
+  template <class W>
+  __device__ unsigned occluded(V3 p, int self_prim, const ShadowGroup& sg, unsigned pending,
+                               W& w) const {
+    unsigned hit = 0;
+    for (int i = 0; i < tb.n_tri && pending; ++i) {
+      if (i == self_prim) continue;
+      const float4* r = row(i);
+      float4 a = r[0];
+      V3 fn = v3(a.x, a.y, a.z);
+      float o_fn = dot3(fn, p);
+      float num = a.w - o_fn;
+#pragma unroll
+      for (int l = 0; l < LIGHT_GROUP; ++l)
+        if ((pending >> l) & 1) w.tri_test();
+      if (!(num > 0.0f)) continue;
+      HotEdges eg = hot_edges(r);
+      float ogh[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) ogh[e] = dot3(eg.g[e], p) + eg.h[e];
+#pragma unroll
+      for (int l = 0; l < LIGHT_GROUP; ++l) {
+        if (!((pending >> l) & 1)) continue;
+        w.plane_test();
+        const float s = sg.s[l];
+        float no_d = dot3(fn, sg.tg[l]) - s * o_fn;
+        if (!(no_d > 0.0f)) continue;
+        float t = num / no_d;
+        if (!isfinite(t) || !(t < sg.tlim[l])) continue;
+        bool inside = true;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          float c_g = dot3(eg.g[e], sg.tg[l]) + s * eg.h[e];
+          if (inside) w.edge_test();
+          inside = inside && (ogh[e] + t * (c_g - s * ogh[e]) >= 0.0f);
+        }
+        if (inside) hit |= 1u << l;
+      }
+      pending &= ~hit;
+    }
+    return hit;
+  }
+  template <class W>
+  __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
+    if (!want) return no_back(p);
+    float best_t = BIG;
+    int best_i = -1;
+    bool bf = false;
+    for (int i = 0; i < tb.n_tri; ++i)
+      dense_nearest_row<true>(row(i), i, p, d, FACE_BACK, -1, FACE_BACK, best_t, best_i, bf, w);
+    const float* r = (best_i >= 0) ? tb.tri + best_i * TRI_COLS : nullptr;
+    return finish_back(tb, r, p, d, best_t, best_i, w);
+  }
+};
+
+// The level kernel's and the MC kernel's dense walks (PERF.md: the grouped
+// shadow pass takes registers that the MC kernel, which fills the card,
+// pays for in blocks per SM)
+constexpr bool DENSE_LEVEL_GROUPED = true, DENSE_MC_GROUPED = false;
+
+// The dynamic shared bytes of the demo scene's staged rows (64 triangles),
+// at which the attributes report the blocks an SM holds.
+constexpr int DEMO_DENSE_SMEM = (int)sizeof(float4) * HOT_F4 * 64;
 
 // ---------------------------------------------------------------------------
 // Direct shading (kernel_common.get_shade)
@@ -1270,11 +1519,12 @@ __device__ __forceinline__ void phong_add(V3& out, const Mat& m, const float* __
 }
 
 // Direct radiance at p (get_shade): na = bump-ADJUSTED normal, vd = view
-// (-ray direction).  Adds the shadow rays cast to `count`.  One thread
-// sweeps once per light; a cooperative geometry takes the lights in groups
-// of LIGHT_GROUP: each lane prepares its shadow rays, the warp makes one
-// pass over the chunks for all of them, then the unoccluded lights' terms
-// add up in the lights' order.
+// (-ray direction).  Adds the shadow rays cast to `count`.  A geometry that
+// is not GROUPED sweeps once per light; a GROUPED one takes the lights in
+// groups of LIGHT_GROUP: each lane prepares its shadow rays, one pass over
+// the rows (for a cooperative geometry: the warp's pass over the chunks)
+// tests all of them, then the unoccluded lights' terms add up in the
+// lights' order.
 template <class G, class W>
 __device__ inline V3 get_shade(const G& g, const Mat& m, V3 p, V3 na, V3 vd, bool active,
                                int self_prim, int& count, W& w) {
@@ -1285,15 +1535,14 @@ __device__ inline V3 get_shade(const G& g, const Mat& m, V3 p, V3 na, V3 vd, boo
   }
   float e = 1.0f / (m.smoothness + F32_EPS);
   float energy = (e + 8.0f) / EIGHT_PI;
-  if constexpr (G::COOP) {
+  if constexpr (G::GROUPED) {
     for (int base = 0; base < tb.n_light; base += LIGHT_GROUP) {
       unsigned pending = 0;
-      V3 dd[LIGHT_GROUP];
-      float tlim[LIGHT_GROUP];
+      ShadowGroup sg;
 #pragma unroll
       for (int l = 0; l < LIGHT_GROUP; ++l) {
-        dd[l] = v3(0.0f, 0.0f, 0.0f);
-        tlim[l] = 0.0f;
+        sg.dd[l] = sg.tg[l] = v3(0.0f, 0.0f, 0.0f);
+        sg.s[l] = sg.tlim[l] = 0.0f;
         if (!active || base + l >= tb.n_light) continue;
         const float* L = tb.lights + (base + l) * LIGHT_COLS;
         LightTerm t = light_term(L, p, na);
@@ -1302,16 +1551,24 @@ __device__ inline V3 get_shade(const G& g, const Mat& m, V3 p, V3 na, V3 vd, boo
         pending |= 1u << l;
         float s = shadow_s(t);
         V3 tg = shadow_target(L, t);
-        dd[l] = v3(tg.x - s * p.x, tg.y - s * p.y, tg.z - s * p.z);
-        tlim[l] = shadow_tlim(t);
+        sg.s[l] = s;
+        sg.tg[l] = tg;
+        sg.dd[l] = v3(tg.x - s * p.x, tg.y - s * p.y, tg.z - s * p.z);
+        sg.tlim[l] = shadow_tlim(t);
       }
-      unsigned lit = pending & ~g.occluded(p, self_prim, dd, tlim, pending, w);
+      int t0 = w.tic();
+      unsigned lit = pending;
+      if (G::COOP || pending) lit &= ~g.occluded(p, self_prim, sg, pending, w);
+      w.shadow_cycles(t0);
 #pragma unroll
       for (int l = 0; l < LIGHT_GROUP; ++l) {
         if (!((lit >> l) & 1)) continue;
         const float* L = tb.lights + (base + l) * LIGHT_COLS;
         LightTerm t = light_term(L, p, na);
-        if (sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w)) continue;
+        t0 = w.tic();
+        bool behind_sphere = sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w);
+        w.shadow_cycles(t0);
+        if (behind_sphere) continue;
         phong_add(out, m, L, t, na, vd, e, energy);
       }
     }
@@ -1321,9 +1578,12 @@ __device__ inline V3 get_shade(const G& g, const Mat& m, V3 p, V3 na, V3 vd, boo
       LightTerm t = light_term(L, p, na);
       if (!t.consider) continue;
       ++count;
-      if (g.tri_occluded(p, self_prim, shadow_s(t), shadow_target(L, t), shadow_tlim(t), w) ||
-          sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w))
-        continue;
+      int t0 = w.tic();
+      bool occluded =
+          g.tri_occluded(p, self_prim, shadow_s(t), shadow_target(L, t), shadow_tlim(t), w) ||
+          sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w);
+      w.shadow_cycles(t0);
+      if (occluded) continue;
       phong_add(out, m, L, t, na, vd, e, energy);
     }
   }
@@ -1368,11 +1628,15 @@ __device__ inline March march(const G& g, V3 p, V3 n0, V3 d0, float k, bool want
   if constexpr (!G::COOP) {
     if (!want) return mm;
   }
+  const int t0 = w.tic();
   bool ok_in;
   V3 r = refract3(n0, d0, k, ok_in);
   bool go = want && ok_in;  // TIR at entry -> Trapped (main.rs:354-358)
   if constexpr (!G::COOP) {
-    if (!go) return mm;
+    if (!go) {
+      w.march_cycles(t0);
+      return mm;
+    }
   }
   mm.iters = go ? 1 : 0;
   float inv_k = 1.0f / k;
@@ -1414,13 +1678,15 @@ __device__ inline March march(const G& g, V3 p, V3 n0, V3 d0, float k, bool want
     mm.od = out;
     mm.prim = prim;
   }
+  w.march_cycles(t0);
   return mm;
 }
 
 // Compiled attributes of kernel `fn` (host): out = {registers per thread,
 // local (spill + stack) bytes per thread, static shared bytes, max threads
-// per block, the dynamic shared bytes `dynamic` its launches ask for}.
-inline int attrs_of(const void* fn, int* out, int dynamic = 0) {
+// per block, the dynamic shared bytes `dynamic` its launches ask for, the
+// blocks of `threads` threads that one SM holds at once with them}.
+inline int attrs_of(const void* fn, int* out, int dynamic = 0, int threads = 128) {
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
@@ -1429,7 +1695,11 @@ inline int attrs_of(const void* fn, int* out, int dynamic = 0) {
   out[2] = (int)a.sharedSizeBytes;
   out[3] = a.maxThreadsPerBlock;
   out[4] = dynamic;
-  return 0;
+  if (dynamic > 48 * 1024) {  // the occupancy query also wants the opt-in
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5, fn, threads, dynamic);
 }
 
 // Launch set-up of a cooperative kernel (host): opt in to its dynamic

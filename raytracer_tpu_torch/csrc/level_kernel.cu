@@ -4,7 +4,8 @@
 // Replaces the TPU kernel raytracer_tpu/ops/level_pallas.py:73
 // `_level_kernel` / :127 `_level_body` (wrapper `process_level` :261),
 // both of its branches: one instantiation per geometry policy
-// (common.cuh DenseGeom; CoopGeom for the large-mesh blocked layout).
+// (common.cuh DenseRowsGeom for a dense scene; CoopGeom for the large-mesh
+// blocked layout).
 // Plain version: raytracer_tpu_torch/ops/level_kernel.py
 // `process_level_plain`.
 //
@@ -20,12 +21,19 @@
 // triangles + 4 spheres per cast; blocked: the box tests and the 128-row
 // chunks a ray enters; up to 3 shadow rays and 11 march casts per lane)
 // and warp divergence between lanes that march and lanes that do not; the
-// pool I/O is 128 bytes in and ~260 bytes out per lane.  Dense: 128
-// threads per block, scene tables through const __restrict__ global
-// pointers (L1-resident), and a per-lane early exit in place of the TPU's
-// dead-tile skip — a lane that is not alive writes exactly what a dead
-// TPU tile writes (children zero; pending delivered through contrib on
-// direct levels, otherwise carried on the reflect child with its slot).
+// pool I/O is 128 bytes in and ~260 bytes out per lane.  A launch is one
+// level of one tile (the compaction between levels works per tile), at
+// most a wave of the card, so what counts is the latency of each lane's
+// chain of sweeps.  Dense (DenseRowsGeom): every block stages the 64-byte
+// hot rows in its shared memory, every sweep reads them as broadcast
+// float4s, and a shading point's shadow rays to all lights make one pass
+// over them (three independent chains a row where the per-thread walk has
+// one; the primary level spent a third of its cycles in shadow tests), at
+// 96 registers and 5 blocks of 128 threads an SM, with a per-lane early
+// exit in place of the TPU's dead-tile skip — a lane that is not alive
+// writes exactly what a dead TPU tile writes (children zero; pending
+// delivered through contrib on direct levels, otherwise carried on the
+// reflect child with its slot).
 // Blocked: one thread alone pays a dependent global load for every row of
 // every chunk it enters, its warp runs the 128-row loop once for every
 // chunk that any lane enters, and a launch waits for its slowest warp (the
@@ -38,13 +46,11 @@
 // launch take its live lanes dealt round-robin, while each dead lane is
 // written by the thread of its own position, coalesced (dealt, the dead
 // lanes' writes touched 32 sectors a warp, and the nearly dead tail levels
-// took 15 times the per-thread walk's time).  Over a mesh11k frame's 96
-// level launches that takes 0.32 ms a launch (0.35 with the dead lanes
-// dealt too, 0.68 undealt), where the per-thread walk takes 1.73 (NVIDIA
-// H100 80GB HBM3, 700 W; PERF.md).  The per-thread BlockedGeom
-// instantiation is kept as the yardstick that chip_smoke.py holds the
-// cooperative walk against (rt_level_blk_thread); no wrapper of the main
-// path launches it.  The TPU's 512-lane tiles, bit-cast int rows and
+// took 15 times the per-thread walk's time).  Times are in PERF.md.  The
+// per-thread DenseGeom and BlockedGeom instantiations are kept as the
+// yardsticks that chip_smoke.py holds the main path's walks against
+// (rt_level_thread, rt_level_blk_thread); no wrapper of the main path
+// launches them.  The TPU's 512-lane tiles, bit-cast int rows and
 // one-hot attribute matmuls are gone.  W is the test counter (common.cuh):
 // NoWork on the main path, Work when the caller asks for the test counts
 // (a column a thread).
@@ -64,6 +70,11 @@ __device__ __forceinline__ void put_i(int* __restrict__ a, int row, int k, int l
 
 constexpr int LEVEL_THREADS = 128;
 
+// The dense walk (common.cuh DenseRowsGeom): the hot rows out of shared
+// memory, or out of global memory where a table is too large to stage.
+using SharedDense = DenseRowsGeom<true, DENSE_LEVEL_GROUPED>;
+using GlobalDense = DenseRowsGeom<false, DENSE_LEVEL_GROUPED>;
+
 // Under a cooperative geometry every lane runs every statement that sweeps;
 // the per-thread policies keep their early returns.  Its threads take the
 // pool twice.  In pool order, thread t writes what pool lane t owes if that
@@ -80,6 +91,7 @@ level_kernel(const float* __restrict__ pf, const int* __restrict__ pi, G g,
              float* __restrict__ ff, int* __restrict__ fi, int* __restrict__ casts_out,
              int* __restrict__ work_out, int k, bool last, bool direct, float threshold,
              float max_distance, int max_retries) {
+  g.stage();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   W w{};
   auto pend_at = [&](int at) {
@@ -264,7 +276,7 @@ int launch_level(const float* pf, const int* pi, G g, float* contrib, float* rf,
                  float threshold, float max_distance, int max_retries, void* stream) {
   int blocks = (k + LEVEL_THREADS - 1) / LEVEL_THREADS;
   auto kernel = work ? &level_kernel<G, Work> : &level_kernel<G, NoWork>;
-  int shared = G::COOP ? coop_shared_bytes(LEVEL_THREADS) : 0;
+  int shared = g.smem(LEVEL_THREADS);
   if (shared) {
     int err = coop_opt_in((const void*)kernel, shared);
     if (err) return err;
@@ -284,9 +296,26 @@ extern "C" {
 // instantiation that counts nothing).
 int rt_level(const float* pf, const int* pi, const float* tri, int n_tri, const float* sph,
              int n_sph, const float* mat, int n_obj, const float* lights, int n_light,
-             float* contrib, float* rf, int* ri, float* ff, int* fi, int* casts, int* work, int k,
-             int last, int direct, float threshold, float max_distance, int max_retries,
-             void* stream) {
+             const float* hot, float* contrib, float* rf, int* ri, float* ff, int* fi,
+             int* casts, int* work, int k, int last, int direct, float threshold,
+             float max_distance, int max_retries, void* stream) {
+  rt::Tables tb{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light};
+  const float4* rows = (const float4*)hot;
+  if (rt::SharedDense::fits(n_tri))
+    return rt::launch_level(pf, pi, rt::SharedDense{tb, rows}, contrib, rf, ri, ff, fi, casts,
+                            work, k, last, direct, threshold, max_distance, max_retries, stream);
+  return rt::launch_level(pf, pi, rt::GlobalDense{tb, rows}, contrib, rf, ri, ff, fi, casts,
+                          work, k, last, direct, threshold, max_distance, max_retries, stream);
+}
+
+// The same level with every thread reading the dense table from global
+// memory and sweeping once per light (DenseGeom): what the staged walk is
+// held against.
+int rt_level_thread(const float* pf, const int* pi, const float* tri, int n_tri,
+                    const float* sph, int n_sph, const float* mat, int n_obj,
+                    const float* lights, int n_light, float* contrib, float* rf, int* ri,
+                    float* ff, int* fi, int* casts, int* work, int k, int last, int direct,
+                    float threshold, float max_distance, int max_retries, void* stream) {
   rt::DenseGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light}};
   return rt::launch_level(pf, pi, g, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
                           threshold, max_distance, max_retries, stream);
@@ -325,18 +354,25 @@ int rt_level_blk_thread(const float* pf, const int* pi, const float* tri, int n_
 }
 
 // Compiled attributes of the instantiation `which` that counts nothing (0
-// dense, 1 blocked: the cooperative walk, 2 the per-thread blocked walk):
-// out = {registers per thread, local (spill + stack) bytes per thread,
-// static shared bytes, max threads per block, dynamic shared bytes per
-// launch}.
+// dense: the staged walk, at the demo's tables; 1 blocked: the cooperative
+// walk; 2 the per-thread blocked walk; 3 the per-thread dense walk): out =
+// {registers per thread, local (spill + stack) bytes per thread, static
+// shared bytes, max threads per block, dynamic shared bytes per launch,
+// blocks an SM holds}.
 int rt_level_attrs(int which, int* out) {
   using rt::NoWork;
-  if (which == 1)
-    return rt::attrs_of((const void*)rt::level_kernel<rt::CoopGeom, NoWork>, out,
-                        rt::coop_shared_bytes(rt::LEVEL_THREADS));
-  return rt::attrs_of(which ? (const void*)rt::level_kernel<rt::BlockedGeom, NoWork>
-                            : (const void*)rt::level_kernel<rt::DenseGeom, NoWork>,
-                      out);
+  switch (which) {
+    case 0:
+      return rt::attrs_of((const void*)rt::level_kernel<rt::SharedDense, NoWork>, out,
+                          rt::DEMO_DENSE_SMEM);
+    case 1:
+      return rt::attrs_of((const void*)rt::level_kernel<rt::CoopGeom, NoWork>, out,
+                          rt::coop_shared_bytes(rt::LEVEL_THREADS));
+    case 2:
+      return rt::attrs_of((const void*)rt::level_kernel<rt::BlockedGeom, NoWork>, out);
+    default:
+      return rt::attrs_of((const void*)rt::level_kernel<rt::DenseGeom, NoWork>, out);
+  }
 }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernel raytracer_tpu/ops/mc_pallas.py:474 `_mc_kernel`
 // (wrapper `trace` :541; `mc_step` :58, `mc_terminal` :449), both of its
-// branches: one instantiation per geometry policy (common.cuh DenseGeom;
-// CoopGeom for the large-mesh blocked layout, mc_pallas.py:485-487).
-// Plain version: raytracer_tpu_torch/ops/mc_kernel.py `trace_plain`.
+// branches: one instantiation per geometry policy (common.cuh
+// DenseRowsGeom for a dense scene; CoopGeom for the large-mesh blocked
+// layout, mc_pallas.py:485-487).  Plain version:
+// raytracer_tpu_torch/ops/mc_kernel.py `trace_plain`.
 //
 // One thread per ray walks the whole path: the primary cast, `depth`
 // roulette bounces (roulette, scatter lobe, interior TIR march, advance
@@ -17,11 +18,19 @@
 // — every bounce runs up to ~15 sweeps (advance cast, 3 lights' shadow
 // rays, up to 11 march casts): all 64 triangles and 4 spheres on the dense
 // demo scene, the entered chunks on a blocked mesh — and lanes of a warp
-// take different roulette branches, march lengths and chunks.  Dense: 128
-// threads per block, the scene tables read from global memory through
-// const __restrict__ pointers, the depth loop a runtime loop (not
-// unrolled) to hold register pressure down, any-hit shadow loops that stop
-// at the first occluder, per-lane cast counts summed by the wrapper.
+// take different roulette branches, march lengths and chunks; and a launch
+// lasts as long as its slowest block.  So the card must be full: a launch
+// of one 65,536-ray tile (512 blocks, on 660 places for them at 5 blocks an
+// SM) left it under-filled for 58-62 % of its time, and an epoch on this
+// route is ONE launch for the whole frame (render.epoch_frame).  Dense
+// (DenseRowsGeom): every block stages the 64-byte hot rows in its shared
+// memory and every sweep reads them as broadcast float4s, one light after
+// the other (one pass for all lights, GROUPED, took 128 registers and a
+// block an SM, and lost), 96 registers and 5 blocks of 128 threads an SM,
+// the depth loop a runtime loop (not unrolled) to hold register pressure
+// down, per-lane cast counts summed by the wrapper; on the frame's 1.2 M
+// rays the sweeps take two fifths of a thread's cycles and the shading,
+// materials and sampling (acosf, powf, sinf, cosf in IEEE form) the rest.
 // Blocked: one thread alone pays a dependent global load for every row of
 // every chunk it enters, and the launch waits for the warp with the longest
 // chain of 128-row loops, so the blocked instantiation walks the chunks
@@ -30,13 +39,12 @@
 // rows at a time for one ray after the other, a shading point's three
 // shadow rays share one pass, and the kernel's control flow is the same in
 // all lanes of a warp (a lane past the tile's end, a dead lane and a lane
-// that does not march only pass `false` down).  On a mesh11k tile it takes
-// 1.8 ms where the per-thread walk takes 16.5 (NVIDIA H100 80GB HBM3,
-// 700 W; PERF.md); half of a warp's
-// cycles are still row tests, a fifth box tests, each a chain of dependent
-// instructions.  The per-thread BlockedGeom instantiation is kept as the
-// yardstick that chip_smoke.py holds the cooperative walk against
-// (rt_mc_trace_blk_thread); no wrapper of the main path launches it.  W is
+// that does not march only pass `false` down); half of a warp's cycles are
+// still row tests, a fifth box tests, each a chain of dependent
+// instructions.  Times are in PERF.md.  The per-thread DenseGeom and
+// BlockedGeom instantiations are kept as the yardsticks that chip_smoke.py
+// holds the main path's walks against (rt_mc_trace_thread,
+// rt_mc_trace_blk_thread); no wrapper of the main path launches them.  W is
 // the test counter (common.cuh): NoWork on the main path, Work when the
 // caller asks for the per-lane test counts.
 #include "mc_walk.cuh"
@@ -45,12 +53,18 @@ namespace rt {
 
 constexpr int MC_THREADS = 128;
 
+// The dense walk (common.cuh DenseRowsGeom): the hot rows out of shared
+// memory, or out of global memory where a table is too large to stage.
+using SharedDense = DenseRowsGeom<true, DENSE_MC_GROUPED>;
+using GlobalDense = DenseRowsGeom<false, DENSE_MC_GROUPED>;
+
 template <class G, class W>
 __global__ void __launch_bounds__(MC_THREADS)
 mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
           const float* __restrict__ unifs, G g, float* __restrict__ photon,
           int* __restrict__ casts_out, int* __restrict__ work_out, int n, int depth,
           float max_distance, int max_retries) {
+  g.stage();
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_tile = lane < n;
   if constexpr (G::COOP) {
@@ -128,7 +142,7 @@ int launch_mc(const float* ray_o, const float* ray_d, const float* unifs, G g, f
               void* stream) {
   int blocks = (n + MC_THREADS - 1) / MC_THREADS;
   auto kernel = work ? &mc_kernel<G, Work> : &mc_kernel<G, NoWork>;
-  int shared = G::COOP ? coop_shared_bytes(MC_THREADS) : 0;
+  int shared = g.smem(MC_THREADS);
   if (shared) {
     int err = coop_opt_in((const void*)kernel, shared);
     if (err) return err;
@@ -147,8 +161,25 @@ extern "C" {
 // nothing).
 int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, const float* tri,
                 int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
-                const float* lights, int n_light, float* photon, int* casts, int* work, int n,
-                int depth, float max_distance, int max_retries, void* stream) {
+                const float* lights, int n_light, const float* hot, float* photon, int* casts,
+                int* work, int n, int depth, float max_distance, int max_retries, void* stream) {
+  rt::Tables tb{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light};
+  const float4* rows = (const float4*)hot;
+  if (rt::SharedDense::fits(n_tri))
+    return rt::launch_mc(ray_o, ray_d, unifs, rt::SharedDense{tb, rows}, photon, casts, work,
+                         n, depth, max_distance, max_retries, stream);
+  return rt::launch_mc(ray_o, ray_d, unifs, rt::GlobalDense{tb, rows}, photon, casts, work, n,
+                       depth, max_distance, max_retries, stream);
+}
+
+// The same walk with every thread reading the dense table from global
+// memory and sweeping once per light (DenseGeom): what the staged walk is
+// held against.
+int rt_mc_trace_thread(const float* ray_o, const float* ray_d, const float* unifs,
+                       const float* tri, int n_tri, const float* sph, int n_sph, const float* mat,
+                       int n_obj, const float* lights, int n_light, float* photon, int* casts,
+                       int* work, int n, int depth, float max_distance, int max_retries,
+                       void* stream) {
   rt::DenseGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light}};
   return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance,
                        max_retries, stream);
@@ -184,17 +215,23 @@ int rt_mc_trace_blk_thread(const float* ray_o, const float* ray_d, const float* 
                        max_retries, stream);
 }
 
-// Compiled attributes of instantiation `which` (0 dense, 1 blocked: the
-// cooperative walk, 2 the per-thread blocked walk), layout as
-// rt_level_attrs.
+// Compiled attributes of instantiation `which` (0 dense: the staged walk,
+// 1 blocked: the cooperative walk, 2 the per-thread blocked walk, 3 the
+// per-thread dense walk), layout as rt_level_attrs.
 int rt_mc_attrs(int which, int* out) {
   using rt::NoWork;
-  if (which == 1)
-    return rt::attrs_of((const void*)rt::mc_kernel<rt::CoopGeom, NoWork>, out,
-                        rt::coop_shared_bytes(rt::MC_THREADS));
-  return rt::attrs_of(which ? (const void*)rt::mc_kernel<rt::BlockedGeom, NoWork>
-                            : (const void*)rt::mc_kernel<rt::DenseGeom, NoWork>,
-                      out);
+  switch (which) {
+    case 0:
+      return rt::attrs_of((const void*)rt::mc_kernel<rt::SharedDense, NoWork>, out,
+                          rt::DEMO_DENSE_SMEM);
+    case 1:
+      return rt::attrs_of((const void*)rt::mc_kernel<rt::CoopGeom, NoWork>, out,
+                          rt::coop_shared_bytes(rt::MC_THREADS));
+    case 2:
+      return rt::attrs_of((const void*)rt::mc_kernel<rt::BlockedGeom, NoWork>, out);
+    default:
+      return rt::attrs_of((const void*)rt::mc_kernel<rt::DenseGeom, NoWork>, out);
+  }
 }
 
 }  // extern "C"

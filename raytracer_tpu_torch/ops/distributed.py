@@ -164,12 +164,18 @@ def _walk_unfused(scene: Scene, ray_o, ray_d, unifs, cfg: RenderConfig):
     return accum + torch.where(alive[:, None], scale * shade, 0.0), casts
 
 
+def mega_kernel_route(scene: Scene) -> bool:
+    """Does trace_distributed walk this scene whole in ops/mc_kernel.trace
+    (one launch for any number of rays)?  Else the binned or unfused walk."""
+    return fused_ok(scene) and not (scene.blocked
+                                    and scene.n_tri >= mc_binned.BINNED_MIN_TRIS)
+
+
 def trace_distributed(scene: Scene, ray_o, ray_d, unifs,
                       cfg: RenderConfig) -> MCResult:
     """One MC sample per primary ray (main.rs:1150-1160)."""
     if fused_ok(scene):
-        use_binned = scene.blocked and scene.n_tri >= mc_binned.BINNED_MIN_TRIS
-        tracer = mc_binned.trace if use_binned else mc_kernel.trace
+        tracer = mc_kernel.trace if mega_kernel_route(scene) else mc_binned.trace
         photon_raw, casts = tracer(
             scene, ray_o, ray_d, unifs, cfg.depth, cfg.max_refract_distance,
             cfg.max_tir_retries,

@@ -66,6 +66,9 @@ class Tables(NamedTuple):
     n_tri: int
     n_sph: int
     n_light: int
+    # what the dense kernels' staged walks read of `tri`: its first 16
+    # columns as 64-byte rows
+    hot: torch.Tensor | None = None  # [T, 16]
 
 
 def pack_tri(scene: Scene) -> torch.Tensor:
@@ -119,8 +122,9 @@ def pack_lights(scene: Scene) -> torch.Tensor:
 
 
 def pack_tables(scene: Scene) -> Tables:
-    return Tables(pack_tri(scene), pack_sph(scene), pack_materials(scene),
-                  pack_lights(scene), scene.n_tri, scene.n_sph, scene.n_light)
+    tri = pack_tri(scene)
+    return Tables(tri, pack_sph(scene), pack_materials(scene), pack_lights(scene),
+                  scene.n_tri, scene.n_sph, scene.n_light, tri[:, :HOT_COLS].contiguous())
 
 
 class BlkTables(NamedTuple):
@@ -1057,6 +1061,10 @@ def check_tables(tb: Tables, device, bt: BlkTables | None = None) -> None:
     for name, t, w in (("tri", tb.tri, TRI_COLS), ("sph", tb.sph, SPH_COLS),
                        ("mat", tb.mat, MAT_COLS), ("lights", tb.lights, LIGHT_COLS)):
         check(name, t, torch.float32, (t.shape[0], w), device)
+    if tb.hot is not None:  # the dense staged walks' rows, copied 16 bytes at a time
+        check("hot", tb.hot, torch.float32, (tb.n_tri, HOT_COLS), device)
+        if tb.hot.data_ptr() % 16 or tb.sph.data_ptr() % 16:
+            raise ValueError("hot and sph must be 16-byte aligned")
     if bt is not None:
         nch = bt.box.shape[0]
         check("blk_tri", bt.tri, torch.float32, (nch * BLK_CHUNK, BLK_COLS), device)
@@ -1078,13 +1086,18 @@ def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False) 
     SIGNATURES): the dense tables and their counts, then, for a blocked
     instantiation, the blocked rows, chunk and supergroup boxes and the
     chunk count, then, for a warp-cooperative one (`hot`), the hot rows,
-    their ids, the chunks' live row counts and the triangles' rows."""
+    their ids, the chunks' live row counts and the triangles' rows; for a
+    dense staged walk (`hot`, no blocked tables), the dense hot rows."""
     geo = (tb.tri, tb.n_tri, tb.sph, tb.n_sph, tb.mat, tb.mat.shape[0],
            tb.lights, tb.n_light)
     if bt is not None:
         geo += (bt.tri, bt.box, bt.sup, bt.n_chunks)
-    if hot:
-        if bt is None or bt.hot is None:
+    if hot and bt is None:
+        if tb.hot is None:
+            raise ValueError("the staged dense kernels need the hot rows (pack_tables)")
+        geo += (tb.hot,)
+    elif hot:
+        if bt.hot is None:
             raise ValueError("the cooperative kernels need the hot tables (pack_blocked)")
         geo += (bt.hot, bt.ids, bt.live, bt.row_of_tri)
     return geo

@@ -7,16 +7,19 @@ nearest cast with attributes, direct shade with all shadow sweeps
 (threshold-gated), the reflect child, the refract child after the whole
 interior march, and the pending-radiance carry or `contrib` delivery.
 The CUDA kernel is csrc/level_kernel.cu, one instantiation per geometry:
-dense scenes launch `rt_level`, blocked (large-mesh) scenes `rt_level_blk`
-(level_pallas.py:127-253, the BlockedGeom branch), whose warps walk the
-chunks together out of shared memory (csrc/common.cuh CoopGeom): its
+dense scenes launch `rt_level`, whose blocks stage the scene's hot rows in
+shared memory and test a shading point's shadow rays to all lights in one
+pass (csrc/common.cuh DenseRowsGeom), blocked (large-mesh) scenes
+`rt_level_blk` (level_pallas.py:127-253, the BlockedGeom branch), whose
+warps walk the chunks together out of shared memory (CoopGeom): its
 threads write the dead lanes in pool order and take the live ones dealt
 round-robin over the warps (a map inside the kernel: the outputs keep the
 pool's order).
 `process_level_plain` below is the same level in plain PyTorch over either
-geometry.  `process_level_per_thread` launches the blocked level with every
-thread traversing alone, as a yardstick for the cooperative one; the
-Whitted ladder never takes it.
+geometry.  `process_level_per_thread` launches either level with every
+thread sweeping the tables in global memory alone, light by light, as the
+yardstick the main path's walks are held against; the Whitted ladder never
+takes it.
 
 Pool layout: `Pool.f` [11, K] float32 and `Pool.i` [5, K] int32 (the TPU
 kernel bit-casts the int rows into one f32 array; here they stay int32):
@@ -47,6 +50,7 @@ I_FACE, I_EXCL_PRIM, I_EXCL_FACE, I_SLOT, I_ALIVE = 0, 1, 2, 3, 4
 N_F, N_I = 11, 5
 
 COUNTS = kernels.LaunchCounts()  # the dense instantiation
+COUNTS_THREAD = kernels.LaunchCounts()  # its per-thread yardstick
 COUNTS_BLK = kernels.LaunchCounts()  # the blocked instantiation
 COUNTS_BLK_THREAD = kernels.LaunchCounts()  # its per-thread yardstick
 
@@ -157,8 +161,9 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
     refract child Pool, casts 0-d tensor).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/level_kernel.cu, the cooperative blocked instantiation on a
-    blocked scene) or raise — there is no fallback.  `work`: an optional int32
+    (csrc/level_kernel.cu: the staged dense instantiation, or the
+    cooperative blocked one on a blocked scene) or raise — there is no
+    fallback.  `work`: an optional int32
     [len(kernels.WORK_ROWS), K] tensor; given one, the kernel's counting
     instantiation fills it with each thread's tests by kind, a column a
     thread: the dense kernel's thread runs one lane, the blocked kernel's
@@ -173,7 +178,7 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
             max_distance, max_retries)
     else:
         contrib, rch, fch, casts = _launch(
-            "rt_level_blk" if scene.blocked else "rt_level", scene.blocked, counts, scene, pool,
+            "rt_level_blk" if scene.blocked else "rt_level", True, counts, scene, pool,
             last, direct, threshold, max_distance, max_retries, work)
     return contrib, rch, fch, casts.sum()
 
@@ -181,22 +186,23 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
 def process_level_per_thread(scene: Scene, pool: Pool, last: bool, direct: bool,
                              threshold: float, max_distance: float, max_retries: int,
                              work: torch.Tensor | None = None):
-    """`process_level` of a blocked scene on CUDA tensors through the
-    kernel's per-thread blocked instantiation (every thread walks its own
-    chunk list out of global memory).  The cooperative level must give its
-    outputs, casts and test counts; nothing on the main path calls this."""
-    if not scene.blocked:
-        raise ValueError("the per-thread blocked level takes blocked scenes only")
-    contrib, rch, fch, casts = _launch("rt_level_blk_thread", False, COUNTS_BLK_THREAD, scene,
-                                       pool, last, direct, threshold, max_distance,
-                                       max_retries, work)
+    """`process_level` on CUDA tensors through the kernel's per-thread
+    instantiation (every thread sweeps the dense table, or walks its own
+    chunk list, out of global memory, one light after the other).  The main
+    path's level must give its outputs, casts and test counts; nothing on
+    the main path calls this."""
+    entry, counts = (("rt_level_blk_thread", COUNTS_BLK_THREAD) if scene.blocked
+                     else ("rt_level_thread", COUNTS_THREAD))
+    contrib, rch, fch, casts = _launch(entry, False, counts, scene, pool, last, direct,
+                                       threshold, max_distance, max_retries, work)
     return contrib, rch, fch, casts.sum()
 
 
 def _launch(entry: str, hot: bool, counts, scene: Scene, pool: Pool, last, direct, threshold,
             max_distance, max_retries, work):
     """Check the operands and launch C entry `entry` (`hot`: it takes the
-    cooperative walk's tables) and advance its launch counter `counts` ->
+    hot rows of the staged or cooperative walk) and advance its launch
+    counter `counts` ->
     (contrib, reflect child, refract child, casts per lane)."""
     dev = pool.f.device
     if dev.type != "cuda":

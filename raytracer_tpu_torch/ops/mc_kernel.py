@@ -6,13 +6,15 @@ cast, `depth` roulette bounces (mc_step: roulette, scatter lobe, interior
 march, advance cast, merged next-hit shade, the recurrence accum +=
 scale*A; scale *= B), then the depth-exhausted terminal shade
 (mc_terminal).  The CUDA kernel is csrc/mc_kernel.cu, one instantiation per
-geometry: dense scenes launch `rt_mc_trace`, blocked (large-mesh) scenes
-`rt_mc_trace_blk` (mc_pallas.py:474-533, the BlockedGeom branch), whose
-warps walk the chunks together out of shared memory (csrc/common.cuh
-CoopGeom).  `trace_plain` below is the same walk in plain PyTorch over
-either geometry.  `trace_per_thread` launches the blocked walk with every
-thread traversing alone, as a yardstick for the cooperative one; `trace`
-never takes it.
+geometry: dense scenes launch `rt_mc_trace`, whose blocks stage the
+scene's hot rows in shared memory (csrc/common.cuh DenseRowsGeom), blocked
+(large-mesh) scenes `rt_mc_trace_blk` (mc_pallas.py:474-533, the
+BlockedGeom branch), whose warps walk the chunks together out of shared
+memory (CoopGeom).  `trace_plain` below is the same walk in plain PyTorch
+over either geometry.  `trace_per_thread` launches either walk with every
+thread reading the tables from global memory alone, as the yardstick the
+main path's walks are held against; `trace` never takes it.  An MC epoch
+on this route traces the whole frame in one call (render.epoch_frame).
 
 The random draws are an operand ([depth, 3, N] uniforms: roulette u, lobe
 u_phi, lobe theta), so the kernel, the plain version and the JAX package
@@ -30,6 +32,7 @@ from raytracer_tpu_torch.utils import kernels
 
 
 COUNTS = kernels.LaunchCounts()  # the dense instantiation
+COUNTS_THREAD = kernels.LaunchCounts()  # its per-thread yardstick
 COUNTS_BLK = kernels.LaunchCounts()  # the blocked instantiation
 COUNTS_BLK_THREAD = kernels.LaunchCounts()  # its per-thread yardstick
 
@@ -209,35 +212,39 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     0-d tensor).  unifs: [depth, 3, N] float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (csrc/mc_kernel.cu, the cooperative blocked instantiation on a blocked
-    scene) or raise — there is no fallback.  `work`: an optional int32
-    [len(kernels.WORK_ROWS), N] tensor; given one, the kernel's counting
-    instantiation fills it with each lane's tests by kind."""
+    (csrc/mc_kernel.cu: the staged dense instantiation, or the cooperative
+    blocked one on a blocked scene) or raise — there is no fallback.
+    `work`: an optional int32 [len(kernels.WORK_ROWS), N] tensor; given one,
+    the kernel's counting instantiation fills it with each lane's tests by
+    kind."""
     counts = COUNTS_BLK if scene.blocked else COUNTS
     if ray_o.device.type == "cpu":
         counts.plain += 1
         return trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
                            depth, max_distance, max_retries)
-    return _launch("rt_mc_trace_blk" if scene.blocked else "rt_mc_trace", scene.blocked,
-                   counts, scene, ray_o, ray_d, unifs, depth, max_distance, max_retries, work)
+    return _launch("rt_mc_trace_blk" if scene.blocked else "rt_mc_trace", True, counts, scene,
+                   ray_o, ray_d, unifs, depth, max_distance, max_retries, work)
 
 
 def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
                      max_retries: int, work: torch.Tensor | None = None):
-    """`trace` of a blocked scene on CUDA tensors through the kernel's
-    per-thread blocked instantiation (every thread walks its own chunk
-    list out of global memory).  The cooperative walk must give its
-    photons, casts and test counts; nothing on the main path calls this."""
-    if not scene.blocked:
-        raise ValueError("the per-thread blocked walk takes blocked scenes only")
-    return _launch("rt_mc_trace_blk_thread", False, COUNTS_BLK_THREAD, scene, ray_o, ray_d, unifs,
-                   depth, max_distance, max_retries, work)
+    """`trace` on CUDA tensors through the kernel's per-thread
+    instantiation (every thread sweeps the dense table, or walks its own
+    chunk list, out of global memory alone).  The main path's walk must
+    give its photons, casts and test counts; nothing on the main path calls
+    this."""
+    if scene.blocked:
+        return _launch("rt_mc_trace_blk_thread", False, COUNTS_BLK_THREAD, scene, ray_o, ray_d,
+                       unifs, depth, max_distance, max_retries, work)
+    return _launch("rt_mc_trace_thread", False, COUNTS_THREAD, scene, ray_o, ray_d, unifs, depth,
+                   max_distance, max_retries, work)
 
 
 def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, depth,
             max_distance, max_retries, work):
     """Check the operands and launch C entry `entry` (`hot`: it takes the
-    cooperative walk's tables) and advance its launch counter `counts`."""
+    hot rows of the staged or cooperative walk) and advance its launch
+    counter `counts`."""
     dev = ray_o.device
     n = ray_o.shape[0]
     if dev.type != "cuda":

@@ -11,6 +11,14 @@ device, so an epoch's samples depend on nothing else and a resumed render
 redraws exactly what the interrupted one would have.  They are a
 different, equally valid realisation from the JAX package's threefry
 draws; the tests hand the JAX draws in through `draws=`.
+
+An MC epoch on the mega-kernel route (ops/distributed.mega_kernel_route)
+lays every tile's draws side by side and traces the whole frame in one
+launch, as the JAX package gives XLA the whole frame in one dispatch
+(raytracer_tpu/render.py `_mc_frame`): a launch of one tile leaves most of
+the card idle at its tail, and each tile costs the host its own camera,
+filter and sums.  The binned and unfused routes, and the Whitted ladder
+(whose compaction works per tile), go tile by tile.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops import camera as camera_ops
-from raytracer_tpu_torch.ops.distributed import trace_distributed
+from raytracer_tpu_torch.ops.distributed import mega_kernel_route, trace_distributed
 from raytracer_tpu_torch.ops.trace import trace_whitted
 from raytracer_tpu_torch.scene.types import Camera, Scene
 
@@ -118,6 +126,35 @@ def tile_draws(cfg: RenderConfig, seed: int, epoch: int, tile: int, n: int,
     return normals, unifs
 
 
+def frame_draws(tile_in) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile (lens normals [tile, 2], unifs [depth, 3, tile]) laid side
+    by side -> (normals [N, 2], unifs [depth, 3, N]) of the whole frame."""
+    return (torch.cat([nm for nm, _ in tile_in]),
+            torch.cat([u for _, u in tile_in], dim=2).contiguous())
+
+
+def epoch_frame(scene: Scene, camera: Camera, cfg: RenderConfig, clips, tile_in):
+    """The epoch's tiles traced in ONE trace_distributed call -> (photon
+    [N, 3] in tile order, casts, filtered)."""
+    normals, unifs = frame_draws(tile_in)
+    o, d = camera_ops.shoot_focus(camera, clips.reshape(-1, 2), normals * cfg.blur, cfg.focus)
+    res = trace_distributed(scene, o, d, unifs, cfg)
+    return res.photon, res.casts, res.filtered
+
+
+def epoch_tiles(scene: Scene, camera: Camera, cfg: RenderConfig, clips, tile_in):
+    """The epoch traced tile by tile -> (photon [N, 3] in tile order,
+    casts, filtered)."""
+    photons, casts, filtered = [], 0, 0
+    for clip, (normals, unifs) in zip(clips, tile_in):
+        o, d = camera_ops.shoot_focus(camera, clip, normals * cfg.blur, cfg.focus)
+        res = trace_distributed(scene, o, d, unifs, cfg)
+        photons.append(res.photon)
+        casts = casts + res.casts
+        filtered = filtered + res.filtered
+    return torch.cat(photons), casts, filtered
+
+
 def render_distributed_epoch(
     scene: Scene, camera: Camera, cfg: RenderConfig, seed: int = 0,
     epoch: int = 0, draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
@@ -128,19 +165,15 @@ def render_distributed_epoch(
     draws: optional per-tile (lens normals [tile, 2], unifs [depth, 3,
     tile]) in place of the generator's."""
     clips, inv = _clips(cfg, scene.device)
-    photons, casts, filtered = [], 0, 0
-    for t, clip in enumerate(clips):
-        if draws is None:
-            normals, unifs = tile_draws(cfg, seed, epoch, t, clip.shape[0], clip.device)
-        else:
-            normals, unifs = draws[t]
-        o, d = camera_ops.shoot_focus(camera, clip, normals * cfg.blur, cfg.focus)
-        res = trace_distributed(scene, o, d, unifs, cfg)
-        photons.append(res.photon)
-        casts = casts + res.casts
-        filtered = filtered + res.filtered
+    if draws is not None and len(draws) != len(clips):
+        raise ValueError(f"draws for {len(draws)} tiles, the frame has {len(clips)}")
+    tile_in = draws if draws is not None else [
+        tile_draws(cfg, seed, epoch, t, clip.shape[0], clip.device)
+        for t, clip in enumerate(clips)]
+    run = epoch_frame if mega_kernel_route(scene) else epoch_tiles
+    photon, casts, filtered = run(scene, camera, cfg, clips, tile_in)
     # stats include the padding rays of a ragged last tile
-    return _to_image(cfg, photons, inv), {
+    return _to_image(cfg, [photon], inv), {
         "casts": int(casts), "filtered": int(filtered),
         "primary_rays": cfg.width * cfg.height,
     }

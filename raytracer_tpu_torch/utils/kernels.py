@@ -43,19 +43,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _TABLES = "p" + "ip" * 3 + "i"  # tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light
 _BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
 # what the warp-cooperative walks read besides: hot rows, their ids, the
-# chunks' live row counts, the triangles' blocked rows
+# chunks' live row counts, the triangles' blocked rows (a dense scene's
+# staged walks read its hot rows only, after _TABLES: "p")
 _HOT = "pppp"
 _GEO = "pipi"  # tri, n_tri, sph, n_sph
 _RAYS = "pppppp"  # ray_o, ray_d, face, excl_prim, excl_face, active
 SIGNATURES = {
     # ray_o, ray_d, unifs, tables, photon, casts, work, n, depth,
     # max_distance, max_retries
-    "rt_mc_trace": "ppp" + _TABLES + "ppo" + "ii" + "fi",
+    "rt_mc_trace": "ppp" + _TABLES + "p" + "ppo" + "ii" + "fi",
+    "rt_mc_trace_thread": "ppp" + _TABLES + "ppo" + "ii" + "fi",
     "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + _HOT + "ppo" + "ii" + "fi",
     "rt_mc_trace_blk_thread": "ppp" + _TABLES + _BLK + "ppo" + "ii" + "fi",
     # pf, pi, tables, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
     # threshold, max_distance, max_retries
-    "rt_level": "pp" + _TABLES + "ppppppo" + "iii" + "ffi",
+    "rt_level": "pp" + _TABLES + "p" + "ppppppo" + "iii" + "ffi",
+    "rt_level_thread": "pp" + _TABLES + "ppppppo" + "iii" + "ffi",
     "rt_level_blk": "pp" + _TABLES + _BLK + _HOT + "ppppppo" + "iii" + "ffi",
     "rt_level_blk_thread": "pp" + _TABLES + _BLK + "ppppppo" + "iii" + "ffi",
     # ray_o, ray_d, tables, st_f, st_i, casts, work, n
@@ -86,18 +89,22 @@ SIGNATURES = {
 # bits of the card's nanosecond clock when the lane's thread began and when
 # it wrote its counts; the SM cycles the thread spent in a cooperative
 # walk's box tests and votes, in waiting for staged chunks, in testing
-# staged rows, and from its start to its end (0 in the per-thread walks).
+# staged rows (0 in the per-thread walks), and from its start to its end;
+# then the thread's cycles by phase of the walk, in every geometry: in
+# nearest-hit sweeps, in shadow tests and in interior marches.
 WORK_ROWS = ("tri", "plane", "edge", "sph", "box", "chunk", "wchunk", "t_in", "t_out",
-             "cyc_box", "cyc_stage", "cyc_rows", "cyc_all")
+             "cyc_box", "cyc_stage", "cyc_rows", "cyc_all", "cyc_near", "cyc_shadow",
+             "cyc_march")
 # kernel name -> (C entry that reports its attributes, instantiation index).
-# "level_blk", "mc_blk" and the binned bounce and terminal kernels are the
-# warp-cooperative walks of the main path; the "*_thread" ones are their
-# per-thread yardsticks.
+# "level" and "mc" are the dense walks out of shared memory, "level_blk",
+# "mc_blk" and the binned bounce and terminal kernels the warp-cooperative
+# walks of the main path; the "*_thread" ones are their per-thread
+# yardsticks.
 ATTRS = {
-    "level": ("rt_level_attrs", 0), "level_blk": ("rt_level_attrs", 1),
-    "level_blk_thread": ("rt_level_attrs", 2),
-    "mc": ("rt_mc_attrs", 0), "mc_blk": ("rt_mc_attrs", 1),
-    "mc_blk_thread": ("rt_mc_attrs", 2),
+    "level": ("rt_level_attrs", 0), "level_thread": ("rt_level_attrs", 3),
+    "level_blk": ("rt_level_attrs", 1), "level_blk_thread": ("rt_level_attrs", 2),
+    "mc": ("rt_mc_attrs", 0), "mc_thread": ("rt_mc_attrs", 3),
+    "mc_blk": ("rt_mc_attrs", 1), "mc_blk_thread": ("rt_mc_attrs", 2),
     "binned_primary": ("rt_binned_attrs", 0),
     "binned_bounce_first": ("rt_binned_attrs", 1),
     "binned_bounce": ("rt_binned_attrs", 2),
@@ -234,10 +241,10 @@ def launch(name: str, *args) -> None:
 def kernel_attrs(which: str) -> dict:
     """Compiled attributes of kernel instantiation `which` (a key of
     ATTRS)."""
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     entry, index = ATTRS[which]
     err = getattr(library(), entry)(index, out)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: {err}")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],
-            "max_threads": out[3], "dynamic_shared_bytes": out[4]}
+            "max_threads": out[3], "dynamic_shared_bytes": out[4], "blocks_per_sm": out[5]}

@@ -23,7 +23,23 @@ script), builds its kernels there, and times
     the checkout has them, the per-thread yardsticks of the cooperative
     kernels are timed on the same inputs (`*_thread`);
   * the whole mesh11k Whitted frame: its host seconds and the blocked level
-    kernel's mean device time per launch over the frame's 96 levels.
+    kernel's mean device time per launch over the frame's 96 levels; the
+    whole mesh11k MC epoch through the blocked MC kernel (host seconds,
+    device busy and idle share);
+  * the dense MC kernel at 1, 4 and 19 tiles' rays in one launch (the
+    demo tile's rays and draws repeated: 19 tiles are the 1280x960 frame's),
+    per launch and per 65,536 rays; on the frame's own rays and draws in
+    one launch and in 19 launches of a tile; the dense level kernel on each of the
+    six pools of the demo tile's Whitted ladder; where the checkout has
+    them, the dense kernels' per-thread yardsticks on the same inputs; the
+    dense kernels' registers and blocks per SM; where the checkout counts
+    them, where the dense kernels' threads spend their cycles (nearest
+    sweeps, shadow tests, marches, the rest) and their blocks' durations on
+    the demo tile;
+  * the whole 1280x960 demo Whitted frame and MC epoch: host seconds,
+    device busy and idle share, and the dense kernels' mean device time
+    per launch over them (the frame's 114 level launches, the epoch's MC
+    launches).
 
 Each time is the mean device milliseconds per launch after a warm-up, taken
 `rounds` times: from torch.profiler over the launches it reports of `reps`
@@ -138,7 +154,24 @@ def mesh_times(dev, reps, rounds):
         out[f"{name}_mean"] = mean(name, len(pools))
     out["level_blk_work"] = level_work(scene, pools, cfg)
     out["whitted_frame"] = frame_times(scene, cam, cfg, rounds)
+    out["mc_epoch_mega"] = mega_epoch(scene, cam, cfg, rounds)
     return out
+
+
+def mega_epoch(scene, cam, cfg, rounds):
+    """The whole 1024x1024 MC epoch through the blocked MC kernel (the
+    binned route switched off): host seconds, device busy and idle share
+    (chip_smoke.profile_breakdown), `rounds` times."""
+    from raytracer_tpu_torch.ops import mc_binned
+    from raytracer_tpu_torch.render import render_distributed_epoch
+
+    threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 1 << 30
+    try:
+        return [SMOKE.profile_breakdown(
+            "mesh11k mc epoch (blocked mc kernel)",
+            lambda: render_distributed_epoch(scene, cam, cfg, epoch=7)) for _ in range(rounds)]
+    finally:
+        mc_binned.BINNED_MIN_TRIS = threshold
 
 
 def frame_times(scene, cam, cfg, rounds):
@@ -165,6 +198,125 @@ def frame_times(scene, cam, cfg, rounds):
         ms, seen = SMOKE.profiled_ms(frame, "level_kernel")
         out["level_ms"].append(ms)
         out["level_launches"].append(seen)
+    return out
+
+
+def dense_sizes(scene, o, d, unifs, cfg, reps, rounds, tiles=(1, 4, 19), per_thread=False):
+    """The dense MC kernel (per_thread: its per-thread yardstick) on 1, 4
+    and 19 copies of one tile's rays and draws side by side (19 tiles: the
+    1280x960 frame's padded rays in one launch) -> {copies: {"ms": [...],
+    "ms_per_65536": [...]}}: device milliseconds per launch (CUDA events
+    around `reps` launches), and per 65,536 rays."""
+    from raytracer_tpu_torch.ops import mc_kernel
+
+    n = o.shape[0]
+    md, mr = cfg.max_refract_distance, cfg.max_tir_retries
+    trace = mc_kernel.trace_per_thread if per_thread else mc_kernel.trace
+    out = {}
+    for k in tiles:
+        ok, dk = o.repeat(k, 1).contiguous(), d.repeat(k, 1).contiguous()
+        uk = unifs.repeat(1, 1, k).contiguous()
+        run = lambda: trace(scene, ok, dk, uk, cfg.depth, md, mr)
+        ms = [SMOKE.cuda_ms(run, max(5, reps // k)) for _ in range(rounds)]
+        out[k] = {"rays": k * n, "ms": ms, "ms_per_65536": [m * 65536 / (k * n) for m in ms]}
+    return out
+
+
+def dense_frame(scene, cam, cfg, reps, rounds):
+    """The dense MC kernel on the 1280x960 frame's own rays and draws (19
+    tiles, each tile's generator as an epoch draws them): in one launch, in
+    19 launches of a tile each (as an epoch took it before it went to one
+    launch), and, where the checkout has it, the per-thread yardstick in one
+    launch -> {name: [device ms per frame, CUDA events around `reps`
+    frames]}."""
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import mc_kernel
+    from raytracer_tpu_torch.render import _clips, tile_draws
+
+    dev = torch.device("cuda")
+    clips = _clips(cfg, dev)[0]
+    tile_in = [tile_draws(cfg, 0, 7, t, clip.shape[0], dev) for t, clip in enumerate(clips)]
+    normals = torch.cat([nm for nm, _ in tile_in])
+    unifs = torch.cat([u for _, u in tile_in], dim=2).contiguous()
+    o, d = camera_ops.shoot_focus(cam, clips.reshape(-1, 2), normals * cfg.blur, cfg.focus)
+    o, d = o.contiguous(), d.contiguous()
+    md, mr, n = cfg.max_refract_distance, cfg.max_tir_retries, clips.shape[1]
+    tiles = [(o[t * n:(t + 1) * n].contiguous(), d[t * n:(t + 1) * n].contiguous(), u)
+             for t, (_, u) in enumerate(tile_in)]
+    runs = {"one_launch": lambda: mc_kernel.trace(scene, o, d, unifs, cfg.depth, md, mr),
+            "tile_launches": lambda: [mc_kernel.trace(scene, *x, cfg.depth, md, mr)
+                                      for x in tiles]}
+    if hasattr(mc_kernel, "COUNTS_THREAD"):
+        runs["per_thread_one_launch"] = lambda: mc_kernel.trace_per_thread(
+            scene, o, d, unifs, cfg.depth, md, mr)
+    return {name: [SMOKE.cuda_ms(run, max(5, reps // 4)) for _ in range(rounds)]
+            for name, run in runs.items()}
+
+
+def dense_work(scene, cam, clip, o, d, unifs, cfg):
+    """Where the dense kernels' threads spend their cycles on one demo tile
+    (chip_smoke.walk_phases) and the spread of their blocks' durations
+    (chip_smoke.block_spread): the MC walk, and the Whitted ladder's six
+    levels; None where the checkout's counters have no phase rows."""
+    from raytracer_tpu_torch.ops import level_kernel, mc_kernel
+    from raytracer_tpu_torch.utils import kernels
+
+    if "cyc_near" not in kernels.WORK_ROWS:
+        return None
+    new = lambda n: torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=o.device)
+    md, mr = cfg.max_refract_distance, cfg.max_tir_retries
+    work = new(o.shape[0])
+    mc_kernel.trace(scene, o, d, unifs, cfg.depth, md, mr, work=work)
+    out = {"mc": {"phases": SMOKE.walk_phases(work), "block_us": SMOKE.block_spread(work),
+                  "tests": SMOKE.totals(work)}, "levels": []}
+    for pool, last, direct in SMOKE.level_pools(scene, cam, clip, cfg):
+        work = new(pool.width)
+        level_kernel.process_level(scene, pool, last, direct, cfg.threshold, md, mr, work=work)
+        out["levels"].append({"k": pool.width, "phases": SMOKE.walk_phases(work),
+                              "block_us": SMOKE.block_spread(work)})
+    return out
+
+
+def dense_levels(scene, cam, clip, cfg, reps, rounds):
+    """The dense level kernel on each of the six pools that the demo tile's
+    Whitted ladder hands it, and (where the checkout has it) its per-thread
+    yardstick on the same pools -> {"level_i" / "level_thread_i":
+    [profiler ms per round]} and the means over the six ("*_mean")."""
+    from raytracer_tpu_torch.ops import level_kernel
+
+    lv = (cfg.threshold, cfg.max_refract_distance, cfg.max_tir_retries)
+    pools = SMOKE.level_pools(scene, cam, clip, cfg)
+    walks = [("level", level_kernel.process_level)]
+    if hasattr(level_kernel, "COUNTS_THREAD"):
+        walks.append(("level_thread", level_kernel.process_level_per_thread))
+    out = {"widths": [p.width for p, _, _ in pools]}
+    for name, fn in walks:
+        for i, (pool, last, direct) in enumerate(pools):
+            run = lambda: fn(scene, pool, last, direct, *lv)
+            out[f"{name}_{i}"] = [SMOKE.device_ms(run, reps, "level_kernel") for _ in range(rounds)]
+        out[f"{name}_mean"] = [sum(out[f"{name}_{i}"][r] for i in range(len(pools))) / len(pools)
+                               for r in range(rounds)]
+    return out
+
+
+def demo_frames(scene, cam, cfg, rounds):
+    """The 1280x960 demo Whitted frame and MC epoch: host seconds, device
+    busy milliseconds and idle share (chip_smoke.profile_breakdown), and the
+    dense level kernel's device milliseconds per launch over one profiled
+    frame's launches, with the launches the profiler reported."""
+    from raytracer_tpu_torch.render import render_distributed_epoch, render_whitted
+
+    frame = lambda: render_whitted(scene, cam, cfg)
+    epoch = lambda: render_distributed_epoch(scene, cam, cfg, epoch=7)
+    out = {"whitted": [], "mc_epoch": [], "level_ms": [], "level_launches": [],
+           "mc_ms": [], "mc_launches": []}
+    for _ in range(rounds):
+        out["whitted"].append(SMOKE.profile_breakdown("demo whitted frame", frame))
+        out["mc_epoch"].append(SMOKE.profile_breakdown("demo mc epoch", epoch))
+        for key, fn, name in (("level", frame, "level_kernel"), ("mc", epoch, "mc_kernel")):
+            ms, seen = SMOKE.profiled_ms(fn, name)
+            out[key + "_ms"].append(ms)
+            out[key + "_launches"].append(seen)
     return out
 
 
@@ -209,6 +361,19 @@ def main() -> int:
     for _ in range(args.rounds):
         out["level_ms"].append(SMOKE.device_ms(level, args.reps, "level_kernel"))
         out["mc_ms"].append(SMOKE.device_ms(mc, args.reps, "mc_kernel"))
+    out["attrs"] = {k: kernels.kernel_attrs(k) for k in ("mc", "level", "mc_thread", "level_thread")
+                    if k in kernels.ATTRS}
+    out["mc_sizes"] = dense_sizes(scene, o, d, unifs, cfg, args.reps, args.rounds)
+    if hasattr(mc_kernel, "COUNTS_THREAD"):  # the dense per-thread yardsticks
+        thread = lambda: mc_kernel.trace_per_thread(scene, o, d, unifs, cfg.depth, md, mr)
+        out["mc_thread_ms"] = [SMOKE.device_ms(thread, args.reps, "mc_kernel")
+                               for _ in range(args.rounds)]
+        out["mc_thread_sizes"] = dense_sizes(scene, o, d, unifs, cfg, args.reps, args.rounds,
+                                             per_thread=True)
+    out["dense_levels"] = dense_levels(scene, cam, clip, cfg, args.reps, args.rounds)
+    out["mc_frame"] = dense_frame(scene, cam, cfg, args.reps, args.rounds)
+    out["dense_work"] = dense_work(scene, cam, clip, o, d, unifs, cfg)
+    out["demo_frames"] = demo_frames(scene, cam, cfg, args.rounds)
     if not args.no_mesh:
         out["mesh11k"] = mesh_times(dev, args.mesh_reps, args.rounds)
     print(json.dumps(out))

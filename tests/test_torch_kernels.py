@@ -111,8 +111,40 @@ def test_cooperative_entries_take_the_hot_tables(entry, thread):
     assert sig.replace(kernels._BLK + kernels._HOT, kernels._BLK, 1) == ref_sig
 
 
+@pytest.mark.parametrize("entry,thread", [("rt_mc_trace", "rt_mc_trace_thread"),
+                                          ("rt_level", "rt_level_thread")])
+def test_staged_dense_entries_take_the_hot_rows(entry, thread):
+    """The staged dense walk's entry is its per-thread yardstick's plus the
+    dense hot rows right after the tables, in kernel_geometry's order."""
+    entries = _c_entries()
+    staged, ref = entries[entry], entries[thread]
+    at = staged.index("int n_light") + 1
+    assert staged[at] == "const float* hot"
+    assert staged[:at] + staged[at + 1:] == ref
+    sig, ref_sig = kernels.SIGNATURES[entry], kernels.SIGNATURES[thread]
+    assert sig.replace(kernels._TABLES + "p", kernels._TABLES, 1) == ref_sig
+
+
+def test_dense_hot_rows_are_what_the_staged_walks_read():
+    from raytracer_tpu_torch.ops import kernel_common as kc
+    from raytracer_tpu_torch.scene.presets import demo_scene
+
+    scene = demo_scene()
+    tb = scene.tables
+    assert torch.equal(tb.hot, tb.tri[:, :kc.HOT_COLS]) and tb.hot.is_contiguous()
+    assert tb.hot.data_ptr() % 16 == 0 and tb.sph.data_ptr() % 16 == 0
+    kc.check_tables(tb, scene.device)
+    geo = kc.kernel_geometry(tb, None, hot=True)
+    assert geo[-1] is tb.hot and len(geo) == len(kernels._TABLES) + 1
+    assert len(kc.kernel_geometry(tb)) == len(kernels._TABLES)
+    with pytest.raises(ValueError):  # rows cut out of the wider table: not contiguous
+        kc.check_tables(tb._replace(hot=tb.tri[:, :kc.HOT_COLS]), scene.device)
+    with pytest.raises(ValueError):
+        kc.kernel_geometry(tb._replace(hot=None), None, hot=True)
+
+
 def test_attrs_name_both_walks_of_the_redesigned_kernels():
-    for coop in ("level_blk", "mc_blk", "binned_bounce", "binned_terminal"):
+    for coop in ("level", "mc", "level_blk", "mc_blk", "binned_bounce", "binned_terminal"):
         assert kernels.ATTRS[coop] != kernels.ATTRS[coop + "_thread"]
         assert kernels.ATTRS[coop][0] == kernels.ATTRS[coop + "_thread"][0]
     assert len(set(kernels.ATTRS.values())) == len(kernels.ATTRS)

@@ -107,3 +107,69 @@ def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
     assert mc_kernel.COUNTS.plain == before + 1 and tuple(photon.shape) == (4, 3)
     with pytest.raises(ValueError, match="unsupported device"):
         mc_kernel.trace(scene, o.to("meta"), d.to("meta"), unifs.to("meta"), 2, 100.0, 10)
+
+
+# 64x48 in tiles of 1088 rays: three tiles, the last one 896 rays and 192
+# centre rays of padding.  A tile is a multiple of 64 lanes, so PyTorch's CPU
+# kernels take the same vector path on a lane in a tile and in the frame
+# (a lane in a scalar loop tail may round acos, sin or pow an ulp apart).
+_RAGGED = RenderConfig(width=64, height=48, depth=5, tile_rays=1088)
+
+
+def _numpy_draws(cfg, n_tiles, seed=11):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_tiles):
+        u = rng.uniform(size=(cfg.depth, 3, cfg.tile_rays)).astype(np.float32)
+        u[:, 2] = u[:, 2] * np.float32(2 * np.pi) - np.float32(np.pi)
+        out.append((torch.as_tensor(rng.normal(size=(cfg.tile_rays, 2)).astype(np.float32)),
+                    torch.as_tensor(u)))
+    return out
+
+
+@pytest.mark.parametrize("source", ["generator", "draws"])
+def test_frame_wide_epoch_equals_the_tile_loop(source):
+    """The mega-kernel route's epoch in one trace_distributed call gives the
+    per-tile loop's photons on every lane (padding too), casts and
+    filtered, with the generator's draws and with a draws= list."""
+    from raytracer_tpu_torch import render
+    from raytracer_tpu_torch.ops.distributed import mega_kernel_route
+
+    scene, cam, cfg = tpresets.demo_scene(), tpresets.demo_camera(), _RAGGED
+    assert mega_kernel_route(scene)
+    clips, _ = render._clips(cfg, "cpu")
+    assert tuple(clips.shape) == (3, 1088, 2)
+    if source == "draws":
+        draws = _numpy_draws(cfg, 3)
+        tile_in = draws
+    else:
+        draws = None
+        tile_in = [tile_draws(cfg, 4, 2, t, 1088, "cpu") for t in range(3)]
+    before = mc_kernel.COUNTS.plain
+    frame = render.epoch_frame(scene, cam, cfg, clips, tile_in)
+    assert mc_kernel.COUNTS.plain == before + 1  # one walk for the whole frame
+    tiles = render.epoch_tiles(scene, cam, cfg, clips, tile_in)
+    assert mc_kernel.COUNTS.plain == before + 4
+    assert torch.equal(frame[0], tiles[0]) and tuple(frame[0].shape) == (3264, 3)
+    assert int(frame[1]) == int(tiles[1]) and int(frame[2]) == int(tiles[2])
+    img, stats = render_distributed_epoch(scene, cam, cfg, seed=4, epoch=2, draws=draws)
+    assert mc_kernel.COUNTS.plain == before + 5
+    ref = frame[0][: 64 * 48][render._clips(cfg, "cpu")[1]].reshape(48, 64, 3)
+    assert torch.equal(img, ref)
+    assert stats["casts"] == int(tiles[1]) and stats["filtered"] == int(tiles[2])
+
+
+def test_frame_draws_lay_the_tiles_side_by_side():
+    from raytracer_tpu_torch.render import frame_draws
+
+    cfg = _RAGGED
+    tile_in = [tile_draws(cfg, 4, 2, t, 1088, "cpu") for t in range(3)]
+    normals, unifs = frame_draws(tile_in)
+    assert tuple(normals.shape) == (3264, 2) and tuple(unifs.shape) == (5, 3, 3264)
+    assert unifs.is_contiguous()
+    for t, (nm, u) in enumerate(tile_in):
+        assert torch.equal(normals[t * 1088:(t + 1) * 1088], nm)
+        assert torch.equal(unifs[:, :, t * 1088:(t + 1) * 1088], u)
+    with pytest.raises(ValueError, match="draws for 2 tiles"):
+        render_distributed_epoch(tpresets.demo_scene(), tpresets.demo_camera(), cfg,
+                                 draws=tile_in[:2])
