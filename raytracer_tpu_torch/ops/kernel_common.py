@@ -1063,8 +1063,8 @@ def check_tables(tb: Tables, device, bt: BlkTables | None = None) -> None:
         check(name, t, torch.float32, (t.shape[0], w), device)
     if tb.hot is not None:  # the dense staged walks' rows, copied 16 bytes at a time
         check("hot", tb.hot, torch.float32, (tb.n_tri, HOT_COLS), device)
-        if tb.hot.data_ptr() % 16 or tb.sph.data_ptr() % 16:
-            raise ValueError("hot and sph must be 16-byte aligned")
+        if tb.hot.data_ptr() % 16:
+            raise ValueError("hot must be 16-byte aligned")
     if bt is not None:
         nch = bt.box.shape[0]
         check("blk_tri", bt.tri, torch.float32, (nch * BLK_CHUNK, BLK_COLS), device)

@@ -132,7 +132,7 @@ def test_dense_hot_rows_are_what_the_staged_walks_read():
     scene = demo_scene()
     tb = scene.tables
     assert torch.equal(tb.hot, tb.tri[:, :kc.HOT_COLS]) and tb.hot.is_contiguous()
-    assert tb.hot.data_ptr() % 16 == 0 and tb.sph.data_ptr() % 16 == 0
+    assert tb.hot.data_ptr() % 16 == 0
     kc.check_tables(tb, scene.device)
     geo = kc.kernel_geometry(tb, None, hot=True)
     assert geo[-1] is tb.hot and len(geo) == len(kernels._TABLES) + 1
