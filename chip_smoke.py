@@ -545,14 +545,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc_ver}")
     _, build_s = kernels.build(verbose=True)
     print(f"kernels built in {build_s:.1f} s")
-    attrs = {k: kernels.kernel_attrs(k) for k in kernels.ATTRS}
+    demo = demo_scene().to(dev)
+    # the staged dense walks at the demo's rows
+    attrs = {k: kernels.kernel_attrs(k, demo.n_tri) for k in kernels.ATTRS}
     for k, a in attrs.items():
         print(f"{k} kernel: {a['registers']} registers/thread, "
               f"{a['local_bytes']} local (spill+stack) bytes/thread, "
               f"{a['dynamic_shared_bytes']} dynamic shared bytes/block, "
               f"{a['blocks_per_sm']} blocks of 128 threads an SM")
 
-    demo = demo_scene().to(dev)
     demo_cam = demo_camera().to(dev)
     meshes = {grid: tuple(x.to(dev) for x in mesh_scene(grid)) for grid in (24, 75, 96, 160)}
     for grid, (scene, _) in meshes.items():
@@ -864,17 +865,22 @@ def main() -> int:
         check_coop_levels(f"1280x960 tile 9, level {j} with 30 % of lanes killed owing radiance",
                           demo, [(Pool(f, i), False, True), (Pool(f, i), False, False)], demo_lv,
                           killed=kill)
-    # a dense table too large to stage in shared memory: mesh_scene(30)
-    # without its blocked layout, whose 1,812 hot rows the same walk reads
-    # from global memory
+    # a dense table too large to stage in shared memory (mesh_scene(30)
+    # without its blocked layout: 1,812 triangles), which the dense entries
+    # walk per thread: against the plain versions
     big, big_cam = (x.to(dev) for x in mesh_scene(30))
     big = dataclasses.replace(big, blk_perm=None, blk_box=None)
     assert not big.blocked and big.n_tri * 64 > 96 * 1024, big.n_tri
     clip = _clips(small, dev)[0][0]
-    check_coop_mc(f"mesh_scene(30) dense ({big.n_tri} triangles, rows in global memory) 64x48",
-                  big, *tile_rays(big_cam, clip, rng, small))
-    check_coop_levels(f"mesh_scene(30) dense ({big.n_tri} triangles, rows in global memory) "
-                      f"64x48, every level", big, level_pools(big, big_cam, clip, small), demo_lv)
+    label = f"mesh_scene(30) dense ({big.n_tri} triangles, walked per thread) 64x48"
+    check_mc(label, big, *tile_rays(big_cam, clip, rng, small))
+    for pool, last, direct in level_pools(big, big_cam, clip, small):
+        c, _, _, casts = level_kernel.process_level(big, pool, last, direct, *demo_lv)
+        cp, _, _, casts_p = plain_level(big, pool, last, direct, *demo_lv)
+        fc = frac_close(c.t().cpu().numpy(), cp.t().cpu().numpy())
+        print(f"level {label}, {pool.width} lanes: {fc:.5f} of lanes agree, casts "
+              f"{int(casts)} vs {int(casts_p)}")
+        assert fc >= 0.99 and casts_close(casts, casts_p), (fc, int(casts), int(casts_p))
     # the whole 1280x960 frame's padded rays (19 tiles) in one launch, as
     # an epoch on the main path makes it
     frame_clips = _clips(full, dev)[0]
@@ -1289,10 +1295,17 @@ def main() -> int:
         o, d = o.contiguous(), d.contiguous()
         n = o.shape[0]
         work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
-        mk, _ = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR)
+        mk, casts = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR)
         mw, _ = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR, work=work)
         assert torch.equal(mk, mw)  # counting changes no result
-        mp, _ = plain_mc(scene, o, d, unifs)
+        mp, casts_p = plain_mc(scene, o, d, unifs)
+        # the kernel against the plain version at this shape, as check_mc
+        a, b = mk.cpu().numpy(), mp.cpu().numpy()
+        fc = frac_close(a, b)
+        print(f"mc {n} rays in one launch: {fc:.5f} of lanes agree with the plain version, "
+              f"casts {int(casts)} vs {int(casts_p)}")
+        assert np.isfinite(a).all() and fc >= 0.99, fc
+        assert casts_close(casts, casts_p), (int(casts), int(casts_p))
         io = nbytes(o, d, unifs, *scene_tables(scene)) + 16 * n  # photon + casts
         b_ms, b_by, ops = bound(io, work)
         run = lambda: mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR)

@@ -22,15 +22,17 @@
 // [T, 34] table per sweep, one thread alone out of global memory, and
 // sweeps once per light of a shading point: the standalone kernels take it,
 // and it is the yardstick of the dense level and MC kernels, which take
-// DenseRowsGeom: the same rows in the same order for every ray, but read
-// out of the block's shared memory (the 64-byte hot rows, staged once per
-// block, one broadcast float4 load where DenseGeom makes four scalar ones
-// through L1), and, in the level kernel, all lights of a shading point in
-// one pass over the rows.  On a dense scene a thread's time goes to chains
-// of dependent loads and arithmetic over every row, and to shading math;
-// what hides their latency is warps in flight, so registers decide (the MC
-// kernel's one-pass shadow took 32 more registers, a block an SM, and
-// lost; the level kernel, a wave at most, gains from it).
+// DenseRowsGeom: the same sweeps (tri_nearest, tri_occluded, back_sweep
+// are templated on where a row is read), but over the block's shared
+// memory (the 64-byte hot rows, staged once per block, one broadcast
+// float4 load where DenseGeom makes four scalar ones through L1), and, in
+// the level kernel, all lights of a shading point in one pass over the
+// rows; a table too large to stage is walked by DenseGeom.  On a dense
+// scene a thread's time goes to chains of dependent loads and arithmetic
+// over every row, and to shading math; what hides their latency is warps
+// in flight, so registers decide (the MC kernel's one-pass shadow took 32
+// more registers, a block an SM, and lost; the level kernel, a wave at
+// most, gains from it).
 // BlockedGeom walks the blocked layout (scene/blocked.py): per lane, a
 // supergroup's box, then each of its chunks' boxes, bounded by the lane's
 // current best hit (or shadow limit), then the chunk's 128 rows; ties go
@@ -464,22 +466,81 @@ __device__ inline Hit finish_hit(const Tables& tb, const float* __restrict__ row
   return h;
 }
 
+// Where a dense sweep reads triangle i's hit columns 0:16: the plane (fn,
+// d), then inside_tri's vectors g0..g2 and offsets h.  TriRows: a row of
+// the [T, 34] table, read float by float; HotRows: a 64-byte hot row
+// (kernel_common.Tables.hot: the same 16 columns) as four float4 loads,
+// wherever the rows lie (DenseRowsGeom: the block's shared memory).  Both
+// give the sweeps below the same numbers, so a walk rounds alike over
+// either.
+struct Plane {
+  V3 fn;
+  float d;
+};
+
+// inside_tri's vectors from the last three quarters of a hot row: g0 =
+// q1.xyz, g1 = (q1.w, q2.x, q2.y), g2 = (q2.z, q2.w, q3.x), h = q3.yzw.
+struct HotEdges {
+  V3 g[3];
+  float h[3];
+};
+
+__device__ __forceinline__ HotEdges hot_edges(const float4* __restrict__ r) {
+  float4 q1 = r[1], q2 = r[2], q3 = r[3];
+  return HotEdges{{v3(q1.x, q1.y, q1.z), v3(q1.w, q2.x, q2.y), v3(q2.z, q2.w, q3.x)},
+                  {q3.y, q3.z, q3.w}};
+}
+
+struct TriRows {
+  const float* __restrict__ p;  // [n_tri, 34]
+  __device__ __forceinline__ Plane plane(int i) const {
+    const float* r = p + i * TRI_COLS;
+    return Plane{v3(r[0], r[1], r[2]), r[3]};
+  }
+  __device__ __forceinline__ HotEdges edges(int i) const {
+    const float* r = p + i * TRI_COLS + 4;
+    return HotEdges{{v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), v3(r[6], r[7], r[8])},
+                    {r[9], r[10], r[11]}};
+  }
+};
+
+struct HotRows {
+  const float4* __restrict__ p;  // [n_tri, 4]
+  __device__ __forceinline__ Plane plane(int i) const {
+    float4 a = p[HOT_F4 * i];
+    return Plane{v3(a.x, a.y, a.z), a.w};
+  }
+  __device__ __forceinline__ HotEdges edges(int i) const { return hot_edges(p + HOT_F4 * i); }
+};
+
 // Triangles in index order: update on <=, so the last of equal t's wins.
-template <class W>
-__device__ inline void tri_nearest(const Tables& tb, V3 o, V3 d, int face, int excl_prim,
+// BACK_ONLY: interior rays, backfaces only and no exclusion.
+template <bool BACK_ONLY, class R, class W>
+__device__ inline void tri_nearest(R rows, int n_tri, V3 o, V3 d, int face, int excl_prim,
                                    int excl_face, float& best_t, int& best_i, bool& best_bf,
                                    W& w) {
-  for (int i = 0; i < tb.n_tri; ++i) {
+  for (int i = 0; i < n_tri; ++i) {
     w.tri_test();
-    const float* r = tb.tri + i * TRI_COLS;
-    float no_d = dot3p(r, d);
+    Plane a = rows.plane(i);
+    float no_d = dot3(a.fn, d);
     bool bf = no_d > 0.0f;
-    if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) continue;  // culled
-    if (excl_prim == i && excl_crit(excl_face, bf)) continue;
+    if (BACK_ONLY) {
+      if (!bf) continue;  // Back rays only hit backfaces
+    } else {
+      if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) continue;  // culled
+      if (excl_prim == i && excl_crit(excl_face, bf)) continue;
+    }
     w.plane_test();
-    float t = (r[3] - dot3p(r, o)) / no_d;
+    float t = (a.d - dot3(a.fn, o)) / no_d;
     if (!(t > 0.0f) || !isfinite(t) || !(t < BIG)) continue;
-    if (inside_tri(r, o, d, t, w) && t <= best_t) {
+    HotEdges eg = rows.edges(i);
+    bool inside = true;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      if (inside) w.edge_test();
+      inside = inside && (dot3(eg.g[e], o) + eg.h[e] + t * dot3(eg.g[e], d) >= 0.0f);
+    }
+    if (inside && t <= best_t) {
       best_t = t;
       best_i = i;
       best_bf = bf;
@@ -487,14 +548,15 @@ __device__ inline void tri_nearest(const Tables& tb, V3 o, V3 d, int face, int e
   }
 }
 
-template <class W>
-__device__ inline Hit full_sweep(const Tables& tb, V3 o, V3 d, int face, int excl_prim,
+template <class R, class W>
+__device__ inline Hit full_sweep(const Tables& tb, R rows, V3 o, V3 d, int face, int excl_prim,
                                  int excl_face, bool active, W& w) {
   float best_t = BIG;
   int best_i = -1;
   bool best_bf = false;
   if (active) {
-    tri_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
+    tri_nearest<false>(rows, tb.n_tri, o, d, face, excl_prim, excl_face, best_t, best_i,
+                       best_bf, w);
     sph_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
   }
   const float* row = (best_i >= 0 && best_i < tb.n_tri) ? tb.tri + best_i * TRI_COLS : nullptr;
@@ -619,26 +681,27 @@ __device__ inline Mat eval_material(const Tables& tb, int obj, float u, float v)
 
 // Dense triangles, factored-target algebra: target `tg` (light origin, s=1,
 // scaled t limit 1; or the negated direction, s=0, real limit).
-template <class W>
-__device__ inline bool tri_occluded(const Tables& tb, V3 p, int self_prim, float s, V3 tg,
+template <class R, class W>
+__device__ inline bool tri_occluded(R rows, int n_tri, V3 p, int self_prim, float s, V3 tg,
                                     float tlim, W& w) {
-  for (int i = 0; i < tb.n_tri; ++i) {
+  for (int i = 0; i < n_tri; ++i) {
     if (i == self_prim) continue;
     w.tri_test();
-    const float* r = tb.tri + i * TRI_COLS;
-    float o_fn = dot3p(r, p);
-    float num = r[3] - o_fn;
+    Plane a = rows.plane(i);
+    float o_fn = dot3(a.fn, p);
+    float num = a.d - o_fn;
     if (!(num > 0.0f)) continue;
     w.plane_test();
-    float no_d = dot3p(r, tg) - s * o_fn;
+    float no_d = dot3(a.fn, tg) - s * o_fn;
     if (!(no_d > 0.0f)) continue;
     float t = num / no_d;
     if (!isfinite(t) || !(t < tlim)) continue;
+    HotEdges eg = rows.edges(i);
     bool inside = true;
+#pragma unroll
     for (int e = 0; e < 3; ++e) {
-      const float* g = r + 4 + 3 * e;
-      float ogh = dot3p(g, p) + r[13 + e];
-      float c_g = dot3p(g, tg) + s * r[13 + e];
+      float ogh = dot3(eg.g[e], p) + eg.h[e];
+      float c_g = dot3(eg.g[e], tg) + s * eg.h[e];
       if (inside) w.edge_test();
       inside = inside && (ogh + t * (c_g - s * ogh) >= 0.0f);
     }
@@ -763,23 +826,12 @@ __device__ inline BackHit finish_back(const Tables& tb, const float* __restrict_
 }
 
 // Back-face-only nearest sweep + interior normal; no exclusion.
-template <class W>
-__device__ inline BackHit back_sweep(const Tables& tb, V3 p, V3 d, W& w) {
+template <class R, class W>
+__device__ inline BackHit back_sweep(const Tables& tb, R rows, V3 p, V3 d, W& w) {
   float best_t = BIG;
   int best_i = -1;
-  for (int i = 0; i < tb.n_tri; ++i) {
-    w.tri_test();
-    const float* r = tb.tri + i * TRI_COLS;
-    float no_d = dot3p(r, d);
-    if (!(no_d > 0.0f)) continue;  // Back rays only hit backfaces
-    w.plane_test();
-    float t = (r[3] - dot3p(r, p)) / no_d;
-    if (!(t > 0.0f) || !isfinite(t) || !(t < BIG)) continue;
-    if (inside_tri(r, p, d, t, w) && t <= best_t) {
-      best_t = t;
-      best_i = i;
-    }
-  }
+  bool bf = false;
+  tri_nearest<true>(rows, tb.n_tri, p, d, FACE_BACK, -1, FACE_BACK, best_t, best_i, bf, w);
   const float* row = (best_i >= 0) ? tb.tri + best_i * TRI_COLS : nullptr;
   return finish_back(tb, row, p, d, best_t, best_i, w);
 }
@@ -859,19 +911,6 @@ __device__ __forceinline__ void for_staged_chunks(const Hot& hot, int c0, unsign
     body(j, Staged{stage, (const int*)(stage + ROWS_F4), nrows, c * BLK_CHUNK});
     w.row_cycles(t0);
   }
-}
-
-// inside_tri's vectors from the last three quarters of a hot row: g0 =
-// q1.xyz, g1 = (q1.w, q2.x, q2.y), g2 = (q2.z, q2.w, q3.x), h = q3.yzw.
-struct HotEdges {
-  V3 g[3];
-  float h[3];
-};
-
-__device__ __forceinline__ HotEdges hot_edges(const float4* __restrict__ r) {
-  float4 q1 = r[1], q2 = r[2], q3 = r[3];
-  return HotEdges{{v3(q1.x, q1.y, q1.z), v3(q1.w, q2.x, q2.y), v3(q2.z, q2.w, q3.x)},
-                  {q3.y, q3.z, q3.w}};
 }
 
 __device__ __forceinline__ V3 shfl3(V3 a, int src) {
@@ -1183,18 +1222,18 @@ struct DenseGeom {
   __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
                          W& w) const {
     int t0 = w.tic();
-    Hit h = full_sweep(tb, o, d, face, excl_prim, excl_face, active, w);
+    Hit h = full_sweep(tb, TriRows{tb.tri}, o, d, face, excl_prim, excl_face, active, w);
     w.near_cycles(t0);
     return h;
   }
   template <class W>
   __device__ bool tri_occluded(V3 p, int self_prim, float s, V3 tg, float tlim, W& w) const {
-    return rt::tri_occluded(tb, p, self_prim, s, tg, tlim, w);
+    return rt::tri_occluded(TriRows{tb.tri}, tb.n_tri, p, self_prim, s, tg, tlim, w);
   }
   template <class W>
   __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
     if (!want) return no_back(p);
-    return back_sweep(tb, p, d, w);
+    return back_sweep(tb, TriRows{tb.tri}, p, d, w);
   }
 };
 
@@ -1267,58 +1306,18 @@ struct CoopGeom {
 // The dense scene out of the block's shared memory (DenseRowsGeom)
 // ---------------------------------------------------------------------------
 
-// A hot row (kernel_common.Tables.hot: columns 0:16 of the [T, 34] table)
-// as float4s: q0 = (fn, d), then inside_tri's vectors (hot_edges).  The
-// tests below are those of tri_nearest, tri_occluded and back_sweep, term
-// for term in the same order, so that they round alike.
-
-// nearest: one row against a ray (the body of tri_nearest's loop)
-template <bool BACK_ONLY, class W>
-__device__ __forceinline__ void dense_nearest_row(const float4* __restrict__ r, int i, V3 o, V3 d,
-                                                  int face, int excl_prim, int excl_face,
-                                                  float& best_t, int& best_i, bool& best_bf,
-                                                  W& w) {
-  w.tri_test();
-  float4 a = r[0];
-  V3 fn = v3(a.x, a.y, a.z);
-  float no_d = dot3(fn, d);
-  bool bf = no_d > 0.0f;
-  if (BACK_ONLY) {
-    if (!bf) return;  // Back rays only hit backfaces
-  } else {
-    if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) return;  // culled
-    if (excl_prim == i && excl_crit(excl_face, bf)) return;
-  }
-  w.plane_test();
-  float t = (a.w - dot3(fn, o)) / no_d;
-  if (!(t > 0.0f) || !isfinite(t) || !(t < BIG)) return;
-  HotEdges eg = hot_edges(r);
-  bool inside = true;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    if (inside) w.edge_test();
-    inside = inside && (dot3(eg.g[e], o) + eg.h[e] + t * dot3(eg.g[e], d) >= 0.0f);
-  }
-  if (inside && t <= best_t) {
-    best_t = t;
-    best_i = i;
-    best_bf = bf;
-  }
-}
-
-// The whole dense table, staged in shared memory: 64-byte hot rows read as
-// four broadcast float4 loads.  Every ray makes the tests of DenseGeom's
-// per-thread sweeps (the same rows in the same order, the same early exits),
-// so hits, photons, level outputs and the Work totals are DenseGeom's.
+// The whole dense table's hot rows, staged once per block in its shared
+// memory (stage: every thread of the block copies its share from global
+// memory first) and read there as broadcast float4s by the sweeps of
+// DenseGeom: the same rows in the same order, the same early exits, so
+// hits, photons, level outputs and the Work totals are DenseGeom's.
 // GROUPED: a shading point's shadow rays to all lights make one pass over
 // the rows, which ends when every light it tests has found an occluder
-// (else one pass per light, as DenseGeom).  STAGED: each block copies the
-// hot rows from global memory to its shared memory first (stage), and the
-// sweeps read them there; a table too large to stage (fits) is read from
-// global memory by the same walk.
+// (else one pass per light, as DenseGeom).  A table larger than
+// DENSE_SMEM_MAX (fits) is walked by DenseGeom instead.
 constexpr int DENSE_SMEM_MAX = 96 * 1024;  // bytes of staged rows a block may take
 
-template <bool STAGED, bool GROUP>
+template <bool GROUP>
 struct DenseRowsGeom {
   static constexpr bool COOP = false, GROUPED = GROUP;
   Tables tb;  // tb.tri: the winners' whole rows (finish_hit), spheres, materials, lights
@@ -1326,70 +1325,27 @@ struct DenseRowsGeom {
   static __device__ __forceinline__ bool any(bool x) { return x; }
   static int smem_bytes(int n_tri) { return (int)sizeof(float4) * HOT_F4 * n_tri; }
   static bool fits(int n_tri) { return smem_bytes(n_tri) <= DENSE_SMEM_MAX; }
-  int smem(int) const { return STAGED ? smem_bytes(tb.n_tri) : 0; }
+  int smem(int) const { return smem_bytes(tb.n_tri); }
   __device__ __forceinline__ void stage() const {
-    if constexpr (STAGED) {
-      extern __shared__ float4 rt_stage[];
-      for (int i = threadIdx.x; i < HOT_F4 * tb.n_tri; i += blockDim.x) rt_stage[i] = rows[i];
-      __syncthreads();
-    }
+    extern __shared__ float4 rt_stage[];
+    for (int i = threadIdx.x; i < HOT_F4 * tb.n_tri; i += blockDim.x) rt_stage[i] = rows[i];
+    __syncthreads();
   }
-  // hot row i, where the sweeps read it
-  __device__ __forceinline__ const float4* row(int i) const {
-    if constexpr (STAGED) {
-      extern __shared__ float4 rt_stage[];
-      return rt_stage + HOT_F4 * i;
-    } else {
-      return rows + HOT_F4 * i;
-    }
+  __device__ __forceinline__ HotRows staged() const {
+    extern __shared__ float4 rt_stage[];
+    return HotRows{rt_stage};
   }
   template <class W>
   __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
                          W& w) const {
     int t0 = w.tic();
-    float best_t = BIG;
-    int best_i = -1;
-    bool best_bf = false;
-    if (active) {
-      for (int i = 0; i < tb.n_tri; ++i)
-        dense_nearest_row<false>(row(i), i, o, d, face, excl_prim, excl_face, best_t, best_i,
-                                 best_bf, w);
-      sph_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
-    }
-    const float* r = (best_i >= 0 && best_i < tb.n_tri) ? tb.tri + best_i * TRI_COLS : nullptr;
-    Hit h = finish_hit(tb, r, o, d, best_t, best_i, best_bf, active);
+    Hit h = full_sweep(tb, staged(), o, d, face, excl_prim, excl_face, active, w);
     w.near_cycles(t0);
     return h;
   }
-  // tri_occluded, term for term, over the rows where the sweeps read them
   template <class W>
   __device__ bool tri_occluded(V3 p, int self_prim, float s, V3 tg, float tlim, W& w) const {
-    for (int i = 0; i < tb.n_tri; ++i) {
-      if (i == self_prim) continue;
-      w.tri_test();
-      const float4* r = row(i);
-      float4 a = r[0];
-      V3 fn = v3(a.x, a.y, a.z);
-      float o_fn = dot3(fn, p);
-      float num = a.w - o_fn;
-      if (!(num > 0.0f)) continue;
-      w.plane_test();
-      float no_d = dot3(fn, tg) - s * o_fn;
-      if (!(no_d > 0.0f)) continue;
-      float t = num / no_d;
-      if (!isfinite(t) || !(t < tlim)) continue;
-      HotEdges eg = hot_edges(r);
-      bool inside = true;
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        float ogh = dot3(eg.g[e], p) + eg.h[e];
-        float c_g = dot3(eg.g[e], tg) + s * eg.h[e];
-        if (inside) w.edge_test();
-        inside = inside && (ogh + t * (c_g - s * ogh) >= 0.0f);
-      }
-      if (inside) return true;
-    }
-    return false;
+    return rt::tri_occluded(staged(), tb.n_tri, p, self_prim, s, tg, tlim, w);
   }
   // tri_occluded for the lights `pending` of one group, in one pass: the
   // terms of the origin are shared, each light's are its own, and a light
@@ -1398,19 +1354,18 @@ struct DenseRowsGeom {
   template <class W>
   __device__ unsigned occluded(V3 p, int self_prim, const ShadowGroup& sg, unsigned pending,
                                W& w) const {
+    const HotRows rs = staged();
     unsigned hit = 0;
     for (int i = 0; i < tb.n_tri && pending; ++i) {
       if (i == self_prim) continue;
-      const float4* r = row(i);
-      float4 a = r[0];
-      V3 fn = v3(a.x, a.y, a.z);
-      float o_fn = dot3(fn, p);
-      float num = a.w - o_fn;
+      Plane a = rs.plane(i);
+      float o_fn = dot3(a.fn, p);
+      float num = a.d - o_fn;
 #pragma unroll
       for (int l = 0; l < LIGHT_GROUP; ++l)
         if ((pending >> l) & 1) w.tri_test();
       if (!(num > 0.0f)) continue;
-      HotEdges eg = hot_edges(r);
+      HotEdges eg = rs.edges(i);
       float ogh[3];
 #pragma unroll
       for (int e = 0; e < 3; ++e) ogh[e] = dot3(eg.g[e], p) + eg.h[e];
@@ -1419,7 +1374,7 @@ struct DenseRowsGeom {
         if (!((pending >> l) & 1)) continue;
         w.plane_test();
         const float s = sg.s[l];
-        float no_d = dot3(fn, sg.tg[l]) - s * o_fn;
+        float no_d = dot3(a.fn, sg.tg[l]) - s * o_fn;
         if (!(no_d > 0.0f)) continue;
         float t = num / no_d;
         if (!isfinite(t) || !(t < sg.tlim[l])) continue;
@@ -1439,13 +1394,7 @@ struct DenseRowsGeom {
   template <class W>
   __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
     if (!want) return no_back(p);
-    float best_t = BIG;
-    int best_i = -1;
-    bool bf = false;
-    for (int i = 0; i < tb.n_tri; ++i)
-      dense_nearest_row<true>(row(i), i, p, d, FACE_BACK, -1, FACE_BACK, best_t, best_i, bf, w);
-    const float* r = (best_i >= 0) ? tb.tri + best_i * TRI_COLS : nullptr;
-    return finish_back(tb, r, p, d, best_t, best_i, w);
+    return back_sweep(tb, staged(), p, d, w);
   }
 };
 
@@ -1453,10 +1402,6 @@ struct DenseRowsGeom {
 // shadow pass takes registers that the MC kernel, which fills the card,
 // pays for in blocks per SM)
 constexpr bool DENSE_LEVEL_GROUPED = true, DENSE_MC_GROUPED = false;
-
-// The dynamic shared bytes of the demo scene's staged rows (64 triangles),
-// at which the attributes report the blocks an SM holds.
-constexpr int DEMO_DENSE_SMEM = (int)sizeof(float4) * HOT_F4 * 64;
 
 // ---------------------------------------------------------------------------
 // Direct shading (kernel_common.get_shade)

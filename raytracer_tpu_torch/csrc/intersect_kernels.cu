@@ -62,7 +62,7 @@ nearest_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
   if (active[lane]) {
     V3 o = load3(ray_o, lane), d = load3(ray_d, lane);
     int f = face[lane], ep = excl_prim[lane], ef = excl_face[lane];
-    tri_nearest(tb, o, d, f, ep, ef, best_t, best_i, best_bf, w);
+    tri_nearest<false>(TriRows{tb.tri}, tb.n_tri, o, d, f, ep, ef, best_t, best_i, best_bf, w);
     sph_nearest(tb, o, d, f, ep, ef, best_t, best_i, best_bf, w);
   }
   bool valid = best_t < BIG;
@@ -159,8 +159,8 @@ shadow_kernel(const float* __restrict__ pos, const float* __restrict__ dirs,
         tlim = lim / sqrtf(off.x * off.x + off.y * off.y + off.z * off.z);
       }
       V3 nd = load3(dirs + (size_t)l * n * 3, lane);
-      blocked = tri_occluded(tb, p, self_prim, is_dir ? 0.0f : 1.0f, is_dir ? neg(ldir) : lo,
-                             tlim, w) ||
+      blocked = tri_occluded(TriRows{tb.tri}, tb.n_tri, p, self_prim, is_dir ? 0.0f : 1.0f,
+                             is_dir ? neg(ldir) : lo, tlim, w) ||
                 sph_occluded(tb, p, self_prim, nd, lim, w);
     }
     blocked_out[at] = blocked ? 1 : 0;

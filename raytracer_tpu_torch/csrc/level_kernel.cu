@@ -71,9 +71,8 @@ __device__ __forceinline__ void put_i(int* __restrict__ a, int row, int k, int l
 constexpr int LEVEL_THREADS = 128;
 
 // The dense walk (common.cuh DenseRowsGeom): the hot rows out of shared
-// memory, or out of global memory where a table is too large to stage.
-using SharedDense = DenseRowsGeom<true, DENSE_LEVEL_GROUPED>;
-using GlobalDense = DenseRowsGeom<false, DENSE_LEVEL_GROUPED>;
+// memory.
+using SharedDense = DenseRowsGeom<DENSE_LEVEL_GROUPED>;
 
 // Under a cooperative geometry every lane runs every statement that sweeps;
 // the per-thread policies keep their early returns.  Its threads take the
@@ -293,7 +292,8 @@ extern "C" {
 
 // pf: [11, k] float32; pi: [5, k] int32; contrib: [3, k]; rf/ff: [11, k];
 // ri/fi: [5, k]; casts: [k]; work: [WORK_ROWS, k] or null (null runs the
-// instantiation that counts nothing).
+// instantiation that counts nothing).  hot: the [n_tri, 16] hot rows; a
+// table too large to stage (DenseRowsGeom::fits) is walked per thread.
 int rt_level(const float* pf, const int* pi, const float* tri, int n_tri, const float* sph,
              int n_sph, const float* mat, int n_obj, const float* lights, int n_light,
              const float* hot, float* contrib, float* rf, int* ri, float* ff, int* fi,
@@ -304,8 +304,8 @@ int rt_level(const float* pf, const int* pi, const float* tri, int n_tri, const 
   if (rt::SharedDense::fits(n_tri))
     return rt::launch_level(pf, pi, rt::SharedDense{tb, rows}, contrib, rf, ri, ff, fi, casts,
                             work, k, last, direct, threshold, max_distance, max_retries, stream);
-  return rt::launch_level(pf, pi, rt::GlobalDense{tb, rows}, contrib, rf, ri, ff, fi, casts,
-                          work, k, last, direct, threshold, max_distance, max_retries, stream);
+  return rt::launch_level(pf, pi, rt::DenseGeom{tb}, contrib, rf, ri, ff, fi, casts, work, k,
+                          last, direct, threshold, max_distance, max_retries, stream);
 }
 
 // The same level with every thread reading the dense table from global
@@ -354,17 +354,17 @@ int rt_level_blk_thread(const float* pf, const int* pi, const float* tri, int n_
 }
 
 // Compiled attributes of the instantiation `which` that counts nothing (0
-// dense: the staged walk, at the demo's tables; 1 blocked: the cooperative
-// walk; 2 the per-thread blocked walk; 3 the per-thread dense walk): out =
-// {registers per thread, local (spill + stack) bytes per thread, static
-// shared bytes, max threads per block, dynamic shared bytes per launch,
-// blocks an SM holds}.
-int rt_level_attrs(int which, int* out) {
+// dense: the staged walk, holding the rows of a table of n_tri triangles;
+// 1 blocked: the cooperative walk; 2 the per-thread blocked walk; 3 the
+// per-thread dense walk; n_tri is read only by 0): out = {registers per
+// thread, local (spill + stack) bytes per thread, static shared bytes, max
+// threads per block, dynamic shared bytes per launch, blocks an SM holds}.
+int rt_level_attrs(int which, int n_tri, int* out) {
   using rt::NoWork;
   switch (which) {
     case 0:
       return rt::attrs_of((const void*)rt::level_kernel<rt::SharedDense, NoWork>, out,
-                          rt::DEMO_DENSE_SMEM);
+                          rt::SharedDense::smem_bytes(n_tri));
     case 1:
       return rt::attrs_of((const void*)rt::level_kernel<rt::CoopGeom, NoWork>, out,
                           rt::coop_shared_bytes(rt::LEVEL_THREADS));

@@ -54,9 +54,8 @@ namespace rt {
 constexpr int MC_THREADS = 128;
 
 // The dense walk (common.cuh DenseRowsGeom): the hot rows out of shared
-// memory, or out of global memory where a table is too large to stage.
-using SharedDense = DenseRowsGeom<true, DENSE_MC_GROUPED>;
-using GlobalDense = DenseRowsGeom<false, DENSE_MC_GROUPED>;
+// memory.
+using SharedDense = DenseRowsGeom<DENSE_MC_GROUPED>;
 
 template <class G, class W>
 __global__ void __launch_bounds__(MC_THREADS)
@@ -158,7 +157,8 @@ extern "C" {
 
 // ray_o, ray_d: [3, n]; unifs: [depth, 3, n]; photon: [3, n]; casts: [n];
 // work: [WORK_ROWS, n] or null (null runs the instantiation that counts
-// nothing).
+// nothing); hot: the [n_tri, 16] hot rows.  A table too large to stage
+// (DenseRowsGeom::fits) is walked per thread.
 int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, const float* tri,
                 int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
                 const float* lights, int n_light, const float* hot, float* photon, int* casts,
@@ -168,8 +168,8 @@ int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, cons
   if (rt::SharedDense::fits(n_tri))
     return rt::launch_mc(ray_o, ray_d, unifs, rt::SharedDense{tb, rows}, photon, casts, work,
                          n, depth, max_distance, max_retries, stream);
-  return rt::launch_mc(ray_o, ray_d, unifs, rt::GlobalDense{tb, rows}, photon, casts, work, n,
-                       depth, max_distance, max_retries, stream);
+  return rt::launch_mc(ray_o, ray_d, unifs, rt::DenseGeom{tb}, photon, casts, work, n, depth,
+                       max_distance, max_retries, stream);
 }
 
 // The same walk with every thread reading the dense table from global
@@ -216,14 +216,15 @@ int rt_mc_trace_blk_thread(const float* ray_o, const float* ray_d, const float* 
 }
 
 // Compiled attributes of instantiation `which` (0 dense: the staged walk,
-// 1 blocked: the cooperative walk, 2 the per-thread blocked walk, 3 the
-// per-thread dense walk), layout as rt_level_attrs.
-int rt_mc_attrs(int which, int* out) {
+// holding the rows of a table of n_tri triangles; 1 blocked: the
+// cooperative walk, 2 the per-thread blocked walk, 3 the per-thread dense
+// walk), layout as rt_level_attrs.
+int rt_mc_attrs(int which, int n_tri, int* out) {
   using rt::NoWork;
   switch (which) {
     case 0:
       return rt::attrs_of((const void*)rt::mc_kernel<rt::SharedDense, NoWork>, out,
-                          rt::DEMO_DENSE_SMEM);
+                          rt::SharedDense::smem_bytes(n_tri));
     case 1:
       return rt::attrs_of((const void*)rt::mc_kernel<rt::CoopGeom, NoWork>, out,
                           rt::coop_shared_bytes(rt::MC_THREADS));

@@ -9,7 +9,8 @@ interior march, and the pending-radiance carry or `contrib` delivery.
 The CUDA kernel is csrc/level_kernel.cu, one instantiation per geometry:
 dense scenes launch `rt_level`, whose blocks stage the scene's hot rows in
 shared memory and test a shading point's shadow rays to all lights in one
-pass (csrc/common.cuh DenseRowsGeom), blocked (large-mesh) scenes
+pass (csrc/common.cuh DenseRowsGeom; a table too large to stage is
+walked per thread), blocked (large-mesh) scenes
 `rt_level_blk` (level_pallas.py:127-253, the BlockedGeom branch), whose
 warps walk the chunks together out of shared memory (CoopGeom): its
 threads write the dead lanes in pool order and take the live ones dealt

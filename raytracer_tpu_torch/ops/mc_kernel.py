@@ -7,7 +7,8 @@ march, advance cast, merged next-hit shade, the recurrence accum +=
 scale*A; scale *= B), then the depth-exhausted terminal shade
 (mc_terminal).  The CUDA kernel is csrc/mc_kernel.cu, one instantiation per
 geometry: dense scenes launch `rt_mc_trace`, whose blocks stage the
-scene's hot rows in shared memory (csrc/common.cuh DenseRowsGeom), blocked
+scene's hot rows in shared memory (csrc/common.cuh DenseRowsGeom; a
+table too large to stage is walked per thread), blocked
 (large-mesh) scenes `rt_mc_trace_blk` (mc_pallas.py:474-533, the
 BlockedGeom branch), whose warps walk the chunks together out of shared
 memory (CoopGeom).  `trace_plain` below is the same walk in plain PyTorch

@@ -115,6 +115,9 @@ ATTRS = {
     "nearest_hit": ("rt_intersect_attrs", 0), "any_hit": ("rt_intersect_attrs", 1),
     "shadow_any_hit": ("rt_intersect_attrs", 2), "march": ("rt_march_attrs", 0),
 }
+# The attribute entries that also take a dense scene's triangle count: the
+# staged walks' shared bytes, and so their blocks per SM, depend on it.
+ATTRS_N_TRI = ("rt_level_attrs", "rt_mc_attrs")
 _CTYPES = {"p": ctypes.c_void_p, "o": ctypes.c_void_p, "i": ctypes.c_int,
            "f": ctypes.c_float}
 
@@ -211,7 +214,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name, _ in ATTRS.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = ([ctypes.c_int] * (2 if name in ATTRS_N_TRI else 1)
+                       + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return lib
 
@@ -238,12 +242,14 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def kernel_attrs(which: str) -> dict:
+def kernel_attrs(which: str, n_tri: int = 0) -> dict:
     """Compiled attributes of kernel instantiation `which` (a key of
-    ATTRS)."""
+    ATTRS); the staged dense walks ("level", "mc") at the shared bytes of
+    a scene of `n_tri` triangles."""
     out = (ctypes.c_int * 6)()
     entry, index = ATTRS[which]
-    err = getattr(library(), entry)(index, out)
+    args = (index, n_tri, out) if entry in ATTRS_N_TRI else (index, out)
+    err = getattr(library(), entry)(*args)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: {err}")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],

@@ -361,8 +361,11 @@ def main() -> int:
     for _ in range(args.rounds):
         out["level_ms"].append(SMOKE.device_ms(level, args.reps, "level_kernel"))
         out["mc_ms"].append(SMOKE.device_ms(mc, args.reps, "mc_kernel"))
-    out["attrs"] = {k: kernels.kernel_attrs(k) for k in ("mc", "level", "mc_thread", "level_thread")
-                    if k in kernels.ATTRS}
+    # the staged dense walks at the demo's rows, where the checkout takes a
+    # triangle count
+    n_tri = (scene.n_tri,) if hasattr(kernels, "ATTRS_N_TRI") else ()
+    out["attrs"] = {k: kernels.kernel_attrs(k, *n_tri)
+                    for k in ("mc", "level", "mc_thread", "level_thread") if k in kernels.ATTRS}
     out["mc_sizes"] = dense_sizes(scene, o, d, unifs, cfg, args.reps, args.rounds)
     if hasattr(mc_kernel, "COUNTS_THREAD"):  # the dense per-thread yardsticks
         thread = lambda: mc_kernel.trace_per_thread(scene, o, d, unifs, cfg.depth, md, mr)

@@ -47,7 +47,8 @@ def test_c_entries_match_signatures():
         assert "".join(_code(p) for p in params[:-1]) == sig, name
         assert sig.count("o") == 1, name
     for entry, _ in kernels.ATTRS.values():
-        assert entries[entry] == ["int which", "int* out"], entry
+        n_tri = ["int n_tri"] if entry in kernels.ATTRS_N_TRI else []
+        assert entries[entry] == ["int which", *n_tri, "int* out"], entry
 
 
 @pytest.mark.parametrize("entry", sorted(kernels.SIGNATURES))
