@@ -34,6 +34,11 @@ Phases (each asserts; none catches a failure):
      (their shadow rays to all three lights, the glass lanes' marches) and
      on random rays with random face, exclusion and limit, and the shadow
      kernel against one any-hit launch per light through cast_any_hit;
+     the listed shadow and march kernels also against their per-thread
+     yardsticks (every lane equal, test totals equal) and their plain
+     versions on every call that the unfused MC epoch makes of them, on
+     tile 9 through the tile loop and frame-wide (1,245,184 lanes), and on
+     ragged cuts; the unfused epoch in one call against the tile loop;
   3. the committed goldens (tests/golden) at 64x48, depth 5, with the
      gates of scripts/tpu_check.py: the demo's and the meshes'
      (whitted_mesh{24,96,160}, mc_mesh24); then the demo's goldens through
@@ -46,18 +51,24 @@ Phases (each asserts; none catches a failure):
      an epoch, no per-thread yardstick); the mesh11k path (render_whitted and
      render_distributed_epoch on mesh_scene(75), 1024x1024, depth 5,
      tile_rays 65536: the cooperative blocked level kernel 96 times a frame,
-     the binned kernels, no per-thread yardstick); an MC epoch of
-     mesh_scene(24) at 1024x1024 (the blocked MC kernel); a Whitted frame
-     and an MC epoch through both routes of mesh_scene(160); the unfused path (render_progressive on the demo
+     the blocked MC kernel once an epoch, no per-thread yardstick), and the
+     same epoch through the binned route (BINNED_MIN_TRIS lowered: the
+     three binned kernels); an MC epoch of mesh_scene(24) at 1024x1024 (the
+     blocked MC kernel); a Whitted frame of mesh_scene(160); the MC epoch
+     of mesh_scene(24/75/160/320) through both routes (the route table);
+     the unfused path (render_progressive on the demo
      scene with row-less textures, 1280x960, depth 5, Whitted + 2 epochs:
-     nearest-hit, shadow and march kernels, no fused kernel), its frame
+     nearest-hit, shadow and march kernels tile by tile in the Whitted
+     frame and once each a bounce in an epoch, no fused kernel, no
+     per-thread yardstick; its peak device memory), its frame
      and one epoch held against the fused path's on the same draws; the
      per-light shadow test of a tile through cast_any_hit (the any-hit
      kernel); then frame / epoch and per-launch times of
      kernels (device time, torch.profiler) and plain versions (CUDA
      events) at the main paths' shapes (the blocked level kernel on each of
-     the six pools of the first mesh11k tile), the mesh11k epoch also
-     through the blocked MC kernel, the cooperative kernels' per-thread
+     the six pools of the first mesh11k tile; the unfused kernels on the
+     frame-wide epoch's calls), the mesh11k epoch also
+     through the binned route, the cooperative and listed kernels' per-thread
      yardsticks on the same inputs, and each kernel's bound (the least time
      the card could take for its work).
 The line before the last is a JSON object with each kernel's launches,
@@ -126,6 +137,30 @@ def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """Mean device milliseconds of everything fn() enqueues, over reps
+    calls queued behind a device-side sleep (torch.cuda._sleep) that lasts
+    longer than the host takes to enqueue them: the CUDA events then time
+    the device's work back to back, not the host's pace (cuda_ms around a
+    short kernel whose wrapper takes longer on the host than the kernel on
+    the device reads the wrapper)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * (2 * host_ms + 1)))  # >= 2 cycles a ns: longer than that
     start.record()
     for _ in range(reps):
         fn()
@@ -342,6 +377,108 @@ def agree(a, b):
     return float((a == b).float().mean())
 
 
+def work_for(n, device):
+    """A zeroed `work` output for a launch of n lanes."""
+    from raytracer_tpu_torch.utils.kernels import WORK_ROWS
+
+    return torch.zeros((len(WORK_ROWS), n), dtype=torch.int32, device=device)
+
+
+def capture(modules_names, fn):
+    """fn() with each (module, name) wrapper wrapped to record the
+    arguments of every call -> {name: [(args, kwargs), ...]}."""
+    calls = {name: [] for _, name in modules_names}
+    saved = [(m, name, getattr(m, name)) for m, name in modules_names]
+
+    def recorder(name, orig):
+        def wrapped(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return orig(*args, **kwargs)
+        return wrapped
+
+    for m, name, orig in saved:
+        setattr(m, name, recorder(name, orig))
+    try:
+        fn()
+    finally:
+        for m, name, orig in saved:
+            setattr(m, name, orig)
+    return calls
+
+
+def hold_shadow(label, scene, args):
+    """The shadow kernel on `args` (pos [N, 3], dirs [L, N, 3], excl_prim,
+    limits [L, N], actives [L, N]) against its per-thread yardstick (every
+    (light, lane) pair equal, the test totals equal) and its plain version
+    (>= 99.9 % of pairs equal; nothing blocked that is not active) -> the
+    largest |kernel - plain|."""
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+
+    actives = args[4]
+    wk, wt = work_for(actives.shape[1], actives.device), work_for(actives.shape[1],
+                                                                  actives.device)
+    got = ik.shadow_any_hit(scene, *args, work=wk)
+    yard = ik.shadow_any_hit_per_thread(scene, *args, work=wt)
+    ref = ik.shadow_any_hit_plain(scene.tables, *args)
+    torch.cuda.synchronize()
+    tk, tt = totals(wk), totals(wt)
+    print(f"shadow_any_hit {label} ({actives.shape[1]} lanes, {int(actives.sum())} active pairs): "
+          f"listed kernel vs per-thread yardstick {agree(got, yard):.6f} of pairs equal, tests "
+          f"{tk} vs {tt}; {agree(got, ref):.5f} equal the plain version")
+    assert torch.equal(got, yard) and tk == tt, (label, agree(got, yard), tk, tt)
+    assert agree(got, ref) >= 0.999 and not bool(got[~actives].any()), label
+    return float((got != ref).float().max())
+
+
+def hold_march(label, scene, args, share=None):
+    """The march kernel on `args` (pos, normal, ray_d [N, 3], prim, k,
+    want [N]) against its per-thread yardstick (every lane's outputs and
+    casts equal, the test totals equal) and its plain version: escape flags
+    differ on < 1 % of marching lanes, summed casts within 1 %, no lane
+    escapes that did not march, and on lanes that escape in both: travel
+    and exit ray within 1e-4 and the exit primitive equal, on every such
+    lane or, given `share`, on that share of them with travel within 1e-4 +
+    1e-4 |travel| (tests/test_torch_march.py's tolerance): the frame-wide
+    calls hold 10^5 escaping lanes whose travel reaches the budget of 100,
+    and the kernel contracts multiply-adds where PyTorch rounds each
+    operation -> the largest error against the plain version."""
+    from raytracer_tpu_torch.ops import march_kernel as mk
+
+    pos, normal, ray_d, prim, k, want = args
+    n = pos.shape[0]
+    wk, wt = work_for(n, pos.device), work_for(n, pos.device)
+    got = mk._launch("rt_march", True, mk.COUNTS, scene, pos, normal, ray_d, k, want, MD, MR, wk)
+    yard = mk._launch("rt_march_thread", False, mk.COUNTS_THREAD, scene, pos, normal, ray_d, k,
+                      want, MD, MR, wt)
+    esc_p, travel_p, eo_p, ed_p, eprim_p, iters_p = mk.march_plain(
+        scene.tables, pos, normal, ray_d, k, want, MD, MR)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, yard))
+    tk, tt = totals(wk), totals(wt)
+    esc, travel, eo, ed, eprim, iters = got
+    n_want = int(want.sum())
+    flips = int((esc != esc_p).sum())
+    both = esc & esc_p
+    d_travel = (travel - travel_p).abs()
+    d_ray = torch.maximum((eo - eo_p).abs().amax(dim=1), (ed - ed_p).abs().amax(dim=1))
+    err = float(torch.maximum(d_travel, d_ray)[both].max()) if bool(both.any()) else 0.0
+    tol = 1e-4 + (1e-4 * travel_p.abs() if share else 0.0)
+    close = (d_travel <= tol) & (d_ray <= 1e-4) & (eprim == eprim_p)
+    n_both, n_close = int(both.sum()), int((close & both).sum())
+    agree_share = n_close / n_both if n_both else 1.0
+    casts, casts_p = int(iters.sum()), int(iters_p.sum())
+    print(f"march {label}: {n_want} of {n} lanes march; listed kernel vs per-thread yardstick: "
+          f"{'every lane equal' if same else 'DIFFERENT'}, tests {tk} vs {tt}; vs plain: "
+          f"{flips} escape flags differ, {n_both} escape in both, "
+          f"{agree_share:.6f} of them agree, max |err| {err:.3g}, casts {casts} vs {casts_p}")
+    assert same and tk == tt, (label, tk, tt)
+    assert n_want > 0 and flips < 0.01 * n_want, (flips, n_want)
+    assert n_close == n_both if share is None else agree_share >= share, (label, agree_share)
+    assert abs(casts - casts_p) <= 0.01 * casts_p
+    assert not bool(esc[~want].any())
+    return err
+
+
 class Unfused:
     """The inputs the unfused path hands its four kernels for one batch of
     primary rays, and each kernel held against its plain version on them.
@@ -353,7 +490,9 @@ class Unfused:
     on < 1 % of marching lanes, travel and exit ray within 1e-4 and the
     exit primitive equal on lanes that escape in both, summed casts within
     1 %.  (The kernels contract multiply-adds where PyTorch rounds each
-    operation, so a razor-edge lane may fall the other way.)"""
+    operation, so a razor-edge lane may fall the other way.)  The shadow and
+    march kernels are also held to their per-thread yardsticks: every lane
+    equal, the test totals equal (hold_shadow, hold_march)."""
 
     def __init__(self, scene, o, d):
         from raytracer_tpu_torch.ops import materials as mat_ops
@@ -409,49 +548,29 @@ class Unfused:
         return float((got != ref).float().max())
 
     def check_shadow(self, label):
-        """The shadow kernel against its plain version, and against one
-        any-hit launch per light through cast_any_hit (other arithmetic:
-        direct t against the factored target)."""
+        """The shadow kernel against its yardstick and plain version
+        (hold_shadow), and against one any-hit launch per light through
+        cast_any_hit (other arithmetic: direct t against the factored
+        target)."""
         from raytracer_tpu_torch.ops import intersect_kernel as ik
         from raytracer_tpu_torch.ops.intersect import cast_any_hit
 
         h = self.hits
         args = (h.pos, self.to_light, h.prim, self.limits, self.considers)
+        err = hold_shadow(label, self.scene, args)
         got = ik.shadow_any_hit(self.scene, *args)
-        ref = ik.shadow_any_hit_plain(self.scene.tables, *args)
         per_light = torch.stack([
             cast_any_hit(self.scene, self.shadow[li], active=self.considers[li],
                          limit=self.limits[li]) for li in range(self.scene.n_light)])
         torch.cuda.synchronize()
-        print(f"shadow_any_hit {label}: {agree(got, ref):.5f} of (light, lane) pairs equal "
-              f"the plain version, {agree(got, per_light):.5f} the per-light any-hit kernel; "
-              f"{int(got.sum())} blocked of {int(self.considers.sum())} shadow rays")
-        assert agree(got, ref) >= 0.999 and agree(got, per_light) >= 0.999
-        assert not bool(got[~self.considers].any())
-        return float((got != ref).float().max())
+        print(f"shadow_any_hit {label}: {agree(got, per_light):.5f} of (light, lane) pairs equal "
+              f"the per-light any-hit kernel; {int(got.sum())} blocked of "
+              f"{int(self.considers.sum())} shadow rays")
+        assert agree(got, per_light) >= 0.999
+        return err
 
     def check_march(self, label):
-        from raytracer_tpu_torch.ops import march_kernel as mk
-
-        pos, normal, ray_d, prim, k, want = self.march_in
-        esc, travel, eo, ed, eprim, casts = mk.march(self.scene, *self.march_in, MD, MR)
-        esc_p, travel_p, eo_p, ed_p, eprim_p, iters_p = mk.march_plain(
-            self.scene.tables, pos, normal, ray_d, k, want, MD, MR)
-        torch.cuda.synchronize()
-        n_want = int(want.sum())
-        flips = int((esc != esc_p).sum())
-        both = esc & esc_p
-        err = max(float((travel - travel_p).abs()[both].max()),
-                  float((eo - eo_p).abs()[both].max()),
-                  float((ed - ed_p).abs()[both].max())) if bool(both.any()) else 0.0
-        print(f"march {label}: {n_want} lanes march, {flips} escape flags differ, "
-              f"{int(both.sum())} escape in both, max |err| {err:.3g}, casts "
-              f"{int(casts)} vs {int(iters_p.sum())}")
-        assert n_want > 0 and flips < 0.01 * n_want, (flips, n_want)
-        assert err <= 1e-4 and bool((eprim == eprim_p)[both].all())
-        assert abs(int(casts) - int(iters_p.sum())) <= 0.01 * int(iters_p.sum())
-        assert not bool(esc[~want].any())
-        return err
+        return hold_march(label, self.scene, self.march_in)
 
 
 def random_rays(n_prim, n, rng, dev):
@@ -502,6 +621,7 @@ def main() -> int:
     )
     from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
     from raytracer_tpu_torch.scene.textures import Texture, host_only
+    from raytracer_tpu_torch.scene.types import BVH_FIELDS
     from raytracer_tpu_torch.utils import kernels
     from raytracer_tpu_torch.utils.png import read_png_rgb8
 
@@ -519,6 +639,8 @@ def main() -> int:
         "mc_blk_thread": mc_kernel.COUNTS_BLK_THREAD,
         "binned_bounce_thread": mc_binned.COUNTS_BOUNCE_THREAD,
         "binned_terminal_thread": mc_binned.COUNTS_TERMINAL_THREAD,
+        "shadow_any_hit_thread": intersect_kernel.COUNTS_SHADOW_THREAD,
+        "march_thread": march_kernel.COUNTS_THREAD,
         "nearest_hit": intersect_kernel.COUNTS_NEAREST, "any_hit": intersect_kernel.COUNTS_ANY,
         "shadow_any_hit": intersect_kernel.COUNTS_SHADOW, "march": march_kernel.COUNTS,
     }
@@ -692,7 +814,7 @@ def main() -> int:
         return errs
 
     def new_work(n):
-        return torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
+        return work_for(n, dev)
 
     def same_tests(label, coop, thread):
         """The cooperative walk runs the per-thread walk's tests: the five
@@ -992,6 +1114,61 @@ def main() -> int:
         keep("any_hit", u.check_any(f"{u.n} random rays", rays, active, limit))
         keep("any_hit", u.check_any(f"{u.n} random rays, no limit", rays, active, None))
     tile_u = u  # the 65536-ray tile of the main path, for phase 4
+    # a dense table too large to stage (mesh_scene(30) without its BVH and
+    # blocked layout: 1,812 triangles), which the listed shadow and march
+    # kernels walk per thread out of global memory (DenseGeom)
+    big_u = dataclasses.replace(big, textures=host_only(big.textures),
+                                **{f: None for f in BVH_FIELDS})
+    assert not fused_ok(big_u) and big_u.bvh_node_min is None
+    ub = Unfused(big_u, *camera_ops.shoot(big_cam, _clips(small, dev)[0][0]))
+    keep("shadow_any_hit", ub.check_shadow(f"mesh_scene(30) dense ({big_u.n_tri} triangles) "
+                                           "64x48"))
+    keep("march", hold_march(f"mesh_scene(30) dense ({big_u.n_tri} triangles) 64x48", big_u,
+                             ub.march_in, share=0.999))
+    # the calls that the unfused MC epoch makes of the nearest-hit, shadow
+    # and march kernels, on tile 9 through the tile loop and frame-wide (the
+    # main path's shape: the frame's 1,245,184 lanes in one call): the shadow
+    # and march kernels against their yardsticks and plain versions, also on
+    # ragged cuts; then the epoch frame-wide against the tile loop
+    u_draws = [tile_draws(full, 2, 3, t, 65536, dev) for t in range(len(frame_clips))]
+    hooks = [(intersect_kernel, "nearest_hit"), (intersect_kernel, "shadow_any_hit"),
+             (march_kernel, "march")]
+    epoch_calls = {
+        "tile 9": capture(hooks, lambda: epoch_tiles(demo_u, demo_cam, full, frame_clips[9:10],
+                                                     u_draws[9:10])),
+        "frame": capture(hooks, lambda: epoch_frame(demo_u, demo_cam, full, frame_clips,
+                                                    u_draws))}
+    for where, calls in epoch_calls.items():
+        assert [len(calls[name]) for _, name in hooks] == [DEPTH + 1, DEPTH + 1, DEPTH], where
+        for i, (args, _) in enumerate(calls["shadow_any_hit"]):
+            keep("shadow_any_hit", hold_shadow(f"unfused mc epoch, {where}, shade {i}", demo_u,
+                                               args[1:6]))
+        for i, (args, _) in enumerate(calls["march"]):
+            keep("march", hold_march(f"unfused mc epoch, {where}, bounce {i}", demo_u, args[1:7],
+                                     share=0.999))
+    def cut(x, at, m):  # lanes at:at+m of a [..., N, 3] or [..., N] operand
+        return (x[..., at:at + m, :] if x.dim() > 1 and x.shape[-1] == 3
+                else x[..., at:at + m]).contiguous()
+
+    marching = epoch_calls["frame"]["march"][0][0][6]  # bounce 0's want
+    at = int(torch.nonzero(marching[9 * 65536:])[0]) + 9 * 65536  # tile 9's first
+    for m in (3821, 65536 * 5 // 8 - 19):
+        args = epoch_calls["frame"]["shadow_any_hit"][1][0][1:6]
+        hold_shadow(f"unfused mc epoch, frame, shade 1, lanes {at} + {m}", demo_u,
+                    tuple(cut(x, at, m) for x in args))
+        args = epoch_calls["frame"]["march"][0][0][1:7]
+        hold_march(f"unfused mc epoch, frame, bounce 0, lanes {at} + {m}", demo_u,
+                   tuple(cut(x, at, m) for x in args), share=0.999)
+    frame_calls = epoch_calls["frame"]  # for the per-launch times of phase 4
+    del epoch_calls
+    one = epoch_frame(demo_u, demo_cam, full, frame_clips, u_draws)
+    per_tile = epoch_tiles(demo_u, demo_cam, full, frame_clips, u_draws)
+    torch.cuda.synchronize()
+    print(f"unfused mc epoch 1280x960 in one call vs tile by tile: "
+          f"{float((one[0] == per_tile[0]).all(dim=1).float().mean()):.6f} of lanes equal, casts "
+          f"{int(one[1])} vs {int(per_tile[1])}, filtered {int(one[2])} vs {int(per_tile[2])}")
+    assert torch.equal(one[0], per_tile[0]) and int(one[1]) == int(per_tile[1])
+    assert int(one[2]) == int(per_tile[2])
 
     # ---- 3. goldens (scripts/tpu_check.py gates) ------------------------
     z = np.load(os.path.join(GOLDEN, "mc_demo_64x48_draws.npz"))
@@ -1093,10 +1270,12 @@ def main() -> int:
     print(f"demo mc epoch 1280x960, early in phase 4: {demo_epoch_early_s:.4f} s host "
           f"(least of three)")
 
-    def mega_route(fn):
-        """fn() with the binned route switched off: blocked scenes of any
-        size then walk through the blocked MC kernel."""
-        threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 1 << 30
+    def binned_route(fn):
+        """fn() with every blocked scene sent to the binned route
+        (BINNED_MIN_TRIS lowered to 0), which the binned kernels' checks
+        and timings take: by default every blocked scene walks through the
+        blocked MC kernel."""
+        threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 0
         try:
             return fn()
         finally:
@@ -1116,20 +1295,22 @@ def main() -> int:
     assert wst["dropped"] == 0
     tiles = len(_clips(mesh_cfg, dev)[0])
     # every level of every tile through the cooperative blocked level kernel
-    # (read_counts: no per-thread yardstick ran)
+    # (read_counts: no per-thread yardstick ran); the epoch's 16 tiles in
+    # ONE launch of the cooperative MC walk, no binned kernel
     assert mesh_launches["level_blk"] == tiles * (DEPTH + 1), mesh_launches
-    assert all(mesh_launches[k] == tiles for k in ("binned_primary", "binned_terminal"))
-    assert mesh_launches["binned_bounce"] == tiles * DEPTH and mesh_launches["mc_blk"] == 0
-    # the same epoch through the other route: the blocked MC kernel
+    assert mesh_launches["mc_blk"] == 1, mesh_launches
+    assert not any(mesh_launches[k] for k in ("binned_primary", "binned_bounce",
+                                              "binned_terminal")), mesh_launches
+    # the same epoch through the binned route
     reset_counts()
-    (gimg, gst), mg_s = timed(lambda: mega_route(
+    (bimg, bst), mb_s = timed(lambda: binned_route(
         lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg)))
-    mega_launches = read_counts()
-    print(f"main path (mesh11k mc epoch through the blocked mc kernel): {mg_s:.3f} s; "
-          f"launches {mega_launches}")
-    # the epoch's 16 tiles in ONE launch of the cooperative walk
-    assert mega_launches["mc_blk"] == 1 and mega_launches["binned_bounce"] == 0, mega_launches
-    assert gst["casts"] == est["casts"] and torch.isfinite(gimg).all()
+    binned_launches = read_counts()
+    print(f"mesh11k mc epoch through the binned route (BINNED_MIN_TRIS lowered): {mb_s:.3f} s; "
+          f"launches {binned_launches}")
+    assert all(binned_launches[k] == tiles for k in ("binned_primary", "binned_terminal"))
+    assert binned_launches["binned_bounce"] == tiles * DEPTH and binned_launches["mc_blk"] == 0
+    assert bst["casts"] == est["casts"] and torch.isfinite(bimg).all()
 
     reset_counts()
     (m24img, m24st), m24_s = timed(lambda: render_distributed_epoch(mesh24, mesh24_cam,
@@ -1137,7 +1318,7 @@ def main() -> int:
     m24_launches = read_counts()
     print(f"main path (mesh24 mc epoch 1024x1024): {m24_s:.3f} s; launches {m24_launches}")
     assert torch.isfinite(m24img).all() and float(m24img.max()) > 0
-    assert m24_launches["mc_blk"] > 0, m24_launches
+    assert m24_launches["mc_blk"] == 1, m24_launches
 
     mesh51k, mesh51k_cam = meshes[160]
     render_whitted(mesh51k, mesh51k_cam, mesh_cfg)  # first-call set-up
@@ -1149,38 +1330,58 @@ def main() -> int:
           f"launches {w51_launches}")
     assert w51["dropped"] == 0 and w51_launches["level_blk"] == tiles * (DEPTH + 1), w51_launches
 
-    # the MC epoch of mesh51k through both routes (numbers only)
-    epoch51 = lambda: render_distributed_epoch(mesh51k, mesh51k_cam, mesh_cfg, epoch=7)
-    epoch51()  # first-call set-up
-    reset_counts()
-    (e51img, e51), e51_s = timed(epoch51)
-    e51_launches = read_counts()
-    (_, e51m), e51m_s = timed(lambda: mega_route(epoch51))
-    print(f"mc epoch mesh51k ({mesh51k.n_tri} triangles) 1024x1024: binned {e51_s:.3f} s, "
-          f"through the blocked mc kernel {e51m_s:.3f} s ({e51['casts'] / e51m_s:,.0f} casts/s); "
-          f"launches {e51_launches}")
-    assert torch.isfinite(e51img).all() and float(e51img.max()) > 0
-    assert e51m["casts"] == e51["casts"] and e51_launches["binned_bounce"] > 0
-    assert e51_launches["binned_terminal"] == tiles, e51_launches
+    # the MC route on this card: each mesh's 1024x1024 epoch through the
+    # default route (the blocked MC kernel, one launch) and the binned
+    # route, the least host seconds of three, casts equal
+    routes = {}
+    for grid in (24, 75, 160, 320):
+        scene, cam = meshes[grid] if grid in meshes else (x.to(dev) for x in mesh_scene(grid))
+        epoch = lambda: render_distributed_epoch(scene, cam, mesh_cfg, epoch=7)
+        row = {"n_tri": scene.n_tri}
+        for route, run in (("mega", epoch), ("binned", lambda: binned_route(epoch))):
+            _, st = run()  # first-call set-up
+            reset_counts()
+            row[f"{route}_s"] = min(timed(run)[1] for _ in range(3))
+            got = read_counts()
+            assert (got["mc_blk"] == 3) == (route == "mega"), (grid, route, got)
+            row[f"{route}_casts"] = st["casts"]
+        assert row["mega_casts"] == row["binned_casts"], (grid, row)
+        routes[f"mesh_scene({grid})"] = row
+        print(f"mc epoch mesh_scene({grid}) ({scene.n_tri} triangles) 1024x1024: blocked mc "
+              f"kernel {row['mega_s']:.4f} s, binned {row['binned_s']:.4f} s "
+              f"({row['binned_s'] / row['mega_s']:.1f}x); BINNED_MIN_TRIS "
+              f"{mc_binned.BINNED_MIN_TRIS}")
+    del scene, cam
 
     # the unfused path at the reference schedule's full width: the demo
-    # scene with row-less textures, Whitted + 2 epochs
+    # scene with row-less textures, Whitted + 2 epochs; its peak device
+    # memory (an epoch takes the frame's 1,245,184 lanes at once)
     ucfg = dataclasses.replace(full, epochs=2)
     render_whitted(demo_u, demo_cam, ucfg)  # first-call set-up
     ulines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out.png")
         ustate, uwall = timed(lambda: render_progressive(
             demo_u, demo_cam, ucfg, out_path=out, log=lambda m: (ulines.append(m), print(m))))
         unfused_launches = read_counts()
+        unfused_peak = torch.cuda.max_memory_allocated()
         png = read_png_rgb8(out)
     print(f"main path (demo, unfused): whitted + {ucfg.epochs} epochs at 1280x960 in "
-          f"{uwall:.2f} s wall; launches {unfused_launches}")
+          f"{uwall:.2f} s wall; launches {unfused_launches}; peak device memory "
+          f"{unfused_peak / 2**30:.2f} GiB")
     assert ustate.epoch == ucfg.epochs and torch.isfinite(ustate.img).all()
     assert png.shape == (960, 1280, 3) and png.max() > 0, png.shape
     assert not any("dropped" in m for m in ulines), ulines
-    assert all(unfused_launches[k] > 0 for k in ("nearest_hit", "shadow_any_hit", "march"))
+    # the Whitted ladder tile by tile: a cast and a shade a level, a march
+    # but at the last; an epoch in ONE call: a primary and five advance
+    # casts, five shades and the terminal shade, five marches
+    whitted_tiles = len(_clips(ucfg, dev)[0])
+    assert unfused_launches["nearest_hit"] == (whitted_tiles + ucfg.epochs) * (DEPTH + 1)
+    assert unfused_launches["shadow_any_hit"] == (whitted_tiles + ucfg.epochs) * (DEPTH + 1)
+    assert unfused_launches["march"] == (whitted_tiles + ucfg.epochs) * DEPTH, unfused_launches
     assert not any(unfused_launches[k] for k in fused_kernels), unfused_launches
 
     # the per-light shadow test of the main path's tile through the public
@@ -1215,8 +1416,8 @@ def main() -> int:
     assert fc >= 0.99 and casts_close(uest["casts"], fest["casts"])
     assert torch.isfinite(uep).all() and float(uep.max()) > 0
 
-    launches = {k: demo_launches[k] + mesh_launches[k] + mega_launches[k] + m24_launches[k]
-                + w51_launches[k] + e51_launches[k] + unfused_launches[k] + any_launches[k] for k in counts}
+    launches = {k: demo_launches[k] + mesh_launches[k] + binned_launches[k] + m24_launches[k]
+                + w51_launches[k] + unfused_launches[k] + any_launches[k] for k in counts}
 
     # frames and epochs, kernel vs plain, host clock around a sync
     def whitted_plain_frame(scene, cam, cfg):
@@ -1239,48 +1440,38 @@ def main() -> int:
         _, ep_s = timed(lambda: mc_plain_epoch(scene, cam, cfg))
         frames[name] = {"whitted_frame_s": w_s, "whitted_frame_plain_s": wp_s,
                         "mc_epoch_s": e_s, "mc_epoch_plain_s": ep_s}
-        if scene.n_tri >= mc_binned.BINNED_MIN_TRIS:  # the same epoch on the other route
-            (_, est2), e2_s = timed(lambda: mega_route(
+        if scene.blocked:  # the same epoch on the binned route
+            (_, est2), e2_s = timed(lambda: binned_route(
                 lambda: render_distributed_epoch(scene, cam, cfg, epoch=7)))
             assert est2["casts"] == est["casts"], (est2["casts"], est["casts"])
-            frames[name]["mc_epoch_mega_kernel_s"] = e2_s
-            print(f"mc epoch {name} through the blocked mc kernel instead: {e2_s:.3f} s")
+            frames[name]["mc_epoch_binned_s"] = e2_s
+            print(f"mc epoch {name} through the binned route instead: {e2_s:.3f} s")
         print(f"whitted frame {name}: kernel {w_s:.3f} s ({wst['casts'] / w_s:,.0f} casts/s), "
               f"plain {wp_s:.3f} s")
         print(f"mc epoch {name}: kernel {e_s:.3f} s ({est['casts'] / e_s:,.0f} casts/s), "
               f"plain {ep_s:.3f} s")
-    frames["mesh51k 1024x1024"] = {"whitted_frame_s": w51_s, "mc_epoch_s": e51_s,
-                                   "mc_epoch_mega_kernel_s": e51m_s}
-    (_, e24), e24_s = timed(lambda: render_distributed_epoch(mesh24, mesh24_cam, mesh_cfg,
-                                                             epoch=7))
-    threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 0
-    (_, e24b), e24b_s = timed(lambda: render_distributed_epoch(mesh24, mesh24_cam, mesh_cfg,
-                                                               epoch=7))
-    mc_binned.BINNED_MIN_TRIS = threshold
-    print(f"mc epoch mesh24 ({mesh24.n_tri} triangles) 1024x1024: through the blocked mc kernel "
-          f"{e24_s:.3f} s, binned instead {e24b_s:.3f} s")
-    assert e24b["casts"] == e24["casts"]
-    frames["mesh24 1024x1024"] = {"mc_epoch_s": e24b_s, "mc_epoch_mega_kernel_s": e24_s}
+    frames["mesh51k 1024x1024"] = {"whitted_frame_s": w51_s}
     frames["demo 1280x960"]["mc_epoch_early_s"] = demo_epoch_early_s
     frames["demo unfused 1280x960"] = {"whitted_frame_s": uw_s, "mc_epoch_s": ue_s,
-                                       "fused_whitted_frame_s": fw_s, "fused_mc_epoch_s": fe_s}
+                                       "fused_whitted_frame_s": fw_s, "fused_mc_epoch_s": fe_s,
+                                       "peak_bytes": unfused_peak}
 
     # where the mesh11k frame and epoch spend device time (both MC routes)
     profiles = {
         "mesh11k whitted": profile_breakdown(
             "mesh11k whitted frame", lambda: render_whitted(mesh11k, mesh11k_cam, mesh_cfg)),
-        "mesh11k mc binned": profile_breakdown(
+        "mesh11k mc binned": binned_route(lambda: profile_breakdown(
             "mesh11k mc epoch (binned)",
-            lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7))}
+            lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7)))}
     for name, scene in (("demo unfused", demo_u), ("demo fused", demo)):
         profiles[f"{name} whitted"] = profile_breakdown(
             f"{name} whitted frame", lambda: render_whitted(scene, demo_cam, full))
         profiles[f"{name} mc"] = profile_breakdown(
             f"{name} mc epoch",
             lambda: render_distributed_epoch(scene, demo_cam, full, epoch=7))
-    profiles["mesh11k mc mega"] = mega_route(lambda: profile_breakdown(
+    profiles["mesh11k mc mega"] = profile_breakdown(
         "mesh11k mc epoch (blocked mc kernel)",
-        lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7)))
+        lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg, epoch=7))
 
     # per-launch times at the main paths' shapes: the dense MC walk on the
     # whole 1280x960 frame (19 tiles in one launch), the blocked one on one
@@ -1376,10 +1567,15 @@ def main() -> int:
     def time_binned(scene, cam, cfg):
         """Each binned kernel on the inputs it got in one 65536-ray tile's
         walk: ms and bound per launch (bounces: the mean over the walk's
-        five), plain_ms likewise.  ms is taken with CUDA events around 5
-        back-to-back launches (each kernel takes 0.2 ms or more, far above
-        the host's launch pace); profiler_ms is torch.profiler's reading of
-        the same launches, which has lost launches in long runs."""
+        five), plain_ms likewise.  ms is the kernel's own device time
+        (torch.profiler over 5 launches, device_ms); events_ms is CUDA
+        events around 5 back-to-back calls of the wrapper, which reads the
+        host's pace where the wrapper takes longer on the host than the
+        kernel on the device (the terminal kernel since it fell under
+        0.1 ms); queued_ms is the same calls queued behind a device sleep
+        (queued_ms: the device's time for all that the wrapper launches).
+        The bounces in other lane orders and the per-thread bounce are
+        timed with CUDA events."""
         clip = _clips(cfg, dev)[0][0]
         normals, unifs = tile_draws(cfg, 0, 0, 0, clip.shape[0], dev)
         o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
@@ -1409,7 +1605,7 @@ def main() -> int:
         spreads, phases = [], []
         for kind in ("primary", "bounce", "terminal"):
             mine = [c for c in calls if c[0] == kind]
-            ms = prof_ms = plain_ms = b_ms = io = ops = 0.0
+            ms = events_ms = q_ms = plain_ms = b_ms = io = ops = 0.0
             by = set()
             tests = {}
             for call in mine:
@@ -1430,11 +1626,12 @@ def main() -> int:
                 if kind == "bounce":
                     spreads.append(block_spread(work))
                     phases.append(phase_shares(work))
-                ms += cuda_ms(lambda: run_binned(scene, call), 5)
-                prof_ms += device_ms(lambda: run_binned(scene, call), 5, f"binned_{kind}")
+                ms += device_ms(lambda: run_binned(scene, call), 5, f"binned_{kind}")
+                events_ms += cuda_ms(lambda: run_binned(scene, call), 5)
+                q_ms += queued_ms(lambda: run_binned(scene, call), 5)
                 plain_ms += cuda_ms(lambda: run_binned(scene, call, plain=True), 1)
             k = len(mine)
-            out[f"binned_{kind}"] = dict(ms=ms / k, profiler_ms=prof_ms / k,
+            out[f"binned_{kind}"] = dict(ms=ms / k, events_ms=events_ms / k, queued_ms=q_ms / k,
                                          plain_ms=plain_ms / k, bound_ms=b_ms / k,
                                          bound_by="operations" if "operations" in by else "bytes",
                                          bytes=io / k, ops=ops / k,
@@ -1443,58 +1640,114 @@ def main() -> int:
         out["bounce_orders"]["dealt_phases"] = phases
         _, sf, si, first = [c for c in calls if c[0] == "terminal"][0]
         term = out["binned_terminal"]
-        term["per_thread_ms"] = cuda_ms(lambda: mc_binned.terminal_per_thread(scene, sf, si, first),
-                                        5)
+        term["per_thread_ms"] = device_ms(
+            lambda: mc_binned.terminal_per_thread(scene, sf, si, first), 5, "binned_terminal")
         work = new_work(sf.shape[1])
         mc_binned.terminal(scene, sf, si, first, work=work)
         term["phases"], term["block_us"] = phase_shares(work), block_spread(work)
         return out
 
-    def time_unfused(u):
-        """The four standalone kernels on the inputs the unfused path
-        gives them for one 65536-ray tile (Unfused): the primary cast, the
-        shadow rays of its hits to all lights, the any-hit sweep of one
-        light's shadow rays, the glass lanes' marches."""
-        sc, h, n = u.scene, u.hits, u.n
-        geo = [sc.tables.tri, sc.tables.sph]
-        r = u.rays
-        ray_in = [r.o, r.d, r.face, r.excl_prim, r.excl_face, u.active]
-        sh = u.shadow[1]  # the spot light: a limit and a cone
-        pos, normal, ray_d, prim, k, want = u.march_in
-        shadow_args = (h.pos, u.to_light, h.prim, u.limits, u.considers)
-        specs = {
-            "nearest_hit": (
-                lambda work=None: intersect_kernel.nearest_hit(sc, r, u.active, work=work),
-                lambda: intersect_kernel.nearest_hit_plain(sc.tables, r, u.active),
-                nbytes(*ray_in, *geo) + 10 * n, "nearest_kernel"),
-            "any_hit": (
-                lambda work=None: intersect_kernel.any_hit(sc, sh, u.considers[1], u.limits[1],
-                                                           work=work),
-                lambda: intersect_kernel.any_hit_plain(sc.tables, sh, u.considers[1],
-                                                       u.limits[1].clamp(max=BIG)),
-                nbytes(sh.o, sh.d, sh.face, sh.excl_prim, sh.excl_face, u.considers[1],
-                       u.limits[1], *geo) + n, "any_kernel"),
-            "shadow_any_hit": (
-                lambda work=None: intersect_kernel.shadow_any_hit(sc, *shadow_args, work=work),
-                lambda: intersect_kernel.shadow_any_hit_plain(sc.tables, *shadow_args),
-                nbytes(*shadow_args, *geo, sc.tables.lights) + sc.n_light * n, "shadow_kernel"),
-            "march": (
-                lambda work=None: march_kernel.march(sc, *u.march_in, MD, MR, work=work),
-                lambda: march_kernel.march_plain(sc.tables, pos, normal, ray_d, k, want, MD, MR),
-                nbytes(pos, normal, ray_d, k, want, *geo) + 37 * n, "march_kernel"),
-        }
+    def time_unfused(u, frame_calls):
+        """The four standalone kernels at the main path's shapes: the
+        nearest-hit, shadow and march kernels on the calls that the unfused
+        MC epoch makes frame-wide (frame_calls: 6, 6 and 5 calls of the
+        frame's 1,245,184 lanes), each figure the mean per launch over
+        them; the any-hit kernel on one light's shadow rays of tile 9's
+        primary hits (cast_any_hit's route).  The first three also on tile
+        9's primary hits (Unfused: the inputs of the earlier rows), as
+        `*_tile`.  Per kernel: ms, its kernels' own device time
+        (torch.profiler; the listed kernels' with their list_lanes launch),
+        queued_ms (the wrapper's calls queued behind a device sleep),
+        plain_ms (CUDA events), the bound (the bytes each call must move,
+        the tests it counted), and the per-thread yardsticks' ms."""
+        ik = intersect_kernel
+        geo = lambda sc: [sc.tables.tri, sc.tables.sph]
+
+        def nearest(sc, rays, active=None):
+            act = torch.ones_like(rays.face, dtype=torch.bool) if active is None else active
+            n = rays.o.shape[0]
+            return (lambda work=None: ik.nearest_hit(sc, rays, act, work=work),
+                    lambda: ik.nearest_hit_plain(sc.tables, rays, act), None,
+                    nbytes(rays.o, rays.d, rays.face, rays.excl_prim, rays.excl_face, act,
+                           *geo(sc)) + 10 * n, n)
+
+        def shadow(sc, *args):
+            return (lambda work=None: ik.shadow_any_hit(sc, *args, work=work),
+                    lambda: ik.shadow_any_hit_plain(sc.tables, *args),
+                    lambda: ik.shadow_any_hit_per_thread(sc, *args),
+                    nbytes(*args, *geo(sc), sc.tables.lights) + args[4].numel(),
+                    args[0].shape[0])
+
+        def march(sc, pos, normal, ray_d, prim, k, want, *_):
+            args = (sc, pos, normal, ray_d, prim, k, want, MD, MR)
+            return (lambda work=None: march_kernel.march(*args, work=work),
+                    lambda: march_kernel.march_plain(sc.tables, pos, normal, ray_d, k, want,
+                                                     MD, MR),
+                    lambda: march_kernel.march_per_thread(*args),
+                    nbytes(pos, normal, ray_d, k, want, *geo(sc)) + 37 * pos.shape[0],
+                    pos.shape[0])
+
+        names = {"nearest_hit": ("nearest_kernel", None),
+                 "shadow_any_hit": ("shadow_kernel", "shadow_thread_kernel"),
+                 "march": ("march_kernel", "march_thread_kernel")}
+
+        def measure(name, specs):
+            kname, tname = names.get(name, ("any_kernel", None))
+            row = dict(launches_timed=len(specs), ms=0.0, queued_ms=0.0, plain_ms=0.0,
+                       bound_ms=0.0, bytes=0, ops=0, tests={})
+            if tname:
+                row["per_thread_ms"] = 0.0
+            by = set()
+            for kernel, plain, yard, io, n in specs:
+                row["rays"] = n
+                work = work_for(n, dev)
+                got, counted = kernel(), kernel(work=work)
+                pairs = zip(got, counted) if isinstance(got, tuple) else [(got, counted)]
+                assert all(torch.equal(a, b) for a, b in pairs), name  # counting changes nothing
+                b_ms, b_by, ops = bound(io, work)
+                by.add(b_by)
+                ms = device_ms(kernel, 5, kname)
+                if tname:  # and the lane list the listed kernels launch first
+                    ms += device_ms(kernel, 5, "list_lanes")
+                    row["per_thread_ms"] += device_ms(yard, 5, tname)
+                row["ms"] += ms
+                row["queued_ms"] += queued_ms(kernel, 5)
+                row["plain_ms"] += cuda_ms(plain, 1)
+                row["bound_ms"] += b_ms
+                row["bytes"] += io
+                row["ops"] += ops
+                for key, v in totals(work).items():
+                    row["tests"][key] = row["tests"].get(key, 0) + v
+            k = len(specs)
+            for key in ("ms", "queued_ms", "plain_ms", "bound_ms", "bytes", "ops",
+                        "per_thread_ms"):
+                if key in row:
+                    row[key] /= k
+            row["tests"] = {key: v / k for key, v in row["tests"].items()}
+            row["bound_by"] = "operations" if "operations" in by else "bytes"
+            return row
+
+        sc, h = u.scene, u.hits
+        tile = {"nearest_hit": [nearest(sc, u.rays, u.active)],
+                "shadow_any_hit": [shadow(sc, h.pos, u.to_light, h.prim, u.limits, u.considers)],
+                "march": [march(sc, *u.march_in)]}
+        frame = {"nearest_hit": [nearest(*a, **kw) for a, kw in frame_calls["nearest_hit"]],
+                 "shadow_any_hit": [shadow(*a) for a, _ in frame_calls["shadow_any_hit"]],
+                 "march": [march(*a) for a, _ in frame_calls["march"]]}
         out = {}
-        for name, (kernel, plain, io, kname) in specs.items():
-            work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
-            got, counted = kernel(), kernel(work=work)
-            same = lambda a, b: torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-            pairs = zip(got, counted) if isinstance(got, tuple) else [(got, counted)]
-            assert all(same(a, b) for a, b in pairs), name  # counting changes no result
-            b_ms, b_by, ops = bound(io, work)
-            out[name] = dict(max_abs_err=unfused_err[name], ms=device_ms(kernel, 10, kname),
-                             plain_ms=cuda_ms(plain, 1), bound_ms=b_ms, bound_by=b_by,
-                             bytes=io, ops=ops,
-                             tests=totals(work))
+        for name in ("nearest_hit", "shadow_any_hit", "march"):
+            row = measure(name, frame[name])
+            row.update({f"{key}_tile": v for key, v in measure(name, tile[name]).items()
+                        if key in ("ms", "queued_ms", "plain_ms", "bound_ms", "per_thread_ms")})
+            out[name] = row
+        sh = u.shadow[1]  # the spot light: a limit and a cone
+        out["any_hit"] = measure("any_hit", [(
+            lambda work=None: ik.any_hit(sc, sh, u.considers[1], u.limits[1], work=work),
+            lambda: ik.any_hit_plain(sc.tables, sh, u.considers[1], u.limits[1].clamp(max=BIG)),
+            None, nbytes(sh.o, sh.d, sh.face, sh.excl_prim, sh.excl_face, u.considers[1],
+                         u.limits[1], *geo(sc)) + u.n, u.n)])
+        for name, row in out.items():
+            row["max_abs_err"] = unfused_err[name]
         return out
 
     per = {"mc": time_mc(demo, demo_cam, full), "level": time_level(demo, demo_cam, full),
@@ -1503,7 +1756,7 @@ def main() -> int:
     binned_times = time_binned(mesh11k, mesh11k_cam, mesh_cfg)
     orders = binned_times.pop("bounce_orders")
     per.update(binned_times)
-    per.update(time_unfused(tile_u))
+    per.update(time_unfused(tile_u, frame_calls))
     for order in ("dealt", "sorted", "pixel"):
         print(f"binned_bounce on one mesh11k tile's walk, lanes in {order} order, mean of its "
               f"five launches (CUDA events): cooperative {orders[order + '_ms']:.3f} ms, "
@@ -1519,13 +1772,11 @@ def main() -> int:
     print(f"where a warp's cycles go, mesh11k tile: mc_kernel (blocked) "
           f"{share(per['mc_blk']['phases'])}; binned_bounce per launch: "
           + "; ".join(share(ph) for ph in orders["dealt_phases"]))
-    bounce_prof = [(ms, c) for k, ms, c in profiles["mesh11k mc binned"]["top"]
-                   if "binned_bounce" in k]
-    if bounce_prof:
-        print(f"binned_bounce: CUDA events {per['binned_bounce']['ms']:.3f} ms and torch.profiler "
-              f"{per['binned_bounce']['profiler_ms']:.3f} ms per launch on tile 0's states; the "
-              f"profiled epoch's {sum(c for _, c in bounce_prof)} largest launches "
-              f"{sum(m for m, _ in bounce_prof) / sum(c for _, c in bounce_prof):.3f} ms each")
+    for kind in ("primary", "bounce", "terminal"):
+        b = per[f"binned_{kind}"]
+        print(f"binned_{kind} per launch on tile 0's states: torch.profiler {b['ms']:.4f} ms, "
+              f"CUDA events around back-to-back calls {b['events_ms']:.4f} ms, the calls queued "
+              f"behind a device sleep {b['queued_ms']:.4f} ms")
     print(f"mc_kernel (blocked) on one mesh11k tile: torch.profiler {per['mc_blk']['ms']:.3f} ms, "
           f"CUDA events {per['mc_blk']['events_ms']:.3f} ms; warp chunks x 32 / lane chunks "
           f"{sharing(per['mc_blk']['tests']):.3f} (pixel order), binned bounces "
@@ -1552,15 +1803,21 @@ def main() -> int:
           f"{dense_share(lvl['phases'])}; block durations (median/longest us) "
           f"{lvl['block_us'][0]:.0f}/{lvl['block_us'][1]:.0f}")
     term = per["binned_terminal"]
-    print(f"binned_terminal on tile 0's dealt states: cooperative {term['ms']:.3f} ms, per-thread "
-          f"{term['per_thread_ms']:.3f} ms (CUDA events); {share(term['phases'])}; block durations "
+    print(f"binned_terminal on tile 0's dealt states: cooperative {term['ms']:.4f} ms, per-thread "
+          f"{term['per_thread_ms']:.4f} ms (torch.profiler); {share(term['phases'])}; block durations "
           f"(median/longest us) {term['block_us'][0]:.0f}/{term['block_us'][1]:.0f}")
+    for name in ("shadow_any_hit", "march"):
+        v = per[name]
+        print(f"{name}, the unfused epoch's {v['launches_timed']} frame-wide calls of {v['rays']} "
+              f"lanes, per launch: listed {v['ms']:.4f} ms (queued {v['queued_ms']:.4f}), "
+              f"per-thread {v['per_thread_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms; tile 9's "
+              f"primary hits: listed {v['ms_tile']:.4f} ms, per-thread {v['per_thread_ms_tile']:.4f} ms")
     for k, v in per.items():
         print(f"per launch, {v.get('rays', 65536)} rays, {k}: kernel {v['ms']:.3f} ms vs plain "
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
               f"{v['bytes']:,.0f} B, {v['ops']:,.0f} FP32 operations; tests {v['tests']})")
 
-    print(json.dumps({"frames": frames, "attrs": attrs, "per_launch": per,
+    print(json.dumps({"frames": frames, "routes": routes, "attrs": attrs, "per_launch": per,
                       "profiles": profiles, "bounce_orders": orders}))
 
     def entry(name, source, replaces, key, blk_key=None, thread_ms=None):
@@ -1605,14 +1862,20 @@ def main() -> int:
               "binned_bounce", thread_ms=orders["per_thread_dealt_ms"]),
         entry("binned_terminal", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:190",
               "binned_terminal", thread_ms=per["binned_terminal"]["per_thread_ms"]),
-        entry("nearest_hit", csrc + "intersect_kernels.cu",
-              "raytracer_tpu/ops/intersect_pallas.py:172", "nearest_hit"),
+        dict(entry("nearest_hit", csrc + "intersect_kernels.cu",
+                   "raytracer_tpu/ops/intersect_pallas.py:172", "nearest_hit"),
+             rays=per["nearest_hit"]["rays"], ms_tile=per["nearest_hit"]["ms_tile"]),
         entry("any_hit", csrc + "intersect_kernels.cu",
               "raytracer_tpu/ops/intersect_pallas.py:212", "any_hit"),
-        entry("shadow_any_hit", csrc + "intersect_kernels.cu",
-              "raytracer_tpu/ops/intersect_pallas.py:335", "shadow_any_hit"),
-        entry("march", csrc + "march_kernel.cu", "raytracer_tpu/ops/march_pallas.py:164",
-              "march"),
+        dict(entry("shadow_any_hit", csrc + "intersect_kernels.cu",
+                   "raytracer_tpu/ops/intersect_pallas.py:335", "shadow_any_hit",
+                   thread_ms=per["shadow_any_hit"]["per_thread_ms"]),
+             rays=per["shadow_any_hit"]["rays"], ms_tile=per["shadow_any_hit"]["ms_tile"],
+             ms_tile_per_thread=per["shadow_any_hit"]["per_thread_ms_tile"]),
+        dict(entry("march", csrc + "march_kernel.cu", "raytracer_tpu/ops/march_pallas.py:164",
+                   "march", thread_ms=per["march"]["per_thread_ms"]),
+             rays=per["march"]["rays"], ms_tile=per["march"]["ms_tile"],
+             ms_tile_per_thread=per["march"]["per_thread_ms_tile"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

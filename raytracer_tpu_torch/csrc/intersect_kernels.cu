@@ -24,23 +24,37 @@
 // the normalised direction to the light and the real-unit limit (spheres),
 // the mask of considered lanes, and the scene's light table, from which it
 // reads each light's target itself.  Triangles use the factored-target
-// algebra of common.cuh `tri_occluded` (the same device function the level
-// and MC kernels shade with): target = the light's origin and s = 1 for a
-// position light, target = -direction and s = 0 for a directional one.
-// The triangles' limit in the scaled parameter is DERIVED, limit / |L - p|
-// (1 when the caller's limit is the light's distance), where the TPU
-// wrapper hard-codes 1.0 (intersect_pallas.py:471).  The TPU kernel shares
-// the origin terms (fn.o, the edge terms) between lights through [T, R]
-// arrays; one thread has no room for 64 triangles' terms, so each light's
-// scan recomputes them, and stops at its first occluder instead.
+// algebra of common.cuh `tri_occluded` (the same device functions the
+// level and MC kernels shade with): target = the light's origin and s = 1
+// for a position light, target = -direction and s = 0 for a directional
+// one.  The triangles' limit in the scaled parameter is DERIVED, limit /
+// |L - p| (1 when the caller's limit is the light's distance), where the
+// TPU wrapper hard-codes 1.0 (intersect_pallas.py:471).
 //
 // What bounds them on an H100: instruction issue over the 64 + 4
 // primitive tests per ray (a shadow lane runs up to three scans), far above
 // the bytes (37-67 B in, 1-10 B out per lane); lanes of a warp leave the
-// any-hit scans at different primitives.  128 threads per block, tables
-// through const __restrict__ global pointers.  W is the test counter
-// (common.cuh): NoWork on the main path, Work when the caller asks for the
-// per-lane test counts.
+// any-hit scans at different primitives.  The nearest and any-hit kernels
+// run one thread per lane, 128 threads per block, tables through const
+// __restrict__ global pointers.  The shadow kernel is redesigned for the
+// batches the unfused MC walk hands it, in which 8-81 % of the lanes have
+// a light to test: those lanes are listed first (common.cuh list_lanes)
+// and the launch's first threads take them, 32 to a warp, while every
+// other thread writes its own lane's falses and leaves; the blocks that
+// test stage the dense table's hot rows in their shared memory and test a
+// lane's lights in ONE pass over them (common.cuh DenseRowsGeom<true>
+// occluded, as the TPU kernel shares the origin's terms fn.o and the edge
+// terms between lights through [T, R] arrays), each light under its own
+// limit and leaving the pass at its first occluder.  The one-pass test
+// holds every light's target: registers that the MC kernel, which fills
+// the card with one walk, could not spare, but a kernel that holds no walk
+// state can.  shadow_thread_kernel is the kernel before that design (one
+// thread per lane in lane order, one scan per light out of global memory),
+// kept as the yardstick chip_smoke.py holds rt_shadow_any_hit against
+// (rt_shadow_any_hit_thread); no wrapper of the main path launches it.  W
+// is the test counter (common.cuh): NoWork on the main path, Work when the
+// caller asks for the test counts (a column a lane; the listed shadow
+// kernel: a column a thread, the lane it tested).
 #include "common.cuh"
 
 namespace rt {
@@ -133,13 +147,111 @@ any_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
   w.put(work_out, n, lane);
 }
 
-// #5: shadow any-hit for every light from one origin per lane.
-template <class W>
+// The light's shadow ray from p, as common.cuh tri_occluded takes it: the
+// factored target (the light's origin, s = 1; or minus its direction, s =
+// 0) and the triangles' limit in the scaled parameter, DERIVED from the
+// real-unit limit `lim` (<= BIG): lim / |L - p| for a position light, lim
+// for a directional one.
+struct ShadowRay {
+  float s, tlim;
+  V3 tg;
+};
+
+__device__ __forceinline__ ShadowRay shadow_ray(const float* __restrict__ L, V3 p, float lim) {
+  bool is_dir = L[0] == 0.0f;
+  V3 lo = v3(L[1], L[2], L[3]), ldir = v3(L[4], L[5], L[6]);
+  float tlim = lim;
+  if (!is_dir) {  // the light sits at scaled t = 1 along L - p
+    V3 off = v3(p.x - lo.x, p.y - lo.y, p.z - lo.z);
+    tlim = lim / sqrtf(off.x * off.x + off.y * off.y + off.z * off.z);
+  }
+  return ShadowRay{is_dir ? 0.0f : 1.0f, tlim, is_dir ? neg(ldir) : lo};
+}
+
+// #5: shadow any-hit for every light from one origin per lane.  lanes: the
+// lanes with an active light listed (list_lanes), their count at
+// lanes[n].  The first threads take the listed lanes; every thread whose
+// own lane has no active light writes that lane's `false`s (coalesced).  A
+// GROUPED geometry (DenseRowsGeom<true>) tests a lane's active lights in
+// groups of LIGHT_GROUP, each group in one pass over the staged rows that
+// shares the origin's terms between lights and ends when every light of
+// the group has met its first occluder; otherwise (DenseGeom, a table too
+// large to stage) one scan per light.  Spheres follow, light by light, for
+// the lights no triangle occluded.
+template <class G, class W>
 __global__ void __launch_bounds__(128)
 shadow_kernel(const float* __restrict__ pos, const float* __restrict__ dirs,
               const int* __restrict__ excl_prim, const float* __restrict__ limits,
-              const u8* __restrict__ actives, Tables tb, u8* __restrict__ blocked_out,
-              int* __restrict__ work_out, int n, int n_light) {
+              const u8* __restrict__ actives, G g, const int* __restrict__ lanes,
+              u8* __restrict__ blocked_out, int* __restrict__ work_out, int n) {
+  const Tables& tb = g.tb;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int listed = lanes[n];
+  W w{};
+  if (t < n) {  // a lane with no light to test: its falses, from its own position
+    bool any = false;
+    for (int l = 0; l < tb.n_light; ++l) any = any || actives[(size_t)l * n + t] != 0;
+    if (!any)
+      for (int l = 0; l < tb.n_light; ++l) blocked_out[(size_t)l * n + t] = 0;
+  }
+  if ((int)(blockIdx.x * blockDim.x) < listed) {  // the block holds a listed lane
+    g.stage();
+    if (t < listed) {
+      const int lane = lanes[t];
+      const V3 p = load3(pos, lane);
+      const int self_prim = excl_prim[lane];
+      for (int base = 0; base < tb.n_light; base += LIGHT_GROUP) {
+        const int group = min(LIGHT_GROUP, tb.n_light - base);
+        unsigned pending = 0, hit = 0;
+        float slim[LIGHT_GROUP];
+        ShadowGroup sg;
+#pragma unroll
+        for (int l = 0; l < LIGHT_GROUP; ++l) {
+          sg.tg[l] = v3(0.0f, 0.0f, 0.0f);
+          sg.s[l] = sg.tlim[l] = slim[l] = 0.0f;
+          if (l >= group) continue;
+          const size_t at = (size_t)(base + l) * n + lane;
+          if (!actives[at]) continue;
+          pending |= 1u << l;
+          slim[l] = fminf(limits[at], BIG);
+          ShadowRay r = shadow_ray(tb.lights + (base + l) * LIGHT_COLS, p, slim[l]);
+          sg.s[l] = r.s;
+          sg.tg[l] = r.tg;
+          sg.tlim[l] = r.tlim;
+        }
+        if constexpr (G::GROUPED) {
+          if (pending) hit = g.occluded(p, self_prim, sg, pending, w);
+        } else {
+#pragma unroll
+          for (int l = 0; l < LIGHT_GROUP; ++l)
+            if (((pending >> l) & 1) && g.tri_occluded(p, self_prim, sg.s[l], sg.tg[l],
+                                                       sg.tlim[l], w))
+              hit |= 1u << l;
+        }
+#pragma unroll
+        for (int l = 0; l < LIGHT_GROUP; ++l) {
+          if (l >= group) continue;
+          const size_t at = (size_t)(base + l) * n + lane;
+          bool blocked = ((hit >> l) & 1) != 0;
+          if (((pending >> l) & 1) && !blocked)
+            blocked = sph_occluded(tb, p, self_prim, load3(dirs + (size_t)(base + l) * n * 3, lane),
+                                   slim[l], w);
+          blocked_out[at] = blocked ? 1 : 0;
+        }
+      }
+    }
+  }
+  if (t < n) w.put(work_out, n, t);
+}
+
+// The kernel before the design above: one thread per lane, in lane order,
+// one scan per active light over the [T, 34] table in global memory.
+template <class W>
+__global__ void __launch_bounds__(128)
+shadow_thread_kernel(const float* __restrict__ pos, const float* __restrict__ dirs,
+                     const int* __restrict__ excl_prim, const float* __restrict__ limits,
+                     const u8* __restrict__ actives, Tables tb, u8* __restrict__ blocked_out,
+                     int* __restrict__ work_out, int n, int n_light) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   W w{};
@@ -149,23 +261,34 @@ shadow_kernel(const float* __restrict__ pos, const float* __restrict__ dirs,
     size_t at = (size_t)l * n + lane;
     bool blocked = false;
     if (actives[at]) {
-      const float* L = tb.lights + l * LIGHT_COLS;
-      bool is_dir = L[0] == 0.0f;
-      V3 lo = v3(L[1], L[2], L[3]), ldir = v3(L[4], L[5], L[6]);
       float lim = fminf(limits[at], BIG);
-      float tlim = lim;
-      if (!is_dir) {  // the light sits at scaled t = 1 along L - p
-        V3 off = v3(p.x - lo.x, p.y - lo.y, p.z - lo.z);
-        tlim = lim / sqrtf(off.x * off.x + off.y * off.y + off.z * off.z);
-      }
+      ShadowRay r = shadow_ray(tb.lights + l * LIGHT_COLS, p, lim);
       V3 nd = load3(dirs + (size_t)l * n * 3, lane);
-      blocked = tri_occluded(TriRows{tb.tri}, tb.n_tri, p, self_prim, is_dir ? 0.0f : 1.0f,
-                             is_dir ? neg(ldir) : lo, tlim, w) ||
+      blocked = tri_occluded(TriRows{tb.tri}, tb.n_tri, p, self_prim, r.s, r.tg, r.tlim, w) ||
                 sph_occluded(tb, p, self_prim, nd, lim, w);
     }
     blocked_out[at] = blocked ? 1 : 0;
   }
   w.put(work_out, n, lane);
+}
+
+// The shadow walk out of the block's shared memory, all lights of a group
+// in one pass.
+using ShadowRows = DenseRowsGeom<true>;
+
+template <class G>
+int launch_shadow(const float* pos, const float* dirs, const int* excl_prim, const float* limits,
+                  const u8* actives, G g, const int* lanes, u8* blocked, int* work, int n,
+                  cudaStream_t stream) {
+  auto kernel = work ? &shadow_kernel<G, Work> : &shadow_kernel<G, NoWork>;
+  int shared = g.smem(128);
+  if (shared) {
+    int err = coop_opt_in((const void*)kernel, shared);
+    if (err) return err;
+  }
+  kernel<<<(n + 127) / 128, 128, shared, stream>>>(pos, dirs, excl_prim, limits, actives, g,
+                                                    lanes, blocked, work, n);
+  return (int)cudaGetLastError();
 }
 
 inline Tables geometry(const float* tri, int n_tri, const float* sph, int n_sph) {
@@ -206,26 +329,58 @@ int rt_any_hit(const float* ray_o, const float* ray_d, const int* face, const in
 
 // pos: [n, 3]; dirs: [n_light, n, 3] normalised, toward each light;
 // excl_prim: [n] the shaded primitive; limits: [n_light, n] real-unit
-// limits; actives: [n_light, n] bool; lights: [n_light, 16] (pack_lights);
-// blocked: [n_light, n] bool.
+// limits; actives: [n_light, n] bool; hot: the [n_tri, 16] hot rows (a
+// table too large to stage, DenseRowsGeom::fits, is walked from the
+// [n_tri, 34] table); lights: [n_light, 16] (pack_lights); lanes: [n + 1]
+// int32 scratch (the listed lanes and their count); blocked: [n_light, n]
+// bool.
 int rt_shadow_any_hit(const float* pos, const float* dirs, const int* excl_prim,
                       const float* limits, const unsigned char* actives, const float* tri,
-                      int n_tri, const float* sph, int n_sph, const float* lights, int n_light,
-                      unsigned char* blocked, int* work, int n, void* stream) {
+                      int n_tri, const float* sph, int n_sph, const float* hot,
+                      const float* lights, int n_light, int* lanes, unsigned char* blocked,
+                      int* work, int n, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = rt::launch_list_lanes(actives, n_light, n, lanes, st);
+  if (err) return err;
   rt::Tables tb{tri, sph, nullptr, lights, n_tri, n_sph, 0, n_light};
-  auto kernel = work ? &rt::shadow_kernel<rt::Work> : &rt::shadow_kernel<rt::NoWork>;
+  if (rt::ShadowRows::fits(n_tri))
+    return rt::launch_shadow(pos, dirs, excl_prim, limits, actives,
+                             rt::ShadowRows{tb, (const float4*)hot}, lanes, blocked, work, n, st);
+  return rt::launch_shadow(pos, dirs, excl_prim, limits, actives, rt::DenseGeom{tb}, lanes,
+                           blocked, work, n, st);
+}
+
+// The same test with one thread per lane and one scan per light over the
+// table in global memory: what rt_shadow_any_hit is held against.
+// Arguments as rt_shadow_any_hit without hot and lanes.
+int rt_shadow_any_hit_thread(const float* pos, const float* dirs, const int* excl_prim,
+                             const float* limits, const unsigned char* actives, const float* tri,
+                             int n_tri, const float* sph, int n_sph, const float* lights,
+                             int n_light, unsigned char* blocked, int* work, int n,
+                             void* stream) {
+  rt::Tables tb{tri, sph, nullptr, lights, n_tri, n_sph, 0, n_light};
+  auto kernel = work ? &rt::shadow_thread_kernel<rt::Work> : &rt::shadow_thread_kernel<rt::NoWork>;
   kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       pos, dirs, excl_prim, limits, actives, tb, blocked, work, n, n_light);
   return (int)cudaGetLastError();
 }
 
 // Compiled attributes of the main path's instantiation `which` (0 nearest,
-// 1 any, 2 shadow), layout as rt_level_attrs.
-int rt_intersect_attrs(int which, int* out) {
-  const void* fn = which == 0   ? (const void*)rt::nearest_kernel<rt::NoWork>
-                   : which == 1 ? (const void*)rt::any_kernel<rt::NoWork>
-                                : (const void*)rt::shadow_kernel<rt::NoWork>;
-  return rt::attrs_of(fn, out);
+// 1 any, 2 shadow, staging the rows of a table of n_tri triangles; 3 the
+// shadow kernel's per-thread yardstick), layout as rt_level_attrs.
+int rt_intersect_attrs(int which, int n_tri, int* out) {
+  using rt::NoWork;
+  switch (which) {
+    case 0:
+      return rt::attrs_of((const void*)rt::nearest_kernel<NoWork>, out);
+    case 1:
+      return rt::attrs_of((const void*)rt::any_kernel<NoWork>, out);
+    case 2:
+      return rt::attrs_of((const void*)rt::shadow_kernel<rt::ShadowRows, NoWork>, out,
+                          rt::ShadowRows::smem_bytes(n_tri));
+    default:
+      return rt::attrs_of((const void*)rt::shadow_thread_kernel<NoWork>, out);
+  }
 }
 
 }  // extern "C"

@@ -15,7 +15,8 @@ which unrolls forward: per bounce accum += scale*A and scale *= B.
 
 Routing (`trace.fused_ok`, distributed.py:112-123): a scene the fused
 kernels take walks whole in ops/mc_kernel.trace (the mega-kernel) or, for
-blocked scenes of at least mc_binned.BINNED_MIN_TRIS triangles, in
+blocked scenes of at least mc_binned.BINNED_MIN_TRIS triangles (none by
+default: the threshold lies above every mesh the card has run), in
 ops/mc_binned.trace (per-bounce kernels with a sort between bounces).
 Every other scene takes the unfused walk below (distributed.py:133-286):
 all three branches evaluated masked over the batch, the refract lanes
@@ -169,6 +170,17 @@ def mega_kernel_route(scene: Scene) -> bool:
     (one launch for any number of rays)?  Else the binned or unfused walk."""
     return fused_ok(scene) and not (scene.blocked
                                     and scene.n_tri >= mc_binned.BINNED_MIN_TRIS)
+
+
+def frame_wide_route(scene: Scene) -> bool:
+    """Does trace_distributed take this scene's rays lane by lane, each
+    lane's photon and casts independent of the others and of the batch, so
+    that an epoch may trace the whole frame in one call?  The mega-kernel
+    route, and the unfused walk of a dense scene (its nearest-hit, shadow
+    and march kernels take any number of lanes).  Not the binned route (its
+    state, sort and deal live per tile), nor the unfused walk of a BVH scene
+    (its traversal syncs the host at every step)."""
+    return mega_kernel_route(scene) or (not fused_ok(scene) and scene.bvh_node_min is None)
 
 
 def trace_distributed(scene: Scene, ray_o, ray_d, unifs,

@@ -8,6 +8,11 @@ return conventions.  The CUDA kernels are csrc/intersect_kernels.cu
 scenes only, as the TPU kernels do (a BVH scene goes through
 ops/intersect_bvh.py).  Each wrapper runs its plain version on CPU tensors
 and launches its kernel on CUDA tensors, or raises: there is no fallback.
+The shadow kernel lists the lanes that have a light to test and takes them
+32 to a warp, out of the hot rows staged in shared memory, all of a lane's
+lights in one pass; `shadow_any_hit_per_thread` launches the kernel before
+that design (one thread per lane, one scan per light), as the yardstick
+chip_smoke.py holds it against; the main path never takes it.
 
 Conventions (intersect_pallas.py:294-298, :309-312): a miss is t = +inf,
 idx = -1, backface False, valid False; `limit` None means "any hit at
@@ -32,6 +37,7 @@ from raytracer_tpu_torch.utils import kernels
 COUNTS_NEAREST = kernels.LaunchCounts()
 COUNTS_ANY = kernels.LaunchCounts()
 COUNTS_SHADOW = kernels.LaunchCounts()
+COUNTS_SHADOW_THREAD = kernels.LaunchCounts()  # the shadow kernel's per-thread yardstick
 
 
 def _rows(x):
@@ -113,8 +119,9 @@ def nearest_hit(scene: Scene, rays: Rays, active=None, work=None):
     """Winner sweep of a dense scene -> (t [N], idx [N] int32, backface [N]
     bool, valid [N] bool); t is +inf and idx -1 on a miss.  `work` (all
     three wrappers): an optional int32 [len(kernels.WORK_ROWS), N] tensor
-    that the kernel's counting instantiation fills with each lane's tests
-    by kind."""
+    that the kernel's counting instantiation fills with the tests by kind,
+    a column a lane (the shadow kernel: a column a thread, the lane it
+    tested, listed: the totals are the lanes')."""
     n, dev = rays.o.shape[0], rays.o.device
     active = _active(active, n, dev)
     if dev.type == "cpu":
@@ -167,12 +174,29 @@ def shadow_any_hit(scene: Scene, pos, dirs, excl_prim, limits, actives, work=Non
     limits (inf = none); actives [L, N] bool.  Returns blocked [L, N] bool.
     Each light's target for the factored triangle algebra (its origin, or
     minus its direction) is read from the scene's light table."""
-    L, n, dev = dirs.shape[0], pos.shape[0], pos.device
-    if L != scene.n_light:
-        raise ValueError(f"shadow_any_hit: {L} directions for {scene.n_light} lights")
-    if dev.type == "cpu":
+    if dirs.shape[0] != scene.n_light:
+        raise ValueError(f"shadow_any_hit: {dirs.shape[0]} directions for {scene.n_light} lights")
+    if pos.device.type == "cpu":
         COUNTS_SHADOW.plain += 1
         return shadow_any_hit_plain(scene.tables, pos, dirs, excl_prim, limits, actives)
+    return _launch_shadow("rt_shadow_any_hit", True, COUNTS_SHADOW, scene, pos, dirs,
+                          excl_prim, limits, actives, work)
+
+
+def shadow_any_hit_per_thread(scene: Scene, pos, dirs, excl_prim, limits, actives, work=None):
+    """`shadow_any_hit` on CUDA tensors through the kernel's per-thread
+    instantiation (one thread per lane in lane order, one scan per light
+    over the table in global memory).  The main path's kernel must give its
+    results and test counts; nothing on the main path calls this."""
+    return _launch_shadow("rt_shadow_any_hit_thread", False, COUNTS_SHADOW_THREAD, scene, pos,
+                          dirs, excl_prim, limits, actives, work)
+
+
+def _launch_shadow(entry: str, listed: bool, counts, scene: Scene, pos, dirs, excl_prim, limits,
+                   actives, work):
+    """Check the operands, launch C entry `entry` (`listed`: it takes the
+    hot rows and a lane list) and advance its launch counter `counts`."""
+    L, n, dev = dirs.shape[0], pos.shape[0], pos.device
     tb = _dense_tables(scene, dev, "shadow_any_hit")
     pos, dirs, excl_prim = pos.contiguous(), dirs.contiguous(), excl_prim.contiguous()
     limits, actives = limits.contiguous(), actives.contiguous()
@@ -184,7 +208,12 @@ def shadow_any_hit(scene: Scene, pos, dirs, excl_prim, limits, actives, work=Non
     kernels.check_work(work, n, dev)
     blocked = torch.empty((L, n), dtype=torch.bool, device=dev)
     if n and L:
-        kernels.launch("rt_shadow_any_hit", pos, dirs, excl_prim, limits, actives,
-                       tb.tri, tb.n_tri, tb.sph, tb.n_sph, tb.lights, L, blocked, work, n)
-        COUNTS_SHADOW.launches += 1
+        hot, lanes = (), ()
+        if listed:
+            if tb.hot is None:
+                raise ValueError("the shadow kernel needs the hot rows (pack_tables)")
+            hot, lanes = (tb.hot,), (torch.empty((n + 1,), dtype=torch.int32, device=dev),)
+        kernels.launch(entry, pos, dirs, excl_prim, limits, actives, tb.tri, tb.n_tri, tb.sph,
+                       tb.n_sph, *hot, tb.lights, L, *lanes, blocked, work, n)
+        counts.launches += 1
     return blocked

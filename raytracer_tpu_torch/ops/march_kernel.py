@@ -6,10 +6,13 @@ Counterpart of raytracer_tpu/ops/march_pallas.py `march` (:291, kernel
 World::get_refract (src/main.rs:343-405) per ray, over a dense scene —
 entry refraction, up to max_retries interior reflections under the
 distance budget, exit refraction.  The CUDA kernel is csrc/march_kernel.cu
-(`rt_march`); `march_plain` is ops/kernel_common.march_rows, the plain
-block the fused kernels' plain versions march with.  The wrapper runs the
-plain version on CPU tensors and launches the kernel on CUDA tensors, or
-raises: there is no fallback.
+(`rt_march`: the lanes that march listed first and taken 32 to a warp, the
+rows out of shared memory); `march_plain` is ops/kernel_common.march_rows,
+the plain block the fused kernels' plain versions march with.  The wrapper
+runs the plain version on CPU tensors and launches the kernel on CUDA
+tensors, or raises: there is no fallback.  `march_per_thread` launches the
+kernel before that design (one thread per lane in lane order), as the
+yardstick chip_smoke.py holds it against; the main path never takes it.
 
 A lane that never marched (not wanted, or trapped at entry) gives zeros in
 every output, as a dead TPU tile does (march_pallas.py:186-190); a lane
@@ -26,6 +29,7 @@ from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils import kernels
 
 COUNTS = kernels.LaunchCounts()
+COUNTS_THREAD = kernels.LaunchCounts()  # the per-thread yardstick
 
 
 def march_plain(tb: kc.Tables, pos, normal, ray_d, k, want, max_distance: float,
@@ -56,14 +60,37 @@ def march(scene: Scene, pos, normal, ray_d, prim, k, want, max_distance: float,
     unused: interior rays are Back-face rays, for which excluding the entry
     primitive's front is a no-op (march_pallas.py:297-300).  `work`: an
     optional int32 [len(kernels.WORK_ROWS), N] tensor that the kernel's
-    counting instantiation fills with each lane's tests by kind."""
+    counting instantiation fills with the tests by kind, a column a thread
+    (the lane it marched, listed: the totals are the lanes')."""
     del prim
-    n, dev = pos.shape[0], pos.device
-    if dev.type == "cpu":
+    if pos.device.type == "cpu":
         COUNTS.plain += 1
-        *out, iters = march_plain(scene.tables, pos, normal, ray_d, k, want,
-                                  max_distance, max_retries)
+        *out, iters = march_plain(scene.tables, pos, normal, ray_d, k, want, max_distance,
+                                  max_retries)
         return (*out, iters.sum())
+    *out, iters = _launch("rt_march", True, COUNTS, scene, pos, normal, ray_d, k, want,
+                          max_distance, max_retries, work)
+    return (*out, iters.sum())
+
+
+def march_per_thread(scene: Scene, pos, normal, ray_d, prim, k, want, max_distance: float,
+                     max_retries: int, work=None):
+    """`march` on CUDA tensors through the kernel's per-thread
+    instantiation (one thread per lane, in lane order, over the table in
+    global memory).  The main path's kernel must give its outputs, casts and
+    test counts; nothing on the main path calls this."""
+    del prim
+    *out, iters = _launch("rt_march_thread", False, COUNTS_THREAD, scene, pos, normal, ray_d,
+                          k, want, max_distance, max_retries, work)
+    return (*out, iters.sum())
+
+
+def _launch(entry: str, listed: bool, counts, scene: Scene, pos, normal, ray_d, k, want,
+            max_distance, max_retries, work):
+    """Check the operands, launch C entry `entry` (`listed`: it takes the
+    hot rows and a lane list) and advance its launch counter `counts` ->
+    march_plain's outputs (each lane's casts in `iters`)."""
+    n, dev = pos.shape[0], pos.device
     if dev.type != "cuda":
         raise ValueError(f"march_kernel.march: unsupported device {dev}")
     if scene.bvh_node_min is not None:
@@ -84,8 +111,13 @@ def march(scene: Scene, pos, normal, ray_d, prim, k, want, max_distance: float,
     travel = torch.empty((n,), dtype=torch.float32, device=dev)
     iters = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        kernels.launch("rt_march", pos, normal, ray_d, k, want, tb.tri, tb.n_tri,
-                       tb.sph, tb.n_sph, esc_o, esc_d, esc_prim, escaped, travel, iters,
-                       work, n, float(max_distance), int(max_retries))
-        COUNTS.launches += 1
-    return escaped, travel, esc_o, esc_d, esc_prim, iters.sum()
+        staged = ()
+        if listed:
+            if tb.hot is None:
+                raise ValueError("the march kernel needs the hot rows (pack_tables)")
+            staged = (tb.hot, torch.empty((n + 1,), dtype=torch.int32, device=dev))
+        kernels.launch(entry, pos, normal, ray_d, k, want, tb.tri, tb.n_tri, tb.sph, tb.n_sph,
+                       *staged, esc_o, esc_d, esc_prim, escaped, travel, iters, work, n,
+                       float(max_distance), int(max_retries))
+        counts.launches += 1
+    return escaped, travel, esc_o, esc_d, esc_prim, iters

@@ -62,8 +62,17 @@ from raytracer_tpu_torch.scene.types import FACE_FRONT, NO_EXCLUDE, Scene
 from raytracer_tpu_torch.utils import kernels
 
 # Blocked scenes from this many triangles on take this path
-# (ops/distributed.py); below it the mega-kernel (mc_binned.py:52).
-BINNED_MIN_TRIS = 4096
+# (ops/distributed.py); below it the mega-kernel.  Set from the card: the
+# 1024x1024 MC epoch through the blocked MC kernel (one launch) against
+# the binned route, on one NVIDIA H100 80GB HBM3 at 700 W
+# (scripts/time_torch_kernels.py --sections routes), took 0.026-0.028 /
+# 0.035-0.036 / 0.049 / 0.070-0.071 s against 0.36-0.41 / 0.34-0.37 /
+# 0.49-0.51 / 0.28-0.39 s at 1,164 / 11,262 / 51,212 / 204,812 triangles
+# (mesh_scene(24 / 75 / 160 / 320)): the binned route, 80 % idle on the
+# host's sort dispatch, won at no size, so the threshold lies above every
+# size measured.  The JAX package's 4096 (raytracer_tpu/ops/mc_binned.py
+# :47-52) was tuned on the TPU.  The checks of the binned kernels lower it.
+BINNED_MIN_TRIS = 1 << 30
 
 F_A, F_S, F_P, F_N, F_UV, F_D, F_DF, F_PR = 0, 3, 6, 9, 12, 14, 17, 18
 I_ALIVE, I_PRIM, I_OBJ, I_BACK, I_SLOT = 0, 1, 2, 3, 4

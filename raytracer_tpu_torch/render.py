@@ -12,13 +12,16 @@ redraws exactly what the interrupted one would have.  They are a
 different, equally valid realisation from the JAX package's threefry
 draws; the tests hand the JAX draws in through `draws=`.
 
-An MC epoch on the mega-kernel route (ops/distributed.mega_kernel_route)
-lays every tile's draws side by side and traces the whole frame in one
-launch, as the JAX package gives XLA the whole frame in one dispatch
-(raytracer_tpu/render.py `_mc_frame`): a launch of one tile leaves most of
-the card idle at its tail, and each tile costs the host its own camera,
-filter and sums.  The binned and unfused routes, and the Whitted ladder
-(whose compaction works per tile), go tile by tile.
+An MC epoch on a route that takes its lanes one by one
+(ops/distributed.frame_wide_route: the mega-kernel, and the unfused walk of
+a dense scene) lays every tile's draws side by side and traces the whole
+frame in one trace_distributed call, as the JAX package gives XLA the
+whole frame in one dispatch (raytracer_tpu/render.py `_mc_frame`): a
+launch of one tile leaves most of the card idle at its tail, and each tile
+costs the host its own camera, filter and sums and, on the unfused walk,
+its own thousands of dispatched operations.  The binned route, the unfused walk of a
+BVH scene, and the Whitted ladder (whose compaction works per tile) go
+tile by tile.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops import camera as camera_ops
-from raytracer_tpu_torch.ops.distributed import mega_kernel_route, trace_distributed
+from raytracer_tpu_torch.ops.distributed import frame_wide_route, trace_distributed
 from raytracer_tpu_torch.ops.trace import trace_whitted
 from raytracer_tpu_torch.scene.types import Camera, Scene
 
@@ -170,7 +173,7 @@ def render_distributed_epoch(
     tile_in = draws if draws is not None else [
         tile_draws(cfg, seed, epoch, t, clip.shape[0], clip.device)
         for t, clip in enumerate(clips)]
-    run = epoch_frame if mega_kernel_route(scene) else epoch_tiles
+    run = epoch_frame if frame_wide_route(scene) else epoch_tiles
     photon, casts, filtered = run(scene, camera, cfg, clips, tile_in)
     # stats include the padding rays of a ragged last tile
     return _to_image(cfg, [photon], inv), {

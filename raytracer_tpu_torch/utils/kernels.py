@@ -74,12 +74,14 @@ SIGNATURES = {
     "rt_nearest_hit": _RAYS + _GEO + "pppp" + "o" + "i",
     # rays, limit, geometry, blocked, work, n
     "rt_any_hit": _RAYS + "p" + _GEO + "p" + "o" + "i",
-    # pos, dirs, excl_prim, limits, actives, geometry, lights, n_light,
-    # blocked, work, n
-    "rt_shadow_any_hit": "ppppp" + _GEO + "pi" + "p" + "o" + "i",
-    # pos, nrm, dir, k, want, geometry, esc_o, esc_d, prim, escaped, travel,
-    # iters, work, n, max_distance, max_retries
-    "rt_march": "ppppp" + _GEO + "pppppp" + "o" + "i" + "fi",
+    # pos, dirs, excl_prim, limits, actives, geometry, hot rows, lights,
+    # n_light, lanes (scratch), blocked, work, n
+    "rt_shadow_any_hit": "ppppp" + _GEO + "p" + "pi" + "p" + "p" + "o" + "i",
+    "rt_shadow_any_hit_thread": "ppppp" + _GEO + "pi" + "p" + "o" + "i",
+    # pos, nrm, dir, k, want, geometry, hot rows, lanes (scratch), esc_o,
+    # esc_d, prim, escaped, travel, iters, work, n, max_distance, max_retries
+    "rt_march": "ppppp" + _GEO + "p" + "p" + "pppppp" + "o" + "i" + "fi",
+    "rt_march_thread": "ppppp" + _GEO + "pppppp" + "o" + "i" + "fi",
 }
 # Rows of a `work` output (csrc/common.cuh Work), per lane: triangle tests
 # begun, those that went on to the plane's t, edge tests, sphere tests,
@@ -96,10 +98,10 @@ WORK_ROWS = ("tri", "plane", "edge", "sph", "box", "chunk", "wchunk", "t_in", "t
              "cyc_box", "cyc_stage", "cyc_rows", "cyc_all", "cyc_near", "cyc_shadow",
              "cyc_march")
 # kernel name -> (C entry that reports its attributes, instantiation index).
-# "level" and "mc" are the dense walks out of shared memory, "level_blk",
-# "mc_blk" and the binned bounce and terminal kernels the warp-cooperative
-# walks of the main path; the "*_thread" ones are their per-thread
-# yardsticks.
+# "level", "mc", "shadow_any_hit" and "march" are the dense walks out of
+# shared memory, "level_blk", "mc_blk" and the binned bounce and terminal
+# kernels the warp-cooperative walks of the main path; the "*_thread" ones
+# are their per-thread yardsticks.
 ATTRS = {
     "level": ("rt_level_attrs", 0), "level_thread": ("rt_level_attrs", 3),
     "level_blk": ("rt_level_attrs", 1), "level_blk_thread": ("rt_level_attrs", 2),
@@ -113,11 +115,13 @@ ATTRS = {
     "binned_bounce_thread": ("rt_binned_attrs", 5),
     "binned_terminal_thread": ("rt_binned_attrs", 6),
     "nearest_hit": ("rt_intersect_attrs", 0), "any_hit": ("rt_intersect_attrs", 1),
-    "shadow_any_hit": ("rt_intersect_attrs", 2), "march": ("rt_march_attrs", 0),
+    "shadow_any_hit": ("rt_intersect_attrs", 2),
+    "shadow_any_hit_thread": ("rt_intersect_attrs", 3),
+    "march": ("rt_march_attrs", 0), "march_thread": ("rt_march_attrs", 1),
 }
 # The attribute entries that also take a dense scene's triangle count: the
 # staged walks' shared bytes, and so their blocks per SM, depend on it.
-ATTRS_N_TRI = ("rt_level_attrs", "rt_mc_attrs")
+ATTRS_N_TRI = ("rt_level_attrs", "rt_mc_attrs", "rt_intersect_attrs", "rt_march_attrs")
 _CTYPES = {"p": ctypes.c_void_p, "o": ctypes.c_void_p, "i": ctypes.c_int,
            "f": ctypes.c_float}
 
@@ -244,8 +248,8 @@ def launch(name: str, *args) -> None:
 
 def kernel_attrs(which: str, n_tri: int = 0) -> dict:
     """Compiled attributes of kernel instantiation `which` (a key of
-    ATTRS); the staged dense walks ("level", "mc") at the shared bytes of
-    a scene of `n_tri` triangles."""
+    ATTRS); the staged dense walks ("level", "mc", "shadow_any_hit",
+    "march") at the shared bytes of a scene of `n_tri` triangles."""
     out = (ctypes.c_int * 6)()
     entry, index = ATTRS[which]
     args = (index, n_tri, out) if entry in ATTRS_N_TRI else (index, out)

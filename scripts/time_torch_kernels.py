@@ -4,7 +4,8 @@ frame and one tile of the mesh11k frame, for comparing two checkouts on the
 same card.
 
     python3 scripts/time_torch_kernels.py [--tree DIR] [--reps 20] [--rounds 3]
-                                          [--mesh-reps 5] [--no-mesh]
+                                          [--mesh-reps 5] [--route-grids 75,160]
+                                          [--sections dense,mesh,unfused,routes]
 
 Imports raytracer_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and times
@@ -39,7 +40,17 @@ script), builds its kernels there, and times
   * the whole 1280x960 demo Whitted frame and MC epoch: host seconds,
     device busy and idle share, and the dense kernels' mean device time
     per launch over them (the frame's 114 level launches, the epoch's MC
-    launches).
+    launches);
+  * (section "unfused") the unfused path's shadow (#5) and march (#6)
+    kernels on the calls that the demo's unfused MC epoch (host-only
+    textures, 1280x960) makes on tile 9 and frame-wide, and on tile 9's
+    primary hits; that epoch's host seconds, device busy and idle share,
+    tile by tile and frame-wide, and its peak device memory
+    (unfused_kernels);
+  * (section "routes") the 1024x1024 MC epoch of mesh_scene(grid) for each
+    of --route-grids through both MC routes, the binned walk and the
+    blocked MC kernel, whatever the checkout's BINNED_MIN_TRIS says
+    (mc_routes).
 
 Each time is the mean device milliseconds per launch after a warm-up, taken
 `rounds` times: from torch.profiler over the launches it reports of `reps`
@@ -47,7 +58,10 @@ Each time is the mean device milliseconds per launch after a warm-up, taken
 CUDA events, and says so, where the profiler reports none in three tries),
 and for the mesh kernels also from CUDA events around
 `mesh-reps` back-to-back launches (which includes what the wrapper
-launches around the kernel).  Needs a CUDA card.  Prints the card's name
+launches around the kernel, and reads the host's pace where the wrapper
+takes longer on the host than its kernels on the device) and from the same
+launches queued behind a device-side sleep (chip_smoke.queued_ms: the
+device's time for all the wrapper launches).  Needs a CUDA card.  Prints the card's name
 and power limit, then one JSON line.  To compare two checkouts, run this
 once per checkout in the order A, B, B, A.
 """
@@ -138,16 +152,17 @@ def mesh_times(dev, reps, rounds):
     if hasattr(mc_binned, "terminal_per_thread"):
         calls["binned_terminal_thread"] = (
             "binned_terminal", lambda: mc_binned.terminal_per_thread(scene, sf, si, depth == 0))
-    out = {name: {"profiler_ms": [], "events_ms": []} for name in calls}
+    out = {name: {"profiler_ms": [], "events_ms": [], "queued_ms": []} for name in calls}
     for _ in range(rounds):
         for name, (kernel, fn) in calls.items():
             out[name]["profiler_ms"].append(SMOKE.device_ms(fn, reps, kernel))
             out[name]["events_ms"].append(SMOKE.cuda_ms(fn, reps))
+            out[name]["queued_ms"].append(SMOKE.queued_ms(fn, reps))
 
     def mean(prefix, count):
         runs = [out[f"{prefix}_{i}"] for i in range(count)]
         return {k: [sum(b[k][r] for b in runs) / count for r in range(rounds)]
-                for k in ("profiler_ms", "events_ms")}
+                for k in ("profiler_ms", "events_ms", "queued_ms")}
 
     out["binned_bounce_mean"] = mean("binned_bounce", depth)
     for name, _ in walks:
@@ -320,14 +335,174 @@ def demo_frames(scene, cam, cfg, rounds):
     return out
 
 
+def warp_share(mask):
+    """Share of the warps of 32 consecutive lanes that hold a set lane."""
+    n = mask.shape[-1]
+    pad = torch.nn.functional.pad(mask.reshape(-1, n).any(0).to(torch.uint8), (0, (-n) % 32))
+    return float(pad.view(-1, 32).any(1).float().mean())
+
+
+def thread_cycles(work):
+    """(mean cycles a thread, mean over the threads that did work) from a
+    `work` output's cyc_all row and its test rows (a column a thread)."""
+    from raytracer_tpu_torch.utils import kernels
+
+    cyc = work[kernels.WORK_ROWS.index("cyc_all")].double()
+    tests = work[:kernels.WORK_ROWS.index("sph") + 1].sum(0) > 0
+    return float(cyc.mean()), float(cyc[tests].mean()) if bool(tests.any()) else 0.0
+
+
+def unfused_kernels(reps, rounds):
+    """#5 (shadow) and #6 (march) on the inputs the unfused MC epoch of the
+    demo scene with host-only textures (1280x960, depth 5) hands them:
+    its calls on one mid-frame tile (tile 9, as the tile loop makes them)
+    and the calls of the frame-wide epoch (render.epoch_frame: 1,245,184
+    lanes), and the two on chip_smoke.Unfused's inputs (tile 9's primary
+    hits: the kernel table's rows).  Per call: lanes, the share of wanted
+    lanes (march) or of active (light, lane) pairs and of lanes with an
+    active light (shadow), the share of warps of 32 lanes in lane order
+    that hold one; device ms per launch (torch.profiler, the kernel alone;
+    where the checkout lists the lanes first, the list_lanes launch apart),
+    the wrapper's device ms (chip_smoke.queued_ms: every kernel it
+    launches), where the checkout has it the per-thread yardstick's; a
+    thread's cycles from the counting instantiation.  Then the epoch
+    itself: render_distributed_epoch (host s, busy, idle), and the same
+    epoch tile by tile and frame-wide (host s, the least of three)."""
+    import dataclasses
+
+    from raytracer_tpu_torch import render
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import intersect_kernel, march_kernel
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene
+    from raytracer_tpu_torch.scene.textures import host_only
+    from raytracer_tpu_torch.utils import kernels
+
+    dev = torch.device("cuda")
+    demo = demo_scene().to(dev)
+    scene = dataclasses.replace(demo, textures=host_only(demo.textures))
+    cam = demo_camera().to(dev)
+    cfg = RenderConfig(depth=5)
+    clips = render._clips(cfg, dev)[0]
+    tile_in = [render.tile_draws(cfg, 0, 7, t, clip.shape[0], dev)
+               for t, clip in enumerate(clips)]
+    hooks = [(march_kernel, "march"), (intersect_kernel, "shadow_any_hit")]
+    sets = {
+        "tile9": SMOKE.capture(hooks, lambda: render.epoch_tiles(scene, cam, cfg, clips[9:10],
+                                                           tile_in[9:10])),
+        "frame": SMOKE.capture(hooks, lambda: render.epoch_frame(scene, cam, cfg, clips, tile_in)),
+    }
+    u = SMOKE.Unfused(scene, *camera_ops.shoot(cam, clips[9]))
+    sets["primary_tile9"] = {
+        "march": [((scene, *u.march_in, cfg.max_refract_distance, cfg.max_tir_retries), {})],
+        "shadow_any_hit": [((scene, u.hits.pos, u.to_light, u.hits.prim, u.limits,
+                             u.considers), {})]}
+    yard = {"march": getattr(march_kernel, "march_per_thread", None),
+            "shadow_any_hit": getattr(intersect_kernel, "shadow_any_hit_per_thread", None)}
+    fns = {"march": march_kernel.march, "shadow_any_hit": intersect_kernel.shadow_any_hit}
+    names = {"march": "march_kernel", "shadow_any_hit": "shadow_kernel"}
+    thread_names = {"march": "march_thread_kernel", "shadow_any_hit": "shadow_thread_kernel"}
+    out = {}
+    for label, calls in sets.items():
+        for kind, cs in calls.items():
+            rows = []
+            for args, kwargs in cs:
+                fn = fns[kind]
+                run = lambda fn=fn, a=args, k=kwargs: fn(*a, **k)
+                if kind == "march":
+                    want = args[6]
+                    n = want.shape[0]
+                    row = {"n": n, "wanted": float(want.float().mean()),
+                           "warps": warp_share(want)}
+                else:
+                    actives = args[5]
+                    n = actives.shape[1]
+                    row = {"n": n, "pairs": float(actives.float().mean()),
+                           "lanes": float(actives.any(0).float().mean()),
+                           "warps": warp_share(actives)}
+                work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
+                fn(*args, **kwargs, work=work)
+                row["thread_cycles"], row["working_thread_cycles"] = thread_cycles(work)
+                row["tests"] = SMOKE.totals(work)
+                row["ms"] = [SMOKE.device_ms(run, reps, names[kind]) for _ in range(rounds)]
+                row["queued_ms"] = [SMOKE.queued_ms(run, reps) for _ in range(rounds)]
+                if yard[kind] is not None:  # the listed kernel: its lane list, its yardstick
+                    row["list_ms"] = [SMOKE.device_ms(run, reps, "list_lanes")
+                                      for _ in range(rounds)]
+                    thread = lambda fn=yard[kind], a=args, k=kwargs: fn(*a, **k)
+                    row["thread_ms"] = [SMOKE.device_ms(thread, reps, thread_names[kind])
+                                        for _ in range(rounds)]
+                    row["thread_queued_ms"] = [SMOKE.queued_ms(thread, reps)
+                                               for _ in range(rounds)]
+                rows.append(row)
+            out[f"{kind}_{label}"] = rows
+            total = lambda key: [sum(r[key][i] for r in rows) for i in range(rounds)]
+            out[f"{kind}_{label}_sum"] = {key: total(key) for key in rows[0]
+                                          if key.endswith("ms")}
+    n_tri = (scene.n_tri,) if hasattr(kernels, "ATTRS_N_TRI") else ()
+    out["attrs"] = {k: kernels.kernel_attrs(k, *n_tri)
+                    for k in ("march", "march_thread", "shadow_any_hit", "shadow_any_hit_thread")
+                    if k in kernels.ATTRS}
+    epoch = lambda: render.render_distributed_epoch(scene, cam, cfg, epoch=7)
+    out["epoch"] = [SMOKE.profile_breakdown("demo unfused mc epoch", epoch)
+                    for _ in range(rounds)]
+    for name, fn in (("epoch_tiles_s", render.epoch_tiles), ("epoch_frame_s", render.epoch_frame)):
+        out[name] = [min(SMOKE.timed(lambda: fn(scene, cam, cfg, clips, tile_in))[1]
+                         for _ in range(3)) for _ in range(rounds)]
+    torch.cuda.reset_peak_memory_stats()
+    render.epoch_frame(scene, cam, cfg, clips, tile_in)
+    out["epoch_frame_peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mc_routes(grids, rounds):
+    """The 1024x1024 MC epoch of mesh_scene(grid) through both routes,
+    whatever BINNED_MIN_TRIS says: the binned walk (threshold 0) and the
+    blocked MC kernel (threshold 1 << 30) -> {grid: {"n_tri", "binned_s",
+    "mega_s": host seconds between two synchronisations, the least of
+    three, `rounds` times; "casts" of each route}}."""
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import mc_binned
+    from raytracer_tpu_torch.render import render_distributed_epoch
+    from raytracer_tpu_torch.scene.presets import mesh_scene
+
+    dev = torch.device("cuda")
+    cfg = RenderConfig(width=1024, height=1024, depth=5)
+    out = {}
+    saved = mc_binned.BINNED_MIN_TRIS
+    try:
+        for grid in grids:
+            scene, cam = (x.to(dev) for x in mesh_scene(grid))
+            row = {"n_tri": scene.n_tri}
+            for name, threshold in (("binned", 0), ("mega", 1 << 30)):
+                mc_binned.BINNED_MIN_TRIS = threshold
+                epoch = lambda: render_distributed_epoch(scene, cam, cfg, epoch=7)
+                _, stats = epoch()  # first-call set-up
+                row[f"{name}_casts"] = stats["casts"]
+                row[f"{name}_s"] = [min(SMOKE.timed(epoch)[1] for _ in range(3))
+                                    for _ in range(rounds)]
+            out[grid] = row
+            print(f"mc epoch mesh_scene({grid}) ({scene.n_tri} triangles) 1024x1024: binned "
+                  f"{row['binned_s']} s, blocked mc kernel {row['mega_s']} s", flush=True)
+            del scene, cam
+    finally:
+        mc_binned.BINNED_MIN_TRIS = saved
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE, help="checkout to import the port from")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--mesh-reps", type=int, default=5)
-    ap.add_argument("--no-mesh", action="store_true", help="the dense demo kernels only")
+    ap.add_argument("--route-grids", default="75,160",
+                    help="mesh_scene grids whose MC epoch the routes section times")
+    ap.add_argument("--sections", default="dense,mesh,unfused,routes",
+                    help="comma-separated: dense (the demo's fused kernels and frames), mesh "
+                         "(mesh11k kernels and frames), unfused, routes")
     args = ap.parse_args()
+    sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
         print("time_torch_kernels: CUDA is not available", file=sys.stderr)
         return 2
@@ -358,27 +533,33 @@ def main() -> int:
     mc = lambda: mc_kernel.trace(scene, o, d, unifs, cfg.depth, md, mr)
     out = {"tree": args.tree, "build_s": build_s, "rays": clip.shape[0], "reps": args.reps,
            "level_ms": [], "mc_ms": []}
-    for _ in range(args.rounds):
-        out["level_ms"].append(SMOKE.device_ms(level, args.reps, "level_kernel"))
-        out["mc_ms"].append(SMOKE.device_ms(mc, args.reps, "mc_kernel"))
-    # the staged dense walks at the demo's rows, where the checkout takes a
-    # triangle count
-    n_tri = (scene.n_tri,) if hasattr(kernels, "ATTRS_N_TRI") else ()
-    out["attrs"] = {k: kernels.kernel_attrs(k, *n_tri)
-                    for k in ("mc", "level", "mc_thread", "level_thread") if k in kernels.ATTRS}
-    out["mc_sizes"] = dense_sizes(scene, o, d, unifs, cfg, args.reps, args.rounds)
-    if hasattr(mc_kernel, "COUNTS_THREAD"):  # the dense per-thread yardsticks
-        thread = lambda: mc_kernel.trace_per_thread(scene, o, d, unifs, cfg.depth, md, mr)
-        out["mc_thread_ms"] = [SMOKE.device_ms(thread, args.reps, "mc_kernel")
-                               for _ in range(args.rounds)]
-        out["mc_thread_sizes"] = dense_sizes(scene, o, d, unifs, cfg, args.reps, args.rounds,
-                                             per_thread=True)
-    out["dense_levels"] = dense_levels(scene, cam, clip, cfg, args.reps, args.rounds)
-    out["mc_frame"] = dense_frame(scene, cam, cfg, args.reps, args.rounds)
-    out["dense_work"] = dense_work(scene, cam, clip, o, d, unifs, cfg)
-    out["demo_frames"] = demo_frames(scene, cam, cfg, args.rounds)
-    if not args.no_mesh:
+    if "dense" in sections:
+        for _ in range(args.rounds):
+            out["level_ms"].append(SMOKE.device_ms(level, args.reps, "level_kernel"))
+            out["mc_ms"].append(SMOKE.device_ms(mc, args.reps, "mc_kernel"))
+        # the staged dense walks at the demo's rows, where the checkout takes a
+        # triangle count
+        n_tri = (scene.n_tri,) if hasattr(kernels, "ATTRS_N_TRI") else ()
+        out["attrs"] = {k: kernels.kernel_attrs(k, *n_tri)
+                        for k in ("mc", "level", "mc_thread", "level_thread") if k in kernels.ATTRS}
+        out["mc_sizes"] = dense_sizes(scene, o, d, unifs, cfg, args.reps, args.rounds)
+        if hasattr(mc_kernel, "COUNTS_THREAD"):  # the dense per-thread yardsticks
+            thread = lambda: mc_kernel.trace_per_thread(scene, o, d, unifs, cfg.depth, md, mr)
+            out["mc_thread_ms"] = [SMOKE.device_ms(thread, args.reps, "mc_kernel")
+                                   for _ in range(args.rounds)]
+            out["mc_thread_sizes"] = dense_sizes(scene, o, d, unifs, cfg, args.reps, args.rounds,
+                                                 per_thread=True)
+        out["dense_levels"] = dense_levels(scene, cam, clip, cfg, args.reps, args.rounds)
+        out["mc_frame"] = dense_frame(scene, cam, cfg, args.reps, args.rounds)
+        out["dense_work"] = dense_work(scene, cam, clip, o, d, unifs, cfg)
+        out["demo_frames"] = demo_frames(scene, cam, cfg, args.rounds)
+    if "mesh" in sections:
         out["mesh11k"] = mesh_times(dev, args.mesh_reps, args.rounds)
+    if "unfused" in sections:
+        out["unfused"] = unfused_kernels(args.reps, args.rounds)
+    if "routes" in sections:
+        out["mc_routes"] = mc_routes([int(g) for g in args.route_grids.split(",") if g],
+                                     args.rounds)
     print(json.dumps(out))
     return 0
 

@@ -126,6 +126,22 @@ def test_staged_dense_entries_take_the_hot_rows(entry, thread):
     assert sig.replace(kernels._TABLES + "p", kernels._TABLES, 1) == ref_sig
 
 
+@pytest.mark.parametrize("entry,thread,after", [("rt_march", "rt_march_thread", "int n_sph"),
+                                                ("rt_shadow_any_hit", "rt_shadow_any_hit_thread",
+                                                 "int n_light")])
+def test_listed_unfused_entries_take_the_hot_rows_and_a_lane_list(entry, thread, after):
+    """The march and shadow kernels' entries are their per-thread
+    yardsticks' plus the dense hot rows right after the sphere table and
+    the lane list (scratch) before the first output."""
+    entries = _c_entries()
+    staged, ref = list(entries[entry]), entries[thread]
+    assert staged.pop(staged.index("int n_sph") + 1) == "const float* hot"
+    assert staged.pop(staged.index(after) + 1) == "int* lanes"
+    assert staged == ref
+    sig, ref_sig = kernels.SIGNATURES[entry], kernels.SIGNATURES[thread]
+    assert len(sig) == len(ref_sig) + 2 and sig.count("o") == ref_sig.count("o") == 1
+
+
 def test_dense_hot_rows_are_what_the_staged_walks_read():
     from raytracer_tpu_torch.ops import kernel_common as kc
     from raytracer_tpu_torch.scene.presets import demo_scene
@@ -145,7 +161,8 @@ def test_dense_hot_rows_are_what_the_staged_walks_read():
 
 
 def test_attrs_name_both_walks_of_the_redesigned_kernels():
-    for coop in ("level", "mc", "level_blk", "mc_blk", "binned_bounce", "binned_terminal"):
+    for coop in ("level", "mc", "level_blk", "mc_blk", "binned_bounce", "binned_terminal",
+                 "march", "shadow_any_hit"):
         assert kernels.ATTRS[coop] != kernels.ATTRS[coop + "_thread"]
         assert kernels.ATTRS[coop][0] == kernels.ATTRS[coop + "_thread"][0]
     assert len(set(kernels.ATTRS.values())) == len(kernels.ATTRS)

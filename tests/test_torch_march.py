@@ -142,3 +142,25 @@ def test_march_wrapper_refuses_other_devices(glass):
     meta = tuple(x.to("meta") for x in tin)
     with pytest.raises(ValueError, match="unsupported device"):
         march_kernel.march(scene.to("meta"), *meta, MD, MR)
+
+
+def test_march_plain_lanes_do_not_depend_on_their_order_or_neighbours(glass):
+    """The march kernel takes its marching lanes listed in any order and
+    writes each lane's result where the lane sits: a lane's outputs may not
+    depend on where it or the other wanted lanes sit.  The plain version on
+    the lanes shuffled, and on the wanted lanes alone, gives every lane's
+    outputs and casts exactly; a lane that is not wanted gives zeros."""
+    _, _, scene, tin = glass
+    pos, normal, ray_d, _, k, want = tin
+    n = pos.shape[0]
+    run = lambda idx: march_kernel.march_plain(scene.tables, pos[idx], normal[idx], ray_d[idx],
+                                               k[idx], want[idx], MD, MR)
+    ref = run(torch.arange(n))
+    assert int(want.sum()) > 40 and int(ref[5][want].sum()) > int(want.sum())
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(n))
+    for got, r in zip(run(perm), ref):
+        assert torch.equal(got, r[perm])
+    listed = torch.nonzero(want).squeeze(1)
+    for got, r in zip(run(listed), ref):
+        assert torch.equal(got, r[listed])
+        assert not bool(r[~want].any())

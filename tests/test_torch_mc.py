@@ -7,6 +7,7 @@ isolated lane.  Gates as tests/test_mc_pallas.py: >= 99 % of lanes within
 1e-3 + 2e-2 |ref|, casts within 1 %, filtered within 2 % of N.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -21,10 +22,11 @@ from raytracer_tpu.ops.distributed import trace_distributed as jax_trace_distrib
 from raytracer_tpu.render import clip_coords
 from raytracer_tpu.scene.presets import demo_camera, demo_scene
 from raytracer_tpu_torch.config import RenderConfig
-from raytracer_tpu_torch.ops import mc_kernel
+from raytracer_tpu_torch.ops import intersect_kernel, mc_kernel
 from raytracer_tpu_torch.ops.distributed import trace_distributed
 from raytracer_tpu_torch.render import render_distributed_epoch, tile_draws
 from raytracer_tpu_torch.scene import presets as tpresets
+from raytracer_tpu_torch.scene.textures import host_only
 
 torch.set_num_threads(1)
 
@@ -127,16 +129,37 @@ def _numpy_draws(cfg, n_tiles, seed=11):
     return out
 
 
-@pytest.mark.parametrize("source", ["generator", "draws"])
-def test_frame_wide_epoch_equals_the_tile_loop(source):
-    """The mega-kernel route's epoch in one trace_distributed call gives the
-    per-tile loop's photons on every lane (padding too), casts and
-    filtered, with the generator's draws and with a draws= list."""
-    from raytracer_tpu_torch import render
-    from raytracer_tpu_torch.ops.distributed import mega_kernel_route
+def _unfused_demo():
+    scene = tpresets.demo_scene()
+    return dataclasses.replace(scene, textures=host_only(scene.textures))
 
-    scene, cam, cfg = tpresets.demo_scene(), tpresets.demo_camera(), _RAGGED
-    assert mega_kernel_route(scene)
+
+# (source of the draws, route): the mega-kernel's walk, and the unfused
+# walk of a dense scene (the demo with its textures' host forms only: the
+# nearest-hit, shadow and march kernels), whose epoch also goes frame-wide
+@pytest.mark.parametrize("source,route", [
+    ("generator", "mega"), ("draws", "mega"), ("generator", "unfused"), ("draws", "unfused")],
+    ids=["generator", "draws", "generator-unfused", "draws-unfused"])
+def test_frame_wide_epoch_equals_the_tile_loop(source, route):
+    """An epoch on a route that takes its lanes one by one, in one
+    trace_distributed call, gives the per-tile loop's photons on every lane
+    (padding too), casts and filtered, with the generator's draws and with
+    a draws= list; render_distributed_epoch takes that one call."""
+    from raytracer_tpu_torch import render
+    from raytracer_tpu_torch.ops.distributed import frame_wide_route, mega_kernel_route
+
+    cfg = _RAGGED
+    if route == "mega":
+        scene = tpresets.demo_scene()
+        assert mega_kernel_route(scene)
+        counts, per_walk = mc_kernel.COUNTS, 1
+    else:
+        scene = _unfused_demo()
+        assert not mega_kernel_route(scene)
+        # a walk casts its primary rays and one advance ray per bounce
+        counts, per_walk = intersect_kernel.COUNTS_NEAREST, cfg.depth + 1
+    assert frame_wide_route(scene)
+    cam = tpresets.demo_camera()
     clips, _ = render._clips(cfg, "cpu")
     assert tuple(clips.shape) == (3, 1088, 2)
     if source == "draws":
@@ -145,18 +168,33 @@ def test_frame_wide_epoch_equals_the_tile_loop(source):
     else:
         draws = None
         tile_in = [tile_draws(cfg, 4, 2, t, 1088, "cpu") for t in range(3)]
-    before = mc_kernel.COUNTS.plain
+    before = counts.plain
     frame = render.epoch_frame(scene, cam, cfg, clips, tile_in)
-    assert mc_kernel.COUNTS.plain == before + 1  # one walk for the whole frame
+    assert counts.plain == before + per_walk  # one walk for the whole frame
     tiles = render.epoch_tiles(scene, cam, cfg, clips, tile_in)
-    assert mc_kernel.COUNTS.plain == before + 4
+    assert counts.plain == before + 4 * per_walk
     assert torch.equal(frame[0], tiles[0]) and tuple(frame[0].shape) == (3264, 3)
     assert int(frame[1]) == int(tiles[1]) and int(frame[2]) == int(tiles[2])
     img, stats = render_distributed_epoch(scene, cam, cfg, seed=4, epoch=2, draws=draws)
-    assert mc_kernel.COUNTS.plain == before + 5
+    assert counts.plain == before + 5 * per_walk
     ref = frame[0][: 64 * 48][render._clips(cfg, "cpu")[1]].reshape(48, 64, 3)
     assert torch.equal(img, ref)
     assert stats["casts"] == int(tiles[1]) and stats["filtered"] == int(tiles[2])
+
+
+def test_frame_wide_route_keeps_the_binned_and_bvh_walks_tile_by_tile(monkeypatch):
+    """The binned walk (its state is sorted and dealt per tile) and the
+    unfused walk of a BVH scene (its traversal syncs the host per step) go
+    tile by tile; lowering BINNED_MIN_TRIS takes a blocked mesh there."""
+    from raytracer_tpu_torch.ops import mc_binned
+    from raytracer_tpu_torch.ops.distributed import frame_wide_route
+
+    mesh, _ = tpresets.mesh_scene(8)
+    assert frame_wide_route(mesh)
+    monkeypatch.setattr(mc_binned, "BINNED_MIN_TRIS", 64)
+    assert not frame_wide_route(mesh)
+    bvh = dataclasses.replace(mesh, blk_perm=None, blk_box=None)
+    assert bvh.bvh_node_min is not None and not frame_wide_route(bvh)
 
 
 def test_frame_draws_lay_the_tiles_side_by_side():

@@ -61,10 +61,16 @@ def jax_unifs(key, n, depth):
 
 
 def test_mesh_scene_builds_blocked_and_routes_by_size():
+    """A blocked scene below BINNED_MIN_TRIS walks through the blocked MC
+    kernel by default; the threshold, set from the card, lies above every
+    mesh measured (mesh_scene(320): 204,812 triangles)."""
+    from raytracer_tpu_torch.ops.distributed import mega_kernel_route
+
     scene, cam = tpresets.mesh_scene(4)
     assert scene.blocked and scene.n_tri == 2 * 4 * 4 + 12
     assert float(cam.near) == pytest.approx(-0.1)
-    assert scene.n_tri < mc_binned.BINNED_MIN_TRIS == 4096
+    assert scene.n_tri < mc_binned.BINNED_MIN_TRIS and mc_binned.BINNED_MIN_TRIS > 204812
+    assert mega_kernel_route(scene)
 
 
 def test_mesh_whitted_frame_matches_jax():

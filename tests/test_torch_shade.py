@@ -206,3 +206,29 @@ def test_get_shade_on_a_bvh_scene_loops_over_cast_any_hit():
     assert [int(c) for c in ca] == [int(c) for c in cb]
     close = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=-1).float().mean()
     assert close >= 0.995, float(close)  # direct t against the factored target
+
+
+def test_shadow_plain_lanes_do_not_depend_on_their_order_or_neighbours(hits):
+    """The shadow kernel takes the lanes with an active light listed in any
+    order and writes each lane's result where the lane sits: a lane's
+    results may not depend on where it or the other active lanes sit.  The
+    plain version on the lanes shuffled, and on the lanes with an active
+    light alone, gives every (light, lane) result exactly; a lane with no
+    active light is blocked for no light."""
+    _, _, _, _, scene, th, _ = hits
+    dirs, limits, actives = shadow_inputs(scene, th)
+    actives = actives.clone()
+    rng = np.random.default_rng(5)
+    actives &= torch.as_tensor(rng.uniform(size=tuple(actives.shape)) < 0.6)
+    n = actives.shape[1]
+    run = lambda idx: intersect_kernel.shadow_any_hit_plain(
+        scene.tables, th["pos"][idx], dirs[:, idx], th["prim"][idx], limits[:, idx],
+        actives[:, idx])
+    ref = run(torch.arange(n))
+    some = actives.any(0)
+    assert 0 < int(some.sum()) < n and int(ref.sum()) > 0
+    perm = torch.as_tensor(rng.permutation(n))
+    assert torch.equal(run(perm), ref[:, perm])
+    listed = torch.nonzero(some).squeeze(1)
+    assert torch.equal(run(listed), ref[:, listed])
+    assert not bool(ref[:, ~some].any())
