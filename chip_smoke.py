@@ -271,6 +271,29 @@ def level_bytes(scene, pool):
     return read + tables + (3 + 2 * rows_in + 1) * 4 * k
 
 
+def march_bytes(scene, want):
+    """The bytes one launch of the march kernel must move: every lane's
+    want flag and outputs (escape flag, travel, exit origin and direction,
+    exit primitive, casts: 37 B); a wanted lane's position, normal,
+    direction and k (40 B); the scene tables if any lane marches."""
+    n, wanted = want.numel(), int(want.sum())
+    tables = nbytes(scene.tables.tri, scene.tables.sph) if wanted else 0
+    return (1 + 37) * n + 40 * wanted + tables
+
+
+def shadow_bytes(scene, actives):
+    """The bytes one launch of the shadow kernel must move on `actives`
+    [L, N]: every (light, lane) pair's active and blocked flags; the
+    position and excluded primitive (16 B) of a lane with an active light,
+    and each active pair's direction and limit (16 B); the scene tables if
+    any pair is active."""
+    n_light, n = actives.shape
+    lanes, pairs = int(actives.any(0).sum()), int(actives.sum())
+    tb = scene.tables
+    tables = nbytes(tb.tri, tb.sph, tb.lights) if pairs else 0
+    return 2 * n_light * n + 16 * lanes + 16 * pairs + tables
+
+
 def level_pools(scene, cam, clip, cfg):
     """The pools that one tile's Whitted ladder hands the level kernel (the
     primary level, the level-1 peel, the deep level, the tail levels and the
@@ -1124,7 +1147,7 @@ def main() -> int:
     keep("shadow_any_hit", ub.check_shadow(f"mesh_scene(30) dense ({big_u.n_tri} triangles) "
                                            "64x48"))
     keep("march", hold_march(f"mesh_scene(30) dense ({big_u.n_tri} triangles) 64x48", big_u,
-                             ub.march_in, share=0.999))
+                             ub.march_in))
     # the calls that the unfused MC epoch makes of the nearest-hit, shadow
     # and march kernels, on tile 9 through the tile loop and frame-wide (the
     # main path's shape: the frame's 1,245,184 lanes in one call): the shadow
@@ -1145,7 +1168,7 @@ def main() -> int:
                                                args[1:6]))
         for i, (args, _) in enumerate(calls["march"]):
             keep("march", hold_march(f"unfused mc epoch, {where}, bounce {i}", demo_u, args[1:7],
-                                     share=0.999))
+                                     share=0.999 if where == "frame" else None))
     def cut(x, at, m):  # lanes at:at+m of a [..., N, 3] or [..., N] operand
         return (x[..., at:at + m, :] if x.dim() > 1 and x.shape[-1] == 3
                 else x[..., at:at + m]).contiguous()
@@ -1158,7 +1181,7 @@ def main() -> int:
                     tuple(cut(x, at, m) for x in args))
         args = epoch_calls["frame"]["march"][0][0][1:7]
         hold_march(f"unfused mc epoch, frame, bounce 0, lanes {at} + {m}", demo_u,
-                   tuple(cut(x, at, m) for x in args), share=0.999)
+                   tuple(cut(x, at, m) for x in args))
     frame_calls = epoch_calls["frame"]  # for the per-launch times of phase 4
     del epoch_calls
     one = epoch_frame(demo_u, demo_cam, full, frame_clips, u_draws)
@@ -1568,14 +1591,11 @@ def main() -> int:
         """Each binned kernel on the inputs it got in one 65536-ray tile's
         walk: ms and bound per launch (bounces: the mean over the walk's
         five), plain_ms likewise.  ms is the kernel's own device time
-        (torch.profiler over 5 launches, device_ms); events_ms is CUDA
-        events around 5 back-to-back calls of the wrapper, which reads the
-        host's pace where the wrapper takes longer on the host than the
-        kernel on the device (the terminal kernel since it fell under
-        0.1 ms); queued_ms is the same calls queued behind a device sleep
-        (queued_ms: the device's time for all that the wrapper launches).
-        The bounces in other lane orders and the per-thread bounce are
-        timed with CUDA events."""
+        (torch.profiler over 5 launches, device_ms; CUDA events around
+        back-to-back calls of the wrapper read the host's pace once the
+        kernel is shorter than the wrapper's host work, as the terminal
+        kernel is).  The bounces in other lane orders and the per-thread
+        bounce are timed with CUDA events."""
         clip = _clips(cfg, dev)[0][0]
         normals, unifs = tile_draws(cfg, 0, 0, 0, clip.shape[0], dev)
         o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
@@ -1605,7 +1625,7 @@ def main() -> int:
         spreads, phases = [], []
         for kind in ("primary", "bounce", "terminal"):
             mine = [c for c in calls if c[0] == kind]
-            ms = events_ms = q_ms = plain_ms = b_ms = io = ops = 0.0
+            ms = plain_ms = b_ms = io = ops = 0.0
             by = set()
             tests = {}
             for call in mine:
@@ -1627,12 +1647,9 @@ def main() -> int:
                     spreads.append(block_spread(work))
                     phases.append(phase_shares(work))
                 ms += device_ms(lambda: run_binned(scene, call), 5, f"binned_{kind}")
-                events_ms += cuda_ms(lambda: run_binned(scene, call), 5)
-                q_ms += queued_ms(lambda: run_binned(scene, call), 5)
                 plain_ms += cuda_ms(lambda: run_binned(scene, call, plain=True), 1)
             k = len(mine)
-            out[f"binned_{kind}"] = dict(ms=ms / k, events_ms=events_ms / k, queued_ms=q_ms / k,
-                                         plain_ms=plain_ms / k, bound_ms=b_ms / k,
+            out[f"binned_{kind}"] = dict(ms=ms / k, plain_ms=plain_ms / k, bound_ms=b_ms / k,
                                          bound_by="operations" if "operations" in by else "bytes",
                                          bytes=io / k, ops=ops / k,
                                          tests={t: v / k for t, v in tests.items()})
@@ -1659,7 +1676,9 @@ def main() -> int:
         (torch.profiler; the listed kernels' with their list_lanes launch),
         queued_ms (the wrapper's calls queued behind a device sleep),
         plain_ms (CUDA events), the bound (the bytes each call must move,
-        the tests it counted), and the per-thread yardsticks' ms."""
+        for #5 and #6 as far as a lane needs them: shadow_bytes,
+        march_bytes; the tests it counted), and the per-thread yardsticks'
+        ms."""
         ik = intersect_kernel
         geo = lambda sc: [sc.tables.tri, sc.tables.sph]
 
@@ -1675,8 +1694,7 @@ def main() -> int:
             return (lambda work=None: ik.shadow_any_hit(sc, *args, work=work),
                     lambda: ik.shadow_any_hit_plain(sc.tables, *args),
                     lambda: ik.shadow_any_hit_per_thread(sc, *args),
-                    nbytes(*args, *geo(sc), sc.tables.lights) + args[4].numel(),
-                    args[0].shape[0])
+                    shadow_bytes(sc, args[4]), args[0].shape[0])
 
         def march(sc, pos, normal, ray_d, prim, k, want, *_):
             args = (sc, pos, normal, ray_d, prim, k, want, MD, MR)
@@ -1684,8 +1702,7 @@ def main() -> int:
                     lambda: march_kernel.march_plain(sc.tables, pos, normal, ray_d, k, want,
                                                      MD, MR),
                     lambda: march_kernel.march_per_thread(*args),
-                    nbytes(pos, normal, ray_d, k, want, *geo(sc)) + 37 * pos.shape[0],
-                    pos.shape[0])
+                    march_bytes(sc, want), pos.shape[0])
 
         names = {"nearest_hit": ("nearest_kernel", None),
                  "shadow_any_hit": ("shadow_kernel", "shadow_thread_kernel"),
@@ -1774,9 +1791,7 @@ def main() -> int:
           + "; ".join(share(ph) for ph in orders["dealt_phases"]))
     for kind in ("primary", "bounce", "terminal"):
         b = per[f"binned_{kind}"]
-        print(f"binned_{kind} per launch on tile 0's states: torch.profiler {b['ms']:.4f} ms, "
-              f"CUDA events around back-to-back calls {b['events_ms']:.4f} ms, the calls queued "
-              f"behind a device sleep {b['queued_ms']:.4f} ms")
+        print(f"binned_{kind} per launch on tile 0's states: torch.profiler {b['ms']:.4f} ms")
     print(f"mc_kernel (blocked) on one mesh11k tile: torch.profiler {per['mc_blk']['ms']:.3f} ms, "
           f"CUDA events {per['mc_blk']['events_ms']:.3f} ms; warp chunks x 32 / lane chunks "
           f"{sharing(per['mc_blk']['tests']):.3f} (pixel order), binned bounces "

@@ -55,13 +55,9 @@ script), builds its kernels there, and times
 Each time is the mean device milliseconds per launch after a warm-up, taken
 `rounds` times: from torch.profiler over the launches it reports of `reps`
 (the kernels' own device time; chip_smoke.device_ms, which falls back to
-CUDA events, and says so, where the profiler reports none in three tries),
-and for the mesh kernels also from CUDA events around
-`mesh-reps` back-to-back launches (which includes what the wrapper
-launches around the kernel, and reads the host's pace where the wrapper
-takes longer on the host than its kernels on the device) and from the same
-launches queued behind a device-side sleep (chip_smoke.queued_ms: the
-device's time for all the wrapper launches).  Needs a CUDA card.  Prints the card's name
+CUDA events, and says so, where the profiler reports none in three tries;
+CUDA events around back-to-back calls of a wrapper read the host's pace
+once its kernel is shorter than the wrapper's host work).  Needs a CUDA card.  Prints the card's name
 and power limit, then one JSON line.  To compare two checkouts, run this
 once per checkout in the order A, B, B, A.
 """
@@ -109,8 +105,7 @@ def level_work(scene, pools, cfg):
 
 def mesh_times(dev, reps, rounds):
     """The blocked level kernel, the blocked MC walk and the binned kernels
-    on one mesh11k tile -> {name: {"profiler_ms": [...], "events_ms":
-    [...]}}, the means over the six levels and the five bounces, and the
+    on one mesh11k tile -> {name: {"profiler_ms": [...]}}, the means over the six levels and the five bounces, and the
     levels' widths, tests and bounds ("level_blk_work")."""
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.ops import camera as camera_ops
@@ -152,17 +147,15 @@ def mesh_times(dev, reps, rounds):
     if hasattr(mc_binned, "terminal_per_thread"):
         calls["binned_terminal_thread"] = (
             "binned_terminal", lambda: mc_binned.terminal_per_thread(scene, sf, si, depth == 0))
-    out = {name: {"profiler_ms": [], "events_ms": [], "queued_ms": []} for name in calls}
+    out = {name: {"profiler_ms": []} for name in calls}
     for _ in range(rounds):
         for name, (kernel, fn) in calls.items():
             out[name]["profiler_ms"].append(SMOKE.device_ms(fn, reps, kernel))
-            out[name]["events_ms"].append(SMOKE.cuda_ms(fn, reps))
-            out[name]["queued_ms"].append(SMOKE.queued_ms(fn, reps))
 
     def mean(prefix, count):
         runs = [out[f"{prefix}_{i}"] for i in range(count)]
         return {k: [sum(b[k][r] for b in runs) / count for r in range(rounds)]
-                for k in ("profiler_ms", "events_ms", "queued_ms")}
+                for k in ("profiler_ms",)}
 
     out["binned_bounce_mean"] = mean("binned_bounce", depth)
     for name, _ in walks:
