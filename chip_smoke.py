@@ -34,11 +34,13 @@ Phases (each asserts; none catches a failure):
      (their shadow rays to all three lights, the glass lanes' marches) and
      on random rays with random face, exclusion and limit, and the shadow
      kernel against one any-hit launch per light through cast_any_hit;
-     the listed shadow and march kernels also against their per-thread
-     yardsticks (every lane equal, test totals equal) and their plain
-     versions on every call that the unfused MC epoch makes of them, on
-     tile 9 through the tile loop and frame-wide (1,245,184 lanes), and on
-     ragged cuts; the unfused epoch in one call against the tile loop;
+     the four listed kernels (nearest hit, any hit, shadow, march) also
+     against their per-thread yardsticks (every lane equal, test totals
+     equal) on each of those inputs, on a dense table too large to stage,
+     and, with their plain versions, on every call that the unfused MC
+     epoch makes of the nearest-hit, shadow and march kernels, on tile 9
+     through the tile loop and frame-wide (1,245,184 lanes), and on ragged
+     cuts; the unfused epoch in one call against the tile loop;
   3. the committed goldens (tests/golden) at 64x48, depth 5, with the
      gates of scripts/tpu_check.py: the demo's and the meshes'
      (whitted_mesh{24,96,160}, mc_mesh24); then the demo's goldens through
@@ -281,6 +283,17 @@ def march_bytes(scene, want):
     return (1 + 37) * n + 40 * wanted + tables
 
 
+def sweep_bytes(scene, active, out_bytes, limited=False):
+    """The bytes one launch of the nearest-hit (out_bytes 10: t, index,
+    backface, valid) or any-hit kernel (1: blocked; `limited`: a limit a
+    lane) must move on `active` [N]: every lane's active flag and outputs;
+    an active lane's ray (origin, direction, face, exclusion: 36 B) and
+    limit; the scene tables if any lane is active."""
+    n, act = active.numel(), int(active.sum())
+    tables = nbytes(scene.tables.tri, scene.tables.sph) if act else 0
+    return (1 + out_bytes) * n + (36 + 4 * limited) * act + tables
+
+
 def shadow_bytes(scene, actives):
     """The bytes one launch of the shadow kernel must move on `actives`
     [L, N]: every (light, lane) pair's active and blocked flags; the
@@ -453,6 +466,91 @@ def hold_shadow(label, scene, args):
     return float((got != ref).float().max())
 
 
+def hold_nearest(label, scene, rays, active, atol=None, share=0.999):
+    """The nearest-hit kernel on `rays` under `active` [N] against its
+    per-thread yardstick (every lane's t, index, backface and valid equal,
+    the test totals equal) and its plain version.  Given `atol`: valid,
+    index and backface equal on >= 99.9 % of lanes and, on every lane where
+    both hit, t within 1e-5 |t| + atol.  Else `share` of the lanes hold
+    the same hit: valid equal and, where both hit, t within 1e-5 |t| +
+    1e-5 (a ray leaving a surface meets the next one at small t, where
+    d - n.o cancels: random_rays' tolerance) and the same primitive and
+    backface, or a primitive that the plain version's own candidates tie
+    with its winner (t within the same tolerance, the same backface: a ray
+    through the edge two triangles share, where the kernel contracts
+    multiply-adds that PyTorch rounds one by one).  A miss is t = +inf,
+    idx = -1 -> the largest |t - t_plain| where both hit."""
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops import kernel_common as kc
+
+    n = active.shape[0]
+    wk, wt = work_for(n, active.device), work_for(n, active.device)
+    got = ik.nearest_hit(scene, rays, active, work=wk)
+    yard = ik.nearest_hit_per_thread(scene, rays, active, work=wt)
+    tp, ip, bp, vp = ik.nearest_hit_plain(scene.tables, rays, active)
+    torch.cuda.synchronize()
+    t, idx, bf, valid = got
+    same = all(torch.equal(a, b) for a, b in zip(got, yard))
+    tk, tt = totals(wk), totals(wt)
+    both = valid & vp
+    tol = lambda ref: 1e-5 * ref.abs() + (1e-5 if atol is None else atol)
+    close = (t - tp).abs() <= tol(tp)
+    winner = (valid == vp) & (idx == ip) & (bf == bp)
+    agree_hit = winner & (close | ~both)
+    tied = 0
+    if atol is None:  # a winner the plain version ties with its own
+        other = torch.nonzero(both & close & (idx != ip)).squeeze(1)
+        if other.numel():
+            cols = lambda x: (x[other, 0], x[other, 1], x[other, 2])
+            args = (cols(rays.o), cols(rays.d), rays.face[other], rays.excl_prim[other],
+                    rays.excl_face[other], active[other], scene.tables)
+            (tc, bc), (sc, sb) = kc.tri_candidates(*args), kc.sph_candidates(*args)
+            at = idx[other].long()[None]
+            t_cand = torch.cat([tc, sc]).gather(0, at)[0]
+            bf_cand = torch.cat([bc, sb]).gather(0, at)[0]
+            tie = ((t_cand - tp[other]).abs() <= tol(tp[other])) & (bf_cand == bf[other])
+            agree_hit[other] |= tie
+            tied = int(tie.sum())
+    agreed = float(agree_hit.float().mean())
+    err = float((t - tp).abs()[both].max()) if bool(both.any()) else 0.0
+    print(f"nearest_hit {label}: {int(active.sum())} of {n} lanes active, {int(both.sum())} "
+          f"hits; listed kernel vs per-thread yardstick: "
+          f"{'every lane equal' if same else 'DIFFERENT'}, tests {tk} vs {tt}; vs plain: "
+          f"{float(winner.float().mean()):.6f} of lanes the same winner, {tied} ties, "
+          f"{agreed:.6f} the same hit, max |t err| {err:.3g}")
+    assert same and tk == tt, (label, tk, tt)
+    assert agreed >= share, (label, agreed)
+    if atol is not None:
+        assert bool(close[both].all()), label
+    assert bool(torch.isinf(t[~valid]).all()) and bool((idx[~valid] == -1).all())
+    assert not bool(valid[~active].any()), label
+    return err
+
+
+def hold_any(label, scene, rays, active, limit, share=0.999):
+    """The any-hit kernel on `rays` under `active` [N] and `limit` [N] (None:
+    any hit at all) against its per-thread yardstick (every lane equal, the
+    test totals equal) and its plain version (`share` of the lanes equal;
+    nothing blocked that is not active) -> the largest |kernel - plain|."""
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.ops.kernel_common import BIG
+
+    n = active.shape[0]
+    wk, wt = work_for(n, active.device), work_for(n, active.device)
+    got = ik.any_hit(scene, rays, active, limit, work=wk)
+    yard = ik.any_hit_per_thread(scene, rays, active, limit, work=wt)
+    lim = torch.full_like(rays.o[:, 0], BIG) if limit is None else limit.clamp(max=BIG)
+    ref = ik.any_hit_plain(scene.tables, rays, active, lim)
+    torch.cuda.synchronize()
+    tk, tt = totals(wk), totals(wt)
+    print(f"any_hit {label}: {int(got.sum())} blocked of {int(active.sum())} active lanes of {n}; "
+          f"listed kernel vs per-thread yardstick {agree(got, yard):.6f} of lanes equal, tests "
+          f"{tk} vs {tt}; {agree(got, ref):.5f} equal the plain version")
+    assert torch.equal(got, yard) and tk == tt, (label, agree(got, yard), tk, tt)
+    assert agree(got, ref) >= share and not bool(got[~active].any()), label
+    return float((got != ref).float().max())
+
+
 def hold_march(label, scene, args, share=None):
     """The march kernel on `args` (pos, normal, ray_d [N, 3], prim, k,
     want [N]) against its per-thread yardstick (every lane's outputs and
@@ -513,9 +611,9 @@ class Unfused:
     on < 1 % of marching lanes, travel and exit ray within 1e-4 and the
     exit primitive equal on lanes that escape in both, summed casts within
     1 %.  (The kernels contract multiply-adds where PyTorch rounds each
-    operation, so a razor-edge lane may fall the other way.)  The shadow and
-    march kernels are also held to their per-thread yardsticks: every lane
-    equal, the test totals equal (hold_shadow, hold_march)."""
+    operation, so a razor-edge lane may fall the other way.)  Each listed
+    kernel is also held to its per-thread yardstick: every lane equal, the
+    test totals equal (hold_nearest, hold_any, hold_shadow, hold_march)."""
 
     def __init__(self, scene, o, d):
         from raytracer_tpu_torch.ops import materials as mat_ops
@@ -538,37 +636,13 @@ class Unfused:
         self.march_in = (h.pos, h.normal, self.rays.d, h.prim, mat.refraction, self.want)
 
     def check_nearest(self, label, rays=None, active=None, atol=0.0):
-        from raytracer_tpu_torch.ops import intersect_kernel as ik
-
+        """hold_nearest on the primary rays (or `rays` under `active`)."""
         rays = self.rays if rays is None else rays
         active = self.active if active is None else active
-        t, idx, bf, valid = ik.nearest_hit(self.scene, rays, active)
-        tp, ip, bp, vp = ik.nearest_hit_plain(self.scene.tables, rays, active)
-        torch.cuda.synchronize()
-        same = (valid == vp) & (idx == ip) & (bf == bp)
-        both = valid & vp
-        rel = ((t - tp).abs() / tp.abs())[both]
-        err = float((t - tp).abs()[both].max()) if bool(both.any()) else 0.0
-        print(f"nearest_hit {label}: {float(same.float().mean()):.5f} of lanes equal "
-              f"(valid, index, backface), {int(both.sum())} hits, max rel t err "
-              f"{float(rel.max()) if rel.numel() else 0.0:.3g}")
-        assert float(same.float().mean()) >= 0.999
-        assert bool(((t - tp).abs() <= 1e-5 * tp.abs() + atol)[both].all())
-        assert bool(torch.isinf(t[~valid]).all()) and bool((idx[~valid] == -1).all())
-        return err
+        return hold_nearest(label, self.scene, rays, active, atol)
 
-    def check_any(self, label, rays, active, limit):
-        from raytracer_tpu_torch.ops import intersect_kernel as ik
-        from raytracer_tpu_torch.ops.kernel_common import BIG
-
-        got = ik.any_hit(self.scene, rays, active, limit)
-        lim = torch.full_like(rays.o[:, 0], BIG) if limit is None else limit.clamp(max=BIG)
-        ref = ik.any_hit_plain(self.scene.tables, rays, active, lim)
-        torch.cuda.synchronize()
-        print(f"any_hit {label}: {agree(got, ref):.5f} of lanes equal, "
-              f"{int(got.sum())} blocked of {int(active.sum())}")
-        assert agree(got, ref) >= 0.999
-        return float((got != ref).float().max())
+    def check_any(self, label, rays, active, limit, share=0.999):
+        return hold_any(label, self.scene, rays, active, limit, share)
 
     def check_shadow(self, label):
         """The shadow kernel against its yardstick and plain version
@@ -644,7 +718,7 @@ def main() -> int:
     )
     from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
     from raytracer_tpu_torch.scene.textures import Texture, host_only
-    from raytracer_tpu_torch.scene.types import BVH_FIELDS
+    from raytracer_tpu_torch.scene.types import BVH_FIELDS, Rays
     from raytracer_tpu_torch.utils import kernels
     from raytracer_tpu_torch.utils.png import read_png_rgb8
 
@@ -662,6 +736,8 @@ def main() -> int:
         "mc_blk_thread": mc_kernel.COUNTS_BLK_THREAD,
         "binned_bounce_thread": mc_binned.COUNTS_BOUNCE_THREAD,
         "binned_terminal_thread": mc_binned.COUNTS_TERMINAL_THREAD,
+        "nearest_hit_thread": intersect_kernel.COUNTS_NEAREST_THREAD,
+        "any_hit_thread": intersect_kernel.COUNTS_ANY_THREAD,
         "shadow_any_hit_thread": intersect_kernel.COUNTS_SHADOW_THREAD,
         "march_thread": march_kernel.COUNTS_THREAD,
         "nearest_hit": intersect_kernel.COUNTS_NEAREST, "any_hit": intersect_kernel.COUNTS_ANY,
@@ -1138,14 +1214,23 @@ def main() -> int:
         keep("any_hit", u.check_any(f"{u.n} random rays, no limit", rays, active, None))
     tile_u = u  # the 65536-ray tile of the main path, for phase 4
     # a dense table too large to stage (mesh_scene(30) without its BVH and
-    # blocked layout: 1,812 triangles), which the listed shadow and march
-    # kernels walk per thread out of global memory (DenseGeom)
+    # blocked layout: 1,812 triangles), which the listed kernels walk per
+    # thread out of global memory (DenseGeom)
     big_u = dataclasses.replace(big, textures=host_only(big.textures),
                                 **{f: None for f in BVH_FIELDS})
     assert not fused_ok(big_u) and big_u.bvh_node_min is None
     ub = Unfused(big_u, *camera_ops.shoot(big_cam, _clips(small, dev)[0][0]))
-    keep("shadow_any_hit", ub.check_shadow(f"mesh_scene(30) dense ({big_u.n_tri} triangles) "
-                                           "64x48"))
+    big_label = f"mesh_scene(30) dense ({big_u.n_tri} triangles) 64x48"
+    # a fine grid: 0.3 % of these primary rays, and up to 0.2 % of their
+    # shadow rays, cross an edge two triangles share within an ulp, where
+    # the kernel's contracted multiply-adds and PyTorch's rounding disagree
+    # about which side (or whether) they hit; the per-thread yardstick
+    # disagrees on the same lanes
+    keep("nearest_hit", hold_nearest(big_label, big_u, ub.rays, ub.active, share=0.99))
+    for li, rays in enumerate(ub.shadow):
+        keep("any_hit", ub.check_any(f"{big_label} light {li}", rays, ub.considers[li],
+                                     ub.limits[li], share=0.99))
+    keep("shadow_any_hit", ub.check_shadow(big_label))
     keep("march", hold_march(f"mesh_scene(30) dense ({big_u.n_tri} triangles) 64x48", big_u,
                              ub.march_in))
     # the calls that the unfused MC epoch makes of the nearest-hit, shadow
@@ -1163,6 +1248,9 @@ def main() -> int:
                                                     u_draws))}
     for where, calls in epoch_calls.items():
         assert [len(calls[name]) for _, name in hooks] == [DEPTH + 1, DEPTH + 1, DEPTH], where
+        for i, (args, _) in enumerate(calls["nearest_hit"]):
+            keep("nearest_hit", hold_nearest(f"unfused mc epoch, {where}, cast {i}", demo_u,
+                                             *args[1:3]))
         for i, (args, _) in enumerate(calls["shadow_any_hit"]):
             keep("shadow_any_hit", hold_shadow(f"unfused mc epoch, {where}, shade {i}", demo_u,
                                                args[1:6]))
@@ -1175,7 +1263,18 @@ def main() -> int:
 
     marching = epoch_calls["frame"]["march"][0][0][6]  # bounce 0's want
     at = int(torch.nonzero(marching[9 * 65536:])[0]) + 9 * 65536  # tile 9's first
+    def cut_rays(r, at, m):
+        return Rays(**{f.name: cut(getattr(r, f.name), at, m) for f in dataclasses.fields(r)})
+
     for m in (3821, 65536 * 5 // 8 - 19):
+        for i in (1, 3):  # two advance casts
+            r, act = epoch_calls["frame"]["nearest_hit"][i][0][1:3]
+            keep("nearest_hit", hold_nearest(f"unfused mc epoch, frame, cast {i}, lanes {at} + {m}",
+                                             demo_u, cut_rays(r, at, m), cut(act, at, m)))
+        sh = tile_u.shadow[1]  # tile 9's rays to the spot light
+        keep("any_hit", hold_any(f"1280x960 tile 9 light 1, lanes 1001 + {m}", demo_u,
+                                 cut_rays(sh, 1001, m), cut(tile_u.considers[1], 1001, m),
+                                 cut(tile_u.limits[1], 1001, m)))
         args = epoch_calls["frame"]["shadow_any_hit"][1][0][1:6]
         hold_shadow(f"unfused mc epoch, frame, shade 1, lanes {at} + {m}", demo_u,
                     tuple(cut(x, at, m) for x in args))
@@ -1531,6 +1630,23 @@ def main() -> int:
                    plain_ms=cuda_ms(lambda: plain_mc(scene, o, d, unifs), 1),
                    bound_ms=b_ms, bound_by=b_by, bytes=io, ops=ops,
                    tests=totals(work))
+        if scene.blocked:  # and the whole frame in one launch, as the epoch takes it
+            fclips = _clips(cfg, dev)[0]
+            f_in = [tile_draws(cfg, 0, 0, t, c.shape[0], dev) for t, c in enumerate(fclips)]
+            fnorm, fu = frame_draws(f_in)
+            fo, fd = camera_ops.shoot_focus(cam, fclips.reshape(-1, 2), fnorm * cfg.blur,
+                                            cfg.focus)
+            fo, fd = fo.contiguous(), fd.contiguous()
+            fw = torch.zeros((len(kernels.WORK_ROWS), fo.shape[0]), dtype=torch.int32,
+                             device=dev)
+            mc_kernel.trace(scene, fo, fd, fu, DEPTH, MD, MR, work=fw)
+            f_io = nbytes(fo, fd, fu, *scene_tables(scene)) + 16 * fo.shape[0]
+            f_ms, f_by, f_ops = bound(f_io, fw)
+            out.update(rays_frame=fo.shape[0], bound_ms_frame=f_ms, bound_by_frame=f_by,
+                       ops_frame=f_ops, bytes_frame=f_io, ms_frame=device_ms(
+                           lambda: mc_kernel.trace(scene, fo, fd, fu, DEPTH, MD, MR), 3,
+                           "mc_kernel"))
+            del fw
         if not scene.blocked:  # and the first tile alone, as one launch took it before
             t0 = slice(0, clips.shape[1])
             o0, d0, u0 = o[t0].contiguous(), d[t0].contiguous(), unifs[:, :, t0].contiguous()
@@ -1669,26 +1785,30 @@ def main() -> int:
         nearest-hit, shadow and march kernels on the calls that the unfused
         MC epoch makes frame-wide (frame_calls: 6, 6 and 5 calls of the
         frame's 1,245,184 lanes), each figure the mean per launch over
-        them; the any-hit kernel on one light's shadow rays of tile 9's
-        primary hits (cast_any_hit's route).  The first three also on tile
-        9's primary hits (Unfused: the inputs of the earlier rows), as
-        `*_tile`.  Per kernel: ms, its kernels' own device time
-        (torch.profiler; the listed kernels' with their list_lanes launch),
-        queued_ms (the wrapper's calls queued behind a device sleep),
-        plain_ms (CUDA events), the bound (the bytes each call must move,
-        for #5 and #6 as far as a lane needs them: shadow_bytes,
-        march_bytes; the tests it counted), and the per-thread yardsticks'
-        ms."""
+        them; the any-hit kernel on the shadow rays of tile 9's primary
+        hits, a launch per light (cast_any_hit's route), the mean of the
+        three.  The first three also on tile 9's primary hits (Unfused:
+        the inputs of the earlier rows), as `*_tile`.  Per kernel: ms, its
+        kernels' own device time (torch.profiler, with the list_lanes
+        launch that each listed kernel makes first), queued_ms (the
+        wrapper's calls queued behind a device sleep), plain_ms (CUDA
+        events), the bound (the bytes each call must move as far as a lane
+        needs them: sweep_bytes, shadow_bytes, march_bytes; the tests it
+        counted), and the per-thread yardsticks' ms."""
         ik = intersect_kernel
-        geo = lambda sc: [sc.tables.tri, sc.tables.sph]
 
         def nearest(sc, rays, active=None):
             act = torch.ones_like(rays.face, dtype=torch.bool) if active is None else active
-            n = rays.o.shape[0]
             return (lambda work=None: ik.nearest_hit(sc, rays, act, work=work),
-                    lambda: ik.nearest_hit_plain(sc.tables, rays, act), None,
-                    nbytes(rays.o, rays.d, rays.face, rays.excl_prim, rays.excl_face, act,
-                           *geo(sc)) + 10 * n, n)
+                    lambda: ik.nearest_hit_plain(sc.tables, rays, act),
+                    lambda: ik.nearest_hit_per_thread(sc, rays, act),
+                    sweep_bytes(sc, act, 10), rays.o.shape[0])
+
+        def any_hit(sc, rays, active, limit):
+            return (lambda work=None: ik.any_hit(sc, rays, active, limit, work=work),
+                    lambda: ik.any_hit_plain(sc.tables, rays, active, limit.clamp(max=BIG)),
+                    lambda: ik.any_hit_per_thread(sc, rays, active, limit),
+                    sweep_bytes(sc, active, 1, limited=True), rays.o.shape[0])
 
         def shadow(sc, *args):
             return (lambda work=None: ik.shadow_any_hit(sc, *args, work=work),
@@ -1704,16 +1824,15 @@ def main() -> int:
                     lambda: march_kernel.march_per_thread(*args),
                     march_bytes(sc, want), pos.shape[0])
 
-        names = {"nearest_hit": ("nearest_kernel", None),
+        names = {"nearest_hit": ("nearest_kernel", "nearest_thread_kernel"),
+                 "any_hit": ("any_kernel", "any_thread_kernel"),
                  "shadow_any_hit": ("shadow_kernel", "shadow_thread_kernel"),
                  "march": ("march_kernel", "march_thread_kernel")}
 
         def measure(name, specs):
-            kname, tname = names.get(name, ("any_kernel", None))
+            kname, tname = names[name]
             row = dict(launches_timed=len(specs), ms=0.0, queued_ms=0.0, plain_ms=0.0,
-                       bound_ms=0.0, bytes=0, ops=0, tests={})
-            if tname:
-                row["per_thread_ms"] = 0.0
+                       bound_ms=0.0, bytes=0, ops=0, tests={}, per_thread_ms=0.0)
             by = set()
             for kernel, plain, yard, io, n in specs:
                 row["rays"] = n
@@ -1723,11 +1842,9 @@ def main() -> int:
                 assert all(torch.equal(a, b) for a, b in pairs), name  # counting changes nothing
                 b_ms, b_by, ops = bound(io, work)
                 by.add(b_by)
-                ms = device_ms(kernel, 5, kname)
-                if tname:  # and the lane list the listed kernels launch first
-                    ms += device_ms(kernel, 5, "list_lanes")
-                    row["per_thread_ms"] += device_ms(yard, 5, tname)
-                row["ms"] += ms
+                # and the lane list each listed kernel launches first
+                row["ms"] += device_ms(kernel, 5, kname) + device_ms(kernel, 5, "list_lanes")
+                row["per_thread_ms"] += device_ms(yard, 5, tname)
                 row["queued_ms"] += queued_ms(kernel, 5)
                 row["plain_ms"] += cuda_ms(plain, 1)
                 row["bound_ms"] += b_ms
@@ -1738,8 +1855,7 @@ def main() -> int:
             k = len(specs)
             for key in ("ms", "queued_ms", "plain_ms", "bound_ms", "bytes", "ops",
                         "per_thread_ms"):
-                if key in row:
-                    row[key] /= k
+                row[key] /= k
             row["tests"] = {key: v / k for key, v in row["tests"].items()}
             row["bound_by"] = "operations" if "operations" in by else "bytes"
             return row
@@ -1757,12 +1873,8 @@ def main() -> int:
             row.update({f"{key}_tile": v for key, v in measure(name, tile[name]).items()
                         if key in ("ms", "queued_ms", "plain_ms", "bound_ms", "per_thread_ms")})
             out[name] = row
-        sh = u.shadow[1]  # the spot light: a limit and a cone
-        out["any_hit"] = measure("any_hit", [(
-            lambda work=None: ik.any_hit(sc, sh, u.considers[1], u.limits[1], work=work),
-            lambda: ik.any_hit_plain(sc.tables, sh, u.considers[1], u.limits[1].clamp(max=BIG)),
-            None, nbytes(sh.o, sh.d, sh.face, sh.excl_prim, sh.excl_face, u.considers[1],
-                         u.limits[1], *geo(sc)) + u.n, u.n)])
+        out["any_hit"] = measure("any_hit", [any_hit(sc, u.shadow[li], u.considers[li],
+                                                     u.limits[li]) for li in range(sc.n_light)])
         for name, row in out.items():
             row["max_abs_err"] = unfused_err[name]
         return out
@@ -1792,6 +1904,10 @@ def main() -> int:
     for kind in ("primary", "bounce", "terminal"):
         b = per[f"binned_{kind}"]
         print(f"binned_{kind} per launch on tile 0's states: torch.profiler {b['ms']:.4f} ms")
+    print(f"mc_kernel (blocked), the mesh11k frame's {per['mc_blk']['rays_frame']} rays in one "
+          f"launch: {per['mc_blk']['ms_frame']:.3f} ms, bound {per['mc_blk']['bound_ms_frame']:.4f} "
+          f"ms ({per['mc_blk']['bound_by_frame']}: {per['mc_blk']['ops_frame']:,} FP32 operations, "
+          f"{per['mc_blk']['bytes_frame']:,} B)")
     print(f"mc_kernel (blocked) on one mesh11k tile: torch.profiler {per['mc_blk']['ms']:.3f} ms, "
           f"CUDA events {per['mc_blk']['events_ms']:.3f} ms; warp chunks x 32 / lane chunks "
           f"{sharing(per['mc_blk']['tests']):.3f} (pixel order), binned bounces "
@@ -1821,12 +1937,16 @@ def main() -> int:
     print(f"binned_terminal on tile 0's dealt states: cooperative {term['ms']:.4f} ms, per-thread "
           f"{term['per_thread_ms']:.4f} ms (torch.profiler); {share(term['phases'])}; block durations "
           f"(median/longest us) {term['block_us'][0]:.0f}/{term['block_us'][1]:.0f}")
-    for name in ("shadow_any_hit", "march"):
+    for name in ("nearest_hit", "shadow_any_hit", "march"):
         v = per[name]
         print(f"{name}, the unfused epoch's {v['launches_timed']} frame-wide calls of {v['rays']} "
               f"lanes, per launch: listed {v['ms']:.4f} ms (queued {v['queued_ms']:.4f}), "
               f"per-thread {v['per_thread_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms; tile 9's "
               f"primary hits: listed {v['ms_tile']:.4f} ms, per-thread {v['per_thread_ms_tile']:.4f} ms")
+    v = per["any_hit"]
+    print(f"any_hit, tile 9's shadow rays, a launch per light, per launch: listed {v['ms']:.4f} ms "
+          f"(queued {v['queued_ms']:.4f}), per-thread {v['per_thread_ms']:.4f} ms, bound "
+          f"{v['bound_ms']:.4f} ms")
     for k, v in per.items():
         print(f"per launch, {v.get('rays', 65536)} rays, {k}: kernel {v['ms']:.3f} ms vs plain "
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
@@ -1865,7 +1985,9 @@ def main() -> int:
         dict(entry("mc_kernel", csrc + "mc_kernel.cu", "raytracer_tpu/ops/mc_pallas.py:474",
                    "mc", "mc_blk", per["mc_blk"]["per_thread_ms"]),
              rays=per["mc"]["rays"], ms_per_65536=per["mc"]["ms_per_65536"],
-             ms_tile=per["mc"]["ms_tile"]),
+             ms_tile=per["mc"]["ms_tile"], ms_blocked_frame=per["mc_blk"]["ms_frame"],
+             bound_ms_blocked_frame=per["mc_blk"]["bound_ms_frame"],
+             bound_by_blocked_frame=per["mc_blk"]["bound_by_frame"]),
         dict(entry("level_kernel", csrc + "level_kernel.cu",
                    "raytracer_tpu/ops/level_pallas.py:73", "level", "level_blk",
                    per["level_blk"]["per_thread_ms"]),
@@ -1878,10 +2000,13 @@ def main() -> int:
         entry("binned_terminal", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:190",
               "binned_terminal", thread_ms=per["binned_terminal"]["per_thread_ms"]),
         dict(entry("nearest_hit", csrc + "intersect_kernels.cu",
-                   "raytracer_tpu/ops/intersect_pallas.py:172", "nearest_hit"),
-             rays=per["nearest_hit"]["rays"], ms_tile=per["nearest_hit"]["ms_tile"]),
+                   "raytracer_tpu/ops/intersect_pallas.py:172", "nearest_hit",
+                   thread_ms=per["nearest_hit"]["per_thread_ms"]),
+             rays=per["nearest_hit"]["rays"], ms_tile=per["nearest_hit"]["ms_tile"],
+             ms_tile_per_thread=per["nearest_hit"]["per_thread_ms_tile"]),
         entry("any_hit", csrc + "intersect_kernels.cu",
-              "raytracer_tpu/ops/intersect_pallas.py:212", "any_hit"),
+              "raytracer_tpu/ops/intersect_pallas.py:212", "any_hit",
+              thread_ms=per["any_hit"]["per_thread_ms"]),
         dict(entry("shadow_any_hit", csrc + "intersect_kernels.cu",
                    "raytracer_tpu/ops/intersect_pallas.py:335", "shadow_any_hit",
                    thread_ms=per["shadow_any_hit"]["per_thread_ms"]),

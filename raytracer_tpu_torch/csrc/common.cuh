@@ -1404,36 +1404,52 @@ struct DenseRowsGeom {
 constexpr bool DENSE_LEVEL_GROUPED = true, DENSE_MC_GROUPED = false;
 
 // ---------------------------------------------------------------------------
-// The lanes that have work (the standalone march and shadow kernels)
+// The lanes that have work (the unfused path's standalone kernels)
 // ---------------------------------------------------------------------------
 
-// The unfused path hands its march and shadow kernels every lane of a batch
-// of which few have work (the lanes that refract; the lanes with a light to
-// test), and a warp runs as long as its longest lane.  So a first launch
-// lists the lanes with work, the kernel's first threads take them, 32 to a
-// warp, and every other thread writes its own lane's empty result
-// (coalesced) and leaves, whole blocks at once.  list_lanes: list[0 :
-// list[n]] <- every lane t < n with a nonzero flag in one of the `rows`
-// rows of flags [rows, n].  Each warp ballots its 32 lanes, its first lane
-// reserves room for the set ones with one atomicAdd on the count list[n],
-// and each set lane writes its index: a warp's lanes keep their order,
-// warps land in the order they arrive, and no lane's result depends on
-// where it is listed.  (A template in an unnamed namespace: the translation
-// units that list no lanes compile none of it.)
+// The unfused path hands its standalone kernels every lane of a batch of
+// which few may have work (the lanes still alive; the lanes that refract;
+// the lanes with a light to test), and a warp runs as long as its longest
+// lane.  So a first launch lists the lanes with work, the kernel's first
+// threads take them, 32 to a warp, and every other thread writes its own
+// lane's empty result (coalesced) and leaves, whole blocks at once.
+// list_lanes: list[0 : list[n]] <- every lane t < n with a nonzero flag in
+// one of the `rows` rows of flags [rows, n].  Each warp ballots its 32
+// lanes, the block adds up its warps' counts in shared memory, and its
+// first thread reserves the block's room with ONE atomicAdd on the count
+// list[n] (the adds on that one address are what a listing of a million
+// lanes waits on, so a block of LIST_THREADS takes one); each set lane
+// writes its index.  A block's lanes keep their order, blocks land in the
+// order they arrive, and no lane's result depends on where it is listed.
+// (A template in an unnamed namespace: the translation units that list no
+// lanes compile none of it.)
+constexpr int LIST_THREADS = 512;
+
 namespace {
 template <class Flag>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(LIST_THREADS)
 list_lanes(const Flag* __restrict__ flags, int rows, int n, int* __restrict__ list) {
+  __shared__ int warp_at[LIST_THREADS / WARP];  // a warp's count, then its offset
+  __shared__ int block_at;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   bool set = false;
   if (t < n)
     for (int r = 0; r < rows; ++r) set = set || flags[(size_t)r * n + t] != 0;
   const unsigned m = __ballot_sync(FULL, set);
-  const int lane = threadIdx.x % WARP;
-  int base = 0;
-  if (lane == 0 && m) base = atomicAdd(list + n, __popc(m));
-  base = __shfl_sync(FULL, base, 0);
-  if (set) list[base + __popc(m & ((1u << lane) - 1u))] = t;
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  if (lane == 0) warp_at[warp] = __popc(m);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int i = 0; i < LIST_THREADS / WARP; ++i) {
+      const int c = warp_at[i];
+      warp_at[i] = total;
+      total += c;
+    }
+    block_at = total ? atomicAdd(list + n, total) : 0;
+  }
+  __syncthreads();
+  if (set) list[block_at + warp_at[warp] + __popc(m & ((1u << lane) - 1u))] = t;
 }
 
 // (host) The count to 0, then list the lanes, on `stream` -> CUDA error.
@@ -1441,7 +1457,8 @@ template <class Flag>
 int launch_list_lanes(const Flag* flags, int rows, int n, int* list, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(list + n, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
-  list_lanes<Flag><<<(n + 127) / 128, 128, 0, stream>>>(flags, rows, n, list);
+  list_lanes<Flag><<<(n + LIST_THREADS - 1) / LIST_THREADS, LIST_THREADS, 0, stream>>>(
+      flags, rows, n, list);
   return (int)cudaGetLastError();
 }
 }  // namespace

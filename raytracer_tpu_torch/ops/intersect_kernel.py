@@ -8,11 +8,14 @@ return conventions.  The CUDA kernels are csrc/intersect_kernels.cu
 scenes only, as the TPU kernels do (a BVH scene goes through
 ops/intersect_bvh.py).  Each wrapper runs its plain version on CPU tensors
 and launches its kernel on CUDA tensors, or raises: there is no fallback.
-The shadow kernel lists the lanes that have a light to test and takes them
-32 to a warp, out of the hot rows staged in shared memory, all of a lane's
-lights in one pass; `shadow_any_hit_per_thread` launches the kernel before
-that design (one thread per lane, one scan per light), as the yardstick
-chip_smoke.py holds it against; the main path never takes it.
+The three kernels list the lanes with work (the active lanes; the lanes
+with a light to test) and take them 32 to a warp, out of the hot rows
+staged in shared memory; the shadow kernel tests all of a lane's lights in
+one pass.  `nearest_hit_per_thread`, `any_hit_per_thread` and
+`shadow_any_hit_per_thread` launch the kernels before that design (one
+thread per lane in lane order; the shadow test one scan per light), as the
+yardsticks chip_smoke.py holds them against; the main path never takes
+them.
 
 Conventions (intersect_pallas.py:294-298, :309-312): a miss is t = +inf,
 idx = -1, backface False, valid False; `limit` None means "any hit at
@@ -37,7 +40,10 @@ from raytracer_tpu_torch.utils import kernels
 COUNTS_NEAREST = kernels.LaunchCounts()
 COUNTS_ANY = kernels.LaunchCounts()
 COUNTS_SHADOW = kernels.LaunchCounts()
-COUNTS_SHADOW_THREAD = kernels.LaunchCounts()  # the shadow kernel's per-thread yardstick
+# the per-thread yardsticks of the three listed kernels
+COUNTS_NEAREST_THREAD = kernels.LaunchCounts()
+COUNTS_ANY_THREAD = kernels.LaunchCounts()
+COUNTS_SHADOW_THREAD = kernels.LaunchCounts()
 
 
 def _rows(x):
@@ -115,18 +121,45 @@ def _ray_args(rays: Rays, active, n, dev):
     return (o, d, *ints, active)
 
 
+def _listed_args(listed: bool, tb: kc.Tables, n: int, dev):
+    """The hot rows and the lane list (scratch) that a listed entry takes
+    beside its yardstick's arguments; nothing for a per-thread yardstick."""
+    if not listed:
+        return ()
+    if tb.hot is None:
+        raise ValueError("the listed sweep kernels need the hot rows (pack_tables)")
+    return tb.hot, torch.empty((n + 1,), dtype=torch.int32, device=dev)
+
+
 def nearest_hit(scene: Scene, rays: Rays, active=None, work=None):
     """Winner sweep of a dense scene -> (t [N], idx [N] int32, backface [N]
-    bool, valid [N] bool); t is +inf and idx -1 on a miss.  `work` (all
-    three wrappers): an optional int32 [len(kernels.WORK_ROWS), N] tensor
+    bool, valid [N] bool); t is +inf and idx -1 on a miss.  `work` (every
+    wrapper here): an optional int32 [len(kernels.WORK_ROWS), N] tensor
     that the kernel's counting instantiation fills with the tests by kind,
-    a column a lane (the shadow kernel: a column a thread, the lane it
-    tested, listed: the totals are the lanes')."""
+    a column a thread: the lane it tested (listed kernels: the totals are
+    the lanes'; the per-thread yardsticks: a column a lane)."""
     n, dev = rays.o.shape[0], rays.o.device
     active = _active(active, n, dev)
     if dev.type == "cpu":
         COUNTS_NEAREST.plain += 1
         return nearest_hit_plain(scene.tables, rays, active)
+    return _launch_nearest("rt_nearest_hit", True, COUNTS_NEAREST, scene, rays, active, work)
+
+
+def nearest_hit_per_thread(scene: Scene, rays: Rays, active=None, work=None):
+    """`nearest_hit` on CUDA tensors through the kernel before the listed
+    design (one thread per lane in lane order over the table in global
+    memory).  The main path's kernel must give its results and test
+    counts; nothing on the main path calls this."""
+    n, dev = rays.o.shape[0], rays.o.device
+    return _launch_nearest("rt_nearest_hit_thread", False, COUNTS_NEAREST_THREAD, scene, rays,
+                           _active(active, n, dev), work)
+
+
+def _launch_nearest(entry: str, listed: bool, counts, scene: Scene, rays: Rays, active, work):
+    """Check the operands, launch C entry `entry` (`listed`: it takes the
+    hot rows and a lane list) and advance its launch counter `counts`."""
+    n, dev = rays.o.shape[0], rays.o.device
     tb = _dense_tables(scene, dev, "nearest_hit")
     args = _ray_args(rays, active, n, dev)
     kernels.check_work(work, n, dev)
@@ -135,9 +168,9 @@ def nearest_hit(scene: Scene, rays: Rays, active=None, work=None):
     bf = torch.empty((n,), dtype=torch.bool, device=dev)
     valid = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
-        kernels.launch("rt_nearest_hit", *args, tb.tri, tb.n_tri, tb.sph, tb.n_sph,
-                       t, idx, bf, valid, work, n)
-        COUNTS_NEAREST.launches += 1
+        kernels.launch(entry, *args, tb.tri, tb.n_tri, tb.sph, tb.n_sph,
+                       *_listed_args(listed, tb, n, dev), t, idx, bf, valid, work, n)
+        counts.launches += 1
     return t, idx, bf, valid
 
 
@@ -145,14 +178,33 @@ def any_hit(scene: Scene, rays: Rays, active=None, limit=None, work=None):
     """Occlusion sweep of a dense scene: any valid candidate with
     t < limit.  limit: [N] or None (any hit at all).  Returns bool [N]."""
     n, dev = rays.o.shape[0], rays.o.device
-    active = _active(active, n, dev)
-    if limit is None:
-        limit = torch.full((n,), kc.BIG, dtype=torch.float32, device=dev)
-    else:
-        limit = torch.clamp_max(limit, kc.BIG)
+    active, limit = _active(active, n, dev), _limit(limit, n, dev)
     if dev.type == "cpu":
         COUNTS_ANY.plain += 1
         return any_hit_plain(scene.tables, rays, active, limit)
+    return _launch_any("rt_any_hit", True, COUNTS_ANY, scene, rays, active, limit, work)
+
+
+def any_hit_per_thread(scene: Scene, rays: Rays, active=None, limit=None, work=None):
+    """`any_hit` on CUDA tensors through the kernel before the listed design
+    (one thread per lane in lane order over the table in global memory).
+    The main path's kernel must give its results and test counts; nothing
+    on the main path calls this."""
+    n, dev = rays.o.shape[0], rays.o.device
+    return _launch_any("rt_any_hit_thread", False, COUNTS_ANY_THREAD, scene, rays,
+                       _active(active, n, dev), _limit(limit, n, dev), work)
+
+
+def _limit(limit, n, dev):
+    """The limits clipped to the 3e38 sentinel; None: any hit at all."""
+    if limit is None:
+        return torch.full((n,), kc.BIG, dtype=torch.float32, device=dev)
+    return torch.clamp_max(limit, kc.BIG)
+
+
+def _launch_any(entry: str, listed: bool, counts, scene: Scene, rays: Rays, active, limit, work):
+    """As _launch_nearest, for the any-hit entries."""
+    n, dev = rays.o.shape[0], rays.o.device
     tb = _dense_tables(scene, dev, "any_hit")
     args = _ray_args(rays, active, n, dev)
     limit = limit.contiguous()
@@ -160,9 +212,9 @@ def any_hit(scene: Scene, rays: Rays, active=None, limit=None, work=None):
     kernels.check_work(work, n, dev)
     blocked = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
-        kernels.launch("rt_any_hit", *args, limit, tb.tri, tb.n_tri, tb.sph, tb.n_sph,
-                       blocked, work, n)
-        COUNTS_ANY.launches += 1
+        kernels.launch(entry, *args, limit, tb.tri, tb.n_tri, tb.sph, tb.n_sph,
+                       *_listed_args(listed, tb, n, dev), blocked, work, n)
+        counts.launches += 1
     return blocked
 
 
@@ -208,11 +260,8 @@ def _launch_shadow(entry: str, listed: bool, counts, scene: Scene, pos, dirs, ex
     kernels.check_work(work, n, dev)
     blocked = torch.empty((L, n), dtype=torch.bool, device=dev)
     if n and L:
-        hot, lanes = (), ()
-        if listed:
-            if tb.hot is None:
-                raise ValueError("the shadow kernel needs the hot rows (pack_tables)")
-            hot, lanes = (tb.hot,), (torch.empty((n + 1,), dtype=torch.int32, device=dev),)
+        extra = _listed_args(listed, tb, n, dev)
+        hot, lanes = extra[:1], extra[1:]
         kernels.launch(entry, pos, dirs, excl_prim, limits, actives, tb.tri, tb.n_tri, tb.sph,
                        tb.n_sph, *hot, tb.lights, L, *lanes, blocked, work, n)
         counts.launches += 1

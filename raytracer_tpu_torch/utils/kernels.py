@@ -70,10 +70,12 @@ SIGNATURES = {
     # st_f, st_i, tables, photon, casts, work, n, first
     "rt_binned_terminal": "pp" + _TABLES + _BLK + _HOT + "ppo" + "ii",
     "rt_binned_terminal_thread": "pp" + _TABLES + _BLK + "ppo" + "ii",
-    # rays, geometry, t, idx, bf, valid, work, n
-    "rt_nearest_hit": _RAYS + _GEO + "pppp" + "o" + "i",
-    # rays, limit, geometry, blocked, work, n
-    "rt_any_hit": _RAYS + "p" + _GEO + "p" + "o" + "i",
+    # rays, geometry, hot rows, lanes (scratch), t, idx, bf, valid, work, n
+    "rt_nearest_hit": _RAYS + _GEO + "p" + "p" + "pppp" + "o" + "i",
+    "rt_nearest_hit_thread": _RAYS + _GEO + "pppp" + "o" + "i",
+    # rays, limit, geometry, hot rows, lanes (scratch), blocked, work, n
+    "rt_any_hit": _RAYS + "p" + _GEO + "p" + "p" + "p" + "o" + "i",
+    "rt_any_hit_thread": _RAYS + "p" + _GEO + "p" + "o" + "i",
     # pos, dirs, excl_prim, limits, actives, geometry, hot rows, lights,
     # n_light, lanes (scratch), blocked, work, n
     "rt_shadow_any_hit": "ppppp" + _GEO + "p" + "pi" + "p" + "p" + "o" + "i",
@@ -98,10 +100,10 @@ WORK_ROWS = ("tri", "plane", "edge", "sph", "box", "chunk", "wchunk", "t_in", "t
              "cyc_box", "cyc_stage", "cyc_rows", "cyc_all", "cyc_near", "cyc_shadow",
              "cyc_march")
 # kernel name -> (C entry that reports its attributes, instantiation index).
-# "level", "mc", "shadow_any_hit" and "march" are the dense walks out of
-# shared memory, "level_blk", "mc_blk" and the binned bounce and terminal
-# kernels the warp-cooperative walks of the main path; the "*_thread" ones
-# are their per-thread yardsticks.
+# "level", "mc", "nearest_hit", "any_hit", "shadow_any_hit" and "march" are
+# the dense walks out of shared memory, "level_blk", "mc_blk" and the binned
+# bounce and terminal kernels the warp-cooperative walks of the main path;
+# the "*_thread" ones are their per-thread yardsticks.
 ATTRS = {
     "level": ("rt_level_attrs", 0), "level_thread": ("rt_level_attrs", 3),
     "level_blk": ("rt_level_attrs", 1), "level_blk_thread": ("rt_level_attrs", 2),
@@ -117,6 +119,7 @@ ATTRS = {
     "nearest_hit": ("rt_intersect_attrs", 0), "any_hit": ("rt_intersect_attrs", 1),
     "shadow_any_hit": ("rt_intersect_attrs", 2),
     "shadow_any_hit_thread": ("rt_intersect_attrs", 3),
+    "nearest_hit_thread": ("rt_intersect_attrs", 4), "any_hit_thread": ("rt_intersect_attrs", 5),
     "march": ("rt_march_attrs", 0), "march_thread": ("rt_march_attrs", 1),
 }
 # The attribute entries that also take a dense scene's triangle count: the
@@ -248,8 +251,9 @@ def launch(name: str, *args) -> None:
 
 def kernel_attrs(which: str, n_tri: int = 0) -> dict:
     """Compiled attributes of kernel instantiation `which` (a key of
-    ATTRS); the staged dense walks ("level", "mc", "shadow_any_hit",
-    "march") at the shared bytes of a scene of `n_tri` triangles."""
+    ATTRS); the staged dense walks ("level", "mc", "nearest_hit",
+    "any_hit", "shadow_any_hit", "march") at the shared bytes of a scene of
+    `n_tri` triangles."""
     out = (ctypes.c_int * 6)()
     entry, index = ATTRS[which]
     args = (index, n_tri, out) if entry in ATTRS_N_TRI else (index, out)

@@ -41,12 +41,14 @@ script), builds its kernels there, and times
     device busy and idle share, and the dense kernels' mean device time
     per launch over them (the frame's 114 level launches, the epoch's MC
     launches);
-  * (section "unfused") the unfused path's shadow (#5) and march (#6)
-    kernels on the calls that the demo's unfused MC epoch (host-only
-    textures, 1280x960) makes on tile 9 and frame-wide, and on tile 9's
-    primary hits; that epoch's host seconds, device busy and idle share,
-    tile by tile and frame-wide, and its peak device memory
-    (unfused_kernels);
+  * (section "unfused") the unfused path's nearest-hit (#3), shadow (#5)
+    and march (#6) kernels on the calls that the demo's unfused MC epoch
+    (host-only textures, 1280x960) makes on tile 9 and frame-wide, and on
+    tile 9's primary hits; the any-hit kernel (#4) on those hits' shadow
+    rays, a launch per light, and on random rays; #3 over the unfused
+    Whitted frame's tile calls; that epoch's host seconds, device busy and
+    idle share, tile by tile and frame-wide, its peak device memory, and
+    the unfused Whitted frame's host seconds (unfused_kernels);
   * (section "routes") the 1024x1024 MC epoch of mesh_scene(grid) for each
     of --route-grids through both MC routes, the binned walk and the
     blocked MC kernel, whatever the checkout's BINNED_MIN_TRIS says
@@ -346,22 +348,31 @@ def thread_cycles(work):
 
 
 def unfused_kernels(reps, rounds):
-    """#5 (shadow) and #6 (march) on the inputs the unfused MC epoch of the
-    demo scene with host-only textures (1280x960, depth 5) hands them:
-    its calls on one mid-frame tile (tile 9, as the tile loop makes them)
-    and the calls of the frame-wide epoch (render.epoch_frame: 1,245,184
-    lanes), and the two on chip_smoke.Unfused's inputs (tile 9's primary
-    hits: the kernel table's rows).  Per call: lanes, the share of wanted
-    lanes (march) or of active (light, lane) pairs and of lanes with an
-    active light (shadow), the share of warps of 32 lanes in lane order
-    that hold one; device ms per launch (torch.profiler, the kernel alone;
-    where the checkout lists the lanes first, the list_lanes launch apart),
-    the wrapper's device ms (chip_smoke.queued_ms: every kernel it
-    launches), where the checkout has it the per-thread yardstick's; a
-    thread's cycles from the counting instantiation.  Then the epoch
-    itself: render_distributed_epoch (host s, busy, idle), and the same
-    epoch tile by tile and frame-wide (host s, the least of three)."""
+    """#3 (nearest hit), #4 (any hit), #5 (shadow) and #6 (march) on the
+    inputs the unfused path of the demo scene with host-only textures
+    (1280x960, depth 5) hands them: the MC epoch's calls on one mid-frame
+    tile (tile 9, as the tile loop makes them) and the calls of the
+    frame-wide epoch (render.epoch_frame: 1,245,184 lanes: a primary and
+    five advance casts, six shades, five marches), and the kernels on
+    chip_smoke.Unfused's inputs (tile 9's primary hits: the kernel table's
+    rows; #4 one launch per light there, as cast_any_hit makes them, and on
+    the tile's count of random rays with and without a limit).  Per call:
+    lanes, the share of active lanes (nearest, any hit), wanted lanes
+    (march) or active (light, lane) pairs and lanes with an active light
+    (shadow), the share of warps of 32 lanes in lane order that hold one;
+    device ms per launch (torch.profiler, the kernel alone; where the
+    checkout lists the lanes first, the list_lanes launch apart), the
+    wrapper's device ms (chip_smoke.queued_ms: every kernel it launches),
+    where the checkout has it the per-thread yardstick's; a thread's
+    cycles from the counting instantiation.  Then #3 over the unfused
+    Whitted frame's 114 tile calls (whitted_nearest: the mean per launch
+    over one profiled pass of all of them), the epoch itself
+    (render_distributed_epoch: host s, busy, idle), the same epoch tile by
+    tile and frame-wide and the Whitted frame (host s, the least of
+    three), and the kernels' registers and blocks per SM."""
     import dataclasses
+
+    import numpy as np
 
     from raytracer_tpu_torch import render
     from raytracer_tpu_torch.config import RenderConfig
@@ -379,22 +390,43 @@ def unfused_kernels(reps, rounds):
     clips = render._clips(cfg, dev)[0]
     tile_in = [render.tile_draws(cfg, 0, 7, t, clip.shape[0], dev)
                for t, clip in enumerate(clips)]
-    hooks = [(march_kernel, "march"), (intersect_kernel, "shadow_any_hit")]
+    ik = intersect_kernel
+    hooks = [(march_kernel, "march"), (ik, "shadow_any_hit"), (ik, "nearest_hit")]
     sets = {
         "tile9": SMOKE.capture(hooks, lambda: render.epoch_tiles(scene, cam, cfg, clips[9:10],
                                                            tile_in[9:10])),
         "frame": SMOKE.capture(hooks, lambda: render.epoch_frame(scene, cam, cfg, clips, tile_in)),
     }
     u = SMOKE.Unfused(scene, *camera_ops.shoot(cam, clips[9]))
+    rays, active, limit = SMOKE.random_rays(scene.n_prim, u.n, np.random.default_rng(0), dev)
     sets["primary_tile9"] = {
         "march": [((scene, *u.march_in, cfg.max_refract_distance, cfg.max_tir_retries), {})],
         "shadow_any_hit": [((scene, u.hits.pos, u.to_light, u.hits.prim, u.limits,
-                             u.considers), {})]}
-    yard = {"march": getattr(march_kernel, "march_per_thread", None),
-            "shadow_any_hit": getattr(intersect_kernel, "shadow_any_hit_per_thread", None)}
-    fns = {"march": march_kernel.march, "shadow_any_hit": intersect_kernel.shadow_any_hit}
-    names = {"march": "march_kernel", "shadow_any_hit": "shadow_kernel"}
-    thread_names = {"march": "march_thread_kernel", "shadow_any_hit": "shadow_thread_kernel"}
+                             u.considers), {})],
+        "nearest_hit": [((scene, u.rays, u.active), {})],
+        "any_hit": [((scene, u.shadow[li], u.considers[li], u.limits[li]), {})
+                    for li in range(scene.n_light)]}
+    sets["random"] = {"any_hit": [((scene, rays, active, limit), {}),
+                                  ((scene, rays, active, None), {})]}
+    kinds = ("march", "shadow_any_hit", "nearest_hit", "any_hit")
+    yard = {k: getattr(march_kernel if k == "march" else ik, f"{k}_per_thread", None)
+            for k in kinds}
+    fns = {k: getattr(march_kernel if k == "march" else ik, k) for k in kinds}
+    names = {"march": "march_kernel", "shadow_any_hit": "shadow_kernel",
+             "nearest_hit": "nearest_kernel", "any_hit": "any_kernel"}
+    thread_names = {k: v.replace("_kernel", "_thread_kernel") for k, v in names.items()}
+
+    def lanes_row(kind, args):
+        """The call's lanes and the shares of them, and of warps, with work."""
+        if kind == "shadow_any_hit":
+            actives = args[5]
+            return {"n": actives.shape[1], "pairs": float(actives.float().mean()),
+                    "lanes": float(actives.any(0).float().mean()),
+                    "warps": warp_share(actives)}
+        mask = args[6] if kind == "march" else args[2]
+        return {"n": mask.shape[0], "wanted" if kind == "march" else "active":
+                float(mask.float().mean()), "warps": warp_share(mask)}
+
     out = {}
     for label, calls in sets.items():
         for kind, cs in calls.items():
@@ -402,18 +434,9 @@ def unfused_kernels(reps, rounds):
             for args, kwargs in cs:
                 fn = fns[kind]
                 run = lambda fn=fn, a=args, k=kwargs: fn(*a, **k)
-                if kind == "march":
-                    want = args[6]
-                    n = want.shape[0]
-                    row = {"n": n, "wanted": float(want.float().mean()),
-                           "warps": warp_share(want)}
-                else:
-                    actives = args[5]
-                    n = actives.shape[1]
-                    row = {"n": n, "pairs": float(actives.float().mean()),
-                           "lanes": float(actives.any(0).float().mean()),
-                           "warps": warp_share(actives)}
-                work = torch.zeros((len(kernels.WORK_ROWS), n), dtype=torch.int32, device=dev)
+                row = lanes_row(kind, args)
+                work = torch.zeros((len(kernels.WORK_ROWS), row["n"]), dtype=torch.int32,
+                                   device=dev)
                 fn(*args, **kwargs, work=work)
                 row["thread_cycles"], row["working_thread_cycles"] = thread_cycles(work)
                 row["tests"] = SMOKE.totals(work)
@@ -432,16 +455,54 @@ def unfused_kernels(reps, rounds):
             total = lambda key: [sum(r[key][i] for r in rows) for i in range(rounds)]
             out[f"{kind}_{label}_sum"] = {key: total(key) for key in rows[0]
                                           if key.endswith("ms")}
+            print(f"{kind} {label}: " + "; ".join(
+                f"{r['n']} lanes, {r.get('active', r.get('wanted', r.get('lanes')))} with work "
+                f"in {r['warps']} of warps, {r['ms']} ms" + (f" + list {r['list_ms']}, "
+                f"yardstick {r['thread_ms']}" if "list_ms" in r else "") for r in rows),
+                flush=True)
+    # #3 over the unfused Whitted frame's tile calls (6 levels a tile)
+    frame = lambda: render.render_whitted(scene, cam, cfg)
+    calls = SMOKE.capture([(ik, "nearest_hit")], frame)["nearest_hit"]
+    masks = [a[2] for a, _ in calls]
+    runs = [lambda a=a, k=k: ik.nearest_hit(*a, **k) for a, k in calls]
+    each = lambda fns: (lambda: [f() for f in fns])
+    wn = {"calls": len(calls), "lanes": sum(m.shape[0] for m in masks),
+          "active": float(sum(int(m.sum()) for m in masks)) / sum(m.shape[0] for m in masks),
+          "ms": [], "launches_seen": []}
+    timed_names = [("ms", names["nearest_hit"], runs)]
+    if yard["nearest_hit"] is not None:
+        wn.update(list_ms=[], thread_ms=[])
+        timed_names += [("list_ms", "list_lanes", runs),
+                        ("thread_ms", thread_names["nearest_hit"],
+                         [lambda a=a, k=k: yard["nearest_hit"](*a, **k) for a, k in calls])]
+    for _ in range(rounds):
+        for key, name, fns_ in timed_names:
+            each(fns_)()
+            torch.cuda.synchronize()
+            ms, seen = SMOKE.profiled_ms(each(fns_), name)
+            wn[key].append(ms)
+            if key == "ms":
+                wn["launches_seen"].append(seen)
+    out["whitted_nearest"] = wn
+    print(f"nearest_hit over the unfused whitted frame's {wn['calls']} calls: {wn}", flush=True)
+    del calls, masks, runs, timed_names
     n_tri = (scene.n_tri,) if hasattr(kernels, "ATTRS_N_TRI") else ()
     out["attrs"] = {k: kernels.kernel_attrs(k, *n_tri)
-                    for k in ("march", "march_thread", "shadow_any_hit", "shadow_any_hit_thread")
+                    for k in ("march", "march_thread", "shadow_any_hit", "shadow_any_hit_thread",
+                              "nearest_hit", "nearest_hit_thread", "any_hit", "any_hit_thread")
                     if k in kernels.ATTRS}
+    print(f"attrs: {out['attrs']}", flush=True)
     epoch = lambda: render.render_distributed_epoch(scene, cam, cfg, epoch=7)
     out["epoch"] = [SMOKE.profile_breakdown("demo unfused mc epoch", epoch)
                     for _ in range(rounds)]
     for name, fn in (("epoch_tiles_s", render.epoch_tiles), ("epoch_frame_s", render.epoch_frame)):
         out[name] = [min(SMOKE.timed(lambda: fn(scene, cam, cfg, clips, tile_in))[1]
                          for _ in range(3)) for _ in range(rounds)]
+    frame()  # first-call set-up
+    out["whitted_frame_s"] = [min(SMOKE.timed(frame)[1] for _ in range(3))
+                              for _ in range(rounds)]
+    print(f"unfused epoch frame-wide {out['epoch_frame_s']} s, tile by tile "
+          f"{out['epoch_tiles_s']} s; whitted frame {out['whitted_frame_s']} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     render.epoch_frame(scene, cam, cfg, clips, tile_in)
     out["epoch_frame_peak_bytes"] = torch.cuda.max_memory_allocated()

@@ -112,6 +112,37 @@ def test_any_hit_matches_jax_kernel(demo, limited):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("kind", ["nearest_hit", "any_hit"])
+def test_sweep_plain_lanes_do_not_depend_on_their_order_or_neighbours(demo, kind):
+    """The nearest-hit and any-hit kernels take their active lanes listed in
+    any order and write each lane's result where the lane sits: a lane's
+    result may not depend on where it or the other active lanes sit.  The
+    plain version on the lanes shuffled, and on the active lanes alone,
+    gives every lane's result exactly; an inactive lane misses."""
+    _, _, scene, rays = demo
+    rng = np.random.default_rng(4)
+    active = torch.as_tensor(rng.uniform(size=N) < 0.6)
+    limit = torch.as_tensor(rng.uniform(0.1, 10.0, size=N).astype(np.float32))
+
+    def run(idx):
+        sub = Rays(**{f.name: getattr(rays, f.name)[idx] for f in dataclasses.fields(rays)})
+        if kind == "nearest_hit":
+            return intersect_kernel.nearest_hit_plain(scene.tables, sub, active[idx])
+        return (intersect_kernel.any_hit_plain(scene.tables, sub, active[idx], limit[idx]),)
+
+    ref = run(torch.arange(N))
+    hit = ref[-1]  # valid / blocked
+    assert 0.1 < float(hit[active].float().mean()) < 0.95 and not bool(hit[~active].any())
+    perm = torch.as_tensor(rng.permutation(N))
+    for got, r in zip(run(perm), ref):
+        assert torch.equal(got, r[perm])
+    listed = torch.nonzero(active).squeeze(1)
+    for got, r in zip(run(listed), ref):
+        assert torch.equal(got, r[listed])
+    if kind == "nearest_hit":  # a miss where inactive: t = +inf, idx = -1
+        assert bool(torch.isinf(ref[0][~active]).all()) and bool((ref[1][~active] == -1).all())
+
+
 def test_cast_matches_jax_cast_on_valid_lanes(demo):
     jscene, jrays, scene, rays = demo
     ref = jax.jit(lambda r: jintersect.cast(jscene, r))(jrays)
@@ -216,6 +247,11 @@ def test_wrappers_take_dense_scenes_on_cpu_or_cuda_only(demo, mesh):
         intersect_kernel.nearest_hit(scene.to("meta"), meta)
     with pytest.raises(ValueError, match="unsupported device"):
         intersect_kernel.any_hit(scene.to("meta"), meta)
+    # the per-thread yardsticks launch a kernel or raise: no plain version
+    with pytest.raises(ValueError, match="unsupported device"):
+        intersect_kernel.nearest_hit_per_thread(scene, rays)
+    with pytest.raises(ValueError, match="unsupported device"):
+        intersect_kernel.any_hit_per_thread(scene, rays, limit=rays.o[:, 0])
     back = torch.full((N,), FACE_BACK, dtype=torch.int32)
     dirs = torch.zeros((2, N, 3))  # the demo has three lights
     with pytest.raises(ValueError, match="2 directions for 3 lights"):

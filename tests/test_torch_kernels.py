@@ -128,11 +128,15 @@ def test_staged_dense_entries_take_the_hot_rows(entry, thread):
 
 @pytest.mark.parametrize("entry,thread,after", [("rt_march", "rt_march_thread", "int n_sph"),
                                                 ("rt_shadow_any_hit", "rt_shadow_any_hit_thread",
-                                                 "int n_light")])
+                                                 "int n_light"),
+                                                ("rt_nearest_hit", "rt_nearest_hit_thread",
+                                                 "int n_sph"),
+                                                ("rt_any_hit", "rt_any_hit_thread", "int n_sph")])
 def test_listed_unfused_entries_take_the_hot_rows_and_a_lane_list(entry, thread, after):
-    """The march and shadow kernels' entries are their per-thread
-    yardsticks' plus the dense hot rows right after the sphere table and
-    the lane list (scratch) before the first output."""
+    """The unfused path's listed kernels' entries (march, shadow, nearest
+    hit, any hit) are their per-thread yardsticks' plus the dense hot rows
+    right after the sphere table and the lane list (scratch) before the
+    first output."""
     entries = _c_entries()
     staged, ref = list(entries[entry]), entries[thread]
     assert staged.pop(staged.index("int n_sph") + 1) == "const float* hot"
@@ -162,7 +166,7 @@ def test_dense_hot_rows_are_what_the_staged_walks_read():
 
 def test_attrs_name_both_walks_of_the_redesigned_kernels():
     for coop in ("level", "mc", "level_blk", "mc_blk", "binned_bounce", "binned_terminal",
-                 "march", "shadow_any_hit"):
+                 "march", "shadow_any_hit", "nearest_hit", "any_hit"):
         assert kernels.ATTRS[coop] != kernels.ATTRS[coop + "_thread"]
         assert kernels.ATTRS[coop][0] == kernels.ATTRS[coop + "_thread"][0]
     assert len(set(kernels.ATTRS.values())) == len(kernels.ATTRS)
