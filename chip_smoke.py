@@ -20,12 +20,14 @@ Phases (each asserts; none catches a failure):
      65536-ray tile of the 1024x1024 mesh11k frame (blocked level kernel,
      blocked MC kernel, the three binned kernels), and the binned path
      against the blocked MC kernel; the warp-cooperative walks (blocked
-     level kernel, blocked MC kernel, binned bounce and terminal) against
-     their per-thread instantiations on the same inputs (outputs and casts
-     equal on every lane, test totals equal to the unit): every level's pool
-     of those tiles, a ragged pool and pools with 30 % of lanes killed but
-     owing radiance (direct and pooled levels); MC on those tiles and a
-     ragged tile; bounces and terminals in dealt, sorted and pixel order,
+     level kernel, blocked MC kernel, binned primary, bounce and terminal)
+     against their per-thread instantiations on the same inputs (outputs
+     and casts equal on every lane, test totals equal to the unit): every
+     level's pool of those tiles, a ragged pool and pools with 30 % of lanes
+     killed but owing radiance (direct and pooled levels); MC on those tiles
+     and a ragged tile; the primary casts of those tiles, of a ragged tile
+     and of all 16 tiles of a mesh11k epoch (and against the plain version:
+     >= 99.9 % of lanes); bounces and terminals in dealt, sorted and pixel order,
      ragged and with dead lanes scattered through the state; and the MC
      walks' two traversal counters against the plain versions' chunk log;
      the four standalone kernels of the
@@ -734,6 +736,7 @@ def main() -> int:
         "level_thread": level_kernel.COUNTS_THREAD, "mc_thread": mc_kernel.COUNTS_THREAD,
         "level_blk_thread": level_kernel.COUNTS_BLK_THREAD,
         "mc_blk_thread": mc_kernel.COUNTS_BLK_THREAD,
+        "binned_primary_thread": mc_binned.COUNTS_PRIMARY_THREAD,
         "binned_bounce_thread": mc_binned.COUNTS_BOUNCE_THREAD,
         "binned_terminal_thread": mc_binned.COUNTS_TERMINAL_THREAD,
         "nearest_hit_thread": intersect_kernel.COUNTS_NEAREST_THREAD,
@@ -1050,6 +1053,38 @@ def main() -> int:
               f"{total}; warp chunks x 32 / lane chunks {sharing(total):.3f}")
         return total
 
+    def check_coop_primaries(label, scene, calls):
+        """Every primary call of captured walks: the cooperative kernel against
+        its per-thread instantiation (state and casts equal on every lane,
+        test totals equal) and against its plain version (>= 99.9 % of lanes
+        with every float row that is read again within 1e-3 + 2e-2 |ref| and
+        the int rows equal) -> the summed tests; prints the summed bound of
+        the calls (bound: each call's bytes and counted tests)."""
+        total, worst, b_ms, by = {}, 1.0, 0.0, set()
+        for _, o_t, d_t in (c for c in calls if c[0] == "primary"):
+            n = o_t.shape[1]
+            wc, wt = new_work(n), new_work(n)
+            got = mc_binned.primary(scene, o_t, d_t, work=wc)
+            ref = mc_binned.primary_per_thread(scene, o_t, d_t, work=wt)
+            fp, ip, cp = mc_binned.primary_plain(scene.geom, o_t, d_t)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), label
+            for k, v in same_tests(label, wc, wt).items():
+                total[k] = total.get(k, 0) + v
+            call_ms, call_by, _ = bound(nbytes(o_t, d_t, *scene_tables(scene))
+                                        + (mc_binned.N_F + mc_binned.N_I + 1) * 4 * n, wc)
+            b_ms, by = b_ms + call_ms, by | {call_by}
+            read = torch.ones_like(fp, dtype=torch.bool)
+            read[3:, ip[mc_binned.I_ALIVE] == 0] = False  # a miss keeps its photon only
+            ok = ((got[0] - fp).abs() <= 1e-3 + 2e-2 * fp.abs()) | ~read
+            frac = float((ok.all(0) & (got[1] == ip).all(0)).float().mean())
+            worst = min(worst, frac)
+            assert frac >= 0.999 and torch.equal(got[2], cp), (label, n, frac)
+        print(f"binned primaries {label}, cooperative vs per-thread walk: all lanes equal, tests "
+              f"{total}; warp chunks x 32 / lane chunks {sharing(total):.3f}; plain version: "
+              f">= {worst:.5f} of lanes agree; bound {b_ms:.4f} ms ({', '.join(sorted(by))})")
+        return total
+
     # ---- 2. kernels against their plain versions, same inputs -----------
     rng = np.random.default_rng(0)
     full = RenderConfig(depth=5, epochs=3)  # 1280x960, tile_rays 65536
@@ -1156,6 +1191,7 @@ def main() -> int:
                               scene, [(Pool(f, i), False, True), (Pool(f, i), False, False)], lv,
                               killed=kill)
         check_coop_mc(label, scene, o, d, unifs, plain_log=True)
+        check_coop_primaries(label, scene, calls)
         check_coop_bounces(label + " (sorted and dealt)", scene, calls, plain_log=True)
         terminals = [c for c in calls if c[0] == "terminal"]
         # a tile whose lane count is no multiple of 32
@@ -1166,6 +1202,7 @@ def main() -> int:
         _, _, ragged = binned_walk(scene, oc, dc, uc)
         check_binned_kernels(f"{label}, first {cut} lanes", scene,
                              [c for c in ragged if c[0] != "primary"])
+        check_coop_primaries(f"{label}, first {cut} lanes", scene, ragged)
         check_coop_bounces(f"{label}, first {cut} lanes", scene, ragged)
         terminals += [c for c in ragged if c[0] == "terminal"]
         # the lanes sorted but not dealt, and left in pixel order
@@ -1191,6 +1228,16 @@ def main() -> int:
         check_coop_bounces(label + ", 30 % of lanes killed", scene, holed)
         check_coop_terminals(label + " (dealt, ragged, sorted, pixel order, holed)", scene,
                              terminals)
+    # the primary casts of all 16 tiles of a mesh11k 1024x1024 epoch, as the
+    # binned route makes them
+    epoch_primaries = []
+    for t, clip in enumerate(_clips(mesh_cfg, dev)[0]):
+        normals, _ = tile_draws(mesh_cfg, 0, 0, t, clip.shape[0], dev)
+        o, d = camera_ops.shoot_focus(mesh11k_cam, clip, normals * mesh_cfg.blur,
+                                      mesh_cfg.focus)
+        epoch_primaries.append(("primary", o.t().contiguous(), d.t().contiguous()))
+    check_coop_primaries(f"mesh11k 1024x1024, the epoch's {len(epoch_primaries)} tiles", mesh11k,
+                         epoch_primaries)
 
     # the unfused path's four kernels: the demo's primary hits, their
     # shadow rays and marches, and random rays
@@ -1778,6 +1825,15 @@ def main() -> int:
         work = new_work(sf.shape[1])
         mc_binned.terminal(scene, sf, si, first, work=work)
         term["phases"], term["block_us"] = phase_shares(work), block_spread(work)
+        _, o_t, d_t = calls[0]
+        prim = out["binned_primary"]
+        prim["per_thread_ms"] = device_ms(lambda: mc_binned.primary_per_thread(scene, o_t, d_t),
+                                          5, "binned_primary")
+        n = o_t.shape[1]
+        work = new_work(n)
+        mc_binned.primary(scene, o_t, d_t, work=work)
+        work = work[:, mc_binned.primary_lanes(n, dev).clamp(max=n - 1)]  # threads' order
+        prim["phases"], prim["block_us"] = phase_shares(work), block_spread(work)
         return out
 
     def time_unfused(u, frame_calls):
@@ -1933,6 +1989,10 @@ def main() -> int:
           f"{lvl['frame_launches']} launches {lvl['frame_mean_ms']:.4f} ms each; "
           f"{dense_share(lvl['phases'])}; block durations (median/longest us) "
           f"{lvl['block_us'][0]:.0f}/{lvl['block_us'][1]:.0f}")
+    prim = per["binned_primary"]
+    print(f"binned_primary on tile 0's camera rays: cooperative {prim['ms']:.4f} ms, per-thread "
+          f"{prim['per_thread_ms']:.4f} ms (torch.profiler); {share(prim['phases'])}; block "
+          f"durations (median/longest us) {prim['block_us'][0]:.0f}/{prim['block_us'][1]:.0f}")
     term = per["binned_terminal"]
     print(f"binned_terminal on tile 0's dealt states: cooperative {term['ms']:.4f} ms, per-thread "
           f"{term['per_thread_ms']:.4f} ms (torch.profiler); {share(term['phases'])}; block durations "
@@ -1994,7 +2054,7 @@ def main() -> int:
              ms_blocked_primary=per["level_blk"]["ms_primary"],
              ms_frame_mean=per["level"]["frame_mean_ms"]),
         entry("binned_primary", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:131",
-              "binned_primary"),
+              "binned_primary", thread_ms=per["binned_primary"]["per_thread_ms"]),
         entry("binned_bounce", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:157",
               "binned_bounce", thread_ms=orders["per_thread_dealt_ms"]),
         entry("binned_terminal", csrc + "mc_binned.cu", "raytracer_tpu/ops/mc_binned.py:190",

@@ -44,8 +44,8 @@
 // from a 144-byte row in global memory, a warp runs the 128-row loop once
 // for every chunk that any of its lanes entered, and a launch lasts as
 // long as its slowest warp's chain of such loops.  CoopGeom is the same
-// walk made by the 32 lanes of a warp together (every blocked kernel but
-// the binned primary takes it): each lane tests the boxes for its own ray,
+// walk made by the 32 lanes of a warp together (every blocked kernel takes
+// it): each lane tests the boxes for its own ray,
 // the warp ORs the lanes' chunk masks and copies each chunk of the union
 // once into its own shared memory buffer (cp.async, 16 bytes a lane: the
 // 64-byte hot rows of Hot, which hold only what decides a hit, and their

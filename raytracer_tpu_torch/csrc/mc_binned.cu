@@ -27,25 +27,27 @@
 //
 // What bounds them on an H100: as the whole-walk kernel, issue throughput
 // and load latency of the chunk traversal and warp divergence.  State I/O
-// is 104 bytes in and out per lane per bounce.  128 threads per block.  The
-// primary kernel traverses per thread, the blocked table read from global
-// memory (BlockedGeom).  The bounce kernel, which makes nearly all of the
-// walk's sweeps, and the terminal kernel walk the chunks warp by warp
-// (common.cuh CoopGeom): a chunk that any of the 32 lanes enters is staged
-// once in the warp's shared memory and its rows tested 32 at a time for one
-// ray after the other, each shade makes one pass for all lights, and their
-// control flow is the same in all lanes of a warp (dead lanes and the lanes
-// past the end pass `false` down instead of leaving).  A launch lasts as
-// long as its slowest warp, and the sort packs the lanes that march into
-// neighbouring warps, so the wrapper deals the sorted lanes round-robin
-// over the warps (ops/mc_binned.py deal_lanes): 0.26 ms a bounce launch on
-// a mesh11k tile where the sorted order takes 1.2 and the per-thread walk
-// 7.4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).  The per-thread
-// instantiations of the bounce and the terminal kernel are kept as the
-// yardsticks chip_smoke.py holds the cooperative ones against
-// (rt_binned_bounce_thread, rt_binned_terminal_thread); no wrapper of the
-// main path launches them.  W is the test counter (common.cuh): NoWork on
-// the main path, Work when the caller asks for the per-lane test counts.
+// is 104 bytes in and out per lane per bounce.  128 threads per block.  All
+// three kernels walk the chunks warp by warp (common.cuh CoopGeom): a chunk
+// that any of the 32 lanes enters is staged once in the warp's shared
+// memory and its rows tested 32 at a time for one ray after the other, each
+// shade makes one pass for all lights, and their control flow is the same
+// in all lanes of a warp (dead lanes and the lanes past the end pass
+// `false` down instead of leaving).  A launch lasts as long as its slowest
+// warp, and the sort packs the lanes that march into neighbouring warps, so
+// the wrapper deals the sorted lanes round-robin over the warps
+// (ops/mc_binned.py deal_lanes): 0.26 ms a bounce launch on a mesh11k tile
+// where the sorted order takes 1.2 and the per-thread walk 7.4 (NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md).  The primary's lanes are camera rays in pixel
+// order (32x16 blocks of the frame), where the warps that look at the mesh
+// hold all of the work: the primary kernel deals its lanes over the warps
+// itself (dealt_lane): 0.082 -> 0.064 ms on mesh11k tile 0, 8.7 -> 6.7 ms
+// over an epoch's 16 tiles.  The per-thread instantiations of the three
+// kernels are kept as the yardsticks chip_smoke.py holds the cooperative
+// ones against (rt_binned_primary_thread, rt_binned_bounce_thread,
+// rt_binned_terminal_thread); no wrapper of the main path launches them.
+// W is the test counter (common.cuh): NoWork on the main path, Work when
+// the caller asks for the per-lane test counts.
 #include "mc_walk.cuh"
 
 namespace rt {
@@ -110,31 +112,62 @@ __device__ inline void store_state(float* __restrict__ sf, int* __restrict__ si,
   si[(size_t)S_SLOT * n + lane] = s.slot;
 }
 
-template <class W>
-__global__ void __launch_bounds__(128)
-binned_primary(const float* __restrict__ ray_o, const float* __restrict__ ray_d, BlockedGeom g,
+constexpr int BOUNCE_THREADS = 128;
+
+// The lane that thread t of the cooperative primary takes: the n lanes
+// dealt round-robin over the launch's ceil(n / 32) warps (warp w takes
+// lanes w, w + W, w + 2 W, ...), n for a thread past them
+// (ops/mc_binned.py primary_lanes).
+__device__ __forceinline__ int dealt_lane(int t, int n) {
+  int warps = (n + WARP - 1) / WARP, w = t / WARP;
+  return w < warps ? w + (t % WARP) * warps : n;
+}
+
+// The primary cast into the walk state (slot = lane: the state stays in
+// the rays' order).  The cooperative walk deals the lanes over the warps
+// (dealt_lane): camera rays in pixel order leave the warps that look at
+// the mesh with all of the work, and a launch lasts as long as its slowest
+// warp.  All 32 lanes of a warp make the sweep together: a lane past the
+// end reads the last lane's ray, passes `false` down and stores nothing.
+// The per-thread walk takes the lanes in order, as before.
+template <class G, class W>
+__global__ void __launch_bounds__(BOUNCE_THREADS)
+binned_primary(const float* __restrict__ ray_o, const float* __restrict__ ray_d, G g,
                float* __restrict__ sf, int* __restrict__ si, int* __restrict__ casts_out,
                int* __restrict__ work_out, int n) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int lane = G::COOP ? dealt_lane(t, n) : t;
+  const bool in_tile = lane < n;
+  if constexpr (G::COOP) {
+    if (!in_tile) lane = n - 1;
+  } else {
+    if (!in_tile) return;
+  }
   W w{};
   V3 o = v3(ray_o[lane], ray_o[n + lane], ray_o[2 * n + lane]);
   V3 d = v3(ray_d[lane], ray_d[n + lane], ray_d[2 * n + lane]);
-  Hit h = g.nearest(o, d, FACE_FRONT, -1, FACE_FRONT, true, w);  // main.rs:1150
-  State s;
-  s.alive = h.valid;
-  s.acc = v3(0.0f, 0.0f, 0.0f);
-  s.scale = v3(1.0f, 1.0f, 1.0f);
-  s.pre = v3(0.0f, 0.0f, 0.0f);  // nothing deferred yet
-  s.df = 0.0f;
-  s.c = cur_of(h, d);
-  s.slot = lane;
-  store_state(sf, si, n, lane, s);
-  casts_out[lane] = 1;
-  w.put(work_out, n, lane);
+  Hit h = g.nearest(o, d, FACE_FRONT, -1, FACE_FRONT, in_tile, w);  // main.rs:1150
+  if (in_tile) {
+    State s;
+    s.alive = h.valid;
+    s.acc = v3(0.0f, 0.0f, 0.0f);
+    s.scale = v3(1.0f, 1.0f, 1.0f);
+    s.pre = v3(0.0f, 0.0f, 0.0f);  // nothing deferred yet
+    s.df = 0.0f;
+    s.c = cur_of(h, d);
+    s.slot = lane;
+    store_state(sf, si, n, lane, s);
+    casts_out[lane] = 1;
+    w.put(work_out, n, lane);
+  }
+  if constexpr (G::COOP) {
+    // the tests a thread past the end ran for its warp's rays go to the
+    // warp's first lane (in the tile wherever the warp holds one)
+    __syncwarp();
+    int first = dealt_lane(t - t % WARP, n);
+    if (!in_tile) w.put_helped(work_out, n, first < n ? first : n - 1);
+  }
 }
-
-constexpr int BOUNCE_THREADS = 128;
 
 // Every lane runs every statement: `alive` (and what follows from it) is
 // passed down to the sweeps, which a cooperative geometry makes warp by
@@ -257,12 +290,24 @@ rt::BlockedGeom blocked_geom(const float* tri, int n_tri, const float* sph, int 
                          rt::Blk{btri, box, sup, n_chunks}};
 }
 
-// Launch set-up of the bounce and terminal kernels: a cooperative geometry
-// asks for its staging buffers (dynamic shared memory) -> CUDA error.
+// Launch set-up of the binned kernels: a cooperative geometry asks for its
+// staging buffers (dynamic shared memory) -> CUDA error.
 template <class G>
 int shared_for(const void* kernel, int& shared) {
   shared = G::COOP ? rt::coop_shared_bytes(rt::BOUNCE_THREADS) : 0;
   return shared ? rt::coop_opt_in(kernel, shared) : 0;
+}
+
+template <class G>
+int launch_primary(const float* ray_o, const float* ray_d, G g, float* st_f, int* st_i,
+                   int* casts, int* work, int n, void* stream) {
+  auto kernel = work ? &rt::binned_primary<G, rt::Work> : &rt::binned_primary<G, rt::NoWork>;
+  int shared;
+  if (int err = shared_for<G>((const void*)kernel, shared)) return err;
+  int blocks = (n + rt::BOUNCE_THREADS - 1) / rt::BOUNCE_THREADS;
+  kernel<<<blocks, rt::BOUNCE_THREADS, shared, (cudaStream_t)stream>>>(ray_o, ray_d, g, st_f,
+                                                                       st_i, casts, work, n);
+  return (int)cudaGetLastError();
 }
 
 template <class G>
@@ -306,18 +351,31 @@ extern "C" {
 
 // ray_o, ray_d: [3, n]; st_f: [21, n]; st_i: [5, n]; casts: [n]; work:
 // [WORK_ROWS, n] or null (null runs the instantiation that counts
-// nothing).  Tables as rt_level_blk.
+// nothing).  The warp-cooperative walk: the blocked tables as rt_level_blk,
+// then the hot rows [NCH * 128, 16], their ids [NCH * 128], the chunks'
+// live row counts [NCH] and the triangles' rows [n_tri].
 int rt_binned_primary(const float* ray_o, const float* ray_d, const float* tri, int n_tri,
                       const float* sph, int n_sph, const float* mat, int n_obj,
                       const float* lights, int n_light, const float* btri, const float* box,
-                      const float* sup, int n_chunks, float* st_f, int* st_i, int* casts,
-                      int* work, int n, void* stream) {
+                      const float* sup, int n_chunks, const float* hot, const int* ids,
+                      const int* live, const int* row_of_tri, float* st_f, int* st_i,
+                      int* casts, int* work, int n, void* stream) {
+  rt::BlockedGeom bg = blocked_geom(tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light, btri,
+                                    box, sup, n_chunks);
+  rt::CoopGeom g{bg.tb, bg.bk, rt::Hot{(const float4*)hot, ids, live, row_of_tri}};
+  return launch_primary(ray_o, ray_d, g, st_f, st_i, casts, work, n, stream);
+}
+
+// The same primary cast with every thread traversing the blocked table
+// alone (BlockedGeom): what the cooperative walk is held against.
+int rt_binned_primary_thread(const float* ray_o, const float* ray_d, const float* tri,
+                             int n_tri, const float* sph, int n_sph, const float* mat,
+                             int n_obj, const float* lights, int n_light, const float* btri,
+                             const float* box, const float* sup, int n_chunks, float* st_f,
+                             int* st_i, int* casts, int* work, int n, void* stream) {
   rt::BlockedGeom g = blocked_geom(tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light, btri,
                                    box, sup, n_chunks);
-  auto kernel = work ? &rt::binned_primary<rt::Work> : &rt::binned_primary<rt::NoWork>;
-  kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(ray_o, ray_d, g, st_f, st_i, casts,
-                                                            work, n);
-  return (int)cudaGetLastError();
+  return launch_primary(ray_o, ray_d, g, st_f, st_i, casts, work, n, stream);
 }
 
 // unifs: [3, n] this bounce's uniforms in the state's lane order.  The
@@ -380,21 +438,22 @@ int rt_binned_terminal_thread(const float* st_f, const int* st_i, const float* t
 
 // Compiled attributes of the instantiations that count nothing: which = 0
 // primary, 1 bounce<first>, 2 bounce, 3 terminal<first>, 4 terminal (these
-// four the cooperative walk), 5 the per-thread bounce, 6 the per-thread
-// terminal (layout as rt_level_attrs).
+// five the cooperative walk), 5 the per-thread bounce, 6 the per-thread
+// terminal, 7 the per-thread primary (layout as rt_level_attrs).
 int rt_binned_attrs(int which, int* out) {
   using rt::BlockedGeom;
   using rt::CoopGeom;
   using rt::NoWork;
-  const void* fns[] = {(const void*)rt::binned_primary<NoWork>,
+  const void* fns[] = {(const void*)rt::binned_primary<CoopGeom, NoWork>,
                        (const void*)rt::binned_bounce<CoopGeom, true, NoWork>,
                        (const void*)rt::binned_bounce<CoopGeom, false, NoWork>,
                        (const void*)rt::binned_terminal<CoopGeom, true, NoWork>,
                        (const void*)rt::binned_terminal<CoopGeom, false, NoWork>,
                        (const void*)rt::binned_bounce<BlockedGeom, false, NoWork>,
-                       (const void*)rt::binned_terminal<BlockedGeom, false, NoWork>};
-  if (which < 0 || which > 6) return -1;
-  bool coop = which >= 1 && which <= 4;
+                       (const void*)rt::binned_terminal<BlockedGeom, false, NoWork>,
+                       (const void*)rt::binned_primary<BlockedGeom, NoWork>};
+  if (which < 0 || which > 7) return -1;
+  bool coop = which <= 4;
   return rt::attrs_of(fns[which], out, coop ? rt::coop_shared_bytes(rt::BOUNCE_THREADS) : 0);
 }
 

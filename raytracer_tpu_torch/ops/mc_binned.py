@@ -13,20 +13,20 @@ round-robin over the warps (`deal_lanes`): on the GPU a launch waits for
 its slowest warp, so an even mix of live, marching and dead lanes in every
 warp is worth more than neighbours that start from the same leaf boxes.
 
-Three CUDA kernels (csrc/mc_binned.cu), each with its plain version here:
+Three CUDA kernels (csrc/mc_binned.cu), each with its plain version here.
+All three walk the blocked chunks warp by warp out of shared memory
+(csrc/common.cuh CoopGeom), and each has a per-thread yardstick
+(`*_per_thread`: every thread traversing alone) that the walk never takes:
 
-  * primary:  the primary cast into the walk state;
+  * primary:  the primary cast into the walk state, in the rays' order;
+              the kernel deals the camera rays over its warps itself
+              (`primary_lanes`), so that every warp holds the same mix of
+              sky and mesh;
   * bounce:   one deferred-shading bounce (`first` skips the deferred
-              shade of bounce 0, where nothing is deferred yet); its warps
-              walk the chunks together out of shared memory
-              (csrc/common.cuh CoopGeom), which the sort makes pay: the
-              lanes of a warp then enter the same chunks.
-              `bounce_per_thread` launches it with every thread
-              traversing alone, as a yardstick; the walk never takes it;
+              shade of bounce 0, where nothing is deferred yet), on the
+              lanes sorted and dealt (above);
   * terminal: the last deferred shade and the depth-exhausted terminal
-              shade in one shadow sweep -> photons in sorted lane order;
-              cooperative as the bounce (`terminal_per_thread`: the
-              per-thread yardstick).
+              shade in one shadow sweep -> photons in sorted lane order.
 
 Walk state: `sf` [21, N] float32 and `si` [5, N] int32 (the TPU bit-casts
 the int rows into one [26, N] f32 array; here ints stay ints):
@@ -70,7 +70,10 @@ from raytracer_tpu_torch.utils import kernels
 # 0.49-0.51 / 0.28-0.39 s at 1,164 / 11,262 / 51,212 / 204,812 triangles
 # (mesh_scene(24 / 75 / 160 / 320)): the binned route, 80 % idle on the
 # host's sort dispatch, won at no size, so the threshold lies above every
-# size measured.  The JAX package's 4096 (raytracer_tpu/ops/mc_binned.py
+# size measured.  Measured again with the cooperative primary (the same
+# script and card): binned 0.19-0.22 / 0.16-0.19 / 0.17-0.23 / 0.22-0.28 s
+# against 0.023-0.024 / 0.033-0.035 / 0.045-0.047 / 0.068-0.070 s: still
+# above every size.  The JAX package's 4096 (raytracer_tpu/ops/mc_binned.py
 # :47-52) was tuned on the TPU.  The checks of the binned kernels lower it.
 BINNED_MIN_TRIS = 1 << 30
 
@@ -85,7 +88,8 @@ _I_KEYS = ("alive", "cprim", "cobj", "cback", "slot")
 COUNTS_PRIMARY = kernels.LaunchCounts()
 COUNTS_BOUNCE = kernels.LaunchCounts()
 COUNTS_TERMINAL = kernels.LaunchCounts()
-# the per-thread yardsticks of the cooperative bounce and terminal
+# the per-thread yardsticks of the cooperative primary, bounce and terminal
+COUNTS_PRIMARY_THREAD = kernels.LaunchCounts()
 COUNTS_BOUNCE_THREAD = kernels.LaunchCounts()
 COUNTS_TERMINAL_THREAD = kernels.LaunchCounts()
 
@@ -258,6 +262,16 @@ def _deal_order(n: int, device) -> torch.Tensor:
     return torch.argsort(torch.arange(n, device=device) % warps, stable=True)
 
 
+def primary_lanes(n: int, device=None) -> torch.Tensor:
+    """[ceil(n / 128) * 128] the lane that each thread of the cooperative
+    primary kernel takes (csrc/mc_binned.cu dealt_lane): the n lanes dealt
+    round-robin over the launch's ceil(n / 32) warps, n for a thread past
+    them.  A `work` output's columns in this order are the threads'."""
+    t = torch.arange(-(-n // 128) * 128, device=device)
+    warps = -(-n // 32)
+    return torch.where(t // 32 < warps, t // 32 + (t % 32) * warps, n)
+
+
 def deal_lanes(sf, si):
     """The sorted lanes dealt round-robin over the warps.  The sort packs
     the lanes that will march, and the live lanes of late bounces, into a
@@ -298,11 +312,24 @@ def primary(scene: Scene, o_t, d_t, work=None):
     """Primary cast -> (sf, si, casts [N]); o_t, d_t: [3, N] float32.
     `work` (all three wrappers): optional int32 [len(kernels.WORK_ROWS), N],
     filled with each lane's tests by kind (the counting instantiation)."""
-    dev, n = o_t.device, o_t.shape[1]
-    if dev.type == "cpu":
+    if o_t.device.type == "cpu":
         COUNTS_PRIMARY.plain += 1
         return primary_plain(scene.geom, o_t, d_t)
-    geo = _cuda_args(scene, dev, "primary")
+    return _launch_primary("rt_binned_primary", True, COUNTS_PRIMARY, scene, o_t, d_t, work)
+
+
+def primary_per_thread(scene: Scene, o_t, d_t, work=None):
+    """`primary` on CUDA tensors through the kernel's per-thread
+    instantiation.  The cooperative primary must give its state, casts and
+    test counts; the walk never calls this."""
+    return _launch_primary("rt_binned_primary_thread", False, COUNTS_PRIMARY_THREAD, scene,
+                           o_t, d_t, work)
+
+
+def _launch_primary(entry: str, hot: bool, counts, scene: Scene, o_t, d_t, work):
+    """As _launch_bounce, for the primary kernel."""
+    dev, n = o_t.device, o_t.shape[1]
+    geo = _cuda_args(scene, dev, "primary", hot)
     kernels.check("o_t", o_t, torch.float32, (3, n), dev)
     kernels.check("d_t", d_t, torch.float32, (3, n), dev)
     kernels.check_work(work, n, dev)
@@ -310,8 +337,8 @@ def primary(scene: Scene, o_t, d_t, work=None):
     si = torch.empty((N_I, n), dtype=torch.int32, device=dev)
     casts = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        kernels.launch("rt_binned_primary", o_t, d_t, *geo, sf, si, casts, work, n)
-        COUNTS_PRIMARY.launches += 1
+        kernels.launch(entry, o_t, d_t, *geo, sf, si, casts, work, n)
+        counts.launches += 1
     return sf, si, casts
 
 

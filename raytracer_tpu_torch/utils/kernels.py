@@ -62,7 +62,8 @@ SIGNATURES = {
     "rt_level_blk": "pp" + _TABLES + _BLK + _HOT + "ppppppo" + "iii" + "ffi",
     "rt_level_blk_thread": "pp" + _TABLES + _BLK + "ppppppo" + "iii" + "ffi",
     # ray_o, ray_d, tables, st_f, st_i, casts, work, n
-    "rt_binned_primary": "pp" + _TABLES + _BLK + "pppo" + "i",
+    "rt_binned_primary": "pp" + _TABLES + _BLK + _HOT + "pppo" + "i",
+    "rt_binned_primary_thread": "pp" + _TABLES + _BLK + "pppo" + "i",
     # st_f, st_i, unifs, tables, out_f, out_i, casts, work, n, first,
     # max_distance, max_retries
     "rt_binned_bounce": "ppp" + _TABLES + _BLK + _HOT + "pppo" + "ii" + "fi",
@@ -102,8 +103,8 @@ WORK_ROWS = ("tri", "plane", "edge", "sph", "box", "chunk", "wchunk", "t_in", "t
 # kernel name -> (C entry that reports its attributes, instantiation index).
 # "level", "mc", "nearest_hit", "any_hit", "shadow_any_hit" and "march" are
 # the dense walks out of shared memory, "level_blk", "mc_blk" and the binned
-# bounce and terminal kernels the warp-cooperative walks of the main path;
-# the "*_thread" ones are their per-thread yardsticks.
+# primary, bounce and terminal kernels the warp-cooperative walks of the
+# main path; the "*_thread" ones are their per-thread yardsticks.
 ATTRS = {
     "level": ("rt_level_attrs", 0), "level_thread": ("rt_level_attrs", 3),
     "level_blk": ("rt_level_attrs", 1), "level_blk_thread": ("rt_level_attrs", 2),
@@ -116,6 +117,7 @@ ATTRS = {
     "binned_terminal": ("rt_binned_attrs", 4),
     "binned_bounce_thread": ("rt_binned_attrs", 5),
     "binned_terminal_thread": ("rt_binned_attrs", 6),
+    "binned_primary_thread": ("rt_binned_attrs", 7),
     "nearest_hit": ("rt_intersect_attrs", 0), "any_hit": ("rt_intersect_attrs", 1),
     "shadow_any_hit": ("rt_intersect_attrs", 2),
     "shadow_any_hit_thread": ("rt_intersect_attrs", 3),

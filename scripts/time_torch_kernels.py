@@ -20,9 +20,11 @@ script), builds its kernels there, and times
     two tail levels and the last level), with each pool's width, the tests
     its lanes ran and the bound of one launch; the blocked MC walk
     (mc_kernel.trace) and each binned kernel on the states of one captured
-    walk of that tile (the primary, the five bounces, the terminal).  Where
-    the checkout has them, the per-thread yardsticks of the cooperative
-    kernels are timed on the same inputs (`*_thread`);
+    walk of that tile (the primary, the five bounces, the terminal), and
+    the primary also on each of the 16 tiles of the frame's epoch, with its
+    registers, blocks per SM and block durations.  Where the checkout has
+    them, the per-thread yardsticks of the cooperative kernels are timed on
+    the same inputs (`*_thread`);
   * the whole mesh11k Whitted frame: its host seconds and the blocked level
     kernel's mean device time per launch over the frame's 96 levels; the
     whole mesh11k MC epoch through the blocked MC kernel (host seconds,
@@ -134,7 +136,11 @@ def mesh_times(dev, reps, rounds):
             calls[f"{name}_{i}"] = ("level_kernel", lambda fn=fn, p=pool, l=last, dr=direct:
                                     fn(scene, p, l, dr, *lv))
     calls["mc_blk"] = ("mc_kernel", lambda: mc_kernel.trace(scene, o, d, unifs, depth, md, mr))
+    # the primary, and its per-thread yardstick where the checkout has it
     calls["binned_primary"] = ("binned_primary", lambda: mc_binned.primary(scene, o_t, d_t))
+    if hasattr(mc_binned, "primary_per_thread"):
+        calls["binned_primary_thread"] = (
+            "binned_primary", lambda: mc_binned.primary_per_thread(scene, o_t, d_t))
     sf, si, _ = mc_binned.primary(scene, o_t, d_t)
     for step in range(depth):
         sf, si = mc_binned.sort_state(scene, sf, si, unifs[step])
@@ -163,8 +169,59 @@ def mesh_times(dev, reps, rounds):
     for name, _ in walks:
         out[f"{name}_mean"] = mean(name, len(pools))
     out["level_blk_work"] = level_work(scene, pools, cfg)
+    out["binned_primary_work"] = primary_work(scene, o_t, d_t)
+    out["binned_primary_epoch"] = primary_epoch(scene, cam, cfg, dev, reps, rounds)
     out["whitted_frame"] = frame_times(scene, cam, cfg, rounds)
     out["mc_epoch_mega"] = mega_epoch(scene, cam, cfg, rounds)
+    return out
+
+
+def primary_work(scene, o_t, d_t):
+    """The binned primary (#7) on one tile's rays through its counting
+    instantiation -> block durations (median, longest us), test totals and
+    bound, and the compiled attributes of the primary and, where the
+    checkout has it, of its per-thread yardstick ("attrs")."""
+    from raytracer_tpu_torch.ops import mc_binned
+    from raytracer_tpu_torch.utils import kernels
+
+    n = o_t.shape[1]
+    work = SMOKE.work_for(n, o_t.device)
+    mc_binned.primary(scene, o_t, d_t, work=work)
+    io = SMOKE.nbytes(o_t, d_t, *SMOKE.scene_tables(scene)) + (21 + 5 + 1) * 4 * n
+    b_ms, b_by, ops = SMOKE.bound(io, work)
+    tests = SMOKE.totals(work)
+    if hasattr(mc_binned, "primary_lanes"):  # the columns in the threads' order
+        work = work[:, mc_binned.primary_lanes(n, o_t.device).clamp(max=n - 1)]
+    out = {"attrs": {k: kernels.kernel_attrs(k) for k in ("binned_primary",
+                                                          "binned_primary_thread")
+                     if k in kernels.ATTRS},
+           "block_us_median_longest": SMOKE.block_spread(work), "tests": tests,
+           "sharing": SMOKE.sharing(tests), "bound_ms": b_ms, "bound_by": b_by, "bytes": io,
+           "ops": ops}
+    print(f"binned_primary: {out}", flush=True)
+    return out
+
+
+def primary_epoch(scene, cam, cfg, dev, reps, rounds):
+    """The binned primary (#7), and its per-thread yardstick where the
+    checkout has it, on each of the 16 tiles of the 1024x1024 epoch (the
+    draws of epoch 0) -> {name: [[device ms per tile], ...] `rounds` times}."""
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import mc_binned
+    from raytracer_tpu_torch.render import _clips, tile_draws
+
+    tiles = []
+    for t, clip in enumerate(_clips(cfg, dev)[0]):
+        normals, _ = tile_draws(cfg, 0, 0, t, clip.shape[0], dev)
+        o, d = camera_ops.shoot_focus(cam, clip, normals * cfg.blur, cfg.focus)
+        tiles.append((o.t().contiguous(), d.t().contiguous()))
+    fns = {"binned_primary": mc_binned.primary}
+    if hasattr(mc_binned, "primary_per_thread"):
+        fns["binned_primary_thread"] = mc_binned.primary_per_thread
+    out = {name: [[SMOKE.device_ms(lambda: fn(scene, *tile), reps, "binned_primary")
+                   for tile in tiles] for _ in range(rounds)] for name, fn in fns.items()}
+    print("binned_primary over the epoch's tiles, ms: "
+          + ", ".join(f"{k} {[round(sum(r), 4) for r in v]}" for k, v in out.items()), flush=True)
     return out
 
 

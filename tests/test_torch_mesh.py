@@ -142,6 +142,36 @@ def test_binned_path_matches_mega_path(depth, monkeypatch):
     assert (a != 0).any()
 
 
+def test_binned_primary_yardstick_takes_cuda_tensors_only(monkeypatch):
+    """The per-thread yardstick of the cooperative primary refuses CPU
+    tensors (no plain fallback); the binned walk of mesh_scene(8) at 48x32
+    still matches the mega-kernel, and nothing takes the yardstick."""
+    scene, cam = tpresets.mesh_scene(8)
+    n = 48 * 32
+    rng = np.random.default_rng(9)
+    clips = torch.as_tensor(rng.uniform(-0.6, 0.6, size=(n, 2)).astype(np.float32))
+    normals = torch.as_tensor(rng.normal(size=(n, 2)).astype(np.float32)) * 0.04
+    unifs = rng.uniform(size=(3, 3, n)).astype(np.float32)
+    unifs[:, 2] = unifs[:, 2] * np.float32(2 * np.pi) - np.float32(np.pi)
+    o, d = camera_ops.shoot_focus(cam, clips, normals, 3.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mc_binned.primary_per_thread(scene, o.t().contiguous(), d.t().contiguous())
+    cfg = RenderConfig(depth=3)
+    mega = trace_distributed(scene, o, d, torch.as_tensor(unifs), cfg)
+    monkeypatch.setattr(mc_binned, "BINNED_MIN_TRIS", 64)
+    before = (mc_binned.COUNTS_PRIMARY.plain, mc_binned.COUNTS_PRIMARY_THREAD.launches,
+              mc_binned.COUNTS_PRIMARY_THREAD.plain)
+    binned = trace_distributed(scene, o, d, torch.as_tensor(unifs), cfg)
+    assert mc_binned.COUNTS_PRIMARY.plain == before[0] + 1
+    assert (mc_binned.COUNTS_PRIMARY_THREAD.launches,
+            mc_binned.COUNTS_PRIMARY_THREAD.plain) == (0, 0) == before[1:]
+    a, b = binned.photon.numpy(), mega.photon.numpy()
+    close = np.all(np.isclose(a, b, rtol=1e-4, atol=1e-5), axis=-1)
+    assert close.mean() >= 0.995, close.mean()
+    assert int(binned.casts) == int(mega.casts)
+    assert (a != 0).any()
+
+
 def test_binned_state_sort_keeps_slots_and_sends_dead_lanes_last():
     scene, cam = tpresets.mesh_scene(8)
     rng = np.random.default_rng(4)
@@ -180,6 +210,25 @@ def test_deal_lanes_spreads_sorted_neighbours_over_the_warps(n):
     share = torch.bincount(warp_of[:100], minlength=warps)
     assert int(share.max()) <= -(-100 // warps) + (n % 32 != 0)
     assert n % 32 != 0 or int(share.min()) >= 100 // warps
+
+
+@pytest.mark.parametrize("n", [33, 500, 40941, 65536])
+def test_primary_lanes_deal_every_lane_once_over_the_warps(n):
+    """The cooperative primary's thread -> lane map (csrc/mc_binned.cu
+    dealt_lane) takes each lane once, puts neighbouring lanes into
+    different warps, and leaves every warp's first thread a lane in the
+    tile wherever the warp holds one (where its helpers' tests go)."""
+    lanes = mc_binned.primary_lanes(n)
+    assert lanes.shape[0] == -(-n // 128) * 128
+    assert sorted(lanes[lanes < n].tolist()) == list(range(n))
+    warp_of = torch.full((n,), -1, dtype=torch.long)
+    threads = torch.arange(lanes.shape[0])
+    warp_of[lanes[lanes < n]] = threads[lanes < n] // 32
+    warps = -(-n // 32)
+    assert bool((warp_of[1:warps] != warp_of[:warps - 1]).all())
+    first = lanes.view(-1, 32)[:, 0]
+    holds = (lanes.view(-1, 32) < n).any(dim=1)
+    assert bool((first[holds] < n).all())
 
 
 def test_mesh24_goldens():
