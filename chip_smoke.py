@@ -48,7 +48,25 @@ Phases (each asserts; none catches a failure):
      (whitted_mesh{24,96,160}, mc_mesh24); then the demo's goldens through
      the unfused path (the demo's textures without row forms) and
      whitted_mesh24 through its BVH-only route (no blocked layout);
-  4. the main paths, each with the kernels' launch counts set to 0 just
+  4. presets, scene files, render_* and the CLI: the five depth-5 oracle
+     goldens (tests/golden/oracle_*_64x48_d5.npy: 01-spheres,
+     02-triangles, 03-recursive, 06-obj, demo) rendered through the dense
+     level kernel at 64x48 and gated as the demo's Whitted golden (psnr
+     printed), the same frames through the plain versions on the card, and
+     one MC epoch of each kernel against plain; the four degenerate scenes
+     of tests/test_degenerate_scenes.py (sphere-only, triangle-only,
+     empty, a glass sphere alone) built from JSON: a Whitted frame and an
+     epoch each, finite, nothing dropped, kernel against plain, and the
+     empty scene sky everywhere with no kernel launched; the demo's
+     builder written by dump_builder and read back renders the preset's
+     frame and epoch, and with "bvh": true goes through the blocked
+     kernels; at 1280x960 on the demo, render_epochs(3) equals three
+     render_distributed_epoch calls summed, render_step equals
+     render_whitted plus one epoch, render_steps(2)'s counters are the
+     sums; each preset's Whitted frame and MC epoch at 1280x960 (host
+     seconds, least of three, and device busy); four CLI processes at
+     once (a preset, a scene file, --warm-cache, --profile);
+  5. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: the reference schedule
      (render_progressive on the demo scene, 1280x960, depth 5, Whitted +
      3 epochs: the staged level kernel 114 times, the staged MC kernel once
@@ -96,25 +114,6 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 
-# The bound: the larger of bytes over HBM bandwidth and FP32 operations
-# over the FP32 (non-tensor) peak, from the H100 SXM data sheet.
-PEAK_BYTES = 3.35e12  # B/s
-PEAK_FP32 = 67e12  # FLOP/s
-# FP32 operations charged to each kind of test that the kernels' counting
-# instantiations count per lane (kernels.WORK_ROWS, common.cuh `Work`),
-# an FMA as 2 and a division, square root, compare or min/max as 1: a
-# triangle test begun is a dot product and a compare (6); going on to the
-# plane's t adds a dot product, a subtraction, a division and three
-# compares (10); an edge test is two dot products, an add, an FMA and a
-# compare (14); a sphere test a difference, a cross product, two dot
-# products, a square root and compares (30); a slab test 6 subtractions,
-# 6 multiplies, 6 NaN tests, 11 min/max and 2 compares (31).  Shading,
-# sampling and the march's refractions are not counted, so the operation
-# bound is low.
-OPS = {"tri": 6, "plane": 10, "edge": 14, "sph": 30, "box": 31}
-# The other rows of a `work` output are charged nothing: the chunks a lane's
-# rays entered, the chunks its warp staged, two clock readings and four
-# cycle counts.
 DEPTH, MD, MR = 5, 100.0, 10
 
 
@@ -325,17 +324,6 @@ def level_pools(scene, cam, clip, cfg):
 
     trace_whitted(scene, *camera_ops.shoot(cam, clip), cfg, level_fn=record)
     return pools
-
-
-def bound(in_out_bytes, work):
-    """(bound_ms, bound_by, FP32 operations) from the bytes a call must
-    move and the tests its lanes ran (work: [len(WORK_ROWS), n] counts)."""
-    from raytracer_tpu_torch.utils.kernels import WORK_ROWS
-
-    ops = sum(int(work[i].sum()) * OPS[k] for i, k in enumerate(WORK_ROWS) if k in OPS)
-    t_bytes = in_out_bytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), ops
 
 
 def totals(work):
@@ -689,6 +677,296 @@ def random_rays(n_prim, n, rng, dev):
     return rays, active, limit
 
 
+# The preset scenes with committed depth-5 oracle renders
+# (tests/golden/oracle_<name>_64x48_d5.npy), as (name, maker in
+# scene/presets.py); 08-full / full / demo are one scene
+ORACLE_PRESETS = (("01-spheres", "spheres_scene"), ("02-triangles", "triangles_scene"),
+                  ("03-recursive", "recursive_scene"), ("06-obj", "obj_scene"),
+                  ("demo", "demo_scene"))
+# tests/test_degenerate_scenes.py's scenes as JSON (scene/serialize.py)
+_LIGHT = [{"type": "directional", "direction": [0, -1, 0], "color": [1, 1, 1]}]
+DEGENERATE = {
+    "sphere-only": {"objects": [{"material": {"diffuse_color": [1, 0, 0], "shiness": 0.2},
+                                 "spheres": [{"center": [0, 0.5, 0], "radius": 0.5}]}],
+                    "lights": _LIGHT},
+    "triangle-only": {"objects": [{"material": {"diffuse_color": [0, 1, 0], "shiness": 0.3},
+                                   "squares": [[[-2, 0, -2], [-2, 0, 2], [2, 0, 2],
+                                                [2, 0, -2]]]}],
+                      "lights": _LIGHT},
+    "empty": {"lights": _LIGHT},
+    "glass sphere only": {"objects": [{"material": {
+        "diffuse_color": [1, 1, 1], "shiness": 1.0, "smoothness": 0.001,
+        "refraction_index": 1.12, "opaque_decay": 0.3, "transparency": 0.96},
+        "spheres": [{"center": [0, 0.5, 0], "radius": 0.5}]}], "lights": _LIGHT},
+}
+
+
+def whitted_vs_plain(label, scene, cam, cfg):
+    """The Whitted frame tile by tile through the kernels and through their
+    plain versions on the card (ops/level_kernel.process_level_plain):
+    >= 97 % of pixels within 1e-3 + 2e-2 |ref|, casts within 1 %, nothing
+    dropped, every colour finite -> (share of pixels that agree, casts)."""
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import level_kernel
+    from raytracer_tpu_torch.ops.trace import trace_whitted
+    from raytracer_tpu_torch.render import _clips
+
+    def plain_level(sc, pool, last, direct, thr, md, mr):
+        c, r, f, casts = level_kernel.process_level_plain(
+            sc.geom, sc.textures, pool, last, direct, thr, md, mr)
+        return c, r, f, casts.sum()
+
+    got, ref, casts = [], [], [0, 0]
+    for clip in _clips(cfg, scene.device)[0]:
+        o, d = camera_ops.shoot(cam, clip)
+        for out, i, kw in ((got, 0, {}), (ref, 1, {"level_fn": plain_level})):
+            res = trace_whitted(scene, o, d, cfg, **kw)
+            assert int(res.dropped) == 0, (label, i)
+            out.append(res.color)
+            casts[i] += int(res.casts)
+    a, b = torch.cat(got).cpu().numpy(), torch.cat(ref).cpu().numpy()
+    fc = frac_close(a, b)
+    print(f"whitted {label}, kernel vs plain: {fc:.5f} of pixels agree, casts {casts[0]} vs "
+          f"{casts[1]}, max |err| {np.abs(a - b).max():.3g}")
+    assert np.isfinite(a).all() and fc >= 0.97, (label, fc)
+    assert casts_close(casts[0], casts[1]), (label, casts)
+    return fc, casts[0]
+
+
+def mc_vs_plain(label, scene, cam, cfg, seed=0, epoch=0):
+    """One MC epoch's lanes (the generator's draws of `seed`, `epoch`) through
+    mc_kernel.trace and its plain version on the card: >= 99 % of lanes
+    within 1e-3 + 2e-2 |ref|, casts within 1 %, every photon finite ->
+    (share of lanes that agree, casts)."""
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import mc_kernel
+    from raytracer_tpu_torch.render import _clips, frame_draws, tile_draws
+
+    clips = _clips(cfg, scene.device)[0]
+    normals, unifs = frame_draws([tile_draws(cfg, seed, epoch, t, c.shape[0], scene.device)
+                                  for t, c in enumerate(clips)])
+    o, d = camera_ops.shoot_focus(cam, clips.reshape(-1, 2), normals * cfg.blur, cfg.focus)
+    o, d = o.contiguous(), d.contiguous()
+    got, got_casts = mc_kernel.trace(scene, o, d, unifs, DEPTH, MD, MR)
+    ref, ref_casts = mc_kernel.trace_plain(scene.geom, scene.textures, o, d, unifs, DEPTH, MD,
+                                           MR)
+    a, b = got.cpu().numpy(), ref.cpu().numpy()
+    fc = frac_close(a, b)
+    print(f"mc {label}, kernel vs plain: {fc:.5f} of lanes agree, casts {int(got_casts)} vs "
+          f"{int(ref_casts)}")
+    assert np.isfinite(a).all() and fc >= 0.99, (label, fc)
+    assert casts_close(got_casts, ref_casts), (label, int(got_casts), int(ref_casts))
+    return fc, int(got_casts)
+
+
+def same_whitted(a, b):
+    """(equal bit for bit, pixels that differ): two renders of one Whitted
+    frame.  The ladder adds each level's contributions into its pixels with
+    index_add, whose float atomics on the card sum three or more children
+    of a pixel in no fixed order, so a pixel may move by an ulp; beyond a
+    relative 1e-6 the frames differ."""
+    diff = (a - b).abs()
+    assert bool((diff <= 1e-6 * b.abs().clamp_min(1.0)).all()), float(diff.max())
+    return torch.equal(a, b), int((diff.amax(dim=-1) > 0).sum())
+
+
+def presets_phase(dev, reset_counts, read_counts, fused_kernels):
+    """Phase 4: the presets, the JSON scene files and the render_* functions
+    on the card (module docstring) -> the preset timings, by name."""
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.render import (
+        _clips,
+        render_distributed_epoch,
+        render_epochs,
+        render_step,
+        render_steps,
+        render_whitted,
+    )
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scene.serialize import dump_builder, load_scene_dict
+
+    small = RenderConfig(width=64, height=48, depth=DEPTH, tile_rays=64 * 48)
+    full = RenderConfig(depth=DEPTH)  # 1280x960, tile_rays 65536
+    cam = presets.demo_camera()  # the makers and loaders build on the card unasked
+
+    # the oracle goldens through the kernels, gated as scripts/tpu_check.py
+    # gates the demo's Whitted golden, the same frame through the plain
+    # versions, and one MC epoch kernel against plain
+    scenes = {name: getattr(presets, maker)() for name, maker in ORACLE_PRESETS}
+    assert cam.fovy.is_cuda and all(s.tri_v.is_cuda for s in scenes.values())
+    for name, scene in scenes.items():
+        reset_counts()
+        img, stats = render_whitted(scene, cam, small)
+        launches = read_counts()
+        p, bad, ok = golden_gate(img, f"oracle_{name}_64x48_d5.npy", 38.0, 0.02)
+        print(f"golden oracle {name} ({scene.n_tri} triangles, {scene.n_sph} spheres) 64x48 "
+              f"depth 5: psnr {p:.1f} dB, bad {bad:.4f}, dropped {stats['dropped']}; "
+              f"level kernel launches {launches['level']}")
+        assert ok and stats["dropped"] == 0, (name, p, bad)
+        assert launches["level"] == DEPTH + 1 and launches["level_blk"] == 0, launches
+        whitted_vs_plain(f"{name} 64x48", scene, cam, small)
+        reset_counts()
+        render_distributed_epoch(scene, cam, small)
+        assert read_counts()["mc"] == 1
+        mc_vs_plain(f"{name} 64x48", scene, cam, small)
+
+    # the degenerate scenes from JSON: an empty triangle or sphere table,
+    # no primitive at all (the unfused path, where nothing is cast)
+    for name, data in DEGENERATE.items():
+        scene = load_scene_dict(data)[0]
+        assert scene.sph_c.is_cuda, name
+        reset_counts()
+        img, stats = render_whitted(scene, cam, small)
+        photons, est = render_distributed_epoch(scene, cam, small)
+        launches = read_counts()
+        assert torch.isfinite(img).all() and torch.isfinite(photons).all(), name
+        assert stats["dropped"] == 0, name
+        print(f"degenerate scene {name} ({scene.n_tri} triangles, {scene.n_sph} spheres) "
+              f"64x48: whitted casts {stats['casts']}, epoch casts {est['casts']}, filtered "
+              f"{est['filtered']}; launches {launches}")
+        if scene.n_prim == 0:  # sky everywhere, and no kernel launched on it
+            assert not img.any() and not photons.any() and not any(launches.values())
+            cpu_img, _ = render_whitted(scene.to("cpu"), cam.to("cpu"), small)
+            assert not cpu_img.any()
+            continue
+        assert launches["level"] == DEPTH + 1 and launches["mc"] == 1, launches
+        whitted_vs_plain(f"{name} 64x48", scene, cam, small)
+        mc_vs_plain(f"{name} 64x48", scene, cam, small)
+
+    # a scene file: the demo's builder written as JSON and read back renders
+    # the preset's frame and epoch; with "bvh": true, the blocked kernels
+    builder = presets.demo_builder()
+    data = json.loads(json.dumps(dump_builder(builder, presets.demo_camera())))
+    loaded, file_cam = load_scene_dict(data)
+    assert loaded.tri_v.is_cuda and file_cam.fovy.is_cuda
+    demo = scenes["demo"]
+    exact, moved = same_whitted(render_whitted(loaded, file_cam, small)[0],
+                                render_whitted(demo, cam, small)[0])
+    assert torch.equal(render_distributed_epoch(loaded, file_cam, small, seed=5, epoch=2)[0],
+                       render_distributed_epoch(demo, cam, small, seed=5, epoch=2)[0])
+    print(f"scene file (dump_builder of the demo, read back): whitted frame equal "
+          f"{'bit for bit' if exact else f'but for {moved} pixels within 1e-6'}, "
+          f"the epoch bit for bit")
+    blocked = load_scene_dict(dict(data, bvh=True))[0]
+    assert blocked.blocked
+    reset_counts()
+    _, bst = render_whitted(blocked, file_cam, small)
+    render_distributed_epoch(blocked, file_cam, small)
+    launches = read_counts()
+    print(f"scene file with \"bvh\": true ({blocked.blk_tables.n_chunks} chunk): launches "
+          f"{launches}")
+    assert launches["level_blk"] == DEPTH + 1 and launches["mc_blk"] == 1, launches
+    assert launches["level"] == 0 and launches["mc"] == 0, launches
+    whitted_vs_plain("demo 64x48 from a file with \"bvh\": true", blocked, file_cam, small)
+    mc_vs_plain("demo 64x48 from a file with \"bvh\": true", blocked, file_cam, small)
+
+    # render_step / render_steps / render_epochs on the demo at 1280x960
+    reset_counts()
+    accum, st = render_epochs(demo, cam, full, 4, 3, epoch=10)
+    epochs_launches = read_counts()
+    ref = torch.zeros_like(accum)
+    singles = []
+    for e in (10, 11, 12):
+        photons, est = render_distributed_epoch(demo, cam, full, seed=4, epoch=e)
+        ref = ref + photons
+        singles.append(est)
+    assert torch.equal(accum, ref), "render_epochs"
+    assert st["casts"] == sum(s["casts"] for s in singles)
+    assert st["filtered"] == sum(s["filtered"] for s in singles)
+    assert epochs_launches["mc"] == 3 and not any(
+        epochs_launches[k] for k in fused_kernels if k != "mc"), epochs_launches
+    reset_counts()
+    w_img, photons, step = render_step(demo, cam, full, seed=4, epoch=10)
+    step_launches = read_counts()
+    ref_img, wst = render_whitted(demo, cam, full)
+    ref_ph, est = render_distributed_epoch(demo, cam, full, seed=4, epoch=10)
+    exact, moved = same_whitted(w_img, ref_img)
+    assert torch.equal(photons, ref_ph), "render_step's epoch"
+    assert step["casts"] == wst["casts"] + est["casts"] and step["dropped"] == 0
+    tiles = len(_clips(full, dev)[0])
+    assert step_launches["level"] == tiles * (DEPTH + 1) and step_launches["mc"] == 1
+    reset_counts()
+    _, _, steps = render_steps(demo, cam, full, 4, 2, epoch=10)
+    steps_launches = read_counts()
+    ref_step = render_step(demo, cam, full, seed=4, epoch=11)[2]
+    for k in ("casts", "filtered"):
+        assert steps[k] == step[k] + ref_step[k], (k, steps, step, ref_step)
+    assert steps["dropped"] == 0 and steps["steps"] == 2
+    assert steps["primary_rays"] == 2 * full.width * full.height
+    assert steps_launches["level"] == 2 * tiles * (DEPTH + 1) and steps_launches["mc"] == 2
+    print(f"render_epochs(3) at 1280x960 = three render_distributed_epoch calls summed, bit for "
+          f"bit; render_step = render_whitted ({'bit for bit' if exact else f'{moved} pixels within 1e-6'}) "
+          f"+ one epoch (bit for bit); render_steps(2)'s counters the sums {steps}")
+
+    # each preset at 1280x960, depth 5: host seconds (least of three) and
+    # device busy of the Whitted frame and one MC epoch
+    times = {}
+    for name, scene in scenes.items():
+        _, wst = render_whitted(scene, cam, full)
+        _, est = render_distributed_epoch(scene, cam, full, epoch=7)
+        w = profile_breakdown(f"{name} whitted frame 1280x960",
+                              lambda: render_whitted(scene, cam, full))
+        e = profile_breakdown(f"{name} mc epoch 1280x960",
+                              lambda: render_distributed_epoch(scene, cam, full, epoch=7))
+        times[name] = {"whitted_s": w["wall_s"], "whitted_busy_ms": w["device_busy_ms"],
+                       "whitted_idle": w["idle"], "whitted_casts": wst["casts"],
+                       "epoch_s": e["wall_s"], "epoch_busy_ms": e["device_busy_ms"],
+                       "epoch_idle": e["idle"], "epoch_casts": est["casts"]}
+        t = times[name]
+        print(f"preset {name} 1280x960: whitted {t['whitted_s']:.4f} s "
+              f"({t['whitted_casts'] / t['whitted_s']:,.0f} casts/s, busy "
+              f"{t['whitted_busy_ms']:.2f} ms), mc epoch {t['epoch_s']:.4f} s "
+              f"({t['epoch_casts'] / t['epoch_s']:,.0f} casts/s, busy "
+              f"{t['epoch_busy_ms']:.2f} ms)")
+    return times
+
+
+def cli_phase():
+    """The CLI on the card, four subprocesses at once: a preset, a scene
+    file, --warm-cache (which writes no --out) and --profile (whose trace
+    exists and whose printed top operations include the MC kernel).  A
+    process that fails, or warns of a dropped ray, fails the run."""
+    small = ["--width", "320", "--height", "240", "--epochs", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = lambda name: os.path.join(tmp, name)
+        runs = {
+            "preset": ["--scene", "03-recursive", *small, "--out", out("preset.png")],
+            "scene file": ["--scene-file", os.path.join(HERE, "assets", "scene_spheres.json"),
+                           *small, "--out", out("file.png")],
+            "warm cache": ["--scene", "01-spheres", *small, "--png-every", "2", "--warm-cache",
+                           "--out", out("never.png")],
+            "profile": ["--scene", "06-obj", *small, "--out", out("profile.png"), "--profile",
+                        out("prof")],
+        }
+        procs = {k: subprocess.Popen([sys.executable, "-m", "raytracer_tpu_torch", *args],
+                                     cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True) for k, args in runs.items()}
+        results = {}
+        try:
+            for k, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=300)
+                results[k] = stdout
+                print(f"cli {k} (rc {proc.returncode}): " + stdout.strip().replace("\n", " | ")
+                      [:600])
+                assert proc.returncode == 0, (k, stderr[-3000:])
+                assert "dropped" not in stdout, (k, stdout[-3000:])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        from raytracer_tpu_torch.utils.png import read_png_rgb8
+
+        for name in ("preset.png", "file.png", "profile.png"):
+            png = read_png_rgb8(out(name))
+            assert png.shape == (240, 320, 3) and png.max() > 0, (name, png.shape)
+        assert not os.path.exists(out("never.png"))
+        assert "warm-cache:" in results["warm cache"]
+        assert os.path.exists(out("prof/trace.json"))
+        top = results["profile"].split("top 20 operations by self device time", 1)
+        assert len(top) == 2 and "mc_kernel" in top[1], results["profile"][-2000:]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -723,6 +1001,7 @@ def main() -> int:
     from raytracer_tpu_torch.scene.types import BVH_FIELDS, Rays
     from raytracer_tpu_torch.utils import kernels
     from raytracer_tpu_torch.utils.png import read_png_rgb8
+    from raytracer_tpu_torch.utils.roofline import bound
 
     dev = torch.device("cuda")
     counts = {
@@ -1259,7 +1538,7 @@ def main() -> int:
         keep("nearest_hit", u.check_nearest(f"{u.n} random rays", rays, active, atol=1e-5))
         keep("any_hit", u.check_any(f"{u.n} random rays", rays, active, limit))
         keep("any_hit", u.check_any(f"{u.n} random rays, no limit", rays, active, None))
-    tile_u = u  # the 65536-ray tile of the main path, for phase 4
+    tile_u = u  # the 65536-ray tile of the main path, for phase 5
     # a dense table too large to stage (mesh_scene(30) without its BVH and
     # blocked layout: 1,812 triangles), which the listed kernels walk per
     # thread out of global memory (DenseGeom)
@@ -1328,7 +1607,7 @@ def main() -> int:
         args = epoch_calls["frame"]["march"][0][0][1:7]
         hold_march(f"unfused mc epoch, frame, bounce 0, lanes {at} + {m}", demo_u,
                    tuple(cut(x, at, m) for x in args))
-    frame_calls = epoch_calls["frame"]  # for the per-launch times of phase 4
+    frame_calls = epoch_calls["frame"]  # for the per-launch times of phase 5
     del epoch_calls
     one = epoch_frame(demo_u, demo_cam, full, frame_clips, u_draws)
     per_tile = epoch_tiles(demo_u, demo_cam, full, frame_clips, u_draws)
@@ -1404,7 +1683,11 @@ def main() -> int:
     assert ok and stats["dropped"] == 0
     assert not any(read_counts().values())  # tensor operations only: no kernel, no plain sweep
 
-    # ---- 4. the main paths -----------------------------------------------
+    # ---- 4. presets, scene files, render_* and the CLI -------------------
+    preset_times = presets_phase(dev, reset_counts, read_counts, fused_kernels)
+    cli_phase()
+
+    # ---- 5. the main paths -----------------------------------------------
     lines = []
 
     def log(msg):
@@ -1431,12 +1714,12 @@ def main() -> int:
     assert demo_launches["level"] == demo_tiles * (DEPTH + 1), demo_launches
     assert demo_launches["mc"] == full.epochs, demo_launches
 
-    # the demo epoch's host seconds here, early in phase 4, for comparison
+    # the demo epoch's host seconds here, early in phase 5, for comparison
     # with the same epoch profiled after the mesh paths below
     demo_epoch_early_s = min(timed(lambda: render_distributed_epoch(demo, demo_cam, full,
                                                                      epoch=7))[1]
                              for _ in range(3))
-    print(f"demo mc epoch 1280x960, early in phase 4: {demo_epoch_early_s:.4f} s host "
+    print(f"demo mc epoch 1280x960, early in phase 5: {demo_epoch_early_s:.4f} s host "
           f"(least of three)")
 
     def binned_route(fn):
@@ -2012,7 +2295,8 @@ def main() -> int:
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
               f"{v['bytes']:,.0f} B, {v['ops']:,.0f} FP32 operations; tests {v['tests']})")
 
-    print(json.dumps({"frames": frames, "routes": routes, "attrs": attrs, "per_launch": per,
+    print(json.dumps({"frames": frames, "presets": preset_times, "routes": routes,
+                      "attrs": attrs, "per_launch": per,
                       "profiles": profiles, "bounce_orders": orders}))
 
     def entry(name, source, replaces, key, blk_key=None, thread_ms=None):

@@ -10,6 +10,38 @@ Importing the package starts nothing: the CUDA kernels are built with nvcc
 at their first launch (utils/kernels.py).
 """
 
-from raytracer_tpu_torch.config import RenderConfig
+from raytracer_tpu_torch.config import NORTH_STAR_CONFIG, REFERENCE_CONFIG, RenderConfig
+from raytracer_tpu_torch.render import (
+    clip_coords,
+    render_distributed_epoch,
+    render_epochs,
+    render_step,
+    render_steps,
+    render_whitted,
+)
+from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, square, triangle
+from raytracer_tpu_torch.scene.presets import PRESETS, demo_camera, demo_scene
+from raytracer_tpu_torch.scene.types import Camera, Hits, Rays, Scene
 
-__all__ = ["RenderConfig"]
+__all__ = [
+    "Camera",
+    "Hits",
+    "MaterialSpec",
+    "NORTH_STAR_CONFIG",
+    "PRESETS",
+    "Rays",
+    "REFERENCE_CONFIG",
+    "RenderConfig",
+    "Scene",
+    "SceneBuilder",
+    "clip_coords",
+    "demo_camera",
+    "demo_scene",
+    "render_distributed_epoch",
+    "render_epochs",
+    "render_step",
+    "render_steps",
+    "render_whitted",
+    "square",
+    "triangle",
+]

@@ -49,3 +49,10 @@ class RenderConfig:
     # Rays move through compaction in groups of this many; 0 = auto
     # (ops/trace.py:_group, 8 lanes).
     compact_group: int = 0
+
+
+# The reference binary's own settings (raytracer_tpu/config.py:85).
+REFERENCE_CONFIG = RenderConfig()
+
+# The BASELINE.json north-star frame (raytracer_tpu/config.py:88).
+NORTH_STAR_CONFIG = RenderConfig(width=1024, height=1024)

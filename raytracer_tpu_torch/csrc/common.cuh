@@ -423,6 +423,17 @@ __device__ inline void sph_nearest(const Tables& tb, V3 o, V3 d, int face, int e
   }
 }
 
+// o + t d rounded as written, a product and then a sum, as the plain
+// versions and the reference round it.  A fused multiply-add gives the
+// exact residual instead, whose sign is a coin toss for a point on a plane:
+// a floor point on the seam of two coplanar triangles then lay below the
+// neighbour's plane on half the seam's pixels, and its shadow rays hit the
+// neighbour at t ~ 1e-7 (on an H100, the oracle presets' centre column).
+__device__ __forceinline__ V3 ray_at(V3 o, V3 d, float t) {
+  return V3{__fadd_rn(o.x, __fmul_rn(t, d.x)), __fadd_rn(o.y, __fmul_rn(t, d.y)),
+            __fadd_rn(o.z, __fmul_rn(t, d.z))};
+}
+
 // The winner's hit point, shading normal, uv and object.  `row` is the
 // winning triangle's packed row (dense or blocked table), or null.
 __device__ inline Hit finish_hit(const Tables& tb, const float* __restrict__ row, V3 o, V3 d,
@@ -430,7 +441,7 @@ __device__ inline Hit finish_hit(const Tables& tb, const float* __restrict__ row
   Hit h;
   bool valid = best_t < BIG;
   float t_hit = valid ? best_t : 0.0f;
-  h.p = v3(o.x + t_hit * d.x, o.y + t_hit * d.y, o.z + t_hit * d.z);
+  h.p = ray_at(o, d, t_hit);
   h.n = v3(0.0f, 0.0f, 0.0f);
   h.u = 0.0f;
   h.v = 0.0f;
@@ -803,7 +814,7 @@ __device__ inline BackHit finish_back(const Tables& tb, const float* __restrict_
   BackHit b;
   b.t = best_t;
   b.prim = best_i;
-  b.h = v3(p.x + best_t * d.x, p.y + best_t * d.y, p.z + best_t * d.z);
+  b.h = ray_at(p, d, best_t);
   b.n = v3(0.0f, 0.0f, 0.0f);
   if (best_i >= 0 && best_i < tb.n_tri) {
     const float* r = row;

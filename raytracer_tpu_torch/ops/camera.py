@@ -17,8 +17,7 @@ def _basis(camera: Camera):
     toward = vec.normalize(camera.toward[None, :])[0]
     right = vec.normalize(torch.linalg.cross(toward, camera.up)[None, :])[0]
     up = vec.normalize(torch.linalg.cross(right, toward)[None, :])[0]
-    scale = torch.tan(camera.fovy / 2.0)
-    return toward, right * scale, up * scale  # toward, x, y (main.rs:85-90)
+    return toward, right * camera.scale, up * camera.scale  # toward, x, y (main.rs:85-90)
 
 
 def shoot(camera: Camera, clip):

@@ -103,6 +103,13 @@ class _AsyncWriter:
             raise self._err[0]
 
 
+def check_finite(x: torch.Tensor, stage: str, epoch: int) -> None:
+    """Raise FloatingPointError if `x` holds a NaN or an infinity (waits
+    for the device)."""
+    if not bool(torch.isfinite(x).all()):
+        raise FloatingPointError(f"non-finite value in {stage} (epoch {epoch})")
+
+
 def render_progressive(
     scene: Scene,
     camera: Camera,
@@ -113,15 +120,23 @@ def render_progressive(
     on_epoch: Optional[Callable[[int, dict], None]] = None,
     log: Callable[[str], None] = print,
     png_every: int = 1,
+    debug_nans: bool = False,
 ) -> ProgressiveState:
     """The full reference schedule: Whitted pass + cfg.epochs stochastic
     epochs, a PNG (and checkpoint) after each group of png_every epochs.
-    Renders on scene.device."""
+    Renders on scene.device.
+
+    debug_nans: stop at the first non-finite value (FloatingPointError
+    naming the stage and epoch), checked in the Whitted frame's colours and
+    in each epoch's photons before they are accumulated; each check waits
+    for the device."""
     device = scene.device
     state = load_checkpoint(checkpoint_path, device) if checkpoint_path else None
     if state is None:
         t0 = time.time()
         img, stats = render_whitted(scene, camera, cfg)
+        if debug_nans:
+            check_finite(img, "the whitted frame", 0)
         dt = max(time.time() - t0, 1e-9)
         log(f"{stats['primary_rays']} rays in {dt * 1e3:.0f} ms "
             f"({stats['casts'] / dt:,.0f} casts/s)")
@@ -146,6 +161,8 @@ def render_progressive(
             for epoch in range(state.epoch, state.epoch + k):
                 photons, st = render_distributed_epoch(
                     scene, camera, cfg, seed=state.seed, epoch=epoch)
+                if debug_nans:
+                    check_finite(photons, "the photons", epoch)
                 img = post_process(img + photons, cfg.percentile)
                 stats["casts"] += st["casts"]
                 stats["filtered"] += st["filtered"]

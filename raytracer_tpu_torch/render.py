@@ -1,10 +1,11 @@
 """High-level render API: whole frames from the camera and the tracers.
 
-Counterpart of raytracer_tpu/render.py:26-168, 332-358.  The pixel grid is
+Counterpart of raytracer_tpu/render.py:26-358.  The pixel grid is
 laid out in 32x16 block-major order and cut into tiles of cfg.tile_rays
 rays (the last tile padded with centre rays), exactly as the JAX package
 does: the MC pass consumes its draws in this lane order, so the same draws
-give the same photons lane for lane.
+give the same photons lane for lane.  The Whitted ladder leaves the
+padding out (`_whitted`).
 
 Draws: each (seed, epoch, tile) seeds its own torch.Generator on the render
 device, so an epoch's samples depend on nothing else and a resumed render
@@ -89,18 +90,30 @@ def _to_image(cfg: RenderConfig, tiles, inv):
     return flat.reshape(cfg.height, cfg.width, 3)
 
 
-def render_whitted(scene: Scene, camera: Camera,
-                   cfg: RenderConfig) -> Tuple[torch.Tensor, dict]:
-    """Whitted pass over the full frame -> ([H, W, 3], stats)."""
+def _whitted(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """The Whitted frame -> ([H, W, 3], casts, dropped), the counters as
+    device tensors (reading them waits for the device).  The last tile's
+    padding is not traced (the ladder takes any width): its copies of the
+    centre ray only cost casts, and where the centre sees a mirror or glass
+    their children overflowed the pools (03-recursive at 320x240: 24,402
+    rays dropped, every one a padding ray's)."""
     clips, inv = _clips(cfg, scene.device)
+    n = cfg.width * cfg.height
     colors, casts, dropped = [], 0, 0
-    for clip in clips:
-        o, d = camera_ops.shoot(camera, clip)
+    for t, clip in enumerate(clips):
+        o, d = camera_ops.shoot(camera, clip[:n - t * clip.shape[0]])
         res = trace_whitted(scene, o, d, cfg)
         colors.append(res.color)
         casts = casts + res.casts
         dropped = dropped + res.dropped
-    return _to_image(cfg, colors, inv), {
+    return _to_image(cfg, colors, inv), casts, dropped
+
+
+def render_whitted(scene: Scene, camera: Camera,
+                   cfg: RenderConfig) -> Tuple[torch.Tensor, dict]:
+    """Whitted pass over the full frame -> ([H, W, 3], stats)."""
+    img, casts, dropped = _whitted(scene, camera, cfg)
+    return img, {
         "casts": int(casts), "dropped": int(dropped),
         "primary_rays": cfg.width * cfg.height,
     }
@@ -158,15 +171,13 @@ def epoch_tiles(scene: Scene, camera: Camera, cfg: RenderConfig, clips, tile_in)
     return torch.cat(photons), casts, filtered
 
 
-def render_distributed_epoch(
-    scene: Scene, camera: Camera, cfg: RenderConfig, seed: int = 0,
-    epoch: int = 0, draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
-) -> Tuple[torch.Tensor, dict]:
-    """One stochastic epoch: one is_normal-filtered photon per pixel
-    (main.rs:1131-1160) -> ([H, W, 3], stats).
+Draws = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
-    draws: optional per-tile (lens normals [tile, 2], unifs [depth, 3,
-    tile]) in place of the generator's."""
+
+def _epoch(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, epoch: int,
+           draws: Optional[Draws]):
+    """One MC epoch -> ([H, W, 3] photons, casts, filtered), the counters
+    as device tensors."""
     clips, inv = _clips(cfg, scene.device)
     if draws is not None and len(draws) != len(clips):
         raise ValueError(f"draws for {len(draws)} tiles, the frame has {len(clips)}")
@@ -175,8 +186,92 @@ def render_distributed_epoch(
         for t, clip in enumerate(clips)]
     run = epoch_frame if frame_wide_route(scene) else epoch_tiles
     photon, casts, filtered = run(scene, camera, cfg, clips, tile_in)
+    return _to_image(cfg, [photon], inv), casts, filtered
+
+
+def _epoch_draws(draws: Optional[Sequence[Draws]], n: int, what: str):
+    """The per-epoch draws lists of a multi-epoch call (None: the
+    generator's), checked against the count."""
+    if draws is None:
+        return [None] * n
+    if len(draws) != n:
+        raise ValueError(f"draws for {len(draws)} {what}, asked for {n}")
+    return draws
+
+
+def render_distributed_epoch(
+    scene: Scene, camera: Camera, cfg: RenderConfig, seed: int = 0,
+    epoch: int = 0, draws: Optional[Draws] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """One stochastic epoch: one is_normal-filtered photon per pixel
+    (main.rs:1131-1160) -> ([H, W, 3], stats).
+
+    draws: optional per-tile (lens normals [tile, 2], unifs [depth, 3,
+    tile]) in place of the generator's."""
+    img, casts, filtered = _epoch(scene, camera, cfg, seed, epoch, draws)
     # stats include the padding rays of a ragged last tile
-    return _to_image(cfg, [photon], inv), {
+    return img, {
         "casts": int(casts), "filtered": int(filtered),
         "primary_rays": cfg.width * cfg.height,
+    }
+
+
+def render_step(
+    scene: Scene, camera: Camera, cfg: RenderConfig, seed: int = 0, epoch: int = 0,
+    draws: Optional[Draws] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """One progressive step: the Whitted frame and one MC epoch, as
+    render_whitted followed by render_distributed_epoch(seed, epoch,
+    draws) -> ([H, W, 3] whitted, [H, W, 3] photons, stats); `casts` sums
+    both passes (raytracer_tpu/render.py:182-212)."""
+    img, w_casts, dropped = _whitted(scene, camera, cfg)
+    photons, e_casts, filtered = _epoch(scene, camera, cfg, seed, epoch, draws)
+    return img, photons, {
+        "casts": int(w_casts + e_casts), "dropped": int(dropped),
+        "filtered": int(filtered), "primary_rays": cfg.width * cfg.height,
+    }
+
+
+def render_steps(
+    scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, n_steps: int,
+    epoch: int = 0, draws: Optional[Sequence[Draws]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """n_steps progressive steps (the bench harness's unit,
+    raytracer_tpu/render.py:270-295): step i renders the Whitted frame and
+    MC epoch `epoch + i` (draws[i] when given) -> the LAST step's
+    (whitted, photons) and the counters summed over the steps.  Each step
+    renders its own Whitted frame."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    casts = dropped = filtered = 0
+    for i, step_draws in enumerate(_epoch_draws(draws, n_steps, "steps")):
+        img, w_casts, w_dropped = _whitted(scene, camera, cfg)
+        photons, e_casts, e_filtered = _epoch(scene, camera, cfg, seed, epoch + i, step_draws)
+        casts = casts + w_casts + e_casts
+        dropped = dropped + w_dropped
+        filtered = filtered + e_filtered
+    return img, photons, {
+        "casts": int(casts), "dropped": int(dropped), "filtered": int(filtered),
+        "primary_rays": cfg.width * cfg.height * n_steps, "steps": n_steps,
+    }
+
+
+def render_epochs(
+    scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, n_epochs: int,
+    epoch: int = 0, draws: Optional[Sequence[Draws]] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """n_epochs MC epochs, `epoch` .. `epoch + n_epochs - 1` (draws[i]
+    when given), their photons added in order onto zeros, with no
+    renormalisation: the reference's epoch loop without its per-epoch tone
+    map and PNG (raytracer_tpu/render.py:298-330) -> ([H, W, 3], stats)."""
+    accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
+    casts = filtered = 0
+    for i, epoch_draws in enumerate(_epoch_draws(draws, n_epochs, "epochs")):
+        photons, e_casts, e_filtered = _epoch(scene, camera, cfg, seed, epoch + i, epoch_draws)
+        accum = accum + photons
+        casts = casts + e_casts
+        filtered = filtered + e_filtered
+    return accum, {
+        "casts": int(casts), "filtered": int(filtered),
+        "primary_rays": cfg.width * cfg.height * n_epochs, "epochs": n_epochs,
     }

@@ -20,10 +20,12 @@ from raytracer_tpu_torch.scene.blocked import build_blocked
 from raytracer_tpu_torch.scene.bvh import build_bvh
 from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
 from raytracer_tpu_torch.scene.types import (
+    DEFAULT_DEVICE,
     LIGHT_DIRECTIONAL,
     LIGHT_POINT,
     LIGHT_SPOT,
     Scene,
+    render_device,
 )
 
 # Triangle count from which the JAX package builds a BVH / blocked layout
@@ -137,11 +139,13 @@ class SceneBuilder:
             color=_v3(color), angle=0.0, softness=0.0, has_origin=1.0,
         ))
 
-    def build(self, textures=DEFAULT_TEXTURES, use_bvh: bool | str = "auto") -> Scene:
-        """Flatten to a CPU Scene (move it with Scene.to(device)).
+    def build(self, textures=DEFAULT_TEXTURES, use_bvh: bool | str = "auto",
+              device=DEFAULT_DEVICE) -> Scene:
+        """Flatten to a Scene on `device` (the tables are made on the host).
 
         use_bvh: True / False / "auto" (BVH and blocked layout from
         BVH_MIN_TRIS triangles on)."""
+        dev = render_device(device)
         f32 = np.float32
         T = len(self._triangles)
         S = len(self._spheres)
@@ -221,4 +225,4 @@ class SceneBuilder:
             light_softness=t(lf("softness", ())),
             light_has_origin=t(lf("has_origin", ())),
             textures=tuple(textures),
-        )
+        ).to(dev)

@@ -1,12 +1,15 @@
-"""Scene presets: the reference's demo scene and camera, and the
-large-mesh terrain.
+"""Scene presets: the reference's demo scene and camera, the test subsets
+of BASELINE.json, and the large-mesh terrain.
 
 Counterpart of raytracer_tpu/scene/presets.py:27-212 (src/main.rs:809-1083):
 9 objects (dodecahedron, floor, striped bump-mapped wall, two glass slabs,
 red/clear/checker/green spheres), 3 lights (white directional, pink spot,
-bluish point) and the demo camera; and of presets.py:321-410, the
-heightfield terrain `mesh_scene` that the JAX package's mesh bench and
-goldens render.  The test-subset presets are not ported yet (ROADMAP.md).
+bluish point) and the demo camera; of presets.py:214-316, the subset
+scenes 01-spheres, 02/05-triangles, 03/04-recursive and 06/07-obj; and of
+presets.py:321-410, the heightfield terrain `mesh_scene` that the JAX
+package's mesh bench and goldens render.  A maker returns a Scene whose
+`textures` are DEFAULT_TEXTURES (the JAX makers return a (scene,
+textures) pair); makers build on the card unless given device="cpu".
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, Vertex, square
 from raytracer_tpu_torch.scene.geometry import dodecahedron_triangles
 from raytracer_tpu_torch.scene.textures import TEXTURE_CHECKER, TEXTURE_STRIPES
-from raytracer_tpu_torch.scene.types import Camera, Scene
+from raytracer_tpu_torch.scene.types import DEFAULT_DEVICE, Camera, Scene
 from raytracer_tpu_torch.utils.obj import load_obj_triangles
 
 WHITE = (1.0, 1.0, 1.0)
@@ -29,7 +32,7 @@ BLUE = (0.0, 0.0, 1.0)
 _DODE_TRANSFORM = lambda p: p / 3.0 + np.asarray([0.7, 1.0, -0.5], np.float32)
 
 
-def demo_camera() -> Camera:
+def demo_camera(device=DEFAULT_DEVICE) -> Camera:
     """fovy 60deg, center (2, 2.5, 2), toward -(1,1,1)/sqrt(3), up +y,
     near -0.1 (src/main.rs:1077-1083)."""
     return Camera.create(
@@ -38,6 +41,7 @@ def demo_camera() -> Camera:
         toward=np.asarray([-1.0, -1.0, -1.0]) / np.sqrt(3.0),
         up=(0.0, 1.0, 0.0),
         near=-0.1,
+        device=device,
     )
 
 
@@ -45,6 +49,18 @@ def _dodecahedron_tris(obj_path=None):
     if obj_path and os.path.exists(obj_path):
         return load_obj_triangles(obj_path, transform=_DODE_TRANSFORM)
     return dodecahedron_triangles(transform=_DODE_TRANSFORM)
+
+
+def _floor(b: SceneBuilder, half: float = 2.0) -> None:
+    """The tan floor square, x and z in [-half, half]."""
+    b.push_object(
+        MaterialSpec(diffuse_color=(1.0, 0.8, 0.6), shiness=0.5, smoothness=0.01)
+    ).push_triangles(square([
+        ((-half, 0.0, -half), (0.0, 0.0)),
+        ((-half, 0.0, half), (0.0, 1.0)),
+        ((half, 0.0, half), (1.0, 0.0)),
+        ((half, 0.0, -half), (0.0, 1.0)),
+    ]))
 
 
 def _slab(p, x0, x1, z0, z1):
@@ -64,7 +80,10 @@ def _slab(p, x0, x1, z0, z1):
     ]))
 
 
-def demo_scene(obj_path: str | None = None) -> Scene:
+def demo_builder(obj_path: str | None = None) -> SceneBuilder:
+    """The demo scene's builder, before build (scene/serialize.dump_builder
+    writes it as JSON).  An `obj_path` that does not exist falls back to
+    the built-in dodecahedron, as in the JAX package."""
     b = SceneBuilder()
 
     # Dodecahedron: white, shiness 0.1 (src/main.rs:812-825)
@@ -77,17 +96,7 @@ def demo_scene(obj_path: str | None = None) -> Scene:
     ).push_triangles(_dodecahedron_tris(obj_path))
 
     # Floor: tan square, shiness 0.5 (src/main.rs:826-844)
-    b.push_object(
-        MaterialSpec(
-            diffuse_color=(1.0, 0.8, 0.6), shiness=0.5, specular_color=WHITE,
-            smoothness=0.01,
-        )
-    ).push_triangles(square([
-        ((-2.0, 0.0, -2.0), (0.0, 0.0)),
-        ((-2.0, 0.0, 2.0), (0.0, 1.0)),
-        ((2.0, 0.0, 2.0), (1.0, 0.0)),
-        ((2.0, 0.0, -2.0), (0.0, 1.0)),
-    ]))
+    _floor(b)
 
     # Striped wall with procedural bump normal (src/main.rs:845-877)
     b.push_object(
@@ -175,7 +184,11 @@ def demo_scene(obj_path: str | None = None) -> Scene:
     ).push_sphere((0.0, 0.5 + np.sqrt(2.0 / 3.0), 0.0), 0.5)
 
     _demo_lights(b)
-    return b.build()
+    return b
+
+
+def demo_scene(obj_path: str | None = None, device=DEFAULT_DEVICE) -> Scene:
+    return demo_builder(obj_path).build(device=device)
 
 
 def _demo_lights(b: SceneBuilder) -> None:
@@ -196,9 +209,87 @@ def _demo_lights(b: SceneBuilder) -> None:
     b.push_point_light(origin=(0.0, 0.1, 0.0), color=(0.8, 0.8, 1.0))
 
 
-def full_scene(obj_path: str | None = None) -> Scene:
+# ---------------------------------------------------------------------------
+# BASELINE.json config presets (subsets of the demo scene for testing)
+# ---------------------------------------------------------------------------
+
+def spheres_scene(device=DEFAULT_DEVICE) -> Scene:
+    """01-spheres: 3 Phong spheres over a floor, direct lighting only."""
+    b = SceneBuilder()
+    _floor(b, 4.0)
+    b.push_object(
+        MaterialSpec(diffuse_color=(1.0, 0.2, 0.2), shiness=0.2,
+                     specular_color=YELLOW, smoothness=0.2)
+    ).push_sphere((-0.9, 0.5, 0.0), 0.5)
+    b.push_object(
+        MaterialSpec(diffuse_color=(0.2, 1.0, 0.2), shiness=0.4, smoothness=0.1)
+    ).push_sphere((0.0, 0.5, -0.6), 0.5)
+    b.push_object(
+        MaterialSpec(diffuse_color=(0.2, 0.2, 1.0), shiness=0.3, smoothness=0.05)
+    ).push_sphere((0.9, 0.5, 0.0), 0.5)
+    _demo_lights(b)
+    return b.build(device=device)
+
+
+def triangles_scene(device=DEFAULT_DEVICE) -> Scene:
+    """02/05: mixed sphere/triangle scene with shadows + speculars."""
+    b = SceneBuilder()
+    _floor(b)
+    b.push_object(
+        MaterialSpec(texture=TEXTURE_STRIPES, shiness=0.0, smoothness=0.00001)
+    ).push_triangles(square([
+        ((-2.0, 2.0, -2.0), (0.0, 0.0)),
+        ((-2.0, 2.0, 2.0), (0.0, 1.0)),
+        ((-2.0, -2.0, 2.0), (1.0, 0.0)),
+        ((-2.0, -2.0, -2.0), (1.0, 1.0)),
+    ]))
+    b.push_object(
+        MaterialSpec(diffuse_color=(1.0, 0.2, 0.2), shiness=0.2,
+                     specular_color=YELLOW, smoothness=0.2)
+    ).push_sphere((-0.5, 0.5, 0.3), 0.5)
+    b.push_object(
+        MaterialSpec(diffuse_color=(0.5, 1.0, 0.2), shiness=0.5, smoothness=0.01)
+    ).push_sphere((0.5, 0.5, -0.3), 0.5)
+    _demo_lights(b)
+    return b.build(device=device)
+
+
+def recursive_scene(device=DEFAULT_DEVICE) -> Scene:
+    """03/04: mirror + glass at bounce depth 5."""
+    b = SceneBuilder()
+    _floor(b)
+    # Mirror sphere
+    b.push_object(
+        MaterialSpec(diffuse_color=WHITE, shiness=1.0, smoothness=0.00001)
+    ).push_sphere((-0.55, 0.5, 0.0), 0.5)
+    # Glass sphere
+    b.push_object(
+        MaterialSpec(diffuse_color=WHITE, shiness=1.0, smoothness=0.001,
+                     refraction_index=1.12, opaque_decay=0.3, transparency=0.96)
+    ).push_sphere((0.55, 0.5, 0.0), 0.5)
+    _demo_lights(b)
+    return b.build(device=device)
+
+
+def obj_scene(device=DEFAULT_DEVICE) -> Scene:
+    """06/07: OBJ dodecahedron + textured sphere."""
+    b = SceneBuilder()
+    b.push_object(
+        MaterialSpec(diffuse_color=WHITE, shiness=0.1, smoothness=1.0)
+    ).push_triangles(dodecahedron_triangles(
+        transform=lambda p: p / 2.0 + np.asarray([0.0, 0.8, 0.0], np.float32)))
+    _floor(b)
+    b.push_object(
+        MaterialSpec(texture=TEXTURE_CHECKER, shiness=0.3, specular_color=BLUE,
+                     smoothness=0.7)
+    ).push_sphere((1.0, 0.5, 0.8), 0.5)
+    _demo_lights(b)
+    return b.build(device=device)
+
+
+def full_scene(obj_path: str | None = None, device=DEFAULT_DEVICE) -> Scene:
     """08-full: the complete demo scene (DoF + photon scatter pass)."""
-    return demo_scene(obj_path)
+    return demo_scene(obj_path, device)
 
 
 def terrain_triangles(grid: int):
@@ -240,7 +331,7 @@ def terrain_triangles(grid: int):
     return tris
 
 
-def mesh_scene(grid: int = 24) -> tuple[Scene, Camera]:
+def mesh_scene(grid: int = 24, device=DEFAULT_DEVICE) -> tuple[Scene, Camera]:
     """Large-mesh preset (presets.py:365-410): a 2*grid^2-triangle terrain,
     a mirror and a glass sphere, and a 12-triangle glass cube whose
     interior march runs against the blocked table, under the demo lights.
@@ -284,11 +375,20 @@ def mesh_scene(grid: int = 24) -> tuple[Scene, Camera]:
         / np.linalg.norm([-1.0, -0.75, -1.0]),
         up=(0.0, 1.0, 0.0),
         near=-0.1,
+        device=device,
     )
-    return b.build(use_bvh=True), cam
+    return b.build(use_bvh=True, device=device), cam
 
 
 PRESETS = {
-    "demo": demo_scene,
+    "01-spheres": spheres_scene,
+    "02-triangles": triangles_scene,
+    "03-recursive": recursive_scene,
+    "04-recursive": recursive_scene,  # 03/04 share the BASELINE config
+    "05-triangles": triangles_scene,  # 02/05 share the BASELINE config
+    "06-obj": obj_scene,
+    "07-obj": obj_scene,  # 06/07 share the BASELINE config
+    "08-full": full_scene,
     "full": full_scene,
+    "demo": demo_scene,
 }

@@ -9,6 +9,9 @@ i has id i, sphere j has id n_tri + j.
 Scenes with many triangles also carry the BVH (scene/bvh.py) and the
 blocked layout derived from it (scene/blocked.py); the kernels take the
 blocked branch when `Scene.blocked` holds.
+
+Scenes and cameras are made on the card unless the caller asks for the CPU
+(`device="cpu"`, the plain PyTorch path): see `render_device`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,19 @@ import functools
 
 import numpy as np
 import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def render_device(device=DEFAULT_DEVICE) -> torch.device:
+    """`device` as a torch.device; a CUDA device where CUDA is absent
+    raises rather than render on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' for the "
+                           "plain PyTorch path")
+    return dev
+
 
 # FaceDirection encoding (reference: src/main.rs:52-67).
 FACE_FRONT = 0
@@ -199,10 +215,22 @@ class Camera:
     toward: torch.Tensor  # [3]
     up: torch.Tensor  # [3]
     near: torch.Tensor  # scalar (the demo's -0.1 puts the origin behind center)
+    # tan(fovy / 2), the scale of the image plane's axes (main.rs:85-90),
+    # derived from fovy: a host constant evaluated as the reference does
+    # (utils/vec.tanf), so no device's tan decides the primary rays
+    scale: torch.Tensor = dataclasses.field(init=False, repr=False)  # scalar
+
+    def __post_init__(self):
+        from raytracer_tpu_torch.utils.vec import tanf
+
+        half = float(self.fovy) / 2.0  # exact: halving an f32
+        object.__setattr__(self, "scale", torch.tensor(
+            tanf(half), dtype=torch.float32, device=self.fovy.device))
 
     @staticmethod
-    def create(fovy_deg, center, toward, up, near) -> "Camera":
-        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    def create(fovy_deg, center, toward, up, near, device=DEFAULT_DEVICE) -> "Camera":
+        dev = render_device(device)
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
         return Camera(
             fovy=f32(np.deg2rad(fovy_deg)),
             center=f32(center),
@@ -213,4 +241,4 @@ class Camera:
 
     def to(self, device) -> "Camera":
         return Camera(**{f.name: getattr(self, f.name).to(device)
-                         for f in dataclasses.fields(self)})
+                         for f in dataclasses.fields(self) if f.init})

@@ -2,8 +2,10 @@
 
 Encode RGB8, write to a temp file next to the target, then rename
 atomically, so a killed progressive render always leaves a valid image
-(src/main.rs:764-776).  Pure Python: the JAX package's native/ writer is
-not ported.
+(src/main.rs:764-776).  write_png_atomic takes the C++ writer
+(utils/native.py) when its library loads, as the JAX package does; this
+module's encoder is the pure-Python path and what the native writer is
+tested against.
 """
 
 from __future__ import annotations
@@ -61,6 +63,11 @@ def decode_png_rgb8(data: bytes) -> np.ndarray:
 
 def write_png_atomic(path: str, rgb: np.ndarray) -> None:
     """Write [H, W, 3] uint8 to `path` via tmp file + atomic rename."""
+    from raytracer_tpu_torch.utils import native
+
+    if native.available():
+        native.write_png_atomic(path, rgb)
+        return
     data = encode_png_rgb8(rgb)
     directory = os.path.dirname(os.path.abspath(path))
     tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp")

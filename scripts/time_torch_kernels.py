@@ -80,16 +80,22 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# this checkout's chip_smoke.py as a module (its timing, bound and
-# level-pool helpers), whichever tree the port is imported from
-_SPEC = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-SMOKE = importlib.util.module_from_spec(_SPEC)
-_SPEC.loader.exec_module(SMOKE)
+def _module(name, path):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# this checkout's chip_smoke.py (its timing and level-pool helpers) and
+# roofline (the bound) as modules, whichever tree the port is imported from
+SMOKE = _module("chip_smoke", "chip_smoke.py")
+ROOFLINE = _module("roofline", "raytracer_tpu_torch/utils/roofline.py")
 
 
 def level_work(scene, pools, cfg):
     """Per level: the pool's width, its lanes' test totals and the bound of
-    one launch (chip_smoke.bound: the bytes chip_smoke.level_bytes counts,
+    one launch (roofline.bound: the bytes chip_smoke.level_bytes counts,
     the counted tests at the FP32 peak)."""
     from raytracer_tpu_torch.ops import level_kernel
     from raytracer_tpu_torch.utils import kernels
@@ -101,7 +107,7 @@ def level_work(scene, pools, cfg):
         level_kernel.process_level(scene, pool, last, direct, cfg.threshold,
                                    cfg.max_refract_distance, cfg.max_tir_retries, work=work)
         io = SMOKE.level_bytes(scene, pool)
-        b_ms, b_by, ops = SMOKE.bound(io, work)
+        b_ms, b_by, ops = ROOFLINE.bound(io, work)
         out.append({"k": k, "last": last, "direct": direct, "tests": SMOKE.totals(work),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops})
     return out
@@ -188,7 +194,7 @@ def primary_work(scene, o_t, d_t):
     work = SMOKE.work_for(n, o_t.device)
     mc_binned.primary(scene, o_t, d_t, work=work)
     io = SMOKE.nbytes(o_t, d_t, *SMOKE.scene_tables(scene)) + (21 + 5 + 1) * 4 * n
-    b_ms, b_by, ops = SMOKE.bound(io, work)
+    b_ms, b_by, ops = ROOFLINE.bound(io, work)
     tests = SMOKE.totals(work)
     if hasattr(mc_binned, "primary_lanes"):  # the columns in the threads' order
         work = work[:, mc_binned.primary_lanes(n, o_t.device).clamp(max=n - 1)]

@@ -50,14 +50,14 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 @pytest.fixture(scope="module")
 def mesh():
     """mesh_scene(grid=24): 1,164 triangles in 10 chunks, 2 supergroups."""
-    scene, _ = tpresets.mesh_scene(24)
+    scene, _ = tpresets.mesh_scene(24, device="cpu")
     return scene, kc.DenseGeom(scene.tables), scene.geom
 
 
 @pytest.mark.parametrize("grid", [4, 8])
 def test_bvh_and_blocked_tables_equal_jax(grid):
     jscene, _, _ = jpresets.mesh_scene(grid)
-    scene, _ = tpresets.mesh_scene(grid)
+    scene, _ = tpresets.mesh_scene(grid, device="cpu")
     for name in BVH_FIELDS:
         np.testing.assert_array_equal(getattr(scene, name).numpy(),
                                       np.asarray(getattr(jscene, name)), err_msg=name)
@@ -241,7 +241,7 @@ def _check_hot_tables(scene):
 
 @pytest.mark.parametrize("grid", [8, 24])
 def test_hot_tables_mirror_the_blocked_rows(grid):
-    scene, _ = tpresets.mesh_scene(grid)
+    scene, _ = tpresets.mesh_scene(grid, device="cpu")
     _check_hot_tables(scene)
     # a scene moved to a device rebuilds them from its blk_perm
     _check_hot_tables(scene.to("cpu"))
@@ -254,13 +254,13 @@ def test_hot_tables_of_a_scene_carried_over_from_jax():
     scene = from_jax_scene(fields)
     assert scene.blocked
     _check_hot_tables(scene)
-    ours, _ = tpresets.mesh_scene(8)
+    ours, _ = tpresets.mesh_scene(8, device="cpu")
     for name in ("hot", "ids", "live", "row_of_tri"):
         assert torch.equal(getattr(scene.blk_tables, name), getattr(ours.blk_tables, name)), name
 
 
 def test_check_tables_refuses_hot_tables_the_kernels_cannot_read():
-    scene, _ = tpresets.mesh_scene(8)
+    scene, _ = tpresets.mesh_scene(8, device="cpu")
     tb, bt = scene.tables, scene.blk_tables
     with pytest.raises(ValueError):
         kc.check_tables(tb, scene.device, bt._replace(ids=bt.ids.long()))

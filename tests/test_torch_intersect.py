@@ -68,7 +68,7 @@ def bvh_only(scene):
 def demo():
     jscene, _ = jpresets.demo_scene()
     jrays, rays = both(random_rays(jscene.n_prim))
-    return jscene, jrays, tpresets.demo_scene(), rays
+    return jscene, jrays, tpresets.demo_scene(device="cpu"), rays
 
 
 def test_nearest_hit_matches_jax_kernel(demo):
@@ -189,7 +189,7 @@ def mesh():
     fields = random_rays(jscene.n_prim, seed=5)
     fields["o"] = fields["o"] * np.float32(0.5) + np.array([0, 1.5, 0], np.float32)
     jrays, rays = both(fields)
-    return jscene, jrays, tpresets.mesh_scene(24)[0], rays
+    return jscene, jrays, tpresets.mesh_scene(24, device="cpu")[0], rays
 
 
 def test_tri_nearest_bvh_matches_jax(mesh):
@@ -229,7 +229,7 @@ def test_bvh_cast_equals_the_dense_cast_of_the_same_scene(mesh):
 
 def test_cast_of_an_empty_scene_misses_everywhere(demo):
     _, _, _, rays = demo
-    empty = SceneBuilder().build()
+    empty = SceneBuilder().build(device="cpu")
     assert empty.n_prim == 0
     h = intersect.cast(empty, rays)
     assert not bool(h.valid.any()) and bool(torch.all(h.prim == -1))

@@ -29,7 +29,7 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 @pytest.fixture(scope="module")
 def scenes():
     jscene, _ = demo_scene()
-    return jscene, torch_demo_scene()
+    return jscene, torch_demo_scene(device="cpu")
 
 
 def _rays(n, seed):

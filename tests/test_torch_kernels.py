@@ -151,7 +151,7 @@ def test_dense_hot_rows_are_what_the_staged_walks_read():
     from raytracer_tpu_torch.ops import kernel_common as kc
     from raytracer_tpu_torch.scene.presets import demo_scene
 
-    scene = demo_scene()
+    scene = demo_scene(device="cpu")
     tb = scene.tables
     assert torch.equal(tb.hot, tb.tri[:, :kc.HOT_COLS]) and tb.hot.is_contiguous()
     assert tb.hot.data_ptr() % 16 == 0

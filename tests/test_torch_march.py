@@ -54,7 +54,7 @@ def glass():
     want = h.valid & (mat.transparency > 0.0)
     assert int(want.sum()) > 40, "the frame should contain glass hits"
     jin = (h.pos, h.normal, d, h.prim, mat.refraction, want)
-    return jscene, jin, tpresets.demo_scene(), tuple(tt(x) for x in jin)
+    return jscene, jin, tpresets.demo_scene(device="cpu"), tuple(tt(x) for x in jin)
 
 
 def compare(got, ref, want):
@@ -120,7 +120,7 @@ def test_refract_dir_matches_jax():
 def test_bvh_scene_marches_by_the_masked_loop_over_cast():
     """mesh_scene(24)'s glass cube and sphere: the loop over `cast` (BVH
     scene) against the march sweep of the same scene taken dense."""
-    scene, cam = tpresets.mesh_scene(24)
+    scene, cam = tpresets.mesh_scene(24, device="cpu")
     bvh = dataclasses.replace(scene, blk_perm=None, blk_box=None)
     dense = dataclasses.replace(scene, **dict.fromkeys(BVH_FIELDS), bvh_depth=0)
     o, d = camera_ops.shoot(cam, torch.as_tensor(clip_coords(47, 31)))

@@ -63,7 +63,7 @@ def test_mc_walk_matches_jax_trace_distributed():
 
     n = o.shape[0]
     unifs = torch.tensor(jax_unifs(key, n, cfg.depth))
-    got = trace_distributed(tpresets.demo_scene(), torch.tensor(np.asarray(o)),
+    got = trace_distributed(tpresets.demo_scene(device="cpu"), torch.tensor(np.asarray(o)),
                             torch.tensor(np.asarray(d)), unifs, RenderConfig(depth=5))
     a, b = got.photon.numpy(), np.asarray(ref.photon)
     close = np.all(np.abs(a - b) <= 1e-3 + 2e-2 * np.abs(b), axis=-1)
@@ -79,7 +79,7 @@ def test_mc_epoch_with_jax_draws_matches_golden():
     z = np.load(os.path.join(GOLDEN, "mc_demo_64x48_draws.npz"))
     cfg = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
     img, stats = render_distributed_epoch(
-        tpresets.demo_scene(), tpresets.demo_camera(), cfg,
+        tpresets.demo_scene(device="cpu"), tpresets.demo_camera(device="cpu"), cfg,
         draws=[(torch.as_tensor(z["normals"]), torch.as_tensor(z["unifs"]))])
     golden = np.load(os.path.join(GOLDEN, "mc_demo_64x48.npy"))
     a = img.numpy()
@@ -100,7 +100,7 @@ def test_generator_draws_are_deterministic_and_in_range():
 
 
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
-    scene = tpresets.demo_scene()
+    scene = tpresets.demo_scene(device="cpu")
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, -1.0, 0.0]]).repeat(4, 1)
     unifs = torch.full((2, 3, 4), 0.5)
@@ -130,7 +130,7 @@ def _numpy_draws(cfg, n_tiles, seed=11):
 
 
 def _unfused_demo():
-    scene = tpresets.demo_scene()
+    scene = tpresets.demo_scene(device="cpu")
     return dataclasses.replace(scene, textures=host_only(scene.textures))
 
 
@@ -150,7 +150,7 @@ def test_frame_wide_epoch_equals_the_tile_loop(source, route):
 
     cfg = _RAGGED
     if route == "mega":
-        scene = tpresets.demo_scene()
+        scene = tpresets.demo_scene(device="cpu")
         assert mega_kernel_route(scene)
         counts, per_walk = mc_kernel.COUNTS, 1
     else:
@@ -159,7 +159,7 @@ def test_frame_wide_epoch_equals_the_tile_loop(source, route):
         # a walk casts its primary rays and one advance ray per bounce
         counts, per_walk = intersect_kernel.COUNTS_NEAREST, cfg.depth + 1
     assert frame_wide_route(scene)
-    cam = tpresets.demo_camera()
+    cam = tpresets.demo_camera(device="cpu")
     clips, _ = render._clips(cfg, "cpu")
     assert tuple(clips.shape) == (3, 1088, 2)
     if source == "draws":
@@ -189,7 +189,7 @@ def test_frame_wide_route_keeps_the_binned_and_bvh_walks_tile_by_tile(monkeypatc
     from raytracer_tpu_torch.ops import mc_binned
     from raytracer_tpu_torch.ops.distributed import frame_wide_route
 
-    mesh, _ = tpresets.mesh_scene(8)
+    mesh, _ = tpresets.mesh_scene(8, device="cpu")
     assert frame_wide_route(mesh)
     monkeypatch.setattr(mc_binned, "BINNED_MIN_TRIS", 64)
     assert not frame_wide_route(mesh)
@@ -209,5 +209,5 @@ def test_frame_draws_lay_the_tiles_side_by_side():
         assert torch.equal(normals[t * 1088:(t + 1) * 1088], nm)
         assert torch.equal(unifs[:, :, t * 1088:(t + 1) * 1088], u)
     with pytest.raises(ValueError, match="draws for 2 tiles"):
-        render_distributed_epoch(tpresets.demo_scene(), tpresets.demo_camera(), cfg,
+        render_distributed_epoch(tpresets.demo_scene(device="cpu"), tpresets.demo_camera(device="cpu"), cfg,
                                  draws=tile_in[:2])

@@ -66,7 +66,7 @@ def test_mesh_scene_builds_blocked_and_routes_by_size():
     mesh measured (mesh_scene(320): 204,812 triangles)."""
     from raytracer_tpu_torch.ops.distributed import mega_kernel_route
 
-    scene, cam = tpresets.mesh_scene(4)
+    scene, cam = tpresets.mesh_scene(4, device="cpu")
     assert scene.blocked and scene.n_tri == 2 * 4 * 4 + 12
     assert float(cam.near) == pytest.approx(-0.1)
     assert scene.n_tri < mc_binned.BINNED_MIN_TRIS and mc_binned.BINNED_MIN_TRIS > 204812
@@ -83,7 +83,7 @@ def test_mesh_whitted_frame_matches_jax():
     jscene, jtex, jcam = jpresets.mesh_scene(24)
     jcfg = JaxConfig(width=31, height=23, depth=5, tile_rays=31 * 23)
     ref, jstats = jax_render_whitted(jscene, jtex, jcam, jcfg)
-    scene, cam = tpresets.mesh_scene(24)
+    scene, cam = tpresets.mesh_scene(24, device="cpu")
     cfg = RenderConfig(width=31, height=23, depth=5, tile_rays=31 * 23)
     img, stats = render_whitted(scene, cam, cfg)
     a, b = img.numpy(), np.asarray(ref)
@@ -105,7 +105,7 @@ def test_blocked_mc_walk_matches_jax_trace_distributed():
 
     n = o.shape[0]
     before = mc_kernel.COUNTS_BLK.plain
-    got = trace_distributed(tpresets.mesh_scene(24)[0], torch.tensor(np.asarray(o)),
+    got = trace_distributed(tpresets.mesh_scene(24, device="cpu")[0], torch.tensor(np.asarray(o)),
                             torch.tensor(np.asarray(d)), torch.tensor(jax_unifs(key, n, 5)),
                             RenderConfig(depth=5))
     assert mc_kernel.COUNTS_BLK.plain == before + 1
@@ -119,7 +119,7 @@ def test_blocked_mc_walk_matches_jax_trace_distributed():
 def test_binned_path_matches_mega_path(depth, monkeypatch):
     """Route mesh_scene(8) (140 triangles) through the binned path by
     lowering BINNED_MIN_TRIS, as tests/test_mc_binned.py:95-96 does."""
-    scene, cam = tpresets.mesh_scene(8)
+    scene, cam = tpresets.mesh_scene(8, device="cpu")
     n = 48 * 32
     rng = np.random.default_rng(depth)
     clips = torch.as_tensor(rng.uniform(-0.6, 0.6, size=(n, 2)).astype(np.float32))
@@ -146,7 +146,7 @@ def test_binned_primary_yardstick_takes_cuda_tensors_only(monkeypatch):
     """The per-thread yardstick of the cooperative primary refuses CPU
     tensors (no plain fallback); the binned walk of mesh_scene(8) at 48x32
     still matches the mega-kernel, and nothing takes the yardstick."""
-    scene, cam = tpresets.mesh_scene(8)
+    scene, cam = tpresets.mesh_scene(8, device="cpu")
     n = 48 * 32
     rng = np.random.default_rng(9)
     clips = torch.as_tensor(rng.uniform(-0.6, 0.6, size=(n, 2)).astype(np.float32))
@@ -173,7 +173,7 @@ def test_binned_primary_yardstick_takes_cuda_tensors_only(monkeypatch):
 
 
 def test_binned_state_sort_keeps_slots_and_sends_dead_lanes_last():
-    scene, cam = tpresets.mesh_scene(8)
+    scene, cam = tpresets.mesh_scene(8, device="cpu")
     rng = np.random.default_rng(4)
     clips = torch.as_tensor(rng.uniform(-0.7, 0.7, size=(500, 2)).astype(np.float32))
     o, d = camera_ops.shoot(cam, clips)
@@ -236,7 +236,7 @@ def test_mesh24_goldens():
     :41-91) through the port's plain path.  The MC golden's draws are
     those of PRNGKey(7), tile 0, 3072 rays, depth 5 — the scene does not
     enter them, so tests/golden/mc_demo_64x48_draws.npz holds them too."""
-    scene, cam = tpresets.mesh_scene(24)
+    scene, cam = tpresets.mesh_scene(24, device="cpu")
     cfg = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
     img, stats = render_whitted(scene, cam, cfg)
     golden = np.load(os.path.join(GOLDEN, "whitted_mesh24_64x48.npy"))

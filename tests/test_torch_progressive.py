@@ -54,7 +54,7 @@ def test_png_round_trip():
 def test_render_progressive_writes_png(tmp_path):
     out = str(tmp_path / "out.png")
     seen = []
-    state = render_progressive(demo_scene(), demo_camera(), CFG, out_path=out,
+    state = render_progressive(demo_scene(device="cpu"), demo_camera(device="cpu"), CFG, out_path=out,
                                on_epoch=lambda e, s: seen.append((e, s)), log=lambda m: None)
     assert state.epoch == 2 and [e for e, _ in seen] == [1, 2]
     assert seen[0][1]["casts"] > CFG.width * CFG.height
@@ -64,7 +64,7 @@ def test_render_progressive_writes_png(tmp_path):
 
 
 def test_checkpoint_resume_matches_uninterrupted(tmp_path):
-    scene, cam = demo_scene(), demo_camera()
+    scene, cam = demo_scene(device="cpu"), demo_camera(device="cpu")
     ref = render_progressive(scene, cam, CFG, out_path=str(tmp_path / "a.png"), seed=3,
                              log=lambda m: None)
     ckpt = str(tmp_path / "ck.npz")
@@ -81,7 +81,7 @@ def test_checkpoint_resume_matches_uninterrupted(tmp_path):
 
 
 def test_png_every_groups_give_the_same_image(tmp_path):
-    scene, cam = demo_scene(), demo_camera()
+    scene, cam = demo_scene(device="cpu"), demo_camera(device="cpu")
     a = render_progressive(scene, cam, CFG, out_path=str(tmp_path / "a.png"),
                            log=lambda m: None)
     written = []

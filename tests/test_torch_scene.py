@@ -44,7 +44,7 @@ def jax_scene_fields(scene):
 def test_demo_scene_matches_jax_field_by_field():
     jscene, _ = jpresets.demo_scene()
     ref = from_jax_scene(jax_scene_fields(jscene))
-    got = tpresets.demo_scene()
+    got = tpresets.demo_scene(device="cpu")
     assert [t.name for t in got.textures] == ["const", "stripes", "checker"]
     for name in SCENE_FIELDS:
         a, b = getattr(got, name).numpy(), getattr(ref, name).numpy()
@@ -73,11 +73,11 @@ def test_builder_builds_bvh_and_blocked_layout_from_512_triangles():
     for copies, blocked in ((255, False), (256, True)):  # 510 / 512 triangles
         b = SceneBuilder()
         b.push_object(MaterialSpec()).push_triangles(quad * copies)
-        scene = b.build()
+        scene = b.build(device="cpu")
         assert scene.blocked is blocked
         assert all((getattr(scene, f) is not None) is blocked for f in BVH_FIELDS)
     assert scene.blk_perm.shape[0] == scene.blk_box.shape[0] * 128 == 8 * 128
-    assert not b.build(use_bvh=False).blocked
+    assert not b.build(use_bvh=False, device="cpu").blocked
     moved = scene.to("meta")
     assert all(getattr(moved, f).device.type == "meta" for f in BVH_FIELDS)
 
@@ -92,7 +92,7 @@ def test_camera_shoot_matches_jax():
     jcam = jpresets.demo_camera()
     cam = from_jax_camera(*(np.asarray(getattr(jcam, k))
                             for k in ("fovy", "center", "toward", "up", "near")))
-    own = tpresets.demo_camera()
+    own = tpresets.demo_camera(device="cpu")
     for k in ("fovy", "center", "toward", "up", "near"):
         np.testing.assert_allclose(getattr(own, k).numpy(), getattr(cam, k).numpy(),
                                    atol=1e-7)
@@ -107,6 +107,37 @@ def test_camera_shoot_matches_jax():
     o, d = tcamera.shoot_focus(own, torch.as_tensor(clip), torch.as_tensor(offs), 3.0)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("which,bits", [("demo", 0x3F13CD3B), ("mesh", 0x3F0543E2)])
+def test_camera_scale_is_pinned_to_the_goldens_tan(which, bits):
+    """Camera.scale is tan(fovy / 2) as the committed goldens were rendered:
+    0.57735032 at the demo's 60 degrees, one ulp above the correctly
+    rounded tan that torch gives.  It comes from the host C library's tanf
+    (utils/vec.tanf), so a C library that rounds otherwise fails here by
+    name.  It is derived from fovy, never passed, and moves with the
+    camera."""
+    if which == "demo":
+        own, jcam = tpresets.demo_camera(device="cpu"), jpresets.demo_camera()
+    else:
+        own, jcam = tpresets.mesh_scene(2, device="cpu")[1], jpresets.mesh_scene(2)[2]
+    assert int(own.scale.numpy().view(np.uint32)) == bits
+    ref = np.asarray(jnp.tan(jcam.fovy / 2.0), np.float32)
+    assert own.scale.numpy().view(np.uint32) == ref.view(np.uint32)
+    assert "scale" not in {f.name for f in dataclasses.fields(own) if f.init}
+    assert torch.equal(own.to("cpu").scale, own.scale)
+
+
+def test_camera_scale_matches_jax_at_every_whole_degree():
+    """utils/vec.tanf against the JAX package's jnp.tan at every whole-degree
+    fovy, where torch's tan differs at some."""
+    degrees = np.arange(1, 180, dtype=np.float64)
+    fovy = np.deg2rad(degrees).astype(np.float32)  # as both Camera.create round it
+    ref = np.asarray(jnp.tan(jnp.asarray(fovy) / 2.0), np.float32)
+    got = np.array([tpresets.Camera.create(deg, (0, 0, 0), (0, 0, -1), (0, 1, 0), 0.0,
+                                           device="cpu").scale for deg in degrees],
+                   np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
 
 
 @pytest.mark.parametrize("wh", [(64, 48), (37, 29), (1280, 960)])

@@ -57,7 +57,7 @@ def hits():
     jscene, jtex = jpresets.demo_scene()
     o, d = jcamera.shoot(jpresets.demo_camera(), jnp.asarray(clip_coords(40, 24)))
     h = jax.jit(lambda r: jax_cast(jscene, r))(JaxRays.primary(o, d))
-    return (jscene, jtex, h, d, tpresets.demo_scene(),
+    return (jscene, jtex, h, d, tpresets.demo_scene(device="cpu"),
             {k: tt(getattr(h, k)) for k in HIT_FIELDS}, tt(d))
 
 
@@ -192,7 +192,7 @@ def test_shadow_limit_is_derived_from_the_callers_limit(hits):
 def test_get_shade_on_a_bvh_scene_loops_over_cast_any_hit():
     """mesh_scene(24) with its BVH and no blocked layout: the per-light
     loop, against the shadow sweep of the same scene taken dense."""
-    scene, cam = tpresets.mesh_scene(24)
+    scene, cam = tpresets.mesh_scene(24, device="cpu")
     bvh = dataclasses.replace(scene, blk_perm=None, blk_box=None)
     dense = dataclasses.replace(scene, **dict.fromkeys(BVH_FIELDS), bvh_depth=0)
     o, d = camera_ops.shoot(cam, torch.as_tensor(clip_coords(31, 23)))

@@ -86,12 +86,12 @@ def gate(img, name):
 
 
 def unfused_demo():
-    scene = tpresets.demo_scene()
+    scene = tpresets.demo_scene(device="cpu")
     return dataclasses.replace(scene, textures=host_only(scene.textures))
 
 
 def bvh_only_mesh(grid=24):
-    scene, cam = tpresets.mesh_scene(grid)
+    scene, cam = tpresets.mesh_scene(grid, device="cpu")
     return dataclasses.replace(scene, blk_perm=None, blk_box=None,
                                textures=host_only(scene.textures)), cam
 
@@ -115,8 +115,8 @@ def test_kernel_textures_ok_is_identity_of_the_row_functions():
 def test_routing():
     """Fused iff dense or blocked, with a primitive, and the kernels' own
     textures (trace.py:383-394, distributed.py:112-114)."""
-    demo = tpresets.demo_scene()
-    mesh, _ = tpresets.mesh_scene(8)
+    demo = tpresets.demo_scene(device="cpu")
+    mesh, _ = tpresets.mesh_scene(8, device="cpu")
     assert fused_ok(demo) and fused_ok(mesh) and mesh.blocked
     assert not fused_ok(unfused_demo())
     bvh, _ = bvh_only_mesh(8)
@@ -124,7 +124,7 @@ def test_routing():
     assert not fused_ok(dataclasses.replace(mesh, blk_perm=None, blk_box=None))
 
     cfg = RenderConfig(width=16, height=12, depth=2, tile_rays=16 * 12)
-    cam = tpresets.demo_camera()
+    cam = tpresets.demo_camera(device="cpu")
     before = plain_calls()
     render_whitted(demo, cam, cfg)
     assert since(before) == {"level": 3}
@@ -133,10 +133,10 @@ def test_routing():
     # per level a cast, a shade and (but for the last level) a march
     assert since(before) == {"nearest": 3, "shadow": 3, "march": 2}
     before = plain_calls()
-    render_whitted(mesh, tpresets.mesh_scene(8)[1], cfg)
+    render_whitted(mesh, tpresets.mesh_scene(8, device="cpu")[1], cfg)
     assert since(before) == {"level_blk": 3}
     before = plain_calls()
-    stats = render_whitted(bvh, tpresets.mesh_scene(8)[1], cfg)[1]
+    stats = render_whitted(bvh, tpresets.mesh_scene(8, device="cpu")[1], cfg)[1]
     assert since(before) == {} and stats["casts"] > 16 * 12  # the BVH route, no dense sweep
 
     unifs = torch.rand((2, 3, 16 * 12), generator=torch.Generator().manual_seed(0))
@@ -171,26 +171,26 @@ def test_unfused_whitted_matches_jax_trace_whitted():
 
 
 def test_unfused_whitted_golden_and_fused_frame():
-    cam = tpresets.demo_camera()
+    cam = tpresets.demo_camera(device="cpu")
     img, stats = render_whitted(unfused_demo(), cam, SMALL)
     p, bad = gate(img.numpy(), "whitted_demo_64x48.npy")
     assert p >= 38.0 and bad <= 0.02, (p, bad)
     assert stats["dropped"] == 0
-    fused, fstats = render_whitted(tpresets.demo_scene(), cam, SMALL)
+    fused, fstats = render_whitted(tpresets.demo_scene(device="cpu"), cam, SMALL)
     assert frac_close(img.numpy(), fused.numpy()) >= 0.97
     # both routes count the same rays; here both run their plain versions
     assert abs(stats["casts"] - fstats["casts"]) <= 0.01 * fstats["casts"]
 
 
 def test_unfused_mc_epoch_matches_jax_photons_and_fused_path():
-    cam = tpresets.demo_camera()
+    cam = tpresets.demo_camera(device="cpu")
     img, stats = render_distributed_epoch(unfused_demo(), cam, SMALL, draws=golden_draws())
     golden = np.load(os.path.join(GOLDEN, "mc_demo_64x48.npy"))
     a = img.numpy().reshape(-1, 3)
     assert frac_close(a, golden.reshape(-1, 3)) >= 0.99
     p, bad = gate(img.numpy(), "mc_demo_64x48.npy")
     assert p >= 25.0 and bad <= 0.01, (p, bad)
-    fused, fstats = render_distributed_epoch(tpresets.demo_scene(), cam, SMALL,
+    fused, fstats = render_distributed_epoch(tpresets.demo_scene(device="cpu"), cam, SMALL,
                                              draws=golden_draws())
     assert frac_close(a, fused.numpy().reshape(-1, 3)) >= 0.99
     assert abs(stats["casts"] - fstats["casts"]) <= 0.01 * fstats["casts"]
@@ -207,7 +207,7 @@ def test_bvh_only_route_matches_golden_and_blocked_frame():
     assert stats["dropped"] == 0
     cfg = RenderConfig(width=31, height=23, depth=5, tile_rays=31 * 23)
     img, stats = render_whitted(scene, cam, cfg)
-    blocked, bstats = render_whitted(tpresets.mesh_scene(24)[0], cam, cfg)
+    blocked, bstats = render_whitted(tpresets.mesh_scene(24, device="cpu")[0], cam, cfg)
     assert frac_close(img.numpy(), blocked.numpy()) >= 0.97
     assert stats["dropped"] == 0
     assert abs(stats["casts"] - bstats["casts"]) <= 0.01 * bstats["casts"]
@@ -218,7 +218,7 @@ def test_bvh_only_mc_epoch_matches_blocked_path():
     cfg = RenderConfig(width=32, height=24, depth=3, tile_rays=32 * 24)
     draws = [(n[:768], u[:3, :, :768].contiguous()) for n, u in golden_draws()]
     img, stats = render_distributed_epoch(scene, cam, cfg, draws=draws)
-    ref, rstats = render_distributed_epoch(tpresets.mesh_scene(24)[0], cam, cfg, draws=draws)
+    ref, rstats = render_distributed_epoch(tpresets.mesh_scene(24, device="cpu")[0], cam, cfg, draws=draws)
     assert frac_close(img.numpy().reshape(-1, 3), ref.numpy().reshape(-1, 3)) >= 0.99
     assert abs(stats["casts"] - rstats["casts"]) <= 0.01 * rstats["casts"]
     assert float(img.max()) > 0
@@ -233,7 +233,7 @@ def test_texture_that_shares_a_defaults_name_renders_its_own_function():
                    diffuse_rows=lambda u, v: (torch.zeros_like(u), torch.ones_like(u),
                                               torch.zeros_like(u)),
                    normal_rows=DEFAULT_TEXTURES[2].normal_rows)
-    demo = tpresets.demo_scene()
+    demo = tpresets.demo_scene(device="cpu")
     scene = dataclasses.replace(demo, textures=(demo.textures[0], mine, demo.textures[2]))
     assert [t.name for t in scene.textures] == [t.name for t in demo.textures]
     assert not fused_ok(scene)
@@ -244,7 +244,7 @@ def test_texture_that_shares_a_defaults_name_renders_its_own_function():
     assert mat.diffuse.tolist() == [[0.0, 1.0, 0.0]] and mat.normal.tolist() == [[0.0, 0.0, 1.0]]
 
     cfg = RenderConfig(width=32, height=24, depth=1, tile_rays=32 * 24)
-    cam = tpresets.demo_camera()
+    cam = tpresets.demo_camera(device="cpu")
     before = plain_calls()
     img, _ = render_whitted(scene, cam, cfg)
     assert since(before) == {"nearest": 2, "shadow": 2, "march": 1}

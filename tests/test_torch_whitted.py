@@ -19,39 +19,76 @@ import torch
 from raytracer_tpu.config import RenderConfig as JaxConfig
 from raytracer_tpu.ops.camera import shoot
 from raytracer_tpu.ops.trace import trace_whitted as jax_trace_whitted
-from raytracer_tpu.render import clip_coords
+from raytracer_tpu.render import _tiled_clips, clip_coords
 from raytracer_tpu.scene.presets import demo_camera, demo_scene
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops import level_kernel
 from raytracer_tpu_torch.ops.level_kernel import Pool
 from raytracer_tpu_torch.ops.camera import shoot as tshoot
 from raytracer_tpu_torch.ops.trace import _compact, _pack_primary, trace_whitted
-from raytracer_tpu_torch.render import render_whitted
+from raytracer_tpu_torch.render import _clips, render_whitted
 from raytracer_tpu_torch.scene import presets as tpresets
 
 torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
+# the JAX ladder, compiled once for the 192-ray tiles both tests below trace
+JAX_TRACE = jax.jit(jax_trace_whitted, static_argnums=(1, 4))
+JAX_CFG = JaxConfig(width=16, height=12, depth=3)
+
+
+def frames_agree(a, b):
+    close = np.all(np.abs(a - b) <= 1e-3 + 2e-2 * np.abs(b), axis=-1)
+    assert close.mean() >= 0.97, f"only {close.mean():.4f} of pixels agree"
+
 
 def test_whitted_matches_jax_trace_whitted():
     scene, textures = demo_scene()
     o, d = shoot(demo_camera(), jnp.asarray(clip_coords(16, 12)))
-    run = jax.jit(jax_trace_whitted, static_argnums=(1, 4))
-    ref = run(scene, textures, o, d, JaxConfig(width=16, height=12, depth=3))
+    ref = JAX_TRACE(scene, textures, o, d, JAX_CFG)
 
-    got = trace_whitted(tpresets.demo_scene(), torch.tensor(np.asarray(o)),
+    got = trace_whitted(tpresets.demo_scene(device="cpu"), torch.tensor(np.asarray(o)),
                         torch.tensor(np.asarray(d)), RenderConfig(width=16, height=12, depth=3))
-    a, b = got.color.numpy(), np.asarray(ref.color)
-    close = np.all(np.abs(a - b) <= 1e-3 + 2e-2 * np.abs(b), axis=-1)
-    assert close.mean() >= 0.97, f"only {close.mean():.4f} of pixels agree"
+    frames_agree(got.color.numpy(), np.asarray(ref.color))
     assert abs(int(got.casts) - int(ref.casts)) <= max(0.01 * int(ref.casts), 16)
     assert int(got.dropped) == 0 and int(ref.dropped) == 0
 
 
+def test_ragged_frame_matches_jax_but_for_the_padding_casts():
+    """A 20x12 frame in 192-ray tiles: the last tile has 48 pixels and 144
+    padding rays (copies of the centre ray).  The JAX package's
+    render_whitted traces and counts the padding (raytracer_tpu/render.py:
+    54-70, 149-168, here tile by tile through the same trace_whitted); the
+    port traces a tile's real rays only, so its image is the same and its
+    casts are the JAX package's less the padding's own."""
+    w, h = 20, 12
+    cfg = RenderConfig(width=w, height=h, depth=3, tile_rays=192)
+    clips, _, inv = _tiled_clips(JaxConfig(width=w, height=h, depth=3, tile_rays=192),
+                                 block_order=True)
+    colors, casts, dropped = [], 0, 0
+    for clip in clips:
+        o, d = shoot(demo_camera(), clip)
+        res = JAX_TRACE(*demo_scene(), o, d, JAX_CFG)
+        colors.append(np.asarray(res.color))
+        casts += int(res.casts)
+        dropped += int(res.dropped)
+    ref = np.concatenate(colors)[:w * h][np.asarray(inv)].reshape(h, w, 3)
+
+    scene, cam = tpresets.demo_scene(device="cpu"), tpresets.demo_camera(device="cpu")
+    img, stats = render_whitted(scene, cam, cfg)
+    frames_agree(img.numpy(), ref)
+    tclips, _ = _clips(cfg, "cpu")
+    assert tclips.shape[:2] == (2, 192)
+    padding = trace_whitted(scene, *tshoot(cam, tclips[1][w * h - 192:]), cfg)
+    assert int(padding.casts) > 144
+    assert abs(stats["casts"] + int(padding.casts) - casts) <= max(0.01 * casts, 16)
+    assert stats["dropped"] == 0 and dropped == 0 and int(padding.dropped) == 0
+
+
 def test_render_whitted_matches_golden():
     cfg = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
-    img, stats = render_whitted(tpresets.demo_scene(), tpresets.demo_camera(), cfg)
+    img, stats = render_whitted(tpresets.demo_scene(device="cpu"), tpresets.demo_camera(device="cpu"), cfg)
     golden = np.load(os.path.join(GOLDEN, "whitted_demo_64x48.npy"))
     a = img.numpy()
     mse = float(np.mean((a.astype(np.float64) - golden) ** 2))
@@ -81,7 +118,7 @@ def test_level_dead_lanes_pass_pending_through(scene_name):
     gives (level_pallas.py:98-113), on the dense and on the blocked
     geometry (whose CUDA kernel keeps that contract by flags, not by an
     early return)."""
-    scene = tpresets.demo_scene() if scene_name == "demo" else tpresets.mesh_scene(24)[0]
+    scene = tpresets.demo_scene(device="cpu") if scene_name == "demo" else tpresets.mesh_scene(24, device="cpu")[0]
     assert scene.blocked == (scene_name == "mesh24")
     pend = [[0.0, 0.0, 0.0], [0.25, 0.5, 0.75], [1.0, 2.0, 3.0]]
     pool = _pool([1, 0, 0], pend, [5, 6, 7])
@@ -108,7 +145,7 @@ def test_blocked_level_of_a_ragged_pool_equals_the_same_lanes_in_a_wider_pool():
     """A pool whose width is no multiple of the kernels' 128-lane blocks (or
     of a warp) gives, lane for lane, what its lanes give inside a wider
     pool: a lane's outputs do not depend on its neighbours, live or dead."""
-    scene, cam = tpresets.mesh_scene(24)
+    scene, cam = tpresets.mesh_scene(24, device="cpu")
     o, d = tshoot(cam, torch.as_tensor(clip_coords(16, 12)))
     pool = _pack_primary(o, d)
     rng = np.random.default_rng(3)
