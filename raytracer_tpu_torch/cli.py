@@ -8,6 +8,9 @@ defaults:
     python -m raytracer_tpu_torch --scene demo --epochs 100 --out out.png
 
 It renders on --device (default cuda) and fails if that device is absent.
+With --devices N it starts N processes on this host, one a card (cuda:r
+for rank r; gloo processes with --device cpu), which render as one (dp,
+sp) mesh (parallel/mesh.py); rank 0 writes the PNG and the checkpoint.
 """
 
 from __future__ import annotations
@@ -67,6 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "that took a sticky error cannot be used again")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, cuda:1, cpu)")
+    p.add_argument("--devices", type=int, default=0, metavar="N",
+                   help="render on N processes of this host as a (dp, sp) mesh, rank r on "
+                        "cuda:r (with --device cpu: N CPU processes on gloo); 0 = one "
+                        "process on --device")
     return p
 
 
@@ -171,7 +178,7 @@ def _scene(args, device):
     return scene, demo_camera(device)
 
 
-def _warm_cache(scene, camera, cfg, args, device) -> None:
+def _warm_cache(scene, camera, cfg, args, device, mesh=None) -> None:
     """Build the kernel library, then run the schedule once for each group
     size the real run dispatches (raytracer_tpu/cli.py:222-251): the main
     group of --png-every epochs and the tail group, into a temp file."""
@@ -191,9 +198,67 @@ def _warm_cache(scene, camera, cfg, args, device) -> None:
         for k in sorted(ks):
             render_progressive(scene, camera, dataclasses.replace(cfg, epochs=k),
                                out_path=os.path.join(tmp, "warm.png"), seed=args.seed,
-                               log=lambda m: None, png_every=k)
-    print(f"warm-cache: kernel library {built}; schedule run at group sizes "
-          f"{sorted(ks)} in {time.time() - t0:.1f} s")
+                               log=lambda m: None, png_every=k, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print(f"warm-cache: kernel library {built}; schedule run at group sizes "
+              f"{sorted(ks)} in {time.time() - t0:.1f} s")
+
+
+def _render(args, device, mesh=None) -> None:
+    """Build the scene on `device` and run the schedule (with `mesh`: this
+    rank's part of it; rank 0 alone profiles)."""
+    from raytracer_tpu_torch.parallel.progressive import render_progressive
+
+    cfg = RenderConfig(
+        width=args.width, height=args.height, depth=args.depth,
+        epochs=args.epochs, focus=args.focus, blur=args.blur,
+        tile_rays=args.tile_rays,
+    )
+    scene, camera = _scene(args, device)
+    if args.warm_cache:
+        _warm_cache(scene, camera, cfg, args, device, mesh)
+        return
+
+    def render():
+        render_progressive(
+            scene, camera, cfg, out_path=args.out, seed=args.seed,
+            checkpoint_path=args.checkpoint, log=_log(), png_every=args.png_every,
+            debug_nans=args.debug_nans, mesh=mesh,
+        )
+
+    if args.profile and (mesh is None or mesh.rank == 0):
+        from raytracer_tpu_torch.utils.profiling import print_profile, profile_trace
+
+        with profile_trace(args.profile, cuda=device.type == "cuda"):
+            render()
+        print_profile(args.profile)
+    else:
+        render()
+
+
+def _rank_main(rank: int, args, port: int) -> None:
+    """Rank `rank` of a --devices group: join the group on this host's
+    `port`, take the rank's device, render its part."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.parallel.mesh import init_multihost, make_render_mesh
+
+    device = init_multihost(f"127.0.0.1:{port}", args.devices, rank, device=args.device)
+    try:
+        mesh = make_render_mesh(args.devices)
+        if rank == 0:
+            print(f"mesh: {mesh.shape}", flush=True)
+        _render(args, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def main(argv=None) -> int:
@@ -203,38 +268,34 @@ def main(argv=None) -> int:
         return _supervise(raw, args.retries, args.checkpoint, args.out)
     import torch
 
-    from raytracer_tpu_torch.parallel.progressive import render_progressive
-
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: CUDA is not available (use --device cpu for the plain "
               "PyTorch path)", file=sys.stderr)
         return 2
-    cfg = RenderConfig(
-        width=args.width, height=args.height, depth=args.depth,
-        epochs=args.epochs, focus=args.focus, blur=args.blur,
-        tile_rays=args.tile_rays,
-    )
-    scene, camera = _scene(args, device)
-    if args.warm_cache:
-        _warm_cache(scene, camera, cfg, args, device)
+    if args.devices < 0:
+        print(f"error: --devices {args.devices} is negative", file=sys.stderr)
+        return 2
+    if not args.devices:
+        _render(args, device)
         return 0
+    if device.index is not None:
+        print(f"error: --devices {args.devices} takes cuda:0 .. cuda:{args.devices - 1}, "
+              f"one a rank; --device {args.device} names one card (give --device cuda)",
+              file=sys.stderr)
+        return 2
+    if device.type == "cuda" and args.devices > torch.cuda.device_count():
+        print(f"error: --devices {args.devices}, but this host has "
+              f"{torch.cuda.device_count()} CUDA device(s)", file=sys.stderr)
+        return 2
+    import torch.multiprocessing as mp
 
-    def render():
-        render_progressive(
-            scene, camera, cfg, out_path=args.out, seed=args.seed,
-            checkpoint_path=args.checkpoint, log=_log(), png_every=args.png_every,
-            debug_nans=args.debug_nans,
-        )
-
-    if args.profile:
-        from raytracer_tpu_torch.utils.profiling import print_profile, profile_trace
-
-        with profile_trace(args.profile, cuda=device.type == "cuda"):
-            render()
-        print_profile(args.profile)
-    else:
-        render()
+    try:
+        mp.start_processes(_rank_main, args=(args, _free_port()), nprocs=args.devices,
+                           start_method="spawn")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:  # a rank failed
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     return 0
 
 

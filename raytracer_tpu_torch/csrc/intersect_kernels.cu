@@ -167,19 +167,19 @@ __device__ inline bool tri_any(R rows, int n_tri, V3 o, V3 d, int face, int excl
   for (int i = 0; i < n_tri; ++i) {
     w.tri_test();
     Plane a = rows.plane(i);
-    float no_d = dot3(a.fn, d);
+    float no_d = dot3_sep(a.fn, d);
     bool bf = no_d > 0.0f;
     if ((bf && face == FACE_FRONT) || (!bf && face == FACE_BACK)) continue;  // culled
     if (excl_prim == i && excl_crit(excl_face, bf)) continue;
     w.plane_test();
-    float t = (a.d - dot3(a.fn, o)) / no_d;
+    float t = (a.d - dot3_sep(a.fn, o)) / no_d;
     if (!(t > 0.0f) || !isfinite(t) || !(t < limit)) continue;
     HotEdges eg = rows.edges(i);
     bool inside = true;
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
       if (inside) w.edge_test();
-      inside = inside && (dot3(eg.g[e], o) + eg.h[e] + t * dot3(eg.g[e], d) >= 0.0f);
+      inside = inside && edge_in(dot3_sep(eg.g[e], o) + eg.h[e], t, dot3_sep(eg.g[e], d));
     }
     if (inside) return true;
   }

@@ -47,6 +47,8 @@
 // rt_mc_trace_blk_thread); no wrapper of the main path launches them.  W is
 // the test counter (common.cuh): NoWork on the main path, Work when the
 // caller asks for the per-lane test counts.
+#include <type_traits>
+
 #include "mc_walk.cuh"
 
 namespace rt {
@@ -57,12 +59,14 @@ constexpr int MC_THREADS = 128;
 // memory.
 using SharedDense = DenseRowsGeom<DENSE_MC_GROUPED>;
 
+// One MC sample a thread, the walk of mc_kernel and mc_kernel_staged.
 template <class G, class W>
-__global__ void __launch_bounds__(MC_THREADS)
-mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-          const float* __restrict__ unifs, G g, float* __restrict__ photon,
-          int* __restrict__ casts_out, int* __restrict__ work_out, int n, int depth,
-          float max_distance, int max_retries) {
+__device__ __forceinline__ void mc_walk(const float* __restrict__ ray_o,
+                                        const float* __restrict__ ray_d,
+                                        const float* __restrict__ unifs, G g,
+                                        float* __restrict__ photon, int* __restrict__ casts_out,
+                                        int* __restrict__ work_out, int n, int depth,
+                                        float max_distance, int max_retries) {
   g.stage();
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_tile = lane < n;
@@ -135,12 +139,48 @@ mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
   }
 }
 
+template <class G, class W>
+__global__ void __launch_bounds__(MC_THREADS)
+mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+          const float* __restrict__ unifs, G g, float* __restrict__ photon,
+          int* __restrict__ casts_out, int* __restrict__ work_out, int n, int depth,
+          float max_distance, int max_retries) {
+  mc_walk<G, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, n, depth, max_distance,
+                max_retries);
+}
+
+// The staged dense walk must fit 5 blocks an SM, which caps it at 96
+// registers: left to itself, ptxas gave it 101 once the triangle tests
+// rounded as written, 4 blocks fit, and a 1280x960 frame's launch took
+// 6.24 ms against 5.46 with the cap (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6).  The other walks
+// keep mc_kernel's bounds: a second argument of 1 there let ptxas give
+// the cooperative walk 183 registers (2 blocks an SM, not 3).
+template <class W>
+__global__ void __launch_bounds__(MC_THREADS, 5)
+mc_kernel_staged(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+                 const float* __restrict__ unifs, SharedDense g, float* __restrict__ photon,
+                 int* __restrict__ casts_out, int* __restrict__ work_out, int n, int depth,
+                 float max_distance, int max_retries) {
+  mc_walk<SharedDense, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, n, depth,
+                          max_distance, max_retries);
+}
+
+// The kernel of geometry G and counter W.
+template <class G, class W>
+constexpr auto mc_entry() {
+  if constexpr (std::is_same<G, SharedDense>::value)
+    return &mc_kernel_staged<W>;
+  else
+    return &mc_kernel<G, W>;
+}
+
 template <class G>
 int launch_mc(const float* ray_o, const float* ray_d, const float* unifs, G g, float* photon,
               int* casts, int* work, int n, int depth, float max_distance, int max_retries,
               void* stream) {
   int blocks = (n + MC_THREADS - 1) / MC_THREADS;
-  auto kernel = work ? &mc_kernel<G, Work> : &mc_kernel<G, NoWork>;
+  auto kernel = work ? mc_entry<G, Work>() : mc_entry<G, NoWork>();
   int shared = g.smem(MC_THREADS);
   if (shared) {
     int err = coop_opt_in((const void*)kernel, shared);
@@ -223,7 +263,7 @@ int rt_mc_attrs(int which, int n_tri, int* out) {
   using rt::NoWork;
   switch (which) {
     case 0:
-      return rt::attrs_of((const void*)rt::mc_kernel<rt::SharedDense, NoWork>, out,
+      return rt::attrs_of((const void*)rt::mc_kernel_staged<NoWork>, out,
                           rt::SharedDense::smem_bytes(n_tri));
     case 1:
       return rt::attrs_of((const void*)rt::mc_kernel<rt::CoopGeom, NoWork>, out,

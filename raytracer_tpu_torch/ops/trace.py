@@ -14,7 +14,8 @@ flattens into a fixed-depth loop of levels over bounded ray pools:
   * deeper levels run in narrower pools (deep_capacity, then
     tail_capacity, plus fixed slacks), entered through group compaction;
     their radiance rides the `pending` rows down the wavefront, and the
-    peeled final level delivers every chain with ONE scatter-add.
+    peeled final level delivers every chain at once (`deliver`: each
+    pixel's lanes in lane order, so a frame repeats bit for bit).
 
 Group compaction keeps a group of `group` lanes iff any lane is alive or
 owes pending radiance; destinations are a cumsum prefix sum; groups past
@@ -58,7 +59,10 @@ from raytracer_tpu_torch.ops.level_kernel import (
 from raytracer_tpu_torch.ops.shade import get_shade
 from raytracer_tpu_torch.scene.textures import kernel_textures_ok
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, NO_EXCLUDE, Rays, Scene
-from raytracer_tpu_torch.utils import vec
+from raytracer_tpu_torch.utils import kernels, vec
+
+DELIVER_COUNTS = kernels.LaunchCounts()
+NO_RADIANCE = 0x7FFFFFFF  # deliver's sort key of a lane that owes nothing (csrc/deliver.cu)
 
 
 class TraceResult(NamedTuple):
@@ -255,6 +259,41 @@ def process_level_unfused(scene: Scene, pool: Pool, last: bool, direct: bool,
     return contrib.t().contiguous(), Pool(rf, ri), Pool(ff, fi), casts
 
 
+def deliver(img, slot, contrib):
+    """img [N, 3] with each lane's radiance contrib [K, 3] added at its
+    pixel slot [K], a pixel's lanes in lane order: img[s] + c_a + c_b + ...
+    left to right -> a new [N, 3] tensor (raytracer_tpu/ops/trace.py:541,
+    `img.at[slot].add`).
+
+    The plain version is index_add, which adds lane after lane on the CPU.
+    On the card index_add adds with float atomics in no fixed order, so a
+    pixel with three or more lanes could move by an ulp from one render to
+    the next; the kernel (csrc/deliver.cu) sorts the lanes by slot, stably,
+    and gives each pixel's run of lanes to one thread, which sums them in
+    lane order as the CPU does.  Lanes whose radiance is all zeros are
+    left out on the card: they change no pixel."""
+    if img.device.type == "cpu":
+        DELIVER_COUNTS.plain += 1
+        return img.index_add(0, slot.long(), contrib)
+    dev = img.device
+    if dev.type != "cuda":
+        raise ValueError(f"trace.deliver: unsupported device {dev}")
+    n, k = img.shape[0], slot.shape[0]
+    out = img.clone(memory_format=torch.contiguous_format)
+    kernels.check("img", out, torch.float32, (n, 3), dev)
+    cols = contrib.t().contiguous()  # [3, K]: the pools' own layout
+    kernels.check("contrib", cols, torch.float32, (3, k), dev)
+    if k:
+        # a lane that owes nothing (the pools' empty lanes, all slot 0) is
+        # sorted past the frame: adding zeros changes no pixel (but -0,
+        # which compares equal to +0), and their run would be one thread's
+        key = torch.where((cols != 0.0).any(dim=0), slot.to(torch.int32), NO_RADIANCE)
+        slots, lanes = torch.sort(key, stable=True)
+        kernels.launch("rt_deliver", out, slots, lanes, cols, n, k)
+        DELIVER_COUNTS.launches += 1
+    return out
+
+
 def _group(cfg: RenderConfig) -> int:
     """Compaction group width (cfg.compact_group; 0 = auto).
 
@@ -365,7 +404,7 @@ def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
     if doubled:
         img = img + contrib[:, :n].t() + contrib[:, n:2 * n].t()
     elif last1:
-        img = img.index_add(0, cands.i[I_SLOT].long(), contrib.t())
+        img = deliver(img, cands.i[I_SLOT], contrib.t())
     if last1:
         return TraceResult(img, casts, dropped)
 
@@ -377,7 +416,7 @@ def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
     contrib, rch, fch, c2 = level(pool, last2, last2)
     casts = casts + c2
     if last2:
-        img = img.index_add(0, pool.i[I_SLOT].long(), contrib.t())
+        img = deliver(img, pool.i[I_SLOT], contrib.t())
         return TraceResult(img, casts, dropped)
 
     # tail levels (>= 3): narrower once more; the slack absorbs lanes that
@@ -393,6 +432,6 @@ def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
     # final level peeled: no children; ONE scatter delivers every chain
     contrib, _, _, cl = level(pool, True, True)
     casts = casts + cl
-    img = img.index_add(0, pool.i[I_SLOT].long(), contrib.t())
+    img = deliver(img, pool.i[I_SLOT], contrib.t())
     return TraceResult(img, casts, dropped)
 

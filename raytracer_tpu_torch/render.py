@@ -9,7 +9,10 @@ padding out (`_whitted`).
 
 Draws: each (seed, epoch, tile) seeds its own torch.Generator on the render
 device, so an epoch's samples depend on nothing else and a resumed render
-redraws exactly what the interrupted one would have.  They are a
+redraws exactly what the interrupted one would have, and a rank that traces
+a subset of the tiles (parallel/mesh.py) draws what one card draws for
+them; a further sample of the same pixels (sample s > 0) seeds from (seed,
+epoch, tile, s).  They are a
 different, equally valid realisation from the JAX package's threefry
 draws; the tests hand the JAX draws in through `draws=`.
 
@@ -90,18 +93,28 @@ def _to_image(cfg: RenderConfig, tiles, inv):
     return flat.reshape(cfg.height, cfg.width, 3)
 
 
-def _whitted(scene: Scene, camera: Camera, cfg: RenderConfig):
+def _whitted(scene: Scene, camera: Camera, cfg: RenderConfig,
+             tiles: Optional[Sequence[int]] = None):
     """The Whitted frame -> ([H, W, 3], casts, dropped), the counters as
     device tensors (reading them waits for the device).  The last tile's
     padding is not traced (the ladder takes any width): its copies of the
     centre ray only cost casts, and where the centre sees a mirror or glass
     their children overflowed the pools (03-recursive at 320x240: 24,402
-    rays dropped, every one a padding ray's)."""
+    rays dropped, every one a padding ray's).
+
+    tiles: trace only these tile indices; the frame is zero outside them
+    and the counters are theirs.  Each tile keeps its own pools, so its
+    pixels are the whole frame's bit for bit."""
     clips, inv = _clips(cfg, scene.device)
     n = cfg.width * cfg.height
+    keep = None if tiles is None else set(tiles)
     colors, casts, dropped = [], 0, 0
     for t, clip in enumerate(clips):
-        o, d = camera_ops.shoot(camera, clip[:n - t * clip.shape[0]])
+        width = min(clip.shape[0], n - t * clip.shape[0])
+        if keep is not None and t not in keep:
+            colors.append(clip.new_zeros((width, 3)))
+            continue
+        o, d = camera_ops.shoot(camera, clip[:width])
         res = trace_whitted(scene, o, d, cfg)
         colors.append(res.color)
         casts = casts + res.casts
@@ -119,10 +132,11 @@ def render_whitted(scene: Scene, camera: Camera,
     }
 
 
-def _seed(seed: int, epoch: int, tile: int) -> int:
-    """Generator seed for one (seed, epoch, tile): a splitmix64 chain."""
+def _seed(seed: int, epoch: int, tile: int, sample: int = 0) -> int:
+    """Generator seed for one (seed, epoch, tile) and, for sample > 0, that
+    further sample of the tile's pixels: a splitmix64 chain."""
     x = 0
-    for part in (seed, epoch, tile):
+    for part in (seed, epoch, tile) + ((sample,) if sample else ()):
         x = (x + part + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
         x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
         x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
@@ -131,11 +145,13 @@ def _seed(seed: int, epoch: int, tile: int) -> int:
 
 
 def tile_draws(cfg: RenderConfig, seed: int, epoch: int, tile: int, n: int,
-               device) -> Tuple[torch.Tensor, torch.Tensor]:
+               device, sample: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One tile's draws: lens normals [n, 2] (unscaled) and uniforms
-    [depth, 3, n] (roulette u, lobe u_phi, lobe theta in [-pi, pi))."""
+    [depth, 3, n] (roulette u, lobe u_phi, lobe theta in [-pi, pi)).
+    `sample` s > 0 draws the s-th further sample of the same pixels (the
+    sample-parallel ranks of parallel/mesh.py)."""
     g = torch.Generator(device=device)
-    g.manual_seed(_seed(seed, epoch, tile))
+    g.manual_seed(_seed(seed, epoch, tile, sample))
     normals = torch.randn((n, 2), generator=g, device=device)
     unifs = torch.rand((cfg.depth, 3, n), generator=g, device=device)
     unifs[:, 2] = unifs[:, 2] * (2.0 * math.pi) - math.pi
@@ -175,17 +191,34 @@ Draws = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _epoch(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, epoch: int,
-           draws: Optional[Draws]):
+           draws: Optional[Draws], tiles: Optional[Sequence[int]] = None, sample: int = 0):
     """One MC epoch -> ([H, W, 3] photons, casts, filtered), the counters
-    as device tensors."""
+    as device tensors.
+
+    tiles: trace only these tile indices (draws[t] for each, when given),
+    in one call or tile by tile as the whole frame's route takes them; the
+    photons are zero outside them and the counters are theirs.  A lane's
+    photon does not depend on the other lanes of its call, so each
+    traced pixel is the whole frame's bit for bit.  sample: the draws'
+    sample index (tile_draws)."""
     clips, inv = _clips(cfg, scene.device)
     if draws is not None and len(draws) != len(clips):
         raise ValueError(f"draws for {len(draws)} tiles, the frame has {len(clips)}")
-    tile_in = draws if draws is not None else [
-        tile_draws(cfg, seed, epoch, t, clip.shape[0], clip.device)
-        for t, clip in enumerate(clips)]
+    picked = range(len(clips)) if tiles is None else sorted(tiles)
+    tile_in = [draws[t] if draws is not None else
+               tile_draws(cfg, seed, epoch, t, clips.shape[1], clips.device, sample)
+               for t in picked]
+    if not tile_in:
+        return (torch.zeros((cfg.height, cfg.width, 3), device=clips.device),
+                torch.zeros((), dtype=torch.int64, device=clips.device),
+                torch.zeros((), dtype=torch.int64, device=clips.device))
     run = epoch_frame if frame_wide_route(scene) else epoch_tiles
-    photon, casts, filtered = run(scene, camera, cfg, clips, tile_in)
+    traced = clips if tiles is None else clips[list(picked)]
+    photon, casts, filtered = run(scene, camera, cfg, traced, tile_in)
+    if tiles is not None:
+        full = photon.new_zeros((clips.shape[0], clips.shape[1], 3))
+        full[list(picked)] = photon.view(len(picked), clips.shape[1], 3)
+        photon = full.view(-1, 3)
     return _to_image(cfg, [photon], inv), casts, filtered
 
 

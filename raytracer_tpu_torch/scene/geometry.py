@@ -67,3 +67,17 @@ def dodecahedron_triangles(
                 pts.append((p, (0.0, 0.0)))
             tris.append(triangle(pts))
     return tris
+
+
+def write_dodecahedron_obj(path: str) -> None:
+    """Write the generated solid as an OBJ file (for the loader path): its
+    vertices, then each pentagon's fan as triangles."""
+    v = dodecahedron_vertices()
+    lines = ["# generated regular dodecahedron (circumradius 1)", "g dodecahedron"]
+    for p in v:
+        lines.append(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}")
+    for ring in dodecahedron_faces():
+        for k in range(1, 4):
+            lines.append(f"f {ring[0] + 1} {ring[k] + 1} {ring[k + 1] + 1}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

@@ -24,6 +24,20 @@ def srgb_encode(linear):
     return torch.where(x <= 0.0031308, lo, hi)
 
 
+def srgb_decode(encoded):
+    """sRGB -> linear transfer function, clamped to [0, 1] (for loading
+    golden images)."""
+    x = torch.clamp(encoded, 0.0, 1.0)
+    lo = x / 12.92
+    hi = torch.pow((x + 0.055) / 1.055, 2.4)
+    return torch.where(x <= 0.04045, lo, hi)
+
+
 def linear_to_u8(linear):
     """Linear [..., 3] f32 -> display sRGB u8, round half to even."""
     return torch.round(srgb_encode(linear) * 255.0).to(torch.uint8)
+
+
+def srgb_u8_to_linear(u8):
+    """Display sRGB u8 -> linear f32 (the inverse of linear_to_u8)."""
+    return srgb_decode(u8.to(torch.float32) / 255.0)

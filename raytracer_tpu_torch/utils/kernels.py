@@ -30,7 +30,7 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
 SOURCES = ("level_kernel.cu", "mc_kernel.cu", "mc_binned.cu", "intersect_kernels.cu",
-           "march_kernel.cu")
+           "march_kernel.cu", "deliver.cu")
 HEADERS = ("common.cuh", "mc_walk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -85,6 +85,8 @@ SIGNATURES = {
     # esc_d, prim, escaped, travel, iters, work, n, max_distance, max_retries
     "rt_march": "ppppp" + _GEO + "p" + "p" + "pppppp" + "o" + "i" + "fi",
     "rt_march_thread": "ppppp" + _GEO + "pppppp" + "o" + "i" + "fi",
+    # img (in place), sorted slots, their lanes, contrib [3, k], n, k
+    "rt_deliver": "pppp" + "ii",
 }
 # Rows of a `work` output (csrc/common.cuh Work), per lane: triangle tests
 # begun, those that went on to the plane's t, edge tests, sphere tests,

@@ -21,7 +21,7 @@ PEAK_FP32 = 67e12  # FLOP/s, FP32 (non-tensor)
 # `Work`), an FMA as 2 and a division, square root, compare or min/max as
 # 1: a triangle test begun is a dot product and a compare (6); going on to
 # the plane's t adds a dot product, a subtraction, a division and three
-# compares (10); an edge test is two dot products, an add, an FMA and a
+# compares (10); an edge test is two dot products, two adds, a multiply and a
 # compare (14); a sphere test a difference, a cross product, two dot
 # products, a square root and compares (30); a slab test 6 subtractions, 6
 # multiplies, 6 NaN tests, 11 min/max and 2 compares (31).  Shading,

@@ -26,6 +26,11 @@ def dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def cross(a, b):
+    """Row-wise cross product of [..., 3] tensors."""
+    return torch.linalg.cross(a, b, dim=-1)
+
+
 def norm(a):
     return torch.sqrt(torch.sum(a * a, dim=-1))
 
@@ -60,6 +65,11 @@ def rotate_from_z(n, v):
 def normalize(a):
     """Normalize [..., 3]; zero vectors produce inf/nan like cgmath."""
     return a / norm(a)[..., None]
+
+
+def normalize_safe(a, eps: float = 0.0):
+    """Normalize [..., 3], dividing by |a| + eps."""
+    return a / (norm(a)[..., None] + eps)
 
 
 def is_normal_f32(x):

@@ -5,7 +5,7 @@ same card.
 
     python3 scripts/time_torch_kernels.py [--tree DIR] [--reps 20] [--rounds 3]
                                           [--mesh-reps 5] [--route-grids 75,160]
-                                          [--sections dense,mesh,unfused,routes]
+                                          [--sections dense,mesh,unfused,routes,edges]
 
 Imports raytracer_tpu_torch from DIR (default: the checkout holding this
 script), builds its kernels there, and times
@@ -54,7 +54,10 @@ script), builds its kernels there, and times
   * (section "routes") the 1024x1024 MC epoch of mesh_scene(grid) for each
     of --route-grids through both MC routes, the binned walk and the
     blocked MC kernel, whatever the checkout's BINNED_MIN_TRIS says
-    (mc_routes).
+    (mc_routes);
+  * (section "edges", not timed) the share of lanes on which the nearest-hit
+    and any-hit kernels agree with their plain versions on a 1,812-triangle
+    dense table, chip_smoke.py's holds without their gate (edge_holds).
 
 Each time is the mean device milliseconds per launch after a warm-up, taken
 `rounds` times: from torch.profiler over the launches it reports of `reps`
@@ -393,6 +396,43 @@ def demo_frames(scene, cam, cfg, rounds):
     return out
 
 
+def edge_holds():
+    """chip_smoke.py's holds of the nearest-hit and any-hit kernels on a
+    dense table too large to stage (mesh_scene(30) without its BVH: 1,812
+    triangles), the 64x48 frame's primary rays and their shadow rays to
+    each light, with no gate -> {label: share of lanes on which kernel and
+    plain version agree}, and the shadow kernel's share of (light, lane)
+    pairs equal to its plain version.  A fine grid: these rays cross edges
+    that two triangles share, where a contracted multiply-add and PyTorch's
+    separately rounded operations may land on either side."""
+    import dataclasses
+
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import intersect_kernel as ik
+    from raytracer_tpu_torch.render import _clips
+    from raytracer_tpu_torch.scene.presets import mesh_scene
+    from raytracer_tpu_torch.scene.textures import host_only
+    from raytracer_tpu_torch.scene.types import BVH_FIELDS
+
+    big, cam = mesh_scene(30)
+    big = dataclasses.replace(big, textures=host_only(big.textures),
+                              **{f: None for f in BVH_FIELDS})
+    small = RenderConfig(width=64, height=48, depth=5, tile_rays=64 * 48)
+    ub = SMOKE.Unfused(big, *camera_ops.shoot(cam, _clips(small, big.device)[0][0]))
+    out = {}
+    SMOKE.hold_nearest("nearest", big, ub.rays, ub.active, share=0.0, record=out)
+    for li, rays in enumerate(ub.shadow):
+        SMOKE.hold_any(f"any light {li}", big, rays, ub.considers[li], ub.limits[li], share=0.0,
+                       record=out)
+    h = ub.hits
+    args = (h.pos, ub.to_light, h.prim, ub.limits, ub.considers)
+    out["shadow"] = SMOKE.agree(ik.shadow_any_hit(big, *args),
+                                ik.shadow_any_hit_plain(big.tables, *args))
+    out["n_tri"] = big.n_tri
+    return out
+
+
 def warp_share(mask):
     """Share of the warps of 32 consecutive lanes that hold a set lane."""
     n = mask.shape[-1]
@@ -617,7 +657,7 @@ def main() -> int:
                     help="mesh_scene grids whose MC epoch the routes section times")
     ap.add_argument("--sections", default="dense,mesh,unfused,routes",
                     help="comma-separated: dense (the demo's fused kernels and frames), mesh "
-                         "(mesh11k kernels and frames), unfused, routes")
+                         "(mesh11k kernels and frames), unfused, routes, edges")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
@@ -650,6 +690,8 @@ def main() -> int:
     mc = lambda: mc_kernel.trace(scene, o, d, unifs, cfg.depth, md, mr)
     out = {"tree": args.tree, "build_s": build_s, "rays": clip.shape[0], "reps": args.reps,
            "level_ms": [], "mc_ms": []}
+    if "edges" in sections:
+        out["edges"] = edge_holds()
     if "dense" in sections:
         for _ in range(args.rounds):
             out["level_ms"].append(SMOKE.device_ms(level, args.reps, "level_kernel"))

@@ -14,6 +14,7 @@ import torch
 
 from raytracer_tpu.cli import build_parser as jax_parser
 from raytracer_tpu_torch.cli import build_parser
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.utils.png import read_png_rgb8
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,7 +34,8 @@ def _flags(parser):
 
 
 def test_parser_has_the_jax_flags_but_devices():
-    assert _flags(jax_parser()) - _flags(build_parser()) == {"--devices"}
+    """Every flag of the JAX CLI, --devices too; --device is the port's own."""
+    assert _flags(jax_parser()) - _flags(build_parser()) == set()
     assert _flags(build_parser()) - _flags(jax_parser()) == {"--device"}
 
 
@@ -112,3 +114,67 @@ def test_debug_nans(tmp_path):
     r = _run(["--epochs", "2", "--out", str(tmp_path / "demo.png"), "--debug-nans"])
     assert r.returncode == 0, r.stderr[-2000:]
     assert np.asarray(read_png_rgb8(str(tmp_path / "demo.png"))).sum() > 0
+
+
+def test_devices_2_on_the_cpu_writes_the_emulated_png(tmp_path):
+    """Two gloo ranks render a (1, 2) mesh; rank 0 prints the mesh and writes
+    the PNG, which equals byte for byte the PNG of the mesh's rank bodies
+    run one after another here: the Whitted frame's tile on rank 0, then
+    each epoch's samples 0 and 1 summed and renormalised."""
+    out = str(tmp_path / "mesh.png")
+    r = subprocess.run(
+        [sys.executable, "-m", "raytracer_tpu_torch", "--device", "cpu", "--devices", "2",
+         "--width", "64", "--height", "48", "--epochs", "2", "--png-every", "2",
+         "--tile-rays", "768", "--out", out],
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"), capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
+    assert r.stdout.count("mesh: {'dp': 1, 'sp': 2}") == 1
+    assert r.stdout.count("rays in") == 2  # rank 0's Whitted line and one group's
+
+    from raytracer_tpu_torch.ops.tonemap import post_process
+    from raytracer_tpu_torch.parallel.mesh import RenderMesh, epoch_body, whitted_body
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene
+    from raytracer_tpu_torch.utils.color import linear_to_u8
+    from raytracer_tpu_torch.utils.png import write_png_atomic
+
+    torch.set_num_threads(1)
+    scene, cam = demo_scene(device="cpu"), demo_camera(device="cpu")
+    cfg = RenderConfig(width=64, height=48, depth=5, epochs=2, tile_rays=768)
+    ranks = [RenderMesh(dp=1, sp=2, rank=i) for i in range(2)]
+    img = whitted_body(scene, cam, cfg, ranks[0])[0] + whitted_body(scene, cam, cfg, ranks[1])[0]
+    accum = post_process(img)
+    for epoch in range(2):
+        a, b = (epoch_body(scene, cam, cfg, m, 0, epoch)[0] for m in ranks)
+        accum = post_process(accum + (a + b))
+    emulated = str(tmp_path / "emulated.png")
+    write_png_atomic(emulated, linear_to_u8(accum).numpy())
+    with open(out, "rb") as f, open(emulated, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_devices_beyond_the_hosts_cards_fail_before_any_spawn(monkeypatch, capsys):
+    """--devices N with fewer than N cards, or N < 0: rc 2 and no process
+    started."""
+    from raytracer_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.multiprocessing, "start_processes",
+                        lambda *a, **k: pytest.fail("spawned"))
+    assert cli.main(["--devices", "2"]) == 2
+    assert "--devices 2, but this host has 1 CUDA device(s)" in capsys.readouterr().err
+    assert cli.main(["--devices", "-1", "--device", "cpu"]) == 2
+
+
+def test_devices_with_a_card_index_fail_before_any_spawn(monkeypatch, capsys):
+    """--devices N deals cuda:0 .. cuda:N-1 to its ranks, so a --device
+    that names one card is refused (rc 2) rather than ignored."""
+    from raytracer_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.multiprocessing, "start_processes",
+                        lambda *a, **k: pytest.fail("spawned"))
+    assert cli.main(["--devices", "1", "--device", "cuda:1"]) == 2
+    assert "--device cuda:1 names one card" in capsys.readouterr().err

@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from raytracer_tpu.ops.tonemap import post_process as jax_post_process
+from raytracer_tpu.utils import color as jax_color
 from raytracer_tpu.utils.color import linear_to_u8 as jax_linear_to_u8
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops.tonemap import post_process
 from raytracer_tpu_torch.parallel.progressive import load_checkpoint, render_progressive
 from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene
+from raytracer_tpu_torch.utils import color
 from raytracer_tpu_torch.utils.color import linear_to_u8
 from raytracer_tpu_torch.utils.png import decode_png_rgb8, encode_png_rgb8, read_png_rgb8
 
@@ -42,6 +44,23 @@ def test_post_process_and_u8_match_jax():
     lin = np.linspace(-0.1, 1.2, 4096, dtype=np.float32).reshape(-1, 1) * np.ones(3, np.float32)
     np.testing.assert_array_equal(linear_to_u8(torch.as_tensor(lin)).numpy(),
                                   np.asarray(jax_linear_to_u8(jnp.asarray(lin))))
+
+
+def test_srgb_decode_and_u8_to_linear_match_jax():
+    """The inverse transfer function on [-0.5, 1.5] (clamped) and on every
+    u8 value, against the JAX package's, within an ulp (XLA's pow and
+    torch's round apart on a few inputs); u8 -> linear -> u8 is the
+    identity (tests/test_tonemap_io.py:62)."""
+    x = np.linspace(-0.5, 1.5, 4001, dtype=np.float32)
+    np.testing.assert_allclose(color.srgb_decode(torch.as_tensor(x)).numpy(),
+                               np.asarray(jax_color.srgb_decode(jnp.asarray(x))),
+                               rtol=2e-7, atol=0)
+    u8 = np.arange(256, dtype=np.uint8)
+    lin = color.srgb_u8_to_linear(torch.as_tensor(u8))
+    assert lin.dtype == torch.float32
+    np.testing.assert_allclose(lin.numpy(), np.asarray(jax_color.srgb_u8_to_linear(
+        jnp.asarray(u8))), rtol=2e-7, atol=0)
+    np.testing.assert_array_equal(linear_to_u8(lin).numpy(), u8)
 
 
 def test_png_round_trip():
@@ -90,6 +109,32 @@ def test_png_every_groups_give_the_same_image(tmp_path):
                            png_every=2)
     assert written == [2]
     torch.testing.assert_close(a.img, b.img, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("one_rank", [False, True])
+def test_debug_nans_checks_each_epochs_photons(tmp_path, monkeypatch, one_rank):
+    """In a group of epochs (png_every=2) debug_nans checks each epoch's
+    photons before they are accumulated and names that epoch, on one card
+    and on a mesh alike; nothing is written after the Whitted frame."""
+    from raytracer_tpu_torch.parallel import mesh as tmesh
+
+    run = tmesh._mc_epoch
+
+    def poisoned(scene, camera, cfg, mesh, seed, epoch):
+        photons, counters = run(scene, camera, cfg, mesh, seed, epoch)
+        if epoch == 0:
+            photons[0, 0, 0] = float("nan")
+        return photons, counters
+
+    monkeypatch.setattr(tmesh, "_mc_epoch", poisoned)
+    written = []
+    with pytest.raises(FloatingPointError, match=r"the photons \(epoch 0\)"):
+        render_progressive(demo_scene(device="cpu"), demo_camera(device="cpu"), CFG,
+                           out_path=str(tmp_path / "o.png"), log=lambda m: None,
+                           on_epoch=lambda e, s: written.append(e), png_every=2,
+                           debug_nans=True,
+                           mesh=tmesh.RenderMesh(dp=1, sp=1) if one_rank else None)
+    assert written == []
 
 
 def test_cli_runs_on_cpu(tmp_path):

@@ -19,6 +19,8 @@ from raytracer_tpu import render as jrender
 from raytracer_tpu.config import RenderConfig as JaxConfig
 from raytracer_tpu.ops import camera as jcamera
 from raytracer_tpu.scene import presets as jpresets
+from raytracer_tpu.scene.geometry import write_dodecahedron_obj as jax_write_dodecahedron_obj
+from raytracer_tpu.utils import vec as jax_vec
 from raytracer_tpu.utils.obj import load_obj_triangles as jax_load_obj
 from raytracer_tpu_torch import render as trender
 from raytracer_tpu_torch.config import RenderConfig
@@ -27,6 +29,8 @@ from raytracer_tpu_torch.scene import presets as tpresets
 from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, square
 from raytracer_tpu_torch.scene.convert import from_jax_camera, from_jax_scene
 from raytracer_tpu_torch.scene.types import BVH_FIELDS, SCENE_FIELDS
+from raytracer_tpu_torch.scene.geometry import write_dodecahedron_obj
+from raytracer_tpu_torch.utils import vec as tvec
 from raytracer_tpu_torch.utils.obj import load_obj_triangles
 
 torch.set_num_threads(1)
@@ -166,13 +170,35 @@ def _imported_modules(path):
             yield node.module
 
 
+def test_write_dodecahedron_obj_writes_the_jax_bytes(tmp_path):
+    ours, theirs = tmp_path / "t.obj", tmp_path / "j.obj"
+    write_dodecahedron_obj(str(ours))
+    jax_write_dodecahedron_obj(str(theirs))
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert len(load_obj_triangles(str(ours))) == 36
+
+
+def test_cross_and_normalize_safe_match_jax():
+    rng = np.random.default_rng(4)
+    a, b = (rng.normal(size=(257, 3)).astype(np.float32) for _ in range(2))
+    a[0] = 0.0  # a zero vector: 0 / eps, not a NaN
+    np.testing.assert_array_equal(tvec.cross(torch.as_tensor(a), torch.as_tensor(b)).numpy(),
+                                  np.asarray(jax_vec.cross(jnp.asarray(a), jnp.asarray(b))))
+    # XLA's norm and division round an ulp apart from torch's on some rows
+    for eps in (0.0, 1e-3):
+        got = tvec.normalize_safe(torch.as_tensor(a[1:] if eps == 0.0 else a), eps).numpy()
+        want = np.asarray(jax_vec.normalize_safe(jnp.asarray(a[1:] if eps == 0.0 else a), eps))
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert not np.isnan(tvec.normalize_safe(torch.as_tensor(a), 1e-3).numpy()).any()
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Static scan: the card has no JAX, and importing any raytracer_tpu
     module imports jax (raytracer_tpu/__init__.py)."""
     files = [os.path.join(dp, f) for dp, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
-    assert len(files) > 15
+    assert len(files) > 15 and os.path.join(PKG, "parallel", "mesh.py") in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -25,6 +25,7 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops import level_kernel
 from raytracer_tpu_torch.ops.level_kernel import Pool
 from raytracer_tpu_torch.ops.camera import shoot as tshoot
+from raytracer_tpu_torch.ops import trace as ttrace
 from raytracer_tpu_torch.ops.trace import _compact, _pack_primary, trace_whitted
 from raytracer_tpu_torch.render import _clips, render_whitted
 from raytracer_tpu_torch.scene import presets as tpresets
@@ -180,3 +181,52 @@ def test_compaction_keeps_live_and_pending_groups_and_counts_drops():
     out, dropped = _compact(pool, 16, 8)  # room for two groups only
     assert int(dropped) == 2  # the later groups' live / owing lanes
     np.testing.assert_array_equal(out.i[3].numpy(), np.r_[0:8, 16:24])
+
+
+def _delivery_pool(rng, n_pix, runs):
+    """Lanes of `runs` pixels, pixel j owning 1..32 lanes scattered over
+    the pool, with radiance over six decades so that the order of a
+    pixel's sum shows -> (img [n_pix, 3], slot [K] int32, contrib [K, 3])."""
+    pix = rng.choice(n_pix, size=runs, replace=False)
+    slot = np.repeat(pix, rng.integers(1, 33, size=runs)).astype(np.int32)
+    rng.shuffle(slot)
+    contrib = (rng.uniform(size=(slot.size, 3)) * 10.0 ** rng.integers(-3, 3, size=(slot.size, 1)))
+    img = rng.uniform(size=(n_pix, 3))
+    return (torch.as_tensor(img, dtype=torch.float32), torch.as_tensor(slot),
+            torch.as_tensor(contrib, dtype=torch.float32))
+
+
+def _lane_order_sum(img, slot, contrib):
+    out = img.numpy().copy()
+    for s, c in zip(slot.tolist(), contrib.numpy()):
+        out[s] = out[s] + c  # float32, one lane after the other
+    return out
+
+
+def test_deliver_sums_each_pixels_lanes_in_lane_order():
+    """The plain delivery (index_add on the CPU) adds a pixel's lanes one
+    after the other in lane order, which the card's kernel reproduces;
+    permuting the lanes within each pixel's run changes the sum, and gives
+    the permuted lane order's sum."""
+    rng = np.random.default_rng(11)
+    img, slot, contrib = _delivery_pool(rng, 500, 200)
+    before = ttrace.DELIVER_COUNTS.plain
+    got = ttrace.deliver(img, slot, contrib)
+    assert ttrace.DELIVER_COUNTS.plain == before + 1
+    np.testing.assert_array_equal(got.numpy(), _lane_order_sum(img, slot, contrib))
+    assert torch.equal(got, img.index_add(0, slot.long(), contrib))
+    perm = torch.as_tensor(rng.permutation(slot.numel()))
+    moved = ttrace.deliver(img, slot[perm], contrib[perm])
+    np.testing.assert_array_equal(moved.numpy(), _lane_order_sum(img, slot[perm], contrib[perm]))
+    assert not torch.equal(moved, got)  # the order shows in the last bits
+
+
+def test_the_ladder_delivers_through_deliver():
+    """One delivery a tile at depth 5 (the peeled last level) and at depth 2
+    (the deep level), none at depth 0 (identity slots)."""
+    scene, cam = tpresets.demo_scene(device="cpu"), tpresets.demo_camera(device="cpu")
+    o, d = tshoot(cam, _clips(RenderConfig(width=16, height=8), "cpu")[0][0])
+    for depth, calls in ((5, 1), (2, 1), (0, 0)):
+        before = ttrace.DELIVER_COUNTS.plain
+        trace_whitted(scene, o, d, RenderConfig(width=16, height=8, depth=depth))
+        assert ttrace.DELIVER_COUNTS.plain - before == calls, depth
