@@ -3,6 +3,7 @@
 main paths once.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase multicard   # phase 7 alone, 2-4 cards
 
 Phases (each asserts; none catches a failure):
   1. device and toolchain: nvidia-smi name and power limit, CUDA and nvcc
@@ -111,6 +112,32 @@ Phases (each asserts; none catches a failure):
      the frame buffer; the CLI at 320x240: --devices 1 writes --devices
      0's PNG byte for byte, and --devices 2 fails with the device count on a
      host with one card (runs, where there are two).
+  7. multi-card rendering on the host's cards, on a host with two or more
+     (else one line says it did not run): one process a card up to four
+     (init_multihost on a free local port, NCCL), the references made on
+     cuda:0 and handed over in a file.  Each rank checks that it runs on
+     its own card (current device, scene and outputs on cuda:<rank>) and
+     that its launches on the dp-only world's render_progressive are its
+     tiles' (level kernel six times a Whitted tile, the delivery once a
+     tile, the MC kernel once an epoch; the world's sum printed); the demo
+     at 1280x960 on the dp-only world ((4, 1); (2, 1) on two cards):
+     render_whitted_sharded, train_steps_sharded(k=3) and render_progressive
+     and its PNG the single card's bit for bit, counters equal, nothing
+     dropped; on the sample-parallel world ((2, 2); (1, 2)): the Whitted
+     frame the single card's, the MC epoch and train_steps_sharded(k=3) the
+     emulated rank bodies' (rank_sum); mesh11k at 1024x1024 on the dp-only
+     world: frame, epoch and binned epoch the single card's; a
+     render_progressive of one epoch with a checkpoint, resumed to three,
+     writes the uninterrupted render's PNG byte for byte; then the CLI
+     (--devices 4 and 2, or 2) writes the PNG of the same world shape's
+     render_progressive byte for byte, phase 6's CLI check runs its
+     --devices 2 arm, and the CLI's wall over 100 epochs is taken with
+     --devices N and 0.  Numbers: each world's Whitted frame and epoch
+     (host seconds, the slowest rank's, least of three) beside the single
+     card's, each rank's device busy (torch.profiler), the all_reduce of the
+     frames and counters (CUDA events) beside the NVLink bound.
+     `python3 chip_smoke.py --phase multicard` builds the kernels and runs
+     this phase alone.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when CUDA is not available.
@@ -121,6 +148,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -133,6 +161,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 
 DEPTH, MD, MR = 5, 100.0, 10
+NVLINK_BYTES_S = 450e9  # H100 SXM: NVLink 4, 900 GB/s a card, 450 each way
 
 
 def psnr(a, b):
@@ -1000,6 +1029,20 @@ def delivery_pool(rng, n_pix, runs, dev):
             torch.as_tensor(contrib, dtype=torch.float32, device=dev))
 
 
+def binned_route(fn):
+    """fn() with every blocked scene sent to the binned route
+    (BINNED_MIN_TRIS lowered to 0), which the binned kernels' checks and
+    timings take: by default every blocked scene walks through the blocked
+    MC kernel."""
+    from raytracer_tpu_torch.ops import mc_binned
+
+    threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 0
+    try:
+        return fn()
+    finally:
+        mc_binned.BINNED_MIN_TRIS = threshold
+
+
 def rank_sum(parts):
     """The ranks' buffers summed in rank order (the all_reduce, emulated)."""
     out = parts[0].clone()
@@ -1008,12 +1051,57 @@ def rank_sum(parts):
     return out
 
 
+def nvidia_smi():
+    """Each card's name and power limit, as nvidia-smi gives them, printed
+    a line a card -> the lines."""
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    for line in lines:
+        print(line)
+    return lines
+
+
 def free_port():
     import socket
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def cli_devices_phase():
+    """The CLI at 320x240: --devices 1 writes --devices 0's PNG byte for
+    byte; --devices 2 runs on a host with two cards or more and fails with
+    the device count on a host with one."""
+    small = ["--width", "320", "--height", "240", "--epochs", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {n: ["--devices", str(n), *small, "--out", os.path.join(tmp, f"d{n}.png")]
+                for n in (0, 1, 2)}
+        procs = {n: subprocess.Popen([sys.executable, "-m", "raytracer_tpu_torch", *args],
+                                     cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True) for n, args in runs.items()}
+        results = {}
+        try:
+            for n, proc in procs.items():
+                results[n] = (*proc.communicate(timeout=300), proc.returncode)
+                print(f"cli --devices {n} (rc {results[n][2]}): "
+                      + (results[n][0] + results[n][1][-300:]).strip().replace("\n", " | ")[:600])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for n in (0, 1):
+            assert results[n][2] == 0, (n, results[n][1][-3000:])
+        assert "mesh: {'dp': 1, 'sp': 1}" in results[1][0]
+        with open(os.path.join(tmp, "d0.png"), "rb") as f, open(os.path.join(tmp, "d1.png"),
+                                                                  "rb") as g:
+            assert f.read() == g.read(), "--devices 1 and --devices 0 wrote other PNGs"
+        if torch.cuda.device_count() >= 2:
+            assert results[2][2] == 0 and "mesh: {'dp': 1, 'sp': 2}" in results[2][0], results[2]
+        else:
+            assert results[2][2] != 0 and "CUDA device(s)" in results[2][1], results[2]
 
 
 def mesh_phase(dev, reset_counts, read_counts, demo, cam, full, mesh11k, mesh11k_cam, mesh_cfg,
@@ -1138,38 +1226,495 @@ def mesh_phase(dev, reset_counts, read_counts, demo, cam, full, mesh11k, mesh11k
           f"seconds, least of three); all_reduce of the {times['all_reduce_bytes']:,} B frame "
           f"buffer (a world of one) {times['all_reduce_frame_ms']:.4f} ms (CUDA events)")
 
-    # the CLI: --devices 1 writes --devices 0's PNG; --devices 2 needs two cards
-    small = ["--width", "320", "--height", "240", "--epochs", "2"]
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = {n: ["--devices", str(n), *small, "--out", os.path.join(tmp, f"d{n}.png")]
-                for n in (0, 1, 2)}
-        procs = {n: subprocess.Popen([sys.executable, "-m", "raytracer_tpu_torch", *args],
-                                     cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                     text=True) for n, args in runs.items()}
-        results = {}
-        try:
-            for n, proc in procs.items():
-                results[n] = (*proc.communicate(timeout=300), proc.returncode)
-                print(f"cli --devices {n} (rc {results[n][2]}): "
-                      + (results[n][0] + results[n][1][-300:]).strip().replace("\n", " | ")[:600])
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for n in (0, 1):
-            assert results[n][2] == 0, (n, results[n][1][-3000:])
-        assert "mesh: {'dp': 1, 'sp': 1}" in results[1][0]
-        with open(os.path.join(tmp, "d0.png"), "rb") as f, open(os.path.join(tmp, "d1.png"),
-                                                                  "rb") as g:
-            assert f.read() == g.read(), "--devices 1 and --devices 0 wrote other PNGs"
-        if torch.cuda.device_count() >= 2:
-            assert results[2][2] == 0 and "mesh: {'dp': 1, 'sp': 2}" in results[2][0], results[2]
-        else:
-            assert results[2][2] != 0 and "CUDA device(s)" in results[2][1], results[2]
+    cli_devices_phase()
     times["phase_s"] = time.time() - t_phase
     print(f"phase 6 took {times['phase_s']:.1f} s")
     return times, launches
+
+
+# ---- phase 7: a real world on the host's cards ------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MulticardSpec:
+    """Phase 7's work: the demo at `demo` (Whitted + demo.epochs epochs of
+    `seed`, from epoch 0), mesh_scene(`grid`) at `mesh`, on `device`
+    ("cuda": rank r on cuda:r, NCCL; "cpu": gloo, the rehearsal); host
+    seconds the least of `reps`; the CLI's wall over `wall_epochs` epochs."""
+
+    demo: RenderConfig
+    grid: int
+    mesh: RenderConfig
+    seed: int = 0
+    reps: int = 3
+    device: str = "cuda"
+    wall_epochs: int = 100
+
+
+def card_spec():
+    """Phase 7 on the cards: the demo at 1280x960, depth 5, 3 epochs;
+    mesh11k (mesh_scene(75)) at 1024x1024, depth 5; tiles of 65536."""
+    from raytracer_tpu_torch.config import RenderConfig
+
+    return MulticardSpec(demo=RenderConfig(depth=DEPTH, epochs=3), grid=75,
+                         mesh=RenderConfig(width=1024, height=1024, depth=DEPTH))
+
+
+def _to(x, dev):
+    """A reference (a tensor, or a tuple of them and numbers) on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return tuple(_to(v, dev) for v in x)
+    return x
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(dev, fn):
+    """Host seconds of fn() between two synchronisations of `dev`."""
+    _sync(dev)
+    t = time.perf_counter()
+    fn()
+    _sync(dev)
+    return time.perf_counter() - t
+
+
+def _barrier(dev, group):
+    """Every rank of `group` here, and this device idle."""
+    import torch.distributed as dist
+
+    _sync(dev)
+    dist.all_reduce(torch.zeros(1, device=dev), group=group)
+    _sync(dev)
+
+
+def multicard_refs(dev, spec, world):
+    """Phase 7's references on one device, for a world of `world` ranks:
+    the single device's demo Whitted frame, its epochs and the train
+    steps over them (accumulator, u8, counters: render_progressive's state
+    and PNG), the same epochs and steps over the emulated rank bodies of the
+    world's sample-parallel mesh (make_render_mesh: samples 0 and 1 summed,
+    as phase 6 sums them), and mesh_scene(grid)'s frame, first epoch and
+    that epoch on the binned route -> a dict of CPU tensors and numbers."""
+    from raytracer_tpu_torch.ops.tonemap import post_process
+    from raytracer_tpu_torch.parallel import mesh as pm
+    from raytracer_tpu_torch.parallel.progressive import write_image
+    from raytracer_tpu_torch.render import render_distributed_epoch, render_whitted
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
+    from raytracer_tpu_torch.utils.color import linear_to_u8
+
+    cfg, seed = spec.demo, spec.seed
+    demo, cam = demo_scene(device=dev), demo_camera(device=dev)
+    whitted, wst = render_whitted(demo, cam, cfg)
+    sp_mesh = pm.make_render_mesh(world)
+    ranks = [pm.RenderMesh(dp=sp_mesh.dp, sp=sp_mesh.sp, rank=r) for r in range(world)]
+    accum = emulated = post_process(whitted)
+    epochs, epoch_stats, emulated_epochs, counters = [], [], [], [0, 0]
+    for epoch in range(cfg.epochs):
+        photons, est = render_distributed_epoch(demo, cam, cfg, seed=seed, epoch=epoch)
+        epochs.append(photons)
+        epoch_stats.append(est)
+        counters = [counters[0] + est["casts"], counters[1] + est["filtered"]]
+        accum = post_process(accum + photons)
+        parts = [pm.epoch_body(demo, cam, cfg, m, seed, epoch)[0] for m in ranks]
+        emulated_epochs.append(rank_sum(parts))
+        emulated = post_process(emulated + emulated_epochs[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        write_image(os.path.join(tmp, "ref.png"), accum)
+        with open(os.path.join(tmp, "ref.png"), "rb") as f:
+            png = f.read()
+    scene, mcam = mesh_scene(spec.grid, device=dev)
+    m_whitted, m_wst = render_whitted(scene, mcam, spec.mesh)
+    m_epoch, m_est = render_distributed_epoch(scene, mcam, spec.mesh, seed=seed)
+    b_epoch, b_est = binned_route(lambda: render_distributed_epoch(scene, mcam, spec.mesh,
+                                                                   seed=seed))
+    cpu = lambda t: t.cpu()
+    return {"whitted": cpu(whitted), "whitted_stats": wst, "epochs": tuple(map(cpu, epochs)),
+            "epoch_stats": epoch_stats, "steps": (cpu(accum), cpu(linear_to_u8(accum)), counters),
+            "png": png, "emulated_epochs": tuple(map(cpu, emulated_epochs)),
+            "emulated_steps": (cpu(emulated), cpu(linear_to_u8(emulated))),
+            "mesh_whitted": cpu(m_whitted), "mesh_whitted_stats": m_wst,
+            "mesh_epoch": cpu(m_epoch), "mesh_epoch_stats": m_est, "binned_epoch": cpu(b_epoch),
+            "binned_epoch_stats": b_est}
+
+
+def multicard_body(dev, mesh, spec, refs, out_dir):
+    """Phase 7 on rank mesh.rank of a world of mesh.world processes, one a
+    device; `mesh` is the world's sample-parallel mesh (make_render_mesh:
+    (2, 2) on four ranks, (1, 2) on two) and `refs` multicard_refs'
+    (module docstring, phase 7).  Rank 0 writes the PNGs into `out_dir`:
+    dp.png (the dp-only world's render_progressive), full.png and part.png
+    (the sample-parallel world's, uninterrupted and resumed) and, in a
+    world of more than two, pair.png (ranks 0 and 1 as a (1, 2) mesh).
+    Every check raises; host seconds, each rank's device busy and the
+    all_reduces' times come back -> a dict of numbers."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.ops import level_kernel, mc_kernel
+    from raytracer_tpu_torch.ops import trace as trace_ops
+    from raytracer_tpu_torch.ops.tonemap import post_process
+    from raytracer_tpu_torch.parallel import mesh as pm
+    from raytracer_tpu_torch.parallel.progressive import render_progressive
+    from raytracer_tpu_torch.render import _clips
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
+
+    n, rank, group, lead = mesh.world, mesh.rank, mesh.group, mesh.rank == 0
+    on_card = dev.type == "cuda"
+    cfg, seed, depth = spec.demo, spec.seed, spec.demo.depth
+    dp_only = pm.RenderMesh(dp=n, sp=1, rank=rank, group=group)
+    pair_group = dist.new_group([0, 1]) if n > 2 else None  # every rank joins it
+    pair = pm.RenderMesh(dp=1, sp=2, rank=rank, group=pair_group) if n > 2 and rank < 2 \
+        else None
+    refs = {k: _to(v, dev) for k, v in refs.items()}
+    out = {"rank": rank, "world": n, "device": str(dev)}
+
+    def on_mine(*ts):
+        for t in ts:
+            assert t.device == dev, (t.device, dev)
+
+    # 1. this rank's own device, and the scene on it
+    if on_card:
+        assert torch.cuda.current_device() == rank == dev.index, (torch.cuda.current_device(),
+                                                                   rank, dev)
+        out["device_name"] = torch.cuda.get_device_name(dev)
+    demo, cam = demo_scene(device=dev), demo_camera(device=dev)
+    assert demo.device == dev, demo.device
+
+    # 2. the dp-only world = the single device, bit for bit
+    img, st = pm.render_whitted_sharded(demo, cam, cfg, dp_only)
+    on_mine(img)
+    assert torch.equal(img, refs["whitted"]) and st == refs["whitted_stats"], st
+    assert st["dropped"] == 0
+    photons, est = pm.render_mc_epoch_sharded(demo, cam, cfg, dp_only, seed, 0)
+    on_mine(photons)
+    assert torch.equal(photons, refs["epochs"][0])
+    assert dict(est, samples_per_pixel=None) == dict(refs["epoch_stats"][0],
+                                                     samples_per_pixel=None), est
+    accum = post_process(img)
+    steps = pm.train_steps_sharded(demo, cam, cfg, dp_only, accum, seed, cfg.epochs, 0)
+    on_mine(*steps)
+    assert torch.equal(steps[0], refs["steps"][0]) and torch.equal(steps[1], refs["steps"][1])
+    assert steps[2].tolist() == refs["steps"][2], (steps[2].tolist(), refs["steps"][2])
+    counts = {"level": level_kernel.COUNTS, "mc": mc_kernel.COUNTS,
+              "deliver": trace_ops.DELIVER_COUNTS, "level_thread": level_kernel.COUNTS_THREAD,
+              "mc_thread": mc_kernel.COUNTS_THREAD}
+    for c in counts.values():
+        c.launches = c.plain = 0
+    lines, stats = [], []
+    state = render_progressive(demo, cam, cfg, out_path=os.path.join(out_dir, "dp.png"),
+                               seed=seed, log=lines.append,
+                               on_epoch=lambda e, s: stats.append(s), mesh=dp_only)
+    ran = {k: (c.launches, c.plain) for k, c in counts.items()}
+    got = {k: v[0 if on_card else 1] for k, v in ran.items()}
+    assert all(v[1 if on_card else 0] == 0 for v in ran.values()), ran
+    n_tiles = len(_clips(cfg, dev)[0])
+    mine = len(pm.rank_tiles(n_tiles, n, rank))
+    assert got == {"level": mine * (depth + 1), "mc": cfg.epochs, "deliver": mine,
+                   "level_thread": 0, "mc_thread": 0}, (rank, got)
+    out["launches"] = got
+    total = torch.tensor([got["level"], got["mc"], got["deliver"]], device=dev)
+    dist.all_reduce(total, group=group)
+    assert total.tolist() == [n_tiles * (depth + 1), n * cfg.epochs, n_tiles], total.tolist()
+    out["launches_world"] = dict(zip(("level", "mc", "deliver"), total.tolist()))
+    assert torch.equal(state.img, refs["steps"][0])
+    if lead:
+        with open(os.path.join(out_dir, "dp.png"), "rb") as f:
+            assert f.read() == refs["png"], "the dp-only world's PNG"
+        assert [(s["casts"], s["filtered"]) for s in stats] == [
+            (s["casts"], s["filtered"]) for s in refs["epoch_stats"]], stats
+        assert not any("dropped" in m for m in lines), lines
+
+    # 3. the sample-parallel world = the emulated rank bodies, bit for bit
+    img, st = pm.render_whitted_sharded(demo, cam, cfg, mesh)
+    assert torch.equal(img, refs["whitted"]) and st["dropped"] == 0
+    photons, est = pm.render_mc_epoch_sharded(demo, cam, cfg, mesh, seed, 0)
+    assert torch.equal(photons, refs["emulated_epochs"][0]) and est["samples_per_pixel"] == 2
+    steps = pm.train_steps_sharded(demo, cam, cfg, mesh, accum, seed, cfg.epochs, 0)
+    assert torch.equal(steps[0], refs["emulated_steps"][0])
+    assert torch.equal(steps[1], refs["emulated_steps"][1])
+
+    # 4. mesh_scene(grid) on the dp-only world: frame, epoch, binned epoch
+    scene, mcam = mesh_scene(spec.grid, device=dev)
+    assert scene.blocked and scene.device == dev
+    img, st = pm.render_whitted_sharded(scene, mcam, spec.mesh, dp_only)
+    assert torch.equal(img, refs["mesh_whitted"]) and st == refs["mesh_whitted_stats"], st
+    photons, est = pm.render_mc_epoch_sharded(scene, mcam, spec.mesh, dp_only, seed, 0)
+    assert torch.equal(photons, refs["mesh_epoch"]) and est["casts"] == refs[
+        "mesh_epoch_stats"]["casts"]
+    photons, est = binned_route(lambda: pm.render_mc_epoch_sharded(scene, mcam, spec.mesh,
+                                                                   dp_only, seed, 0))
+    assert torch.equal(photons, refs["binned_epoch"]) and est["casts"] == refs[
+        "binned_epoch_stats"]["casts"]
+
+    # 5. checkpoint across ranks: one epoch, then resumed to all of them,
+    # writes the uninterrupted render's PNG byte for byte
+    path = lambda name: os.path.join(out_dir, name)
+    run = lambda epochs, name, ckpt, log: render_progressive(
+        demo, cam, dataclasses.replace(cfg, epochs=epochs), out_path=path(name), seed=seed,
+        checkpoint_path=path("ck.npz") if ckpt else None, log=log, mesh=mesh)
+    full = run(cfg.epochs, "full.png", False, lambda m: None)
+    assert torch.equal(full.img, refs["emulated_steps"][0])
+    run(1, "part.png", True, lambda m: None)
+    lines = []
+    resumed = run(cfg.epochs, "part.png", True, lines.append)
+    assert torch.equal(resumed.img, full.img)
+    if lead:
+        with open(path("part.png"), "rb") as f, open(path("full.png"), "rb") as g:
+            assert f.read() == g.read(), "the resumed PNG"
+        assert "resumed at epoch 1" in lines, lines
+    if pair is not None:  # the CLI's --devices 2 on a larger host
+        state = render_progressive(demo, cam, cfg, out_path=path("pair.png"), seed=seed,
+                                   log=lambda m: None, mesh=pair)
+        assert torch.equal(state.img, refs["emulated_steps"][0])
+
+    # the numbers: host seconds (the slowest rank's, the least of reps),
+    # each rank's device busy, the all_reduces
+    def world_s(fn):
+        best = float("inf")
+        for _ in range(spec.reps):
+            _barrier(dev, group)
+            t = time.perf_counter()
+            fn()
+            _sync(dev)
+            dt = torch.tensor([time.perf_counter() - t], dtype=torch.float64, device=dev)
+            dist.all_reduce(dt, op=dist.ReduceOp.MAX, group=group)
+            best = min(best, float(dt))
+        return best
+
+    def busy_ms(fn):
+        """(this rank's own device ms, NCCL's, its own device operations)
+        over one fn(), from torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        _barrier(dev, group)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync(dev)
+        own = comm = 0.0
+        ops = 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            if "nccl" in e.key.lower():
+                comm += us / 1e3
+            else:
+                own += us / 1e3
+                ops += e.count if us > 0 else 0
+        return own, comm, ops
+
+    timed_calls = {"demo (%d, 1)" % n: (demo, cam, cfg, dp_only),
+                   "demo (%d, %d)" % (mesh.dp, mesh.sp): (demo, cam, cfg, mesh),
+                   "mesh (%d, 1)" % n: (scene, mcam, spec.mesh, dp_only)}
+    out["times"] = {}
+    for label, (sc, ca, cf, m) in timed_calls.items():
+        whitted = lambda: pm.render_whitted_sharded(sc, ca, cf, m)
+        epoch = lambda: pm.render_mc_epoch_sharded(sc, ca, cf, m, seed, 7)
+        row = {"whitted_s": world_s(whitted), "epoch_s": world_s(epoch),
+               "samples_per_pixel": m.sp}
+        if on_card:
+            for kind, fn in (("whitted", whitted), ("epoch", epoch)):
+                busy = busy_ms(fn)
+                row.update(zip((f"{kind}_busy_ms", f"{kind}_nccl_ms", f"{kind}_ops"), busy))
+        out["times"][label] = row
+    if on_card:
+        bufs = {"demo frame": torch.rand((cfg.height, cfg.width, 3), device=dev),
+                "mesh frame": torch.rand((spec.mesh.height, spec.mesh.width, 3), device=dev),
+                "counters": torch.zeros((2,), dtype=torch.int64, device=dev)}
+        out["all_reduce"] = {}
+        def reduce_ms(buf, g):
+            """all_reduce(buf) over group g, 20 times: the device's time
+            (queued behind a sleep) and, back to back, the host's pace."""
+            row = {"bytes": nbytes(buf), "ranks": dist.get_world_size(g)}
+            _barrier(dev, g)
+            row["ms"] = queued_ms(lambda: dist.all_reduce(buf, group=g), 20)
+            _barrier(dev, g)
+            row["back_to_back_ms"] = cuda_ms(lambda: dist.all_reduce(buf, group=g), 20)
+            return row
+
+        out["all_reduce"] = {label: reduce_ms(buf, group) for label, buf in bufs.items()}
+        if pair is not None:
+            out["all_reduce"]["demo frame, 2 ranks"] = reduce_ms(bufs["demo frame"], pair_group)
+    _barrier(dev, group)
+    return out
+
+
+def _multicard_worker(rank, world, port, tmp, spec):
+    """Rank `rank` of phase 7's world: join it on this host's `port`, run
+    multicard_body on its device with the references in tmp/refs.pt, and
+    write what it returns into tmp/result<rank>.json."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from raytracer_tpu_torch.parallel import mesh as pm
+
+    dev = pm.init_multihost(f"127.0.0.1:{port}", world, rank, device=spec.device)
+    try:
+        refs = torch.load(os.path.join(tmp, "refs.pt"), weights_only=False)
+        out = multicard_body(dev, pm.make_render_mesh(), spec, refs, tmp)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"result{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _stamped(args, env):
+    """Run the CLI with `args` -> (rc, [(seconds since the start, stdout
+    line)], seconds to exit, stderr's tail).  Lines are stamped as they
+    arrive (the child writes unbuffered)."""
+    with tempfile.TemporaryFile("w+") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "raytracer_tpu_torch", *args], cwd=HERE,
+                                stdout=subprocess.PIPE, stderr=err, text=True,
+                                env=dict(os.environ, PYTHONUNBUFFERED="1", **env))
+        try:
+            lines = [(time.perf_counter() - t0, line.rstrip("\n")) for line in proc.stdout]
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        end = time.perf_counter() - t0
+        err.seek(0)
+        return rc, lines, end, err.read()[-3000:]
+
+
+def _wall_parts(lines, end):
+    """A render's wall in parts from its stamped lines: `start` (to the
+    Whitted pass's beginning: imports, spawn and group init, scene build),
+    `whitted` (its own log line's ms), `epochs` (the Whitted line to the
+    last epoch's), `exit`; and, with --devices, `spawn_init` (to rank 0's
+    mesh line)."""
+    rays = [(t, float(re.search(r" rays in (\d+) ms", line).group(1)) / 1e3)
+            for t, line in lines if " rays in " in line]
+    parts = {"start_s": rays[0][0] - rays[0][1], "whitted_s": rays[0][1],
+             "epochs_s": rays[-1][0] - rays[0][0], "exit_s": end - rays[-1][0], "wall_s": end,
+             "epoch_lines": len(rays) - 1}
+    mesh = [t for t, line in lines if line.startswith("mesh: ")]
+    if mesh:
+        parts["spawn_init_s"] = mesh[0]
+    return parts
+
+
+def multicard_phase(spec, smi):
+    """Phase 7 (module docstring) over every device up to 4: the
+    references and the single card's times on the first device, the world
+    spawned (one process a device), then the CLI -> its numbers."""
+    import torch.multiprocessing as mp
+
+    from raytracer_tpu_torch.render import render_distributed_epoch, render_whitted
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
+
+    t_phase = time.time()
+    on_card = spec.device == "cuda"
+    world = min(torch.cuda.device_count(), 4) if on_card else 4
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    refs = multicard_refs(dev, spec, world)
+    # the single device's same calls, the least of reps
+    single = {}
+    demo, cam = demo_scene(device=dev), demo_camera(device=dev)
+    scene, mcam = mesh_scene(spec.grid, device=dev)
+    for label, (sc, ca, cf) in {"demo": (demo, cam, spec.demo),
+                                "mesh": (scene, mcam, spec.mesh)}.items():
+        best = lambda fn: min(_timed(dev, fn) for _ in range(spec.reps))
+        single[label] = {"whitted_s": best(lambda: render_whitted(sc, ca, cf)),
+                         "epoch_s": best(lambda: render_distributed_epoch(sc, ca, cf, spec.seed,
+                                                                          7))}
+    del demo, cam, scene, mcam
+    out = {"world": world, "single": single, "smi": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(refs, os.path.join(tmp, "refs.pt"))
+        t = time.time()
+        mp.start_processes(_multicard_worker, args=(world, free_port(), tmp, spec),
+                           nprocs=world, start_method="spawn")
+        out["world_s"] = time.time() - t
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"result{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"phase 7: a world of {world} ({spec.device}; "
+              + ", ".join(f"rank {x['rank']} on {x['device']}" for x in ranks)
+              + f") in {out['world_s']:.1f} s: every check held; launches on the dp-only "
+              f"world's render_progressive by rank " + "; ".join(
+                  f"{x['rank']}: {x['launches']}" for x in ranks)
+              + f"; the world's sum {ranks[0]['launches_world']}")
+        out["ranks"] = ranks
+        # 6. the CLI: its PNG is the same world's, byte for byte
+        shape = ["--width", str(spec.demo.width), "--height", str(spec.demo.height),
+                 "--depth", str(spec.demo.depth), "--tile-rays", str(spec.demo.tile_rays),
+                 "--seed", str(spec.seed), "--device", spec.device]
+        env = {} if on_card else {"OMP_NUM_THREADS": "1"}
+        for devices in ((4, 2) if world >= 4 else (2,)):
+            want = "full.png" if devices == world else "pair.png"
+            png = os.path.join(tmp, f"cli{devices}.png")
+            rc, lines, _, err = _stamped(["--devices", str(devices), *shape, "--epochs",
+                                          str(spec.demo.epochs), "--out", png], env)
+            text = " | ".join(line for _, line in lines)
+            print(f"cli --devices {devices} --epochs {spec.demo.epochs} (rc {rc}): {text[:400]}")
+            assert rc == 0, err
+            mesh_line = f"mesh: {{'dp': {devices // 2}, 'sp': 2}}"
+            assert mesh_line in text, (mesh_line, text)
+            with open(png, "rb") as f, open(os.path.join(tmp, want), "rb") as g:
+                assert f.read() == g.read(), f"--devices {devices} wrote another PNG than {want}"
+        out["cli_wall"] = {}
+        for devices in (world, 0):
+            rc, lines, end, err = _stamped(
+                ["--devices", str(devices), *shape, "--epochs", str(spec.wall_epochs), "--out",
+                 os.path.join(tmp, f"wall{devices}.png")], env)
+            assert rc == 0, err
+            parts = _wall_parts(lines, end)
+            assert parts["epoch_lines"] == spec.wall_epochs, parts
+            out["cli_wall"][f"--devices {devices}"] = parts
+    if on_card:  # phase 6's CLI check, whose --devices 2 runs here
+        cli_devices_phase()
+    out["phase_s"] = time.time() - t_phase
+    report_multicard(out, spec)
+    return out
+
+
+def report_multicard(out, spec):
+    """Phase 7's numbers on lines of their own."""
+    world, single, ranks = out["world"], out["single"], out["ranks"]
+    for label in ranks[0]["times"]:
+        rows = [x["times"][label] for x in ranks]
+        base = single["mesh" if label.startswith("mesh") else "demo"]
+        w, e = rows[0]["whitted_s"], rows[0]["epoch_s"]
+        sp = rows[0]["samples_per_pixel"]
+        line = (f"{label}: whitted frame {w:.4f} s (one device {base['whitted_s']:.4f} s, "
+                f"{base['whitted_s'] / w:.2f}x), mc epoch {e:.4f} s (one device "
+                f"{base['epoch_s']:.4f} s, {base['epoch_s'] / e:.2f}x); {sp / e:.1f} samples a "
+                f"pixel a second (one device {1 / base['epoch_s']:.1f}); host seconds, the "
+                f"slowest rank's, least of {spec.reps}")
+        if "whitted_busy_ms" in rows[0]:
+            for kind in ("whitted", "epoch"):
+                busy = [r[f"{kind}_busy_ms"] for r in rows]
+                nccl = [r[f"{kind}_nccl_ms"] for r in rows]
+                ops = [r[f"{kind}_ops"] for r in rows]
+                line += (f"; {kind} device busy by rank " + ", ".join(f"{b:.2f}" for b in busy)
+                         + f" ms (busiest / least {max(busy) / max(min(busy), 1e-9):.2f}; "
+                         f"device operations " + ", ".join(map(str, ops)) + "), NCCL "
+                         + ", ".join(f"{c:.3f}" for c in nccl) + " ms")
+        print(line)
+    if "all_reduce" in ranks[0]:
+        for label, row in ranks[0]["all_reduce"].items():
+            n = row["ranks"]
+            bound = 2 * (n - 1) / n * row["bytes"] / NVLINK_BYTES_S * 1e3
+            slowest = max(x["all_reduce"][label]["ms"] for x in ranks if label in x["all_reduce"])
+            print(f"all_reduce of the {label} ({row['bytes']:,} B) over {n} ranks: device "
+                  f"{row['ms']:.4f} ms on rank 0, {slowest:.4f} ms on the slowest (CUDA events "
+                  f"over 20 queued behind a sleep); back to back {row['back_to_back_ms']:.4f} ms "
+                  f"on rank 0 (the host's pace); NVLink bound {bound:.5f} ms (a ring moves "
+                  f"2(N-1)/N of the bytes through each card at 450 GB/s each way, latency not "
+                  f"counted: a reckoning from the data sheet)")
+    for label, parts in out["cli_wall"].items():
+        print(f"cli {label} --epochs {spec.wall_epochs} at {spec.demo.width}x{spec.demo.height}: "
+              f"wall {parts['wall_s']:.2f} s = start {parts['start_s']:.2f} s"
+              + (f" (of it spawn and group init {parts['spawn_init_s']:.2f} s)"
+                 if "spawn_init_s" in parts else "")
+              + f" + whitted {parts['whitted_s']:.3f} s + epochs {parts['epochs_s']:.2f} s + "
+              f"exit {parts['exit_s']:.2f} s")
+    print(f"phase 7 took {out['phase_s']:.1f} s")
 
 
 def main() -> int:
@@ -1247,10 +1792,8 @@ def main() -> int:
         return launches
 
     # ---- 1. device and toolchain ----------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    smi_lines = nvidia_smi()
+    smi = smi_lines[0]
     nvcc_ver = subprocess.run([kernels.nvcc_path(), "--version"], capture_output=True,
                               text=True, check=True).stdout.strip().splitlines()[-1]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc_ver}")
@@ -1933,17 +2476,6 @@ def main() -> int:
     print(f"demo mc epoch 1280x960, early in phase 5: {demo_epoch_early_s:.4f} s host "
           f"(least of three)")
 
-    def binned_route(fn):
-        """fn() with every blocked scene sent to the binned route
-        (BINNED_MIN_TRIS lowered to 0), which the binned kernels' checks
-        and timings take: by default every blocked scene walks through the
-        blocked MC kernel."""
-        threshold, mc_binned.BINNED_MIN_TRIS = mc_binned.BINNED_MIN_TRIS, 0
-        try:
-            return fn()
-        finally:
-            mc_binned.BINNED_MIN_TRIS = threshold
-
     reset_counts()
     (wimg, wst), mw_s = timed(lambda: render_whitted(mesh11k, mesh11k_cam, mesh_cfg))
     (eimg, est), me_s = timed(lambda: render_distributed_epoch(mesh11k, mesh11k_cam, mesh_cfg))
@@ -2084,6 +2616,13 @@ def main() -> int:
     mesh_times, world1_launches = mesh_phase(dev, reset_counts, read_counts, demo, demo_cam,
                                              full, mesh11k, mesh11k_cam, mesh_cfg, state,
                                              demo_png, smi)
+    # ---- 7. a real world on the host's cards -------------------------------
+    if torch.cuda.device_count() >= 2:
+        multicard = multicard_phase(card_spec(), smi_lines)
+    else:
+        multicard = None
+        print(f"phase 7: not run: {torch.cuda.device_count()} CUDA device (run chip_smoke.py "
+              f"--phase multicard on a host with 2 or more)")
     launches = {k: demo_launches[k] + mesh_launches[k] + binned_launches[k] + m24_launches[k]
                 + w51_launches[k] + unfused_launches[k] + any_launches[k] + world1_launches[k]
                 for k in counts}
@@ -2567,6 +3106,7 @@ def main() -> int:
 
     print(json.dumps({"frames": frames, "presets": preset_times, "routes": routes,
                       "attrs": attrs, "per_launch": per, "mesh": mesh_times,
+                      "multicard": multicard,
                       "profiles": profiles, "bounce_orders": orders}))
 
     def entry(name, source, replaces, key, blk_key=None, thread_ms=None):
@@ -2642,5 +3182,33 @@ def main() -> int:
     return 0
 
 
+def multicard_main() -> int:
+    """`--phase multicard`: build the kernels and run phase 7 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from raytracer_tpu_torch.utils import kernels
+
+    smi = nvidia_smi()
+    if torch.cuda.device_count() < 2:
+        print(f"chip_smoke --phase multicard: {torch.cuda.device_count()} CUDA device; phase 7 "
+              f"needs 2 or more", file=sys.stderr)
+        return 1
+    _, build_s = kernels.build()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; kernels built in {build_s:.1f} s")
+    out = multicard_phase(card_spec(), smi)
+    print(json.dumps({"multicard": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Build and check the port on the host's GPUs.")
+    parser.add_argument("--phase", choices=["multicard"],
+                        help="run phase 7 alone (a host with 2 or more cards)")
+    sys.exit(multicard_main() if parser.parse_args().phase == "multicard" else main())

@@ -288,6 +288,12 @@ def main(argv=None) -> int:
         print(f"error: --devices {args.devices}, but this host has "
               f"{torch.cuda.device_count()} CUDA device(s)", file=sys.stderr)
         return 2
+    if device.type == "cuda":
+        # once here, not by each rank at once on a fresh checkout; a
+        # failed build raises with nvcc's message
+        from raytracer_tpu_torch.utils import kernels
+
+        kernels.build()
     import torch.multiprocessing as mp
 
     try:

@@ -75,8 +75,10 @@ def load_checkpoint(path: str, device) -> Optional[ProgressiveState]:
         )
 
 
-def _u8(img: torch.Tensor) -> np.ndarray:
-    return linear_to_u8(img).cpu().numpy()
+def write_image(path: str, img: torch.Tensor) -> None:
+    """Linear [H, W, 3] buffer -> sRGB u8 PNG, written atomically
+    (main.rs:764-776)."""
+    write_png_atomic(path, linear_to_u8(img).cpu().numpy())
 
 
 class _AsyncWriter:
@@ -197,7 +199,7 @@ def render_progressive(
                 f"({stats['casts'] / dt:,.0f} casts/s)")
             if stats["dropped"]:
                 log(f"warning: {stats['dropped']} rays dropped by pool overflow")
-            write_png_atomic(out_path, _u8(img))
+            write_image(out_path, img)
             if checkpoint_path:
                 save_checkpoint(checkpoint_path, img.cpu().numpy(), 0, seed)
         state = ProgressiveState(img=img, epoch=0, seed=seed)

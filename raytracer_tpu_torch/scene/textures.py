@@ -76,6 +76,7 @@ stripes_normal = _host(stripes_normal_rows)
 checker_diffuse = _host(checker_diffuse_rows)
 _const_normal = _host(_const_normal_rows)
 
+TEXTURE_CONST = 0
 TEXTURE_STRIPES = 1
 TEXTURE_CHECKER = 2
 

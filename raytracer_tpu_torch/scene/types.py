@@ -38,6 +38,7 @@ def render_device(device=DEFAULT_DEVICE) -> torch.device:
 # FaceDirection encoding (reference: src/main.rs:52-67).
 FACE_FRONT = 0
 FACE_BACK = 1
+FACE_BOTH = 2  # neither face culled
 
 # Light type encoding (reference: src/lights.rs:26-30).
 LIGHT_DIRECTIONAL = 0

@@ -10,6 +10,16 @@ import torch
 # LinSrgb::into_luma() (src/main.rs:748-762).
 LUMA_WEIGHTS = (0.212656, 0.715158, 0.072186)
 
+# Named colours, linear sRGB (src/consts.rs:2-22).
+BLACK = (0.0, 0.0, 0.0)
+WHITE = (1.0, 1.0, 1.0)
+RED = (1.0, 0.0, 0.0)
+GREEN = (0.0, 1.0, 0.0)
+BLUE = (0.0, 0.0, 1.0)
+YELLOW = (1.0, 1.0, 0.0)
+CYAN = (0.0, 1.0, 1.0)
+MAGENTA = (1.0, 0.0, 1.0)
+
 
 def luma(rgb):
     w = torch.tensor(LUMA_WEIGHTS, dtype=rgb.dtype, device=rgb.device)

@@ -233,17 +233,27 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call C entry `name` with tensors passed as device pointers, on the
-    current CUDA stream; raise if the launch reported an error."""
+    current CUDA stream; raise if the launch reported an error.
+
+    The kernel runs on the current device, so every pointer tensor must lie
+    on it: a tensor of another card raises (on a host whose cards reach
+    each other's memory it would otherwise be read there, unreported)."""
     sig = SIGNATURES[name]
     if len(args) != len(sig):
         raise TypeError(f"{name} takes {len(sig)} arguments, got {len(args)}")
-    conv = []
+    conv, current = [], None
     for c, a in zip(sig, args):
         if c == "o" and a is None:  # an optional output the caller does not want
             conv.append(None)
         elif c in "po":
-            if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+            dev = a.device if isinstance(a, torch.Tensor) else None
+            if dev is None or dev.type != "cuda":
                 raise TypeError(f"{name}: pointer arguments must be CUDA tensors")
+            if current is None:  # read once a launch
+                current = torch.cuda.current_device()
+            if dev.index != current:
+                raise RuntimeError(f"{name}: a pointer argument lies on {dev}, but the "
+                                   f"current device is cuda:{current}")
             conv.append(a.data_ptr())
         else:
             conv.append(a)

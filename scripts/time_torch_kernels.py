@@ -86,6 +86,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _module(name, path):
     spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, path))
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # its dataclasses look their module up there
     spec.loader.exec_module(module)
     return module
 

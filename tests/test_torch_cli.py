@@ -5,6 +5,7 @@ set against the JAX package's."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -178,3 +179,35 @@ def test_devices_with_a_card_index_fail_before_any_spawn(monkeypatch, capsys):
                         lambda *a, **k: pytest.fail("spawned"))
     assert cli.main(["--devices", "1", "--device", "cuda:1"]) == 2
     assert "--device cuda:1 names one card" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("device, nvcc, events", [
+    ("cuda", None, ["build", ("spawn", 4)]),
+    ("cpu", None, [("spawn", 4)]),
+    ("cuda", "nvcc failed: level_kernel.cu (1)", ["build"])])
+def test_devices_builds_the_kernels_once_before_the_spawn(monkeypatch, device, nvcc, events):
+    """--devices N on cards builds the kernel library once, in the parent,
+    before any rank starts (not once a rank); on the CPU nothing is built;
+    a failed build raises nvcc's message and starts no rank."""
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.utils import kernels
+
+    seen = []
+
+    def build(verbose=False):
+        seen.append("build")
+        if nvcc:
+            raise RuntimeError(nvcc)
+        return "libraytracer_kernels.so", 0.0
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(kernels, "build", build)
+    monkeypatch.setattr(torch.multiprocessing, "start_processes",
+                        lambda *a, **k: seen.append(("spawn", k["nprocs"])))
+    if nvcc:
+        with pytest.raises(RuntimeError, match=re.escape(nvcc)):
+            cli.main(["--devices", "4", "--device", device])
+    else:
+        assert cli.main(["--devices", "4", "--device", device]) == 0
+    assert seen == events

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import os
 import re
+import types
 
 import pytest
 import torch
@@ -68,6 +69,50 @@ def test_launch_refuses_missing_or_host_pointers(entry):
         kernels.launch(entry, *args)
     with pytest.raises(TypeError, match="takes"):
         kernels.launch(entry, *args[:-1])
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on cuda:<card>: the launch guard's
+    stand-in for a tensor of one of several cards."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", self.card)
+
+
+def _on_card(card):
+    t = torch.zeros(4).as_subclass(_OnCard)
+    t.card = card
+    return t
+
+
+@pytest.mark.parametrize("entry", ["rt_mc_trace", "rt_level_blk", "rt_binned_bounce",
+                                   "rt_deliver"])
+@pytest.mark.parametrize("current, stray", [(0, 1), (1, 0), (3, 2)])
+def test_launch_refuses_a_tensor_of_another_card(monkeypatch, entry, current, stray):
+    """Every pointer tensor must lie on the current device, read once a
+    launch: all on it, the entry is called; one on another card (first,
+    last or `work`), RuntimeError naming the entry and both devices, and
+    nothing is called."""
+    sig = kernels.SIGNATURES[entry]
+    reads, called = [], []
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: reads.append(1) or current)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    lib = types.SimpleNamespace(**{entry: lambda *a: called.append(a) or 0})
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    args = [_on_card(current) if c in "po" else (0.0 if c == "f" else 0) for c in sig]
+    kernels.launch(entry, *args)
+    assert len(called) == 1 and len(reads) == 1
+    assert called[0][-1] == 0 and called[0][0] == args[0].data_ptr()
+    pointers = [i for i, c in enumerate(sig) if c in "po"]
+    for k in {pointers[0], pointers[-1], *(i for i, c in enumerate(sig) if c == "o")}:
+        bad = list(args)
+        bad[k] = _on_card(stray)
+        with pytest.raises(RuntimeError,
+                           match=f"{entry}: a pointer argument lies on cuda:{stray}, but the "
+                                 f"current device is cuda:{current}"):
+            kernels.launch(entry, *bad)
+    assert len(called) == 1
 
 
 def test_check_work_shape():

@@ -3,12 +3,15 @@
 The mesh's rank bodies run one after another in this process (no
 collective), and one gloo world of four processes, spawned once for the
 module, runs the collective functions and render_progressive and hands
-its results back through files.  The port deals whole tiles of the
+its results back through files; the same world then runs chip_smoke.py's
+phase 7 rank body (multicard_body: the checks each card's rank makes on a
+host with several cards) at 64x48, against references made here.  The port deals whole tiles of the
 single-card layout to the ranks and keys its draws per (seed, epoch,
 tile), so the dp-only frames, epochs and train steps are held to the
 single card bit for bit, and the sharded frames to the JAX-made goldens.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -16,6 +19,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+import chip_smoke
 from raytracer_tpu.parallel.mesh import make_render_mesh as jax_make_render_mesh
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops.tonemap import post_process
@@ -44,6 +48,12 @@ MESH24_CFG = RenderConfig(width=32, height=20, depth=1, tile_rays=128)
 # the goldens' frame in four tiles of 768: the gloo world deals one to a rank
 WORLD_CFG = RenderConfig(width=64, height=48, depth=5, tile_rays=768)
 WORLD = 4
+# phase 7 in the gloo world: the demo at WORLD_CFG, 2 epochs of seed 3
+# (the second is world_refs'), mesh_scene(24) in four tiles
+MC_SPEC = chip_smoke.MulticardSpec(
+    demo=dataclasses.replace(WORLD_CFG, epochs=2), grid=24,
+    mesh=RenderConfig(width=32, height=16, depth=1, tile_rays=128), seed=3, reps=1,
+    device="cpu")
 
 
 def _meshes(dp, sp):
@@ -249,10 +259,10 @@ def test_init_multihost_wiring(monkeypatch):
 
 # ---- a gloo world of four processes ----------------------------------------
 
-def _world_worker(rank, tmp, port):
+def _world_worker(rank, tmp, port, mc_dir):
     """Rank `rank` of the gloo world: the collective functions and
-    render_progressive on the demo at WORLD_CFG; results into
-    tmp/rank<r>.pt."""
+    render_progressive on the demo at WORLD_CFG, then phase 7's rank body
+    with the references in mc_dir; results into tmp/rank<r>.pt."""
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -285,6 +295,9 @@ def _world_worker(rank, tmp, port):
         run(cfg1, "part", True, logs["part"])
         out["resumed"] = run(cfg3, "part", True, logs["resume"]).img
         out["logs"] = logs
+        # phase 7's rank body; each of its checks raises
+        refs = torch.load(os.path.join(mc_dir, "refs.pt"), weights_only=False)
+        out["multicard"] = chip_smoke.multicard_body(dev, dp2sp2, MC_SPEC, refs, mc_dir)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -299,22 +312,36 @@ def _free_port():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def multicard_refs():
+    """Phase 7's references (chip_smoke.multicard_refs) on the CPU."""
+    return chip_smoke.multicard_refs(torch.device("cpu"), MC_SPEC, WORLD)
+
+
+@pytest.fixture(scope="module")
+def multicard_dir(tmp_path_factory, multicard_refs):
+    """Phase 7's references for the world, and where its rank 0 writes."""
+    mc_dir = str(tmp_path_factory.mktemp("multicard"))
+    torch.save(multicard_refs, os.path.join(mc_dir, "refs.pt"))
+    return mc_dir
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory, multicard_dir):
     tmp = str(tmp_path_factory.mktemp("gloo_world"))
-    mp.start_processes(_world_worker, args=(tmp, _free_port()), nprocs=WORLD,
+    mp.start_processes(_world_worker, args=(tmp, _free_port(), multicard_dir), nprocs=WORLD,
                        start_method="spawn")
     return tmp, [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in range(WORLD)]
 
 
 @pytest.fixture(scope="module")
-def world_refs(demo):
-    """The single card's frame and epoch at WORLD_CFG, and the (2, 2)
-    epoch emulated in this process."""
-    whitted = render_whitted(*demo, WORLD_CFG)
-    epoch = render_distributed_epoch(*demo, WORLD_CFG, seed=3, epoch=1)
-    parts = [tmesh.epoch_body(*demo, WORLD_CFG, m, 3, 1) for m in _meshes(2, 2)]
-    return whitted, epoch, _sum([p[0] for p in parts])
+def world_refs(multicard_refs):
+    """The single card's frame and epoch (seed 3, epoch 1) at WORLD_CFG, and
+    the (2, 2) epoch emulated in this process: multicard_refs'
+    render_whitted, render_distributed_epoch and summed rank bodies."""
+    r = multicard_refs
+    return ((r["whitted"], r["whitted_stats"]), (r["epochs"][1], r["epoch_stats"][1]),
+            r["emulated_epochs"][1])
 
 
 def test_world_whitted_frame_is_the_single_cards_and_passes_the_golden(world, world_refs):
@@ -371,3 +398,25 @@ def test_world_progressive_writes_on_rank_0_and_resumes_exactly(world):
     logs = outs[0]["logs"]
     assert len(logs["full"]) == 4 and "resumed at epoch 1" in logs["resume"]
     assert not any(o["logs"][k] for o in outs[1:] for k in logs)
+
+
+def test_world_runs_phase_7s_rank_body(world, multicard_refs, multicard_dir):
+    """chip_smoke.multicard_body ran on every rank (it raises on a check
+    that fails): each rank's launches are its tiles' (the plain versions
+    here: a level kernel call six times a Whitted tile, a delivery a tile,
+    an MC call an epoch), rank 0 wrote the dp-only world's PNG as the single
+    device's, and the resumed, uninterrupted and (1, 2) renders' PNGs are
+    one and the same."""
+    runs = [o["multicard"] for o in world[1]]
+    assert [(r["rank"], r["world"], r["device"]) for r in runs] == [
+        (k, WORLD, "cpu") for k in range(WORLD)]
+    for r in runs:
+        assert r["launches"] == {"level": 6, "mc": 2, "deliver": 1, "level_thread": 0,
+                                 "mc_thread": 0}
+        assert set(r["times"]) == {"demo (4, 1)", "demo (2, 2)", "mesh (4, 1)"}
+    assert runs[0]["launches_world"] == {"level": 24, "mc": 8, "deliver": 4}
+    assert sorted(os.listdir(multicard_dir)) == ["ck.npz", "dp.png", "full.png", "pair.png",
+                                          "part.png", "refs.pt"]
+    png = lambda name: open(os.path.join(multicard_dir, name), "rb").read()
+    assert png("dp.png") == multicard_refs["png"]
+    assert png("part.png") == png("full.png") == png("pair.png") != png("dp.png")
