@@ -4,6 +4,7 @@ main paths once.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase multicard   # phase 7 alone, 2-4 cards
+    python3 chip_smoke.py --phase schedule    # phase 8 alone, one card
 
 Phases (each asserts; none catches a failure):
   1. device and toolchain: nvidia-smi name and power limit, CUDA and nvcc
@@ -138,6 +139,26 @@ Phases (each asserts; none catches a failure):
      frames and counters (CUDA events) beside the NVLink bound.
      `python3 chip_smoke.py --phase multicard` builds the kernels and runs
      this phase alone.
+  8. the full reference schedule (after phase 5's checks and the kernels'
+     timing): the demo at 1280x960, depth 5, Whitted + 100 epochs,
+     rendered twice, seed 0 through the CLI with its defaults (a PNG every
+     epoch) and seed 1 through render_progressive(png_every=100), and
+     scored with scripts/psnr_torch_vs_reference.py: each against the JAX
+     package's render of the same seed (artifacts/out.png,
+     artifacts/out_seed1.png) and the two against each other; the
+     decoded pixels of both renders hashed.  Gates: with the counts set
+     to 0 just before and read just after, seed 1's render launched the
+     level kernel 114 times (six a tile), the MC kernel once an epoch, the
+     delivery once a tile and nothing else; every port-vs-JAX score >= the
+     JAX two-seed floor (artifacts/PSNR.json self_psnr_*) - 0.6 dB at raw,
+     down4 and down8, the port's own floor within 0.6 dB of the JAX floor
+     at each, nothing dropped in either Whitted pass.  Then
+     scripts/profile_torch_schedule.py's epoch loop (--png-every 1 over 20
+     epochs and 10 over 60: at least five groups past the first) on a JSON
+     line each: dispatch, device, fetch, the PNG writer's phases, the
+     serial group and render_progressive's pipelined group and wall.
+     `python3 chip_smoke.py --phase schedule` builds the kernels and runs
+     this phase alone.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when CUDA is not available.
@@ -146,6 +167,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -1717,6 +1739,212 @@ def report_multicard(out, spec):
     print(f"phase 7 took {out['phase_s']:.1f} s")
 
 
+def kernel_counts():
+    """Every kernel wrapper's count by name: `launches` where it launched
+    its kernel, `plain` where it ran the plain version (a CPU tensor)."""
+    from raytracer_tpu_torch.ops import (
+        intersect_kernel,
+        level_kernel,
+        march_kernel,
+        mc_binned,
+        mc_kernel,
+    )
+    from raytracer_tpu_torch.ops import trace as trace_ops
+
+    return {
+        "level": level_kernel.COUNTS, "level_blk": level_kernel.COUNTS_BLK,
+        "mc": mc_kernel.COUNTS, "mc_blk": mc_kernel.COUNTS_BLK,
+        "binned_primary": mc_binned.COUNTS_PRIMARY,
+        "binned_bounce": mc_binned.COUNTS_BOUNCE,
+        "binned_terminal": mc_binned.COUNTS_TERMINAL,
+        # the per-thread yardsticks of the staged and cooperative walks: no
+        # main path launches them
+        "level_thread": level_kernel.COUNTS_THREAD, "mc_thread": mc_kernel.COUNTS_THREAD,
+        "level_blk_thread": level_kernel.COUNTS_BLK_THREAD,
+        "mc_blk_thread": mc_kernel.COUNTS_BLK_THREAD,
+        "binned_primary_thread": mc_binned.COUNTS_PRIMARY_THREAD,
+        "binned_bounce_thread": mc_binned.COUNTS_BOUNCE_THREAD,
+        "binned_terminal_thread": mc_binned.COUNTS_TERMINAL_THREAD,
+        "nearest_hit_thread": intersect_kernel.COUNTS_NEAREST_THREAD,
+        "any_hit_thread": intersect_kernel.COUNTS_ANY_THREAD,
+        "shadow_any_hit_thread": intersect_kernel.COUNTS_SHADOW_THREAD,
+        "march_thread": march_kernel.COUNTS_THREAD,
+        "nearest_hit": intersect_kernel.COUNTS_NEAREST, "any_hit": intersect_kernel.COUNTS_ANY,
+        "shadow_any_hit": intersect_kernel.COUNTS_SHADOW, "march": march_kernel.COUNTS,
+        # the Whitted ladder's ordered delivery (a kernel of the port only)
+        "deliver": trace_ops.DELIVER_COUNTS,
+    }
+
+
+# ---- phase 8: the full reference schedule, scored and profiled --------------
+
+SCALES = ("raw", "down4", "down8")
+# the JAX package's rule (tests/test_reference_golden.py:53-78): a render of
+# the schedule scores within this of the two-seed noise floor at every scale
+FLOOR_MARGIN_DB = 0.6
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleSpec:
+    """Phase 8's work: the demo at width x height, depth 5, a Whitted pass
+    and `epochs` epochs on `device`, seed 0 through the CLI and seed 1
+    through render_progressive, scored against `goldens` (the JAX
+    package's renders of seeds 0 and 1) and their noise floor in
+    `floor_json` (its self_psnr_*); then the epoch loop profiled at each
+    group size K in `png_every` over max(profile_epochs, 6 K) epochs, so
+    that at least five groups past the first are timed.  The card's spec
+    is the reference schedule; tests/test_torch_fidelity.py runs a small
+    one on the CPU against the port's own renders."""
+
+    width: int = 1280
+    height: int = 960
+    epochs: int = 100
+    profile_epochs: int = 20
+    png_every: tuple = (1, 10)
+    device: str = "cuda"
+    goldens: tuple = (os.path.join(HERE, "artifacts", "out.png"),
+                      os.path.join(HERE, "artifacts", "out_seed1.png"))
+    floor_json: str = os.path.join(HERE, "artifacts", "PSNR.json")
+
+    def cli_args(self):
+        """The CLI's flags beyond --seed and --out: none for the reference
+        schedule, which is the CLI's defaults."""
+        if (self.width, self.height, self.epochs, self.device) == (1280, 960, 100, "cuda"):
+            return []
+        return ["--width", str(self.width), "--height", str(self.height), "--epochs",
+                str(self.epochs), "--device", self.device]
+
+
+def route_counts(counts, device):
+    """The kernels' counts since they were set to 0, on the route that a
+    tensor on `device` takes: launches on the card, plain calls on the CPU
+    (the other route's counts must be 0)."""
+    on, off = ("launches", "plain") if device == "cuda" else ("plain", "launches")
+    assert not any(getattr(c, off) for c in counts.values()), {
+        k: getattr(c, off) for k, c in counts.items()}
+    return {k: getattr(c, on) for k, c in counts.items()}
+
+
+def pixels_sha256(path):
+    """The hash of a PNG's decoded u8 pixels (equal pixels, whatever the
+    writer that encoded them)."""
+    from raytracer_tpu_torch.utils.png import read_png_rgb8
+
+    return hashlib.sha256(read_png_rgb8(path).tobytes()).hexdigest()
+
+
+def schedule_phase(spec, smi):
+    """Phase 8: the reference schedule's image held against the JAX
+    package's full-schedule renders, and its epoch loop profiled -> the
+    numbers.  Gates: the in-process render's launches are the main path's
+    (the level kernel six times a tile, the MC kernel once an epoch, the
+    delivery once a tile, nothing else), every port-vs-JAX score >= the
+    JAX floor - 0.6 dB at every scale, the port's own two-seed floor
+    within 0.6 dB of the JAX floor at every scale, no Whitted ray
+    dropped."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import profile_torch_schedule
+    import psnr_torch_vs_reference as fidelity
+
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.render import _clips
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene
+
+    t_phase = time.time()
+    with open(spec.floor_json) as f:
+        recorded = json.load(f)
+    jax_floor = {k: recorded[f"self_psnr_{k}_db"] for k in SCALES}
+    out = {"smi": smi, "jax_floor": jax_floor}
+    env = {} if spec.device == "cuda" else {"OMP_NUM_THREADS": "1"}
+    counts = kernel_counts()
+    cfg = RenderConfig(width=spec.width, height=spec.height, depth=DEPTH, epochs=spec.epochs)
+    tiles = len(_clips(cfg, spec.device)[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        png0, png1 = os.path.join(tmp, "seed0.png"), os.path.join(tmp, "seed1.png")
+        # (a) seed 0 through the user's entry point (a PNG every epoch),
+        # seed 1 through render_progressive with one PNG at the end, its
+        # launches counted
+        rc, lines, end, err = _stamped(["--seed", "0", "--out", png0, *spec.cli_args()], env)
+        assert rc == 0, err
+        out["cli"] = _wall_parts(lines, end)
+        assert out["cli"]["epoch_lines"] == spec.epochs, out["cli"]
+        assert not any("dropped" in line for _, line in lines), [x for _, x in lines][:3]
+        for c in counts.values():
+            c.launches = c.plain = 0
+        out["render_seed1"] = fidelity.render(png1, 1, spec.epochs, spec.epochs, spec.device,
+                                              spec.width, spec.height)
+        out["launches_seed1"] = route_counts(counts, spec.device)
+        assert out["render_seed1"]["dropped"] == 0, out["render_seed1"]
+        want = {"level": tiles * (DEPTH + 1), "mc": spec.epochs, "deliver": tiles}
+        assert out["launches_seed1"] == {k: want.get(k, 0) for k in counts}, (
+            out["launches_seed1"], want)
+        out["pixels_sha256"] = {"seed0": pixels_sha256(png0), "seed1": pixels_sha256(png1)}
+        out["vs_jax_seed0"] = fidelity.score(png0, spec.goldens[0])
+        out["vs_jax_seed1"] = fidelity.score(png1, spec.goldens[1])
+        out["port_floor"] = fidelity.self_noise(png0, png1)
+        report_fidelity(out, spec)
+        for k in SCALES:
+            for key in ("vs_jax_seed0", "vs_jax_seed1"):
+                got = out[key][f"psnr_{k}_db"]
+                assert got >= jax_floor[k] - FLOOR_MARGIN_DB, (key, k, got, jax_floor[k])
+            own = out["port_floor"][f"self_psnr_{k}_db"]
+            assert abs(own - jax_floor[k]) <= FLOOR_MARGIN_DB, ("port floor", k, own,
+                                                                jax_floor[k])
+        # (b) the epoch loop's phases
+        scene, cam = demo_scene(device=spec.device), demo_camera(device=spec.device)
+        out["profile"] = {}
+        for k in spec.png_every:
+            prof_cfg = dataclasses.replace(cfg, epochs=max(spec.profile_epochs, 6 * k))
+            prof = profile_torch_schedule.profile(scene, cam, prof_cfg, k, tmp)
+            print(json.dumps({"profile_png_every": k, **prof}))
+            out["profile"][k] = prof
+        report_profile(out["profile"], smi)
+    out["phase_s"] = time.time() - t_phase
+    print(f"phase 8 took {out['phase_s']:.1f} s")
+    return out
+
+
+def report_fidelity(out, spec):
+    """Phase 8 (a)'s launches, pixel hashes and scores on lines of their
+    own."""
+    floor = out["jax_floor"]
+    cli = out["cli"]
+    print(f"phase 8 ({'; '.join(out['smi'])}): demo {spec.width}x{spec.height}, depth {DEPTH}, "
+          f"whitted + {spec.epochs} epochs. Seed 0 through the CLI: wall {cli['wall_s']:.2f} s "
+          f"= start {cli['start_s']:.2f} + whitted {cli['whitted_s']:.3f} + epochs "
+          f"{cli['epochs_s']:.2f} + exit {cli['exit_s']:.2f}; seed 1 through "
+          f"render_progressive(png_every={spec.epochs}): {out['render_seed1']['render_s']:.2f} s; "
+          f"dropped 0 in both")
+    print(f"seed 1's launches ({'launches' if spec.device == 'cuda' else 'plain calls'}): "
+          + ", ".join(f"{k} {n}" for k, n in out["launches_seed1"].items() if n)
+          + "; every other kernel 0")
+    print(f"decoded pixels' sha256: seed 0 {out['pixels_sha256']['seed0']}, seed 1 "
+          f"{out['pixels_sha256']['seed1']}")
+    rows = (("port seed 0 vs JAX seed 0 (artifacts/out.png)", out["vs_jax_seed0"], "psnr_"),
+            ("port seed 1 vs JAX seed 1 (artifacts/out_seed1.png)", out["vs_jax_seed1"], "psnr_"),
+            ("port seed 0 vs port seed 1 (the port's floor)", out["port_floor"], "self_psnr_"))
+    for label, row, prefix in rows:
+        print(f"{label}: " + ", ".join(
+            f"{k} {row[f'{prefix}{k}_db']:.2f} dB (JAX floor {floor[k]:.2f})" for k in SCALES))
+
+
+def report_profile(profiles, smi):
+    """Phase 8 (b)'s medians on a line a group size."""
+    ms = lambda x: "n/a" if x is None else f"{x * 1e3:.2f}"
+    for k, p in profiles.items():
+        once = p["python_route_once"]
+        print(f"epoch loop, --png-every {k}, {p['epochs']} epochs at {p['width']}x{p['height']} "
+              f"({'; '.join(smi)}; writer route {p['writer_route']}; medians of "
+              f"{p['groups_timed']} groups, ms): dispatch {ms(p['dispatch_s'])}, device "
+              f"{ms(p['device_s'])}, fetch {ms(p['fetch_s'])}, encode {ms(p['encode_s'])}, write "
+              f"{ms(p['write_s'])}, rename {ms(p['rename_s'])}; serial group "
+              f"{ms(p['serial_group_s'])}; pipelined group {ms(p['pipelined_group_s'])}, "
+              f"render_progressive wall {p['pipelined_wall_s']:.3f} s"
+              + ("" if once is None else f"; the Python route once: encode "
+                 f"{ms(once['encode_s'])}, write {ms(once['write_s'])}, rename "
+                 f"{ms(once['rename_s'])}"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1755,29 +1983,7 @@ def main() -> int:
     from raytracer_tpu_torch.utils.roofline import bound
 
     dev = torch.device("cuda")
-    counts = {
-        "level": level_kernel.COUNTS, "level_blk": level_kernel.COUNTS_BLK,
-        "mc": mc_kernel.COUNTS, "mc_blk": mc_kernel.COUNTS_BLK,
-        "binned_primary": mc_binned.COUNTS_PRIMARY,
-        "binned_bounce": mc_binned.COUNTS_BOUNCE,
-        "binned_terminal": mc_binned.COUNTS_TERMINAL,
-        # the per-thread yardsticks of the staged and cooperative walks: no
-        # main path launches them
-        "level_thread": level_kernel.COUNTS_THREAD, "mc_thread": mc_kernel.COUNTS_THREAD,
-        "level_blk_thread": level_kernel.COUNTS_BLK_THREAD,
-        "mc_blk_thread": mc_kernel.COUNTS_BLK_THREAD,
-        "binned_primary_thread": mc_binned.COUNTS_PRIMARY_THREAD,
-        "binned_bounce_thread": mc_binned.COUNTS_BOUNCE_THREAD,
-        "binned_terminal_thread": mc_binned.COUNTS_TERMINAL_THREAD,
-        "nearest_hit_thread": intersect_kernel.COUNTS_NEAREST_THREAD,
-        "any_hit_thread": intersect_kernel.COUNTS_ANY_THREAD,
-        "shadow_any_hit_thread": intersect_kernel.COUNTS_SHADOW_THREAD,
-        "march_thread": march_kernel.COUNTS_THREAD,
-        "nearest_hit": intersect_kernel.COUNTS_NEAREST, "any_hit": intersect_kernel.COUNTS_ANY,
-        "shadow_any_hit": intersect_kernel.COUNTS_SHADOW, "march": march_kernel.COUNTS,
-        # the Whitted ladder's ordered delivery (a kernel of the port only)
-        "deliver": trace_ops.DELIVER_COUNTS,
-    }
+    counts = kernel_counts()
     fused_kernels = ("level", "level_blk", "mc", "mc_blk", "binned_primary", "binned_bounce",
                      "binned_terminal")
 
@@ -3104,9 +3310,14 @@ def main() -> int:
               f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms ({v['bound_by']}: "
               f"{v['bytes']:,.0f} B, {v['ops']:,.0f} FP32 operations; tests {v['tests']})")
 
+    # ---- 8. the full reference schedule, scored and profiled ---------------
+    # (after the kernels' timing above, which it would otherwise precede by
+    # two 100-epoch renders)
+    schedule = schedule_phase(ScheduleSpec(), smi_lines[:1])
+
     print(json.dumps({"frames": frames, "presets": preset_times, "routes": routes,
                       "attrs": attrs, "per_launch": per, "mesh": mesh_times,
-                      "multicard": multicard,
+                      "multicard": multicard, "schedule": schedule,
                       "profiles": profiles, "bounce_orders": orders}))
 
     def entry(name, source, replaces, key, blk_key=None, thread_ms=None):
@@ -3182,6 +3393,25 @@ def main() -> int:
     return 0
 
 
+def schedule_main() -> int:
+    """`--phase schedule`: build the kernels and run phase 8 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from raytracer_tpu_torch.utils import kernels
+
+    smi = nvidia_smi()
+    _, build_s = kernels.build()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; kernels built in {build_s:.1f} s")
+    out = schedule_phase(ScheduleSpec(), smi[:1])
+    print(json.dumps({"schedule": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def multicard_main() -> int:
     """`--phase multicard`: build the kernels and run phase 7 alone."""
     if not torch.cuda.is_available():
@@ -3209,6 +3439,7 @@ if __name__ == "__main__":
     import argparse
 
     parser = argparse.ArgumentParser(description="Build and check the port on the host's GPUs.")
-    parser.add_argument("--phase", choices=["multicard"],
-                        help="run phase 7 alone (a host with 2 or more cards)")
-    sys.exit(multicard_main() if parser.parse_args().phase == "multicard" else main())
+    parser.add_argument("--phase", choices=["multicard", "schedule"],
+                        help="run phase 7 alone (a host with 2 or more cards), or phase 8")
+    phase = parser.parse_args().phase
+    sys.exit({"multicard": multicard_main, "schedule": schedule_main}.get(phase, main)())

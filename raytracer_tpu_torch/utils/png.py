@@ -68,14 +68,19 @@ def write_png_atomic(path: str, rgb: np.ndarray) -> None:
     if native.available():
         native.write_png_atomic(path, rgb)
         return
-    data = encode_png_rgb8(rgb)
+    os.replace(write_tmp(path, encode_png_rgb8(rgb)), path)
+
+
+def write_tmp(path: str, data: bytes) -> str:
+    """Write `data` to the temp file beside `path`, flushed and fsynced,
+    and return the temp file's path (write_png_atomic renames it)."""
     directory = os.path.dirname(os.path.abspath(path))
     tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp")
     with open(tmp, "wb") as f:
         f.write(data)
         f.flush()
         os.fsync(f.fileno())
-    os.replace(tmp, path)
+    return tmp
 
 
 def read_png_rgb8(path: str) -> np.ndarray:

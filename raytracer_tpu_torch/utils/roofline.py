@@ -9,9 +9,20 @@ this bound is stated with the card's power limit beside it.
 
 Counterpart of raytracer_tpu/utils/roofline.py, which models another chip;
 none of its constants apply here.
+
+The same module also carries the JAX package's cost model of a cast
+(`Chip`, `dense_cast_ops`, `dense_attainable_casts`, the blocked chunk
+costs), with the H100's rates in place of the TPU's: `H100.vpu_ops` is the
+FP32 instruction rate with an FMA counted as ONE operation, as that model
+counts it, so it is PEAK_FP32 / 2 (the data sheet's FLOP/s count an FMA
+as two); `H100.hbm_bytes` is PEAK_BYTES.  Its per-lane operation counts
+are the JAX model's, audited against the TPU sweeps, not against
+csrc/common.cuh; `bound` below charges the kernels' own counted tests.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 PEAK_BYTES = 3.35e12  # B/s, HBM3
 PEAK_FP32 = 67e12  # FLOP/s, FP32 (non-tensor)
@@ -42,3 +53,45 @@ def bound(in_out_bytes, work):
     t_bytes = in_out_bytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+# The JAX package's cost model of one cast (raytracer_tpu/utils/roofline.py:
+# 51-100): model operations per (triangle row, ray lane) and (sphere row,
+# ray lane) of a full sweep, an FMA as one, and per primitive for the
+# winner's attributes.
+OPS_PER_TRI_LANE = 62.0
+OPS_PER_SPH_LANE = 30.0
+OPS_WINNER_PER_PRIM_LANE = 4.0
+
+
+@dataclass(frozen=True)
+class Chip:
+    name: str
+    vpu_ops: float  # f32 elementwise operations/s (FMA = 1)
+    hbm_bytes: float  # B/s
+
+
+H100 = Chip(name="NVIDIA H100 SXM", vpu_ops=PEAK_FP32 / 2, hbm_bytes=PEAK_BYTES)
+
+
+def dense_cast_ops(n_tri: int, n_sph: int) -> float:
+    """Model operations per cast for the dense full-sweep table."""
+    return (n_tri * (OPS_PER_TRI_LANE + OPS_WINNER_PER_PRIM_LANE)
+            + n_sph * (OPS_PER_SPH_LANE + OPS_WINNER_PER_PRIM_LANE))
+
+
+def dense_attainable_casts(n_tri: int, n_sph: int, chip: Chip = H100) -> float:
+    """Attainable casts/s if the chip did nothing but sweep arithmetic."""
+    return chip.vpu_ops / dense_cast_ops(n_tri, n_sph)
+
+
+def blocked_chunk_body_seconds(lanes: int, chunk_rows: int = 128, chip: Chip = H100) -> float:
+    """Model cost of ONE entered chunk body over `lanes` ray lanes."""
+    return chunk_rows * lanes * OPS_PER_TRI_LANE / chip.vpu_ops
+
+
+def blocked_stream_seconds(chip: Chip = H100, chunk_rows: int = 128,
+                           cols_pad: int = 128) -> float:
+    """Memory cost of streaming one chunk of chunk_rows x cols_pad f32
+    (latency excluded)."""
+    return chunk_rows * cols_pad * 4 / chip.hbm_bytes

@@ -197,7 +197,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     module imports jax (raytracer_tpu/__init__.py)."""
     files = [os.path.join(dp, f) for dp, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
-    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    files += [os.path.join(ROOT, "chip_smoke.py"),
+              os.path.join(ROOT, "scripts", "psnr_torch_vs_reference.py"),
+              os.path.join(ROOT, "scripts", "profile_torch_schedule.py")]
     assert len(files) > 15 and os.path.join(PKG, "parallel", "mesh.py") in files
     for path in files:
         for mod in _imported_modules(path):
