@@ -5,6 +5,7 @@ main paths once.
     python3 chip_smoke.py
     python3 chip_smoke.py --phase multicard   # phase 7 alone, 2-4 cards
     python3 chip_smoke.py --phase schedule    # phase 8 alone, one card
+    python3 chip_smoke.py --phase bench       # phase 9 alone, one card
 
 Phases (each asserts; none catches a failure):
   1. device and toolchain: nvidia-smi name and power limit, CUDA and nvcc
@@ -159,6 +160,26 @@ Phases (each asserts; none catches a failure):
      serial group and render_progressive's pipelined group and wall.
      `python3 chip_smoke.py --phase schedule` builds the kernels and runs
      this phase alone.
+  9. the benchmark harness (raytracer_tpu_torch/bench.py, after phase 8):
+     bench.run in process at the JAX bench's sizes (BenchSpec()), the
+     kernels' counts set to 0 just before each section and read just
+     after: the warm-up, render_step x3, render_epochs(10) x3 and
+     render_steps(5) x3 on the demo at 1024x1024 (the dense level kernel
+     96 times a frame, the delivery 16, the dense MC kernel once an epoch),
+     mesh11k and mesh51k (the blocked level kernel 96 times a frame, the
+     blocked MC kernel once an epoch), the 1280x960 schedule with a PNG
+     every epoch and every 10 (114 / 19 a frame); every other kernel,
+     yardstick and plain call 0.  The demo's Whitted frame, traced again
+     level by level, drops nothing, its levels sum to the harness's count,
+     and its primary level casts the JAX bench's 3,009,477 rays (the JAX
+     bench's count on the TPU equals that level's); its MC epoch casts within
+     1 % of 9,793,125.  Then `python -m raytracer_tpu_torch.bench` (with
+     RAYTPU_BENCH_FAST=1) and `scripts/bench_torch_mesh.py --grids 75
+     --reps 1` as a user starts them: every numeric key of each line is in
+     bench.METRICS or bench.DESCRIPTORS, and its device.name is
+     nvidia-smi's.  The harness's line is printed on a line of its own.
+     `python3 chip_smoke.py --phase bench` builds the kernels and runs this
+     phase alone.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when CUDA is not available.
@@ -166,6 +187,7 @@ Exits non-zero, printing no result, when CUDA is not available.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1945,6 +1967,167 @@ def report_profile(profiles, smi):
                  f"{ms(once['rename_s'])}"))
 
 
+# ---- phase 9: the benchmark harness (raytracer_tpu_torch/bench.py) ----------
+
+# The JAX bench's own counts on the TPU (BENCH_r05.json's "tail"): the demo's
+# 1024x1024 depth-5 Whitted frame (16 full tiles: no padding) and one MC epoch.
+JAX_BENCH_CASTS = {"whitted": 3_009_477, "mc": 9_793_125}
+# the harnesses' runs as a user starts them: (label, argv, extra environment)
+BENCH_CLI = (("bench", ["-m", "raytracer_tpu_torch.bench"], {"RAYTPU_BENCH_FAST": "1"}),
+             ("bench_torch_mesh", [os.path.join("scripts", "bench_torch_mesh.py"), "--grids",
+                                   "75", "--reps", "1"], {}))
+
+
+def bench_want(spec, section, tiles, sched_tiles, meshes):
+    """A harness section's launches (bench.run): a Whitted frame runs the
+    level kernel depth + 1 times a tile and the delivery once a tile, an
+    MC epoch one MC launch; the dense kernels on the demo, the blocked ones
+    on a mesh (`meshes`: the mesh sections' tags in spec.meshes' order);
+    the warm-up calls included."""
+    levels = spec.depth + 1
+
+    def calls(frames, epochs, t=tiles, blk=""):
+        return {"level" + blk: frames * levels * t, "deliver": frames * t, "mc" + blk: epochs}
+
+    if section == "warmup":
+        return calls(1, 1)
+    if section == "step":
+        return calls(spec.reps, spec.reps)
+    if section == "batched":
+        return calls(0, spec.reps * spec.batched_epochs)
+    if section == "steps":
+        return calls(spec.reps * spec.steps, spec.reps * spec.steps)
+    if section == "schedule":
+        return calls(2, 1 + spec.schedule_epochs, sched_tiles)
+    if section == "schedule_png10":
+        from raytracer_tpu_torch.bench import PNG_GROUP
+
+        return calls(2, min(PNG_GROUP, spec.schedule_epochs) + spec.schedule_epochs, sched_tiles)
+    n_reps = spec.meshes[meshes.index(section)][1]
+    return calls(1 + n_reps, 1 + n_reps, blk="_blk")
+
+
+def whitted_level_casts(spec):
+    """The demo's Whitted frame at `spec`'s size, traced tile by tile as
+    render_whitted does (the level kernel on the card), -> its casts
+    level by level, summed over the tiles."""
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops.trace import process_level, trace_whitted
+    from raytracer_tpu_torch.render import _clips
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene
+
+    scene, cam = demo_scene(device=spec.device), demo_camera(device=spec.device)
+    cfg = RenderConfig(width=spec.width, height=spec.height, depth=spec.depth,
+                       tile_rays=spec.tile_rays)
+    calls = []
+
+    def level_fn(*args):
+        res = process_level(*args)
+        calls.append(res[3])
+        return res
+
+    clips, _ = _clips(cfg, spec.device)
+    n = cfg.width * cfg.height
+    for t, clip in enumerate(clips):
+        o, d = camera_ops.shoot(cam, clip[:min(clip.shape[0], n - t * clip.shape[0])])
+        trace_whitted(scene, o, d, cfg, level_fn=level_fn)
+    levels = cfg.depth + 1
+    assert len(calls) == levels * len(clips), len(calls)
+    return [int(sum(int(c.sum()) for c in calls[i::levels])) for i in range(levels)]
+
+
+def bench_line_keys(line):
+    """The harness line's numeric keys that neither METRICS nor DESCRIPTORS
+    names (by bench.metric_name) -> a list, empty when every one is named."""
+    from raytracer_tpu_torch.bench import DESCRIPTORS, METRICS, metric_name
+
+    return [k for k, v in line.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)
+            and metric_name(k) not in METRICS and metric_name(k) not in DESCRIPTORS]
+
+
+def bench_phase(spec, smi_name):
+    """Phase 9: the harness in process at `spec` with the kernels' counts
+    set to 0 before each section and read after, then each run of
+    BENCH_CLI as a user starts it -> the numbers.  Gates: each section's
+    launches are bench_want's and every other kernel's (yardsticks,
+    unfused, binned, plain calls) 0; the demo's Whitted frame drops
+    nothing and its levels sum to the harness's count; at the JAX bench's
+    sizes its primary level casts JAX_BENCH_CASTS["whitted"] and its MC
+    epoch within 1 % of JAX_BENCH_CASTS["mc"]; every numeric key of every
+    line is in METRICS or DESCRIPTORS; each line's device.name is
+    nvidia-smi's (smi_name)."""
+    from raytracer_tpu_torch import bench
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.render import _clips
+
+    t_phase = time.time()
+    counts = kernel_counts()
+    launches = {}
+
+    @contextlib.contextmanager
+    def counted(section):
+        for c in counts.values():
+            c.launches = c.plain = 0
+        yield
+        launches[section] = route_counts(counts, spec.device)
+
+    result, record = bench.run(spec, counted)
+    print(json.dumps(result))
+    out = {"line": result, "launches": launches}
+    tiles = len(_clips(RenderConfig(width=spec.width, height=spec.height,
+                                    tile_rays=spec.tile_rays), spec.device)[0])
+    sched_tiles = len(_clips(RenderConfig(width=spec.schedule_width, height=spec.schedule_height,
+                                          tile_rays=spec.tile_rays), spec.device)[0])
+    meshes = [s for s in launches if s.startswith("mesh")]
+    assert list(launches) == ["warmup", "step", "batched", "steps"] + (
+        [] if spec.fast else [*meshes, "schedule", "schedule_png10"]), list(launches)
+    assert len(meshes) == (0 if spec.fast else len(spec.meshes)), meshes
+    for section, got in launches.items():
+        want = bench_want(spec, section, tiles, sched_tiles, meshes)
+        assert got == {k: want.get(k, 0) for k in counts}, (section, got, want)
+        print(f"phase 9, {section}: " + ", ".join(f"{k} {n}" for k, n in got.items() if n)
+              + "; every other kernel 0")
+    frame, epoch = record["warmup"]
+    assert frame["dropped"] == 0, frame
+    levels = whitted_level_casts(spec)
+    assert sum(levels) == frame["casts"], (levels, frame)
+    jax_casts = JAX_BENCH_CASTS if (spec.width, spec.height, spec.depth, spec.tile_rays) == (
+        1024, 1024, 5, 1 << 16) else None
+    if jax_casts is not None:
+        # the JAX bench's Whitted count on the TPU equals the primary
+        # level's (the primary rays, their shadow rays and interior
+        # marches) to the ray; whether its later levels went uncounted or
+        # untraced there is open (PERF.md §6 PR 14, §7)
+        assert levels[0] == jax_casts["whitted"], (levels, jax_casts)
+        assert casts_close(epoch["casts"], jax_casts["mc"]), (epoch, jax_casts)
+    out["casts"] = {"whitted": frame["casts"], "whitted_levels": levels, "mc": epoch["casts"],
+                    "jax": jax_casts}
+    print(f"phase 9: the demo's {spec.width}x{spec.height} Whitted frame cast {frame['casts']:,} "
+          f"rays (by level {', '.join(f'{c:,}' for c in levels)}), dropped {frame['dropped']}; "
+          f"an MC epoch {epoch['casts']:,} (the JAX bench: "
+          + ("not compared" if jax_casts is None else
+             f"Whitted {jax_casts['whitted']:,}, the primary level's here "
+             f"{levels[0] - jax_casts['whitted']:+,}; MC {jax_casts['mc']:,}, here "
+             f"{(epoch['casts'] / jax_casts['mc'] - 1) * 100:+.3f} %") + ")")
+    lines = {"run": result}
+    for label, argv, env in BENCH_CLI:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=HERE, capture_output=True, text=True,
+                              env=dict(os.environ, **env), timeout=600)
+        assert proc.returncode == 0, (label, proc.stderr[-3000:])
+        lines[label] = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"phase 9, {label} ({time.perf_counter() - t0:.1f} s): {json.dumps(lines[label])}")
+    for label, line in lines.items():
+        assert not bench_line_keys(line), (label, bench_line_keys(line))
+        assert line["device"]["name"] == smi_name, (label, line["device"], smi_name)
+    out["cli"] = {k: v for k, v in lines.items() if k != "run"}
+    out["phase_s"] = time.time() - t_phase
+    print(f"phase 9 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3314,10 +3497,15 @@ def main() -> int:
     # (after the kernels' timing above, which it would otherwise precede by
     # two 100-epoch renders)
     schedule = schedule_phase(ScheduleSpec(), smi_lines[:1])
+    # ---- 9. the benchmark harness -------------------------------------------
+    from raytracer_tpu_torch.bench import BenchSpec
+
+    bench_out = bench_phase(BenchSpec(), smi.rsplit(",", 1)[0].strip())
+    bench_launches = {k: sum(sec[k] for sec in bench_out["launches"].values()) for k in counts}
 
     print(json.dumps({"frames": frames, "presets": preset_times, "routes": routes,
                       "attrs": attrs, "per_launch": per, "mesh": mesh_times,
-                      "multicard": multicard, "schedule": schedule,
+                      "multicard": multicard, "schedule": schedule, "bench": bench_out,
                       "profiles": profiles, "bounce_orders": orders}))
 
     def entry(name, source, replaces, key, blk_key=None, thread_ms=None):
@@ -3326,6 +3514,8 @@ def main() -> int:
         main paths and its ms beside the cooperative walk's."""
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key] + (launches[blk_key] if blk_key else 0),
+             # phase 9's, the harness's sections summed
+             "launches_bench": bench_launches[key] + (bench_launches[blk_key] if blk_key else 0),
              "max_abs_err": per[key].get("max_abs_err", binned_err.get(key)),
              "ms": per[key]["ms"], "plain_ms": per[key]["plain_ms"],
              "bound_ms": per[key]["bound_ms"], "bound_by": per[key]["bound_by"],
@@ -3412,6 +3602,26 @@ def schedule_main() -> int:
     return 0
 
 
+def bench_main() -> int:
+    """`--phase bench`: build the kernels and run phase 9 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from raytracer_tpu_torch.bench import BenchSpec
+    from raytracer_tpu_torch.utils import kernels
+
+    smi = nvidia_smi()
+    _, build_s = kernels.build()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; kernels built in {build_s:.1f} s")
+    out = bench_phase(BenchSpec(), smi[0].rsplit(",", 1)[0].strip())
+    print(json.dumps({"bench": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def multicard_main() -> int:
     """`--phase multicard`: build the kernels and run phase 7 alone."""
     if not torch.cuda.is_available():
@@ -3439,7 +3649,8 @@ if __name__ == "__main__":
     import argparse
 
     parser = argparse.ArgumentParser(description="Build and check the port on the host's GPUs.")
-    parser.add_argument("--phase", choices=["multicard", "schedule"],
-                        help="run phase 7 alone (a host with 2 or more cards), or phase 8")
+    parser.add_argument("--phase", choices=["multicard", "schedule", "bench"],
+                        help="run phase 7 alone (a host with 2 or more cards), phase 8 or phase 9")
     phase = parser.parse_args().phase
-    sys.exit({"multicard": multicard_main, "schedule": schedule_main}.get(phase, main)())
+    sys.exit({"multicard": multicard_main, "schedule": schedule_main,
+              "bench": bench_main}.get(phase, main)())
