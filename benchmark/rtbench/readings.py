@@ -1,0 +1,48 @@
+"""What the per-layer readers in benchmark/metrics/ share: device time of
+named operations per unit, and the H100's roofline yardstick."""
+
+from __future__ import annotations
+
+# H100 SXM data sheet, at its 700 W power limit (a card set below it runs
+# slower: a share of these is stated beside the card's power limit)
+PEAK_BYTES = 3.35e12  # B/s, HBM3
+PEAK_FP32 = 67e12  # FLOP/s, FP32 outside the tensor cores
+# FP32 operations a test needs, an FMA as 2 and a division, square root,
+# compare or min/max as 1 (the port's utils/roofline.OPS, frozen here): a
+# triangle test begun is a dot product and a compare; a sphere test a
+# difference, a cross product, two dot products, a square root and compares
+OPS_TRI_BEGUN = 6
+OPS_SPHERE = 30
+F32 = 4
+MC_KERNELS = ("mc_kernel",)  # csrc/mc_kernel.cu: mc_kernel_staged (dense), mc_kernel<CoopGeom> (blocked)
+
+
+def device_ms(summary: dict, names) -> float:
+    """Device ms of the operations whose name holds one of `names`."""
+    return sum(us for op, us in summary["op_us"].items() if any(n in op for n in names)) / 1e3
+
+
+def per_unit(ctx, names):
+    """Device ms a unit of those operations (None when the trace holds
+    none of them)."""
+    ms = device_ms(ctx["trace"], names)
+    return ms / ctx["units"] if ms else None
+
+
+def mc_least_ms(ctx) -> float:
+    """The least time the H100 could take for one epoch's MC walk of a
+    dense scene, the work counted as the reference algorithm does it
+    (main.rs:180-326 casts every ray against every object): the larger of
+    bytes / PEAK_BYTES (the draws read once, the photons written once,
+    the scene's primitives read once) and operations / PEAK_FP32 (the
+    epoch's casts x each triangle's test begun and each sphere's test)."""
+    cfg, raw = ctx["cfg"], ctx["raw"]
+    n = cfg.width * cfg.height
+    tile = min(cfg.tile_rays, n)
+    lanes = -(-n // tile) * tile
+    draws = lanes * (2 + 3 * cfg.depth) * F32
+    photons = n * 3 * F32
+    scene = raw.n_tri * (9 + 9 + 6 + 1) * F32 + raw.n_sph * 5 * F32
+    casts = ctx["casts"] / ctx["units"]
+    ops = casts * (raw.n_tri * OPS_TRI_BEGUN + raw.n_sph * OPS_SPHERE)
+    return max((draws + photons + scene) / PEAK_BYTES, ops / PEAK_FP32) * 1e3
