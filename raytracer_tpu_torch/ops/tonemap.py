@@ -11,18 +11,26 @@ from __future__ import annotations
 
 import torch
 
-from raytracer_tpu_torch.utils import color, vec
+from raytracer_tpu_torch.utils import color, tracing, vec
 
 
 def luma_percentile_scale(img_flat, percentile: float = 0.99):
-    """[N, 3] linear RGB -> (divisor, valid_count) as 0-d tensors."""
-    lum = color.luma(img_flat)
+    """[N, 3] linear RGB -> (divisor, valid_count) as 0-d tensors.
+
+    The host waits on the card twice here: color.luma copies its weights
+    from the host, a blocking copy that drains the card's queue (the
+    epoch's walk), and indexing reads the index on the host.  Inside a
+    recorded epoch each wait is a `rt.step.wait` span."""
+    with tracing.span("rt.step.wait"):
+        lum = color.luma(img_flat)
     valid = vec.is_normal_f32(lum)
     count = valid.to(torch.int32).sum()
     sorted_l = torch.sort(torch.where(valid, lum, torch.inf)).values
     idx = (count.to(torch.float32) * percentile).to(torch.int64)  # trunc
     idx = idx.clamp(0, lum.shape[0] - 1)
-    return sorted_l[idx], count
+    with tracing.span("rt.step.wait"):
+        i = int(idx)
+    return sorted_l[i], count
 
 
 def post_process(img, percentile: float = 0.99):

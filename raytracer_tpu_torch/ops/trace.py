@@ -59,7 +59,7 @@ from raytracer_tpu_torch.ops.level_kernel import (
 from raytracer_tpu_torch.ops.shade import get_shade
 from raytracer_tpu_torch.scene.textures import kernel_textures_ok
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, NO_EXCLUDE, Rays, Scene
-from raytracer_tpu_torch.utils import kernels, vec
+from raytracer_tpu_torch.utils import kernels, tracing, vec
 
 DELIVER_COUNTS = kernels.LaunchCounts()
 NO_RADIANCE = 0x7FFFFFFF  # deliver's sort key of a lane that owes nothing (csrc/deliver.cu)
@@ -272,26 +272,27 @@ def deliver(img, slot, contrib):
     and gives each pixel's run of lanes to one thread, which sums them in
     lane order as the CPU does.  Lanes whose radiance is all zeros are
     left out on the card: they change no pixel."""
-    if img.device.type == "cpu":
-        DELIVER_COUNTS.plain += 1
-        return img.index_add(0, slot.long(), contrib)
-    dev = img.device
-    if dev.type != "cuda":
-        raise ValueError(f"trace.deliver: unsupported device {dev}")
-    n, k = img.shape[0], slot.shape[0]
-    out = img.clone(memory_format=torch.contiguous_format)
-    kernels.check("img", out, torch.float32, (n, 3), dev)
-    cols = contrib.t().contiguous()  # [3, K]: the pools' own layout
-    kernels.check("contrib", cols, torch.float32, (3, k), dev)
-    if k:
-        # a lane that owes nothing (the pools' empty lanes, all slot 0) is
-        # sorted past the frame: adding zeros changes no pixel (but -0,
-        # which compares equal to +0), and their run would be one thread's
-        key = torch.where((cols != 0.0).any(dim=0), slot.to(torch.int32), NO_RADIANCE)
-        slots, lanes = torch.sort(key, stable=True)
-        kernels.launch("rt_deliver", out, slots, lanes, cols, n, k)
-        DELIVER_COUNTS.launches += 1
-    return out
+    with tracing.span("rt.ladder.deliver"):
+        if img.device.type == "cpu":
+            DELIVER_COUNTS.plain += 1
+            return img.index_add(0, slot.long(), contrib)
+        dev = img.device
+        if dev.type != "cuda":
+            raise ValueError(f"trace.deliver: unsupported device {dev}")
+        n, k = img.shape[0], slot.shape[0]
+        out = img.clone(memory_format=torch.contiguous_format)
+        kernels.check("img", out, torch.float32, (n, 3), dev)
+        cols = contrib.t().contiguous()  # [3, K]: the pools' own layout
+        kernels.check("contrib", cols, torch.float32, (3, k), dev)
+        if k:
+            # a lane that owes nothing (the pools' empty lanes, all slot 0) is
+            # sorted past the frame: adding zeros changes no pixel (but -0,
+            # which compares equal to +0), and their run would be one thread's
+            key = torch.where((cols != 0.0).any(dim=0), slot.to(torch.int32), NO_RADIANCE)
+            slots, lanes = torch.sort(key, stable=True)
+            kernels.launch("rt_deliver", out, slots, lanes, cols, n, k)
+            DELIVER_COUNTS.launches += 1
+        return out
 
 
 def _group(cfg: RenderConfig) -> int:
@@ -337,31 +338,38 @@ def _pad(pool: Pool, k: int) -> Pool:
                 torch.nn.functional.pad(pool.i, (0, extra)))
 
 
-def _compact(cands: Pool, k: int, group: int):
-    """Group compaction into a k-lane pool -> (Pool, dropped 0-d)."""
-    assert k % group == 0, (k, group)
-    c = cands.width
-    if c % group:
-        cands = _pad(cands, c + (-c) % group)
+def _compact(cands: Pool, k: int, group: int, counted: bool = False):
+    """Group compaction into a k-lane pool -> (Pool, dropped 0-d).
+    counted: add the pool's lanes to the `ladder.lanes` counter and its
+    candidates that are alive or owe pending radiance to `ladder.live` (one
+    reduction of the kept lanes' group counts)."""
+    with tracing.span("rt.ladder.compact"):
+        assert k % group == 0, (k, group)
         c = cands.width
-    keep = (cands.i[I_ALIVE] != 0) | torch.any(cands.f[F_PEND:F_PEND + 3] != 0.0, dim=0)
-    ng_in, ng_out = c // group, k // group
-    gkeepl = keep.view(ng_in, group)
-    gkeep = gkeepl.any(dim=1)
-    gcount = gkeepl.sum(dim=1)
-    order = torch.cumsum(gkeep.to(torch.int64), dim=0) - 1
-    fits = gkeep & (order < ng_out)
-    dropped = torch.where(gkeep & ~fits, gcount, 0).sum()
-    # one extra trash group takes every group that is not kept or not fit
-    dest = torch.where(fits, order, ng_out)
+        if c % group:
+            cands = _pad(cands, c + (-c) % group)
+            c = cands.width
+        keep = (cands.i[I_ALIVE] != 0) | torch.any(cands.f[F_PEND:F_PEND + 3] != 0.0, dim=0)
+        ng_in, ng_out = c // group, k // group
+        gkeepl = keep.view(ng_in, group)
+        gkeep = gkeepl.any(dim=1)
+        gcount = gkeepl.sum(dim=1)
+        if counted:
+            tracing.count("ladder.lanes", k)
+            tracing.count("ladder.live", gcount)
+        order = torch.cumsum(gkeep.to(torch.int64), dim=0) - 1
+        fits = gkeep & (order < ng_out)
+        dropped = torch.where(gkeep & ~fits, gcount, 0).sum()
+        # one extra trash group takes every group that is not kept or not fit
+        dest = torch.where(fits, order, ng_out)
 
-    def move(x):
-        rows = x.shape[0]
-        out = x.new_zeros((rows, ng_out + 1, group))
-        out.index_copy_(1, dest, x.view(rows, ng_in, group))
-        return out[:, :ng_out].reshape(rows, k).contiguous()
+        def move(x):
+            rows = x.shape[0]
+            out = x.new_zeros((rows, ng_out + 1, group))
+            out.index_copy_(1, dest, x.view(rows, ng_in, group))
+            return out[:, :ng_out].reshape(rows, k).contiguous()
 
-    return Pool(move(cands.f), move(cands.i)), dropped
+        return Pool(move(cands.f), move(cands.i)), dropped
 
 
 def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
@@ -372,20 +380,29 @@ def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
     pixel (src/main.rs:1096-1102).  `level_fn` runs one level
     (level_kernel.process_level's signature): by default the level kernel
     where `fused_ok(scene)`, else the unfused level; a caller that compares
-    a kernel with its plain version on the card passes a plain stand-in."""
+    a kernel with its plain version on the card passes a plain stand-in.
+
+    Inside a recorded unit (utils/tracing) each level is a span, and the
+    pools entering levels 1 .. depth-1 are counted: their lanes
+    (`ladder.lanes`) and the lanes alive or owing pending radiance as they
+    enter (`ladder.live`, one device reduction a pool)."""
     if level_fn is None:
         level_fn = process_level if fused_ok(scene) else process_level_unfused
 
-    def level(pool, last, direct):
-        return level_fn(scene, pool, last, direct, cfg.threshold,
-                        cfg.max_refract_distance, cfg.max_tir_retries)
+    def level(pool, index, last, direct):
+        with tracing.span("rt.ladder.level", level=index, width=pool.width):
+            return level_fn(scene, pool, last, direct, cfg.threshold,
+                            cfg.max_refract_distance, cfg.max_tir_retries)
+
+    def counted(index):
+        return index < cfg.depth and tracing.active()
 
     n = ray_o.shape[0]
     k = _round128(int(n * cfg.capacity_factor))
     group = _group(cfg)
     dropped = torch.zeros((), dtype=torch.int64, device=ray_o.device)
 
-    contrib, rch, fch, casts = level(_pack_primary(ray_o, ray_d), cfg.depth == 0, True)
+    contrib, rch, fch, casts = level(_pack_primary(ray_o, ray_d), 0, cfg.depth == 0, True)
     img = contrib.t()  # identity slots: the contribution IS the framebuffer
     if cfg.depth == 0:
         return TraceResult(img, casts, dropped)
@@ -395,11 +412,16 @@ def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
     doubled = k >= 2 * n
     if doubled:
         cands = _pad(cands, k)
+        if counted(1):
+            # level 0 delivers its own radiance, so its children owe none:
+            # the live lanes are the alive ones
+            tracing.count("ladder.lanes", k)
+            tracing.count("ladder.live", cands.i[I_ALIVE])
     else:
-        cands, drop = _compact(cands, k, group)
+        cands, drop = _compact(cands, k, group, counted(1))
         dropped = dropped + drop
     last1 = cfg.depth == 1
-    contrib, rch, fch, c1 = level(cands, last1, doubled or last1)
+    contrib, rch, fch, c1 = level(cands, 1, last1, doubled or last1)
     casts = casts + c1
     if doubled:
         img = img + contrib[:, :n].t() + contrib[:, n:2 * n].t()
@@ -410,10 +432,10 @@ def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
 
     # deep levels (>= 2): narrower pool
     k2 = _round128(int(n * cfg.deep_capacity) + cfg.deep_slack)
-    pool, drop = _compact(_cat(rch, fch), k2, group)
+    pool, drop = _compact(_cat(rch, fch), k2, group, counted(2))
     dropped = dropped + drop
     last2 = cfg.depth == 2
-    contrib, rch, fch, c2 = level(pool, last2, last2)
+    contrib, rch, fch, c2 = level(pool, 2, last2, last2)
     casts = casts + c2
     if last2:
         img = deliver(img, pool.i[I_SLOT], contrib.t())
@@ -422,15 +444,15 @@ def trace_whitted(scene: Scene, ray_o, ray_d, cfg: RenderConfig,
     # tail levels (>= 3): narrower once more; the slack absorbs lanes that
     # only carry pending radiance
     k3 = _round128(int(n * cfg.tail_capacity) + cfg.tail_slack)
-    pool, drop = _compact(_cat(rch, fch), k3, group)
+    pool, drop = _compact(_cat(rch, fch), k3, group, counted(3))
     dropped = dropped + drop
-    for _ in range(3, cfg.depth):
-        _, rch, fch, ci = level(pool, False, False)
+    for index in range(3, cfg.depth):
+        _, rch, fch, ci = level(pool, index, False, False)
         casts = casts + ci
-        pool, drop = _compact(_cat(rch, fch), k3, group)
+        pool, drop = _compact(_cat(rch, fch), k3, group, counted(index + 1))
         dropped = dropped + drop
     # final level peeled: no children; ONE scatter delivers every chain
-    contrib, _, _, cl = level(pool, True, True)
+    contrib, _, _, cl = level(pool, cfg.depth, True, True)
     casts = casts + cl
     img = deliver(img, pool.i[I_SLOT], contrib.t())
     return TraceResult(img, casts, dropped)

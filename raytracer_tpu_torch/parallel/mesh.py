@@ -48,6 +48,7 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops.tonemap import post_process
 from raytracer_tpu_torch.render import Draws, _clips, _epoch, _whitted
 from raytracer_tpu_torch.scene.types import Camera, Scene
+from raytracer_tpu_torch.utils import tracing
 from raytracer_tpu_torch.utils.color import linear_to_u8
 
 
@@ -182,9 +183,12 @@ def render_whitted_sharded(scene: Scene, camera: Camera, cfg: RenderConfig, mesh
     """The Whitted frame over every rank of the mesh (mesh.py:192): the
     deterministic pass has no use for samples, so the tiles are dealt over
     the flattened dp x sp world -> ([H, W, 3] on every rank, stats)."""
-    img, counters = whitted_body(scene, camera, cfg, mesh)
-    _reduce(mesh, img, counters)
-    casts, dropped = counters.tolist()
+    with tracing.unit("rt.whitted.frame"):
+        img, counters = whitted_body(scene, camera, cfg, mesh)
+        _reduce(mesh, img, counters)
+        with tracing.span("rt.whitted.read"):
+            casts, dropped = counters.tolist()
+            tracing.settle()
     return img, {"casts": casts, "dropped": dropped, "primary_rays": cfg.width * cfg.height}
 
 
@@ -224,15 +228,22 @@ def train_steps_sharded(scene: Scene, camera: Camera, cfg: RenderConfig, mesh: R
     (casts, filtered) summed on the device over the group, for one read).
 
     check: called as check(photons, epoch) with each epoch's reduced
-    photons before they are accumulated (progressive's debug_nans)."""
+    photons before they are accumulated (progressive's debug_nans).
+
+    Under a recording torch.profiler each epoch is a unit of utils/tracing
+    (id: the epoch), and so is the group's encoding (id: its first epoch)."""
     counters = torch.zeros((2,), dtype=torch.int64, device=accum.device)
     for epoch in range(start_epoch, start_epoch + k):
-        photons, c = _mc_epoch(scene, camera, cfg, mesh, seed, epoch)
-        if check is not None:
-            check(photons, epoch)
-        accum = post_process(accum + photons, cfg.percentile)
-        counters = counters + c
-    return accum, linear_to_u8(accum), counters
+        with tracing.unit("rt.step.epoch", epoch):
+            photons, c = _mc_epoch(scene, camera, cfg, mesh, seed, epoch)
+            if check is not None:
+                check(photons, epoch)
+            with tracing.span("rt.step.renormalise"):
+                accum = post_process(accum + photons, cfg.percentile)
+            counters = counters + c
+    with tracing.unit("rt.step.encode", start_epoch):
+        u8 = linear_to_u8(accum)
+    return accum, u8, counters
 
 
 # The JAX package's name for the Whitted frame over processes on several

@@ -42,6 +42,7 @@ from raytracer_tpu_torch.ops import camera as camera_ops
 from raytracer_tpu_torch.ops.distributed import frame_wide_route, trace_distributed
 from raytracer_tpu_torch.ops.trace import trace_whitted
 from raytracer_tpu_torch.scene.types import Camera, Scene
+from raytracer_tpu_torch.utils import tracing
 
 _BLOCK_W, _BLOCK_H = 32, 16
 
@@ -114,22 +115,30 @@ def _whitted(scene: Scene, camera: Camera, cfg: RenderConfig,
         if keep is not None and t not in keep:
             colors.append(clip.new_zeros((width, 3)))
             continue
-        o, d = camera_ops.shoot(camera, clip[:width])
-        res = trace_whitted(scene, o, d, cfg)
+        with tracing.span("rt.whitted.tile", tile=t):
+            with tracing.span("rt.whitted.shoot"):
+                o, d = camera_ops.shoot(camera, clip[:width])
+            res = trace_whitted(scene, o, d, cfg)
         colors.append(res.color)
         casts = casts + res.casts
         dropped = dropped + res.dropped
-    return _to_image(cfg, colors, inv), casts, dropped
+    with tracing.span("rt.whitted.assemble"):
+        img = _to_image(cfg, colors, inv)
+    return img, casts, dropped
 
 
 def render_whitted(scene: Scene, camera: Camera,
                    cfg: RenderConfig) -> Tuple[torch.Tensor, dict]:
-    """Whitted pass over the full frame -> ([H, W, 3], stats)."""
-    img, casts, dropped = _whitted(scene, camera, cfg)
-    return img, {
-        "casts": int(casts), "dropped": int(dropped),
-        "primary_rays": cfg.width * cfg.height,
-    }
+    """Whitted pass over the full frame -> ([H, W, 3], stats).  Under a
+    recording torch.profiler the frame is a unit of utils/tracing; its
+    `rt.whitted.read` span is the host waiting on the card for the stats."""
+    with tracing.unit("rt.whitted.frame"):
+        img, casts, dropped = _whitted(scene, camera, cfg)
+        with tracing.span("rt.whitted.read"):
+            stats = {"casts": int(casts), "dropped": int(dropped),
+                     "primary_rays": cfg.width * cfg.height}
+            tracing.settle()
+    return img, stats
 
 
 def _seed(seed: int, epoch: int, tile: int, sample: int = 0) -> int:
@@ -205,21 +214,25 @@ def _epoch(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, epoch: in
     if draws is not None and len(draws) != len(clips):
         raise ValueError(f"draws for {len(draws)} tiles, the frame has {len(clips)}")
     picked = range(len(clips)) if tiles is None else sorted(tiles)
-    tile_in = [draws[t] if draws is not None else
-               tile_draws(cfg, seed, epoch, t, clips.shape[1], clips.device, sample)
-               for t in picked]
+    with tracing.span("rt.epoch.draws"):
+        tile_in = [draws[t] if draws is not None else
+                   tile_draws(cfg, seed, epoch, t, clips.shape[1], clips.device, sample)
+                   for t in picked]
     if not tile_in:
         return (torch.zeros((cfg.height, cfg.width, 3), device=clips.device),
                 torch.zeros((), dtype=torch.int64, device=clips.device),
                 torch.zeros((), dtype=torch.int64, device=clips.device))
     run = epoch_frame if frame_wide_route(scene) else epoch_tiles
     traced = clips if tiles is None else clips[list(picked)]
-    photon, casts, filtered = run(scene, camera, cfg, traced, tile_in)
-    if tiles is not None:
-        full = photon.new_zeros((clips.shape[0], clips.shape[1], 3))
-        full[list(picked)] = photon.view(len(picked), clips.shape[1], 3)
-        photon = full.view(-1, 3)
-    return _to_image(cfg, [photon], inv), casts, filtered
+    with tracing.span("rt.epoch.walk"):
+        photon, casts, filtered = run(scene, camera, cfg, traced, tile_in)
+    with tracing.span("rt.epoch.assemble"):
+        if tiles is not None:
+            full = photon.new_zeros((clips.shape[0], clips.shape[1], 3))
+            full[list(picked)] = photon.view(len(picked), clips.shape[1], 3)
+            photon = full.view(-1, 3)
+        img = _to_image(cfg, [photon], inv)
+    return img, casts, filtered
 
 
 def _epoch_draws(draws: Optional[Sequence[Draws]], n: int, what: str):

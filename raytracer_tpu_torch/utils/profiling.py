@@ -6,7 +6,10 @@ The reference's only observability is a stopwatch line per pass
 trace of everything a block of code runs: `profile_trace(log_dir)` writes
 a Chrome trace (chrome://tracing, Perfetto) and a summary of the
 operations into `log_dir`, and `top_ops` / `print_profile` read the
-summary back.
+summary back.  The summary keeps operations that spent host time alone,
+among them the program's own spans (utils/tracing, `rt.` names), which
+`print_profile` lists by self host time after the top operations, with
+the counters the traced render recorded.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import os
 from typing import List, Optional, Tuple
 
 import torch
+
+from raytracer_tpu_torch.utils import tracing
 
 TRACE = "trace.json"
 SUMMARY = "ops.json"
@@ -32,7 +37,8 @@ def profile_trace(log_dir: str, cuda: Optional[bool] = None):
     profiler.  Records CPU activity, and CUDA activity when `cuda` (default:
     a card is available); on leaving, waits for the card and writes
     `log_dir`/trace.json (the Chrome trace) and `log_dir`/ops.json (each
-    operation's self device and CPU microseconds and calls)."""
+    operation's self device and CPU microseconds, total CPU microseconds
+    and calls, and the program's counters from utils/tracing)."""
     from torch.profiler import ProfilerActivity, profile
 
     if cuda is None:
@@ -45,10 +51,12 @@ def profile_trace(log_dir: str, cuda: Optional[bool] = None):
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, TRACE))
     ops = [{"name": e.key, "device_us": float(_self_device_us(e)),
-            "cpu_us": float(e.self_cpu_time_total), "count": int(e.count)}
+            "cpu_us": float(e.self_cpu_time_total),
+            "cpu_total_us": float(e.cpu_time_total), "count": int(e.count)}
            for e in prof.key_averages()]
+    counters = tracing.take().counters
     with open(os.path.join(log_dir, SUMMARY), "w") as f:
-        json.dump({"cuda": cuda, "ops": ops}, f)
+        json.dump({"cuda": cuda, "ops": ops, "counters": counters}, f)
 
 
 def top_ops(log_dir: str, limit: int = 20) -> Tuple[str, List[Tuple[float, str, int]]]:
@@ -72,3 +80,14 @@ def print_profile(log_dir: str, limit: int = 20) -> None:
     print(f"top {limit} operations by self {by} time ({os.path.join(log_dir, TRACE)}):")
     for ms, name, count in items:
         print(f"  {ms:9.3f} ms  x{count:<6d} {name[:100]}")
+    with open(os.path.join(log_dir, SUMMARY)) as f:
+        data = json.load(f)
+    spans = sorted((op for op in data["ops"] if op["name"].startswith(tracing.PREFIX)),
+                   key=lambda op: -op["cpu_us"])
+    if spans:
+        print("program spans by self host time (total host time):")
+        for op in spans:
+            print(f"  {op['cpu_us'] / 1e3:9.3f} ms  ({op['cpu_total_us'] / 1e3:9.3f} ms)  "
+                  f"x{op['count']:<6d} {op['name']}")
+    for name, value in sorted(data["counters"].items()):
+        print(f"  counter {name}: {value}")

@@ -91,12 +91,22 @@ def test_warm_cache_writes_no_output(tmp_path):
 
 def test_profile_writes_a_trace_and_prints_the_top_operations(tmp_path):
     prof = tmp_path / "prof"
-    r = _run(["--epochs", "1", "--out", str(tmp_path / "p.png"), "--profile", str(prof)])
+    r = _run(["--epochs", "1", "--depth", "3", "--out", str(tmp_path / "p.png"),
+              "--profile", str(prof)])
     assert r.returncode == 0, r.stderr[-2000:]
     with open(prof / "trace.json") as f:
         assert json.load(f)["traceEvents"]
     assert "top 20 operations by self cpu time" in r.stdout
     assert "aten::" in r.stdout
+    # the program's spans and counters (utils/tracing), after the operations
+    spans = r.stdout.split("program spans by self host time")[1]
+    for name in ("rt.whitted.frame", "rt.ladder.level", "rt.step.epoch", "rt.epoch.walk",
+                 "rt.step.wait", "counter ladder.lanes", "counter ladder.live",
+                 "counter tracing.sums", "counter tracing.reads"):
+        assert name in spans, name
+    with open(prof / "ops.json") as f:
+        ops = {op["name"]: op for op in json.load(f)["ops"]}
+    assert ops["rt.step.encode"]["device_us"] == 0 and ops["rt.step.encode"]["cpu_us"] > 0
 
 
 def test_debug_nans(tmp_path):
