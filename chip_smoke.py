@@ -3,6 +3,7 @@
 main paths once.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase graph       # phase 5b alone, one card
     python3 chip_smoke.py --phase multicard   # phase 7 alone, 2-4 cards
     python3 chip_smoke.py --phase schedule    # phase 8 alone, one card
     python3 chip_smoke.py --phase bench       # phase 9 alone, one card
@@ -96,6 +97,17 @@ Phases (each asserts; none catches a failure):
      through the binned route, the cooperative and listed kernels' per-thread
      yardsticks on the same inputs, and each kernel's bound (the least time
      the card could take for its work).
+  5b. the Whitted ladder as CUDA graphs (ops/ladder_graph.py): the demo's
+     1280x960 frame and mesh11k's 1024x1024 frame (tiles of 65536) rendered
+     eagerly (the graph route turned off), then twice through the graphs
+     (the first call captures one graph per tile width, the second replays
+     them): both the eager frame bit for bit, with its stats and its
+     launches (the level kernel six times a tile, the delivery once, nothing
+     else); then each capture's seconds, each graph's replay, plain and
+     counted (device ms, CUDA events), and the frame's host ms eager and
+     graphed.
+     `python3 chip_smoke.py --phase graph` builds the kernels and runs this
+     phase alone.
   6. multi-card rendering (parallel/mesh.py) on the one card: the demo's
      1280x960 Whitted frame rendered twice, equal bit for bit, and the
      ordered delivery kernel (csrc/deliver.cu) against the CPU's index_add
@@ -863,6 +875,21 @@ def same_whitted(a, b):
     assert torch.equal(a, b), int(((a - b).abs().amax(dim=-1) > 0).sum())
 
 
+@contextlib.contextmanager
+def eager_ladder():
+    """render_whitted with its ladder run eagerly, tile by tile, as on the
+    CPU: the CUDA graph route (ops/ladder_graph.engages) turned off, so that
+    a wrapper of the ladder's functions sees every call."""
+    from raytracer_tpu_torch.ops import ladder_graph
+
+    saved = ladder_graph.engages
+    ladder_graph.engages = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        ladder_graph.engages = saved
+
+
 def presets_phase(dev, reset_counts, read_counts, fused_kernels):
     """Phase 4: the presets, the JSON scene files and the render_* functions
     on the card (module docstring) -> the preset timings, by name."""
@@ -1146,6 +1173,70 @@ def cli_devices_phase():
             assert results[2][2] == 0 and "mesh: {'dp': 1, 'sp': 2}" in results[2][0], results[2]
         else:
             assert results[2][2] != 0 and "CUDA device(s)" in results[2][1], results[2]
+
+
+def ladder_graph_phase(dev, cases):
+    """Phase 5b: the Whitted ladder as CUDA graphs (module docstring) ->
+    {case: its numbers}.  cases: (label, scene, camera, cfg)."""
+    from raytracer_tpu_torch.ops import ladder_graph
+    from raytracer_tpu_torch.render import _clips, render_whitted
+
+    counts = kernel_counts()
+    out = {}
+    for label, scene, cam, cfg in cases:
+        scene = dataclasses.replace(scene)  # an object of its own: no ladder captured for it yet
+        tiles = len(_clips(cfg, dev)[0])
+
+        def frame():
+            """(image, stats, launches by kernel, host seconds) of one frame."""
+            before = {k: c.launches for k, c in counts.items()}
+            (img, stats), s = timed(lambda: render_whitted(scene, cam, cfg))
+            ran = {k: c.launches - before[k] for k, c in counts.items() if c.launches != before[k]}
+            return img, stats, ran, s
+
+        with eager_ladder():
+            eager = frame()
+        level = "level_blk" if scene.blocked else "level"
+        assert eager[1]["dropped"] == 0 and eager[2] == {level: tiles * (DEPTH + 1),
+                                                          "deliver": tiles}, eager[1:3]
+        capture_s, capture = [], ladder_graph._capture
+
+        def timed_capture(*args):
+            res, s = timed(lambda: capture(*args))
+            capture_s.append(s)
+            return res
+
+        ladder_graph._capture = timed_capture
+        try:
+            first = frame()
+        finally:
+            ladder_graph._capture = capture
+        second = frame()
+        for got in (first, second):
+            same_whitted(got[0], eager[0])
+            assert got[1:3] == eager[1:3], (got[1:3], eager[1:3])
+        ladders = {k[3]: v for k, v in ladder_graph._LADDERS.items() if k[0] == id(scene)}
+        replay_ms = {width: cuda_ms(v.plain.graph.replay, 20) for width, v in ladders.items()}
+        counted_ms = {width: cuda_ms(v.counted.graph.replay, 20) for width, v in ladders.items()}
+        with eager_ladder():
+            eager_s = min(frame()[3] for _ in range(3))
+        graph_s = min(frame()[3] for _ in range(3))
+        widths = [min(cfg.tile_rays, cfg.width * cfg.height - t * cfg.tile_rays)
+                  for t in range(tiles)]
+        busy_ms = sum(replay_ms[w] for w in widths)
+        print(f"whitted ladder as CUDA graphs, {label}: the first graphed frame (it captures "
+              f"{len(capture_s)} ladders, widths {sorted(ladders)}) and the second (replays) = "
+              f"the eager frame bit for bit, stats and launches {eager[2]} too; capture "
+              + ", ".join(f"{s:.3f}" for s in capture_s) + " s (the tile's eager run on a side "
+              "stream and both graphs included); replay a tile " + ", ".join(
+                  f"{w} rays {ms:.3f} ms (counted {counted_ms[w]:.3f})"
+                  for w, ms in sorted(replay_ms.items()))
+              + f" (device, CUDA events), {busy_ms:.2f} ms a frame; frame {eager_s * 1e3:.2f} ms "
+              f"eager, {graph_s * 1e3:.2f} ms graphed (host, least of three)")
+        out[label] = {"capture_s": capture_s, "replay_ms": replay_ms, "counted_ms": counted_ms,
+                      "replays_ms": busy_ms, "eager_s": eager_s, "graph_s": graph_s,
+                      "launches": eager[2]}
+    return out
 
 
 def mesh_phase(dev, reset_counts, read_counts, demo, cam, full, mesh11k, mesh11k_cam, mesh_cfg,
@@ -3001,6 +3092,11 @@ def main() -> int:
     assert fc >= 0.99 and casts_close(uest["casts"], fest["casts"])
     assert torch.isfinite(uep).all() and float(uep.max()) > 0
 
+    # ---- 5b. the Whitted ladder as CUDA graphs ------------------------------
+    graph_times = ladder_graph_phase(dev, [("demo 1280x960", demo, demo_cam, full),
+                                           ("mesh11k 1024x1024", mesh11k, mesh11k_cam,
+                                            mesh_cfg)])
+
     # ---- 6. multi-card rendering ------------------------------------------
     mesh_times, world1_launches = mesh_phase(dev, reset_counts, read_counts, demo, demo_cam,
                                              full, mesh11k, mesh11k_cam, mesh_cfg, state,
@@ -3379,7 +3475,8 @@ def main() -> int:
         are call_ms's, not the kernel's."""
         from raytracer_tpu_torch.utils.roofline import PEAK_BYTES, PEAK_FP32
 
-        calls = capture([(trace_ops, "deliver")], lambda: render_whitted(scene, cam, cfg))
+        with eager_ladder():
+            calls = capture([(trace_ops, "deliver")], lambda: render_whitted(scene, cam, cfg))
         calls = [args for args, _ in calls["deliver"]]
         assert len(calls) == len(_clips(cfg, dev)[0]), len(calls)
         row = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0,
@@ -3504,7 +3601,8 @@ def main() -> int:
     bench_launches = {k: sum(sec[k] for sec in bench_out["launches"].values()) for k in counts}
 
     print(json.dumps({"frames": frames, "presets": preset_times, "routes": routes,
-                      "attrs": attrs, "per_launch": per, "mesh": mesh_times,
+                      "attrs": attrs, "per_launch": per, "ladder_graph": graph_times,
+                      "mesh": mesh_times,
                       "multicard": multicard, "schedule": schedule, "bench": bench_out,
                       "profiles": profiles, "bounce_orders": orders}))
 
@@ -3622,6 +3720,34 @@ def bench_main() -> int:
     return 0
 
 
+def graph_main() -> int:
+    """`--phase graph`: build the kernels and run phase 5b alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene, mesh_scene
+    from raytracer_tpu_torch.utils import kernels
+
+    smi = nvidia_smi()
+    _, build_s = kernels.build()
+    print(f"{smi[0]}; torch {torch.__version__} cuda {torch.version.cuda}; kernels built in "
+          f"{build_s:.1f} s")
+    dev = torch.device("cuda")
+    mesh11k, mesh11k_cam = mesh_scene(75, device=dev)
+    out = ladder_graph_phase(dev, [
+        ("demo 1280x960", demo_scene(device=dev), demo_camera(device=dev),
+         RenderConfig(depth=DEPTH)),
+        ("mesh11k 1024x1024", mesh11k, mesh11k_cam,
+         RenderConfig(width=1024, height=1024, depth=DEPTH))])
+    print(json.dumps({"ladder_graph": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def multicard_main() -> int:
     """`--phase multicard`: build the kernels and run phase 7 alone."""
     if not torch.cuda.is_available():
@@ -3649,8 +3775,9 @@ if __name__ == "__main__":
     import argparse
 
     parser = argparse.ArgumentParser(description="Build and check the port on the host's GPUs.")
-    parser.add_argument("--phase", choices=["multicard", "schedule", "bench"],
-                        help="run phase 7 alone (a host with 2 or more cards), phase 8 or phase 9")
+    parser.add_argument("--phase", choices=["graph", "multicard", "schedule", "bench"],
+                        help="run phase 5b alone, phase 7 (a host with 2 or more cards), phase 8 "
+                             "or phase 9")
     phase = parser.parse_args().phase
-    sys.exit({"multicard": multicard_main, "schedule": schedule_main,
+    sys.exit({"graph": graph_main, "multicard": multicard_main, "schedule": schedule_main,
               "bench": bench_main}.get(phase, main)())

@@ -39,6 +39,7 @@ import torch
 
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops import camera as camera_ops
+from raytracer_tpu_torch.ops import ladder_graph
 from raytracer_tpu_torch.ops.distributed import frame_wide_route, trace_distributed
 from raytracer_tpu_torch.ops.trace import trace_whitted
 from raytracer_tpu_torch.scene.types import Camera, Scene
@@ -105,7 +106,11 @@ def _whitted(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     tiles: trace only these tile indices; the frame is zero outside them
     and the counters are theirs.  Each tile keeps its own pools, so its
-    pixels are the whole frame's bit for bit."""
+    pixels are the whole frame's bit for bit.
+
+    On the card's fused path each tile's ladder replays a CUDA graph
+    captured once per tile width (ops/ladder_graph.py); the camera's rays
+    are shot outside it, while the card runs the previous tile."""
     clips, inv = _clips(cfg, scene.device)
     n = cfg.width * cfg.height
     keep = None if tiles is None else set(tiles)
@@ -118,7 +123,7 @@ def _whitted(scene: Scene, camera: Camera, cfg: RenderConfig,
         with tracing.span("rt.whitted.tile", tile=t):
             with tracing.span("rt.whitted.shoot"):
                 o, d = camera_ops.shoot(camera, clip[:width])
-            res = trace_whitted(scene, o, d, cfg)
+            res = ladder_graph.trace(trace_whitted, scene, o, d, cfg, t)
         colors.append(res.color)
         casts = casts + res.casts
         dropped = dropped + res.dropped

@@ -15,6 +15,11 @@ USER_SCOPE range (torch.profiler.record_function) would not do: Kineto
 copies those onto the device's timeline too, where they would read as
 device activity.
 
+While a CUDA graph is captured, `redirect(sink)` hands every count to the
+graph's own sink in place of the recorder, whose buffers a graph must not
+bake in: `active()` holds and no span is recorded; `redirect(None)` counts
+and records nothing (ops/ladder_graph.py).
+
 `take()` hands over what was recorded since the last take: the spans in the
 order they opened, each with its parent's index and its unit's id, and each
 counter's total.  A tensor counted on the card is summed there, by one
@@ -72,6 +77,7 @@ class Recorder:
         # dtype -> (buffer, the counter of each slot used), not yet read
         self.device: dict = {}
         self.numbers: Dict[str, int] = {}  # units opened so far, by name
+        self.sink = None  # redirect()'s receiver of counts, or None
 
     def _add(self, name: str, value: int) -> None:
         self.counts[name] = self.counts.get(name, 0) + value
@@ -160,19 +166,41 @@ def span(name: str, **attrs):
 
 
 def active() -> bool:
-    """Is a unit being recorded?  Guards work done only to be counted."""
-    return _REC.on
+    """Is a unit being recorded, or are counts redirected?  Guards work done
+    only to be counted."""
+    return _REC.on or _REC.sink is not None
 
 
 def count(name: str, value) -> None:
     """Add `value` to counter `name` inside a recorded unit: a host int, or
-    the sum of an integer tensor, taken on its device and read at settle()."""
+    the sum of an integer tensor, taken on its device and read at settle().
+    Under redirect(), hand both to its sink instead."""
+    if _REC.sink is not None:
+        _REC.sink(name, value)
+        return
     if not _REC.on:
         return
     if isinstance(value, torch.Tensor):
         _REC.add(name, value)
     else:
         _REC._add(name, int(value))
+
+
+@contextlib.contextmanager
+def redirect(sink):
+    """Inside the block every count(name, value) calls sink(name, value),
+    active() holds, and no span is recorded: what a CUDA graph's capture
+    counts becomes the graph's own output, and what its Python does is not
+    mistaken for work on the card.  sink None: nothing is counted or
+    recorded, and active() does not hold."""
+    if _REC.sink is not None:
+        raise RuntimeError("counts are already redirected")
+    outer = (_REC.on, _REC.sink)
+    _REC.on, _REC.sink = False, sink
+    try:
+        yield
+    finally:
+        _REC.on, _REC.sink = outer
 
 
 def settle() -> None:

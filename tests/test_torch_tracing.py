@@ -177,7 +177,8 @@ def test_ladder_counters_against_the_pools(demo, monkeypatch):
     # its tile's width), one of the int32 buffer (its alive lanes)
     peeled = any(tile[1].width >= 2 * tile[0].width for tile in pools)
     assert counters == {"ladder.lanes": sum(p.width for p in entering), "ladder.live": live,
-                        "tracing.sums": len(entering), "tracing.reads": 1 + peeled}
+                        "ladder.tiles": N_TILES, "tracing.sums": len(entering),
+                        "tracing.reads": 1 + peeled}
     assert 0 < live < counters["ladder.lanes"]
 
 
