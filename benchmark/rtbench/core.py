@@ -23,8 +23,6 @@ import os
 import subprocess
 import sys
 
-import torch
-
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
 # modules the process that prints the result may not hold, by top-level name
@@ -32,7 +30,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "raytracer_tpu")
 
 
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    sys.stderr.write(msg + "\n")  # one write: the ranks of a run share standard error
+    sys.stderr.flush()
 
 
 def read_json(*parts):
@@ -94,6 +93,8 @@ def forbidden_modules() -> list:
 def device_line() -> dict:
     """platform, kind (torch's name of the card), count (one card), and
     nvidia-smi's power limit for the log (found by the card's UUID)."""
+    import torch  # not at the top: run.py starts a cell's ranks before it imports torch
+
     index = torch.cuda.current_device()
     out = {"platform": "gpu", "kind": torch.cuda.get_device_name(index), "count": 1}
     try:

@@ -30,6 +30,13 @@ number against the cell's limit:
   u8_bad_share      the encode: the share of u8 values of each checked
                     group's frame and of the window's last that differ
                     from the reference's sRGB encoding of their frames.
+
+On several cards every rank drives the loop on its own card through the
+same mesh; the numbers above are rank 0's (its reduced photons and its
+accumulator), and rtbench/ranks.World.spread adds
+  rank_accum_diff   the replicated accumulator: the largest |accum_r -
+                    accum_0| over the ranks, after each checked group and
+                    after the window (`replicated`).
 """
 
 from __future__ import annotations
@@ -75,9 +82,13 @@ class Loop:
         return dict(start, photons=photons, accum=self.accum.cpu(), u8=u8)
 
     def setup(self):
+        import time
+
         self.checked.append(self._checked_group())
         for _ in range(int(self.run.traffic.get("warm_groups", 1))):
+            t = time.perf_counter()
             self._group()
+            self.unit_s = (time.perf_counter() - t) / self.k  # an epoch, the last warm group's
 
     def window(self, seconds=None, units=None):
         import time
@@ -103,6 +114,13 @@ class Loop:
         self.checked.append(self._checked_group())
         self.accum = None
         return {"checked": self.checked, "last": self.last, "k": self.k}
+
+
+def replicated(outputs) -> dict:
+    """What every rank of a run on several cards holds alike: the replicated
+    accumulator after each checked group and after the window."""
+    return {"rank_accum_diff": [g["accum"] for g in outputs["checked"]]
+            + [outputs["last"]["accum"]]}
 
 
 def check(run, outputs, control=False) -> dict:

@@ -15,6 +15,7 @@ OPS_TRI_BEGUN = 6
 OPS_SPHERE = 30
 F32 = 4
 MC_KERNELS = ("mc_kernel",)  # csrc/mc_kernel.cu: mc_kernel_staged (dense), mc_kernel<CoopGeom> (blocked)
+NCCL_KERNELS = ("ncclDevKernel", "ncclKernel")  # NCCL's kernels, by its versions' names
 
 
 def device_ms(summary: dict, names) -> float:
@@ -22,11 +23,32 @@ def device_ms(summary: dict, names) -> float:
     return sum(us for op, us in summary["op_us"].items() if any(n in op for n in names)) / 1e3
 
 
-def per_unit(ctx, names):
-    """Device ms a unit of those operations (None when the trace holds
-    none of them)."""
-    ms = device_ms(ctx["trace"], names)
+def per_unit(ctx, names, summary=None):
+    """Device ms a unit of those operations in `summary` (default: the
+    run's trace; None when it holds none of them)."""
+    ms = device_ms(ctx["trace"] if summary is None else summary, names)
     return ms / ctx["units"] if ms else None
+
+
+def own_ms(summary: dict) -> float:
+    """Device ms of every operation but the NCCL kernels, whose time holds
+    a rank's wait for its peers."""
+    return sum(summary["op_us"].values()) / 1e3 - device_ms(summary, NCCL_KERNELS)
+
+
+def rank_traces(ctx) -> list:
+    """Each rank's trace summary of a traced run on several cards ([] on
+    one card, or untraced)."""
+    return [r["trace"] for r in ctx.get("ranks") or [] if r["trace"] is not None]
+
+
+def pacing(ctx) -> dict:
+    """The trace summary that the device readers of a progressive cell
+    read: on several cards the rank with the most own device time, which
+    the others wait for in the all-reduce and which so paces the epoch;
+    on one card the run's."""
+    traces = rank_traces(ctx)
+    return max(traces, key=own_ms) if traces else ctx["trace"]
 
 
 def mc_least_ms(ctx) -> float:

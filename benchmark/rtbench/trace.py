@@ -21,17 +21,18 @@ NAME_CHARS = 160  # of an operation's name in the breakdown (C++ template names 
 
 
 @contextlib.contextmanager
-def profiled(enabled: bool):
-    """torch.profiler over the block (CPU and CUDA activity) -> the profiler
-    or None."""
-    if not enabled:
-        yield None
-        return
+def profiled(device_type: str):
+    """torch.profiler over the block -> the profiler: CPU and CUDA activity
+    on a card; on the CPU (the harness's tests) the host's alone, so the
+    window holds no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cuda = device_type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
         yield prof
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
 
 
 def mark(what: str):
@@ -46,18 +47,17 @@ def _ns(e, which):
 
 def events(prof):
     """(device [(start_ns, end_ns, name)], host [(start_ns, end_ns, name)]).
-    The card's copies of the MARK ranges (Kineto draws user annotations on
-    the device's timeline too) are not device activity and are left out."""
+    Kineto draws a user annotation (a record_function range: the MARK
+    ranges, c10d's "nccl:all_reduce") on the device's timeline too, under
+    the name of its host range: those copies are not device activity and
+    are left out."""
     dev, host = [], []
     for e in prof.profiler.kineto_results.events():
         s = _ns(e, "start")
         span = (s, s + _ns(e, "duration"), e.name())
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if not span[2].startswith(MARK):
-                dev.append(span)
-        else:
-            host.append(span)
-    dev.sort()
+        (dev if e.device_type() == torch.autograd.DeviceType.CUDA else host).append(span)
+    names = {h[2] for h in host}
+    dev = sorted(d for d in dev if d[2] not in names and not d[2].startswith(MARK))
     return dev, host
 
 

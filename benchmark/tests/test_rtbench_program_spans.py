@@ -4,7 +4,6 @@ CPU (the port's plain path, torch.profiler recording the host alone): each
 reads a positive finite number in its own cells and nothing in the others,
 and nothing from a port without utils/tracing."""
 
-import contextlib
 import math
 import sys
 import time
@@ -13,35 +12,26 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-import run as runmod
-from rtbench import core, program_spans, runner, scenes, trace
+from rtbench import core, program_spans, result, runner, scenes
 
-READERS = ("ladder_host_ms", "ladder_compact_ms", "ladder_live_pct", "epoch_host_ms",
-           "epoch_draws_ms")
-
-
-@contextlib.contextmanager
-def cpu_profiled(enabled):
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        yield prof
+READERS = ("ladder_host_ms", "ladder_live_pct", "epoch_host_ms", "epoch_draws_ms")
 
 
 def read_all(bench, rec, record, monkeypatch):
-    """run.per_layer over the run with every per-layer reader asked, the
+    """result.per_layer over the run with every per-layer reader asked, the
     port's record being `record`."""
     from raytracer_tpu_torch.utils import tracing
 
     monkeypatch.setattr(tracing, "take", lambda: record)
     monkeypatch.setattr(core, "cell_metrics", lambda b, c, kind: b[kind])
-    return runmod.per_layer(bench, rec)
+    return result.per_layer(bench, rec)
 
 
-def traced_run(cell, monkeypatch):
+def traced_run(cell):
     """One --trace 1 run of the cell at 32x24 on the CPU -> (bench, the
     run's record, the port's record of the window)."""
     from raytracer_tpu_torch.utils import tracing
 
-    monkeypatch.setattr(trace, "profiled", cpu_profiled)
     bench = core.benchmark_json()
     cfg = core.config(core.cell(bench, cell)["config"])
     cfg["render"].update(width=32, height=24)
@@ -64,11 +54,10 @@ def check_cell(cell, got):
 
 
 def test_preview_reads_the_ladders_spans_and_counters(monkeypatch):
-    bench, rec, record = traced_run("demo.preview", monkeypatch)
+    bench, rec, record = traced_run("demo.preview")
     got = read_all(bench, rec, record, monkeypatch)
     check_cell("demo.preview", got)
     assert got["ladder_live_pct"]["value"] <= 100.0
-    assert got["ladder_compact_ms"]["value"] < got["ladder_host_ms"]["value"]
     # each frame's span lies inside the harness's mark of the frame, and
     # fills it but for the harness's own few lines
     units = rec["trace"]["units"]
@@ -80,7 +69,7 @@ def test_preview_reads_the_ladders_spans_and_counters(monkeypatch):
 
 
 def test_progressive_reads_the_epochs_spans(monkeypatch):
-    bench, rec, record = traced_run("demo.progressive", monkeypatch)
+    bench, rec, record = traced_run("demo.progressive")
     got = read_all(bench, rec, record, monkeypatch)
     check_cell("demo.progressive", got)
     assert got["epoch_draws_ms"]["value"] < got["epoch_host_ms"]["value"]

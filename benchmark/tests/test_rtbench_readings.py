@@ -41,3 +41,40 @@ def test_readers_read_their_cells_and_nothing_else():
     # 11 M casts x (64 x 6 + 4 x 30) FLOP over 67 TFLOP/s: 0.0827 ms of 5 ms
     assert share == pytest.approx(100 * 11e6 * 504 / 67e12 * 1e3 / 5.0, rel=1e-6)
     assert read("frame_device_ops", _ctx("whitted")) == 30
+
+
+class _Event:
+    def __init__(self, name, start, dur, cuda):
+        self.args = (name, start, dur, cuda)
+
+    def name(self):
+        return self.args[0]
+
+    def start_ns(self):
+        return self.args[1]
+
+    def duration_ns(self):
+        return self.args[2]
+
+    def device_type(self):
+        import torch
+
+        return torch.autograd.DeviceType.CUDA if self.args[3] else torch.autograd.DeviceType.CPU
+
+
+def test_annotations_copied_onto_the_device_are_left_out():
+    """Kineto draws a record_function range (the harness's marks, c10d's
+    "nccl:all_reduce") on the device's timeline too: not device activity."""
+    from types import SimpleNamespace
+
+    evs = [_Event(trace.MARK + "window", 0, 100, False), _Event(trace.MARK + "window", 0, 100, True),
+           _Event("nccl:all_reduce", 10, 30, False), _Event("nccl:all_reduce", 12, 30, True),
+           _Event("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 14, 20, True),
+           _Event("cudaLaunchKernel", 15, 2, False), _Event("void rt::mc_kernel", 40, 50, True)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: evs)))
+    dev, host = trace.events(prof)
+    assert [d[2] for d in dev] == ["ncclDevKernel_AllReduce_Sum_f32_RING_LL", "void rt::mc_kernel"]
+    assert len(host) == 3
+    s = trace.summary(prof, "group")
+    assert s["busy_s"] == pytest.approx(70e-9) and s["device_ops"] == 2

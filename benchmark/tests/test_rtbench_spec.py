@@ -71,14 +71,15 @@ def test_every_file_loads_by_name(bench):
         mix = core.traffic(w["traffic"])
         entry = core.entry(mix["entry"])
         assert hasattr(entry, "Loop") and hasattr(entry, "check")
-        assert w["chips"] == 1  # the harness runs a cell on one card
+        mesh = core.config(w["config"]).get("mesh", {"dp": 1, "sp": 1})
+        assert mesh["dp"] * mesh["sp"] == w["chips"]  # a rank a card
         assert core.limits(w["name"])
     for m in bench["per_layer"]:
         assert callable(core.metric_reader(m["name"]).read)
 
 
 def test_result_line_keys(bench):
-    import run as runmod
+    from rtbench import result
 
     class Run:
         cell = {"name": "demo.progressive"}
@@ -87,7 +88,7 @@ def test_result_line_keys(bench):
     rec = {"correct": True, "win": {"units": 10, "wall_s": 0.1}, "e2e": {"epoch_ms": 10.0},
            "setup_s": 9.0, "peak": 123, "trace": None, "run": Run,
            "checks": {"photon_bad_share": {"value": 0.0, "limit": 0.1}}}
-    line = runmod.result_line(bench, rec, {"platform": "gpu", "kind": "x", "count": 1}, False)
+    line = result.result_line(bench, rec, {"platform": "gpu", "kind": "x", "count": 1}, False)
     assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     assert set(line["metrics"]) == {"setup_s", "epoch_ms"}
     assert line["device"]["memory_peak_bytes"] == 123
