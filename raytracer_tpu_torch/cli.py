@@ -174,8 +174,10 @@ def _scene(args, device):
         return scene, camera or demo_camera(device)
     preset = PRESETS[args.scene]
     takes_obj = "obj_path" in inspect.signature(preset).parameters
-    scene = preset(obj_path=args.obj, device=device) if takes_obj else preset(device=device)
-    return scene, demo_camera(device)
+    made = preset(obj_path=args.obj, device=device) if takes_obj else preset(device=device)
+    if isinstance(made, tuple):  # a preset with a view of its own (spd-balls)
+        return made
+    return made, demo_camera(device)
 
 
 def _warm_cache(scene, camera, cfg, args, device, mesh=None) -> None:

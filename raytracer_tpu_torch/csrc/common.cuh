@@ -172,7 +172,10 @@ __device__ __forceinline__ int cycles() {
 // shadow tests, and in interior marches (the rest of cyc_all is shading,
 // materials, sampling and the state).  Counting is chosen at compile time:
 // the main path's instantiations take NoWork, whose calls compile to
-// nothing; a launch given a `work` output takes Work.
+// nothing; an MC launch given a `sph_tests` output takes SphCount, which
+// counts its sphere tests alone (below); a launch given a `work` output
+// takes Work.  A sphere sweep also reports its tests in one call at its end
+// (sph_tests: nothing in Work, which has counted each).
 constexpr int WORK_ROWS = 16;
 
 struct Work {
@@ -194,6 +197,7 @@ struct Work {
   __device__ __forceinline__ void plane_test() { ++plane; }
   __device__ __forceinline__ void edge_test() { ++edge; }
   __device__ __forceinline__ void sph_test() { ++sph; }
+  __device__ __forceinline__ void sph_tests(int) {}
   __device__ __forceinline__ void box_test() { ++box; }
   __device__ __forceinline__ void box_tests(int n) { box += n; }
   __device__ __forceinline__ void chunk(int n = 1) { chunks += n; }
@@ -242,6 +246,10 @@ struct Work {
     atomicAdd(out + 4 * n + lane, box);
     atomicAdd(out + 5 * n + lane, chunks);
   }
+  // the lane's sphere tests into out [n], if given (SphCount's output)
+  __device__ __forceinline__ void put_sph(long long* __restrict__ out, int lane) const {
+    if (out) out[lane] = sph;
+  }
 };
 
 struct NoWork {
@@ -249,6 +257,7 @@ struct NoWork {
   __device__ __forceinline__ void plane_test() {}
   __device__ __forceinline__ void edge_test() {}
   __device__ __forceinline__ void sph_test() {}
+  __device__ __forceinline__ void sph_tests(int) {}
   __device__ __forceinline__ void box_test() {}
   __device__ __forceinline__ void box_tests(int) {}
   __device__ __forceinline__ void chunk(int = 1) {}
@@ -268,6 +277,19 @@ struct NoWork {
   __device__ __forceinline__ void add(const Part&) {}
   __device__ __forceinline__ void put(int*, int, int) const {}
   __device__ __forceinline__ void put_helped(int*, int, int) const {}
+  __device__ __forceinline__ void put_sph(long long*, int) const {}
+};
+
+// The MC walk's sphere counter (mc.sph_tests): NoWork, but each sphere
+// sweep adds the tests it made once, at its end, to one register, which
+// put_sph writes out.  A lane past the tile's end tests no sphere, so no
+// put_helped is needed.
+struct SphCount : NoWork {
+  int sph = 0;
+  __device__ __forceinline__ void sph_tests(int k) { sph += k; }
+  __device__ __forceinline__ void put_sph(long long* __restrict__ out, int lane) const {
+    if (out) out[lane] = sph;
+  }
 };
 
 struct V3 {
@@ -450,6 +472,7 @@ __device__ inline void sph_nearest(const Tables& tb, V3 o, V3 d, int face, int e
       best_bf = bf;
     }
   }
+  w.sph_tests(tb.n_sph);
 }
 
 // o + t d rounded as written, a product and then a sum, as the plain
@@ -794,12 +817,14 @@ __device__ inline bool blocked_tri_occluded(const Blk& bk, V3 p, int self_prim, 
 }
 
 // Spheres: the normalized direction `nd` toward the light and the
-// real-unit limit `slim`; shadow rays take the far shell.
+// real-unit limit `slim`; shadow rays take the far shell.  The tests made:
+// every sphere up to the first occluder, the shading point's own left out.
 template <class W>
 __device__ inline bool sph_occluded(const Tables& tb, V3 p, int self_prim, V3 nd, float slim,
                                     W& w) {
+  const int self_j = self_prim - tb.n_tri;  // in [0, n_sph) on a sphere's own point
   for (int j = 0; j < tb.n_sph; ++j) {
-    if (tb.n_tri + j == self_prim) continue;
+    if (j == self_j) continue;
     w.sph_test();
     const float* sp = tb.sph + j * SPH_COLS;
     V3 c = v3(sp[0] - p.x, sp[1] - p.y, sp[2] - p.z);
@@ -807,8 +832,12 @@ __device__ inline bool sph_occluded(const Tables& tb, V3 p, int self_prim, V3 nd
     float dist2 = qx * qx + qy * qy + qz * qz;
     float tc = nd.x * c.x + nd.y * c.y + nd.z * c.z;
     float t = tc + sqrtf(fmaxf(sp[3] - dist2, 0.0f));  // far shell
-    if (dist2 <= sp[3] && t > 0.0f && isfinite(t) && t < slim) return true;
+    if (dist2 <= sp[3] && t > 0.0f && isfinite(t) && t < slim) {
+      w.sph_tests(j + 1 - (self_j >= 0 && self_j < j));
+      return true;
+    }
   }
+  w.sph_tests(tb.n_sph - (self_j >= 0 && self_j < tb.n_sph));
   return false;
 }
 
@@ -840,6 +869,7 @@ __device__ inline BackHit finish_back(const Tables& tb, const float* __restrict_
       best_i = tb.n_tri + j;
     }
   }
+  w.sph_tests(tb.n_sph);
   BackHit b;
   b.t = best_t;
   b.prim = best_i;

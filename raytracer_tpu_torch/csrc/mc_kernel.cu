@@ -45,7 +45,10 @@
 // BlockedGeom instantiations are kept as the yardsticks that chip_smoke.py
 // holds the main path's walks against (rt_mc_trace_thread,
 // rt_mc_trace_blk_thread); no wrapper of the main path launches them.  W is
-// the test counter (common.cuh): NoWork on the main path, Work when the
+// the test counter (common.cuh): NoWork on the main path; SphCount, the same
+// walk counting its sphere tests alone, when the caller asks for them (a
+// traced epoch's mc.sph_tests: each sweep adds its tests to one register at
+// its end), so the untraced walk runs no counting instruction; Work when the
 // caller asks for the per-lane test counts.
 #include <type_traits>
 
@@ -65,7 +68,8 @@ __device__ __forceinline__ void mc_walk(const float* __restrict__ ray_o,
                                         const float* __restrict__ ray_d,
                                         const float* __restrict__ unifs, G g,
                                         float* __restrict__ photon, int* __restrict__ casts_out,
-                                        int* __restrict__ work_out, int n, int depth,
+                                        int* __restrict__ work_out,
+                                        long long* __restrict__ sph_out, int n, int depth,
                                         float max_distance, int max_retries) {
   g.stage();
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -132,6 +136,7 @@ __device__ __forceinline__ void mc_walk(const float* __restrict__ ray_o,
     photon[2 * n + lane] = acc.z + (alive ? scale.z * sh.z : 0.0f);
     casts_out[lane] = casts;
     w.put(work_out, n, lane);
+    w.put_sph(sph_out, lane);
   }
   if constexpr (G::COOP) {
     __syncwarp();
@@ -143,10 +148,11 @@ template <class G, class W>
 __global__ void __launch_bounds__(MC_THREADS)
 mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
           const float* __restrict__ unifs, G g, float* __restrict__ photon,
-          int* __restrict__ casts_out, int* __restrict__ work_out, int n, int depth,
-          float max_distance, int max_retries) {
-  mc_walk<G, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, n, depth, max_distance,
-                max_retries);
+          int* __restrict__ casts_out, int* __restrict__ work_out,
+          long long* __restrict__ sph_out, int n, int depth, float max_distance,
+          int max_retries) {
+  mc_walk<G, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, sph_out, n, depth,
+                max_distance, max_retries);
 }
 
 // The staged dense walk must fit 5 blocks an SM, which caps it at 96
@@ -160,10 +166,11 @@ template <class W>
 __global__ void __launch_bounds__(MC_THREADS, 5)
 mc_kernel_staged(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                  const float* __restrict__ unifs, SharedDense g, float* __restrict__ photon,
-                 int* __restrict__ casts_out, int* __restrict__ work_out, int n, int depth,
-                 float max_distance, int max_retries) {
-  mc_walk<SharedDense, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, n, depth,
-                          max_distance, max_retries);
+                 int* __restrict__ casts_out, int* __restrict__ work_out,
+                 long long* __restrict__ sph_out, int n, int depth, float max_distance,
+                 int max_retries) {
+  mc_walk<SharedDense, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, sph_out, n,
+                          depth, max_distance, max_retries);
 }
 
 // The kernel of geometry G and counter W.
@@ -177,17 +184,19 @@ constexpr auto mc_entry() {
 
 template <class G>
 int launch_mc(const float* ray_o, const float* ray_d, const float* unifs, G g, float* photon,
-              int* casts, int* work, int n, int depth, float max_distance, int max_retries,
-              void* stream) {
+              int* casts, int* work, long long* sph, int n, int depth, float max_distance,
+              int max_retries, void* stream) {
   int blocks = (n + MC_THREADS - 1) / MC_THREADS;
-  auto kernel = work ? mc_entry<G, Work>() : mc_entry<G, NoWork>();
+  auto kernel = work  ? mc_entry<G, Work>()
+                : sph ? mc_entry<G, SphCount>()
+                      : mc_entry<G, NoWork>();
   int shared = g.smem(MC_THREADS);
   if (shared) {
     int err = coop_opt_in((const void*)kernel, shared);
     if (err) return err;
   }
   kernel<<<blocks, MC_THREADS, shared, (cudaStream_t)stream>>>(
-      ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance, max_retries);
+      ray_o, ray_d, unifs, g, photon, casts, work, sph, n, depth, max_distance, max_retries);
   return (int)cudaGetLastError();
 }
 
@@ -197,19 +206,22 @@ extern "C" {
 
 // ray_o, ray_d: [3, n]; unifs: [depth, 3, n]; photon: [3, n]; casts: [n];
 // work: [WORK_ROWS, n] or null (null runs the instantiation that counts
-// nothing); hot: the [n_tri, 16] hot rows.  A table too large to stage
-// (DenseRowsGeom::fits) is walked per thread.
+// nothing, or with sph_tests given the one that counts sphere tests alone);
+// sph_tests: [n] int64, each lane's sphere tests, or null; hot: the [n_tri,
+// 16] hot rows.  A table too large to stage (DenseRowsGeom::fits) is walked
+// per thread.
 int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, const float* tri,
                 int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
                 const float* lights, int n_light, const float* hot, float* photon, int* casts,
-                int* work, int n, int depth, float max_distance, int max_retries, void* stream) {
+                int* work, long long* sph_tests, int n, int depth, float max_distance,
+                int max_retries, void* stream) {
   rt::Tables tb{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light};
   const float4* rows = (const float4*)hot;
   if (rt::SharedDense::fits(n_tri))
     return rt::launch_mc(ray_o, ray_d, unifs, rt::SharedDense{tb, rows}, photon, casts, work,
-                         n, depth, max_distance, max_retries, stream);
-  return rt::launch_mc(ray_o, ray_d, unifs, rt::DenseGeom{tb}, photon, casts, work, n, depth,
-                       max_distance, max_retries, stream);
+                         sph_tests, n, depth, max_distance, max_retries, stream);
+  return rt::launch_mc(ray_o, ray_d, unifs, rt::DenseGeom{tb}, photon, casts, work, sph_tests,
+                       n, depth, max_distance, max_retries, stream);
 }
 
 // The same walk with every thread reading the dense table from global
@@ -218,27 +230,29 @@ int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, cons
 int rt_mc_trace_thread(const float* ray_o, const float* ray_d, const float* unifs,
                        const float* tri, int n_tri, const float* sph, int n_sph, const float* mat,
                        int n_obj, const float* lights, int n_light, float* photon, int* casts,
-                       int* work, int n, int depth, float max_distance, int max_retries,
-                       void* stream) {
+                       int* work, long long* sph_tests, int n, int depth, float max_distance,
+                       int max_retries, void* stream) {
   rt::DenseGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light}};
-  return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance,
-                       max_retries, stream);
+  return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, sph_tests, n, depth,
+                       max_distance, max_retries, stream);
 }
 
 // The blocked instantiation: the warp-cooperative walk (tables as
 // rt_level_blk, then the hot rows [NCH * 128, 16], their ids [NCH * 128],
-// the chunks' live row counts [NCH] and the triangles' rows [n_tri]).
+// the chunks' live row counts [NCH] and the triangles' rows [n_tri]; then
+// as rt_mc_trace).
 int rt_mc_trace_blk(const float* ray_o, const float* ray_d, const float* unifs, const float* tri,
                     int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
                     const float* lights, int n_light, const float* btri, const float* box,
                     const float* sup, int n_chunks, const float* hot, const int* ids,
                     const int* live, const int* row_of_tri, float* photon, int* casts, int* work,
-                    int n, int depth, float max_distance, int max_retries, void* stream) {
+                    long long* sph_tests, int n, int depth, float max_distance, int max_retries,
+                    void* stream) {
   rt::CoopGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light},
                  rt::Blk{btri, box, sup, n_chunks},
                  rt::Hot{(const float4*)hot, ids, live, row_of_tri}};
-  return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance,
-                       max_retries, stream);
+  return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, sph_tests, n, depth,
+                       max_distance, max_retries, stream);
 }
 
 // The same walk with every thread traversing the blocked table alone
@@ -247,12 +261,12 @@ int rt_mc_trace_blk_thread(const float* ray_o, const float* ray_d, const float* 
                            const float* tri, int n_tri, const float* sph, int n_sph,
                            const float* mat, int n_obj, const float* lights, int n_light,
                            const float* btri, const float* box, const float* sup, int n_chunks,
-                           float* photon, int* casts, int* work, int n, int depth,
-                           float max_distance, int max_retries, void* stream) {
+                           float* photon, int* casts, int* work, long long* sph_tests, int n,
+                           int depth, float max_distance, int max_retries, void* stream) {
   rt::BlockedGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light},
                     rt::Blk{btri, box, sup, n_chunks}};
-  return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, n, depth, max_distance,
-                       max_retries, stream);
+  return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, sph_tests, n, depth,
+                       max_distance, max_retries, stream);
 }
 
 // Compiled attributes of instantiation `which` (0 dense: the staged walk,

@@ -352,6 +352,7 @@ def _sph_nearest(o, d, face, excl_prim, excl_face, active, tb: Tables,
                  best_t, best_i, best_bf):
     """Spheres after the triangles: they win exact ties (update on <=)."""
     if tb.n_sph > 0:
+        _sph_tests(active, tb.n_sph)
         tm, backface = sph_candidates(o, d, face, excl_prim, excl_face, active, tb)
         prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32,
                                        device=best_t.device)[:, None]
@@ -535,10 +536,10 @@ class _ShadowSweep:
         return ok.any(dim=0)
 
     def blocked(self, lt):
-        out = self.sph.blocked(lt)
-        if self.tb.n_tri > 0:
-            out = out | self._tri_blocked(lt)
-        return out
+        if self.tb.n_tri == 0:
+            return self.sph.blocked(lt, lt["act"])
+        tri = self._tri_blocked(lt)
+        return tri | self.sph.blocked(lt, lt["act"] & ~tri)
 
 
 class _SphShadow:
@@ -555,8 +556,13 @@ class _SphShadow:
             self.wz = _col(sph, 2) - pz
             prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=px.device)[:, None]
             self.not_self_sph = self_prim != prim
+            self.self_j = (self_prim - tb.n_tri).long()
 
-    def blocked(self, lt):
+    def blocked(self, lt, tested):
+        """Lanes whose shadow ray toward light `lt` a sphere occludes.
+        tested: the lanes that the kernels sweep the spheres for (the ray
+        considered and no triangle occluding it), counted where
+        count_sph_tests is counting."""
         if self.tb.n_sph == 0:
             return self.none
         r2 = _col(self.tb.sph, 3)
@@ -571,7 +577,15 @@ class _SphShadow:
         t = tc + kk  # shadow rays are Back-face rays: far shell
         ok = ((dist2 <= r2) & (t > 0.0) & self.not_self_sph & lt["act"]
               & torch.isfinite(t) & (t < lt["slim"]))
-        return ok.any(dim=0)
+        occluded = ok.any(dim=0)
+        if _sph_log is not None:
+            # the kernels' early exit: every sphere up to the first
+            # occluder, the shading point's own left out
+            n = self.tb.n_sph
+            end = torch.where(occluded, ok.to(torch.int8).argmax(dim=0) + 1, n)
+            own = (self.self_j >= 0) & (self.self_j < end)
+            _sph_tests(tested, end - own.long())
+        return occluded
 
 
 def get_shade(m, geom, px, py, pz, nax, nay, naz, vdx, vdy, vdz,
@@ -696,6 +710,7 @@ def _finish_back(p, d, active, tb: Tables, best_t, best_i, tri_rows, tri_row):
     dev = px.device
     n_tri, n_sph = tb.n_tri, tb.n_sph
     if n_sph > 0:
+        _sph_tests(active, n_sph)
         sph = tb.sph
         wx, wy, wz = _col(sph, 0) - px, _col(sph, 1) - py, _col(sph, 2) - pz
         qx = wy * dz - wz * dy
@@ -882,6 +897,33 @@ def count_chunks(n_lanes: int, device="cpu", groups=(32,)):
         _chunk_log = None
 
 
+_sph_log: torch.Tensor | None = None  # count_sph_tests' per-lane counts
+
+
+@contextlib.contextmanager
+def count_sph_tests(n_lanes: int, device="cpu"):
+    """Count the sphere tests of the plain sweeps of n_lanes lanes inside
+    the block, as the MC kernel counts them (csrc/common.cuh SphCount; the
+    `sph` row of WORK_ROWS) -> int64 [n_lanes], each lane's: each nearest or
+    interior sweep tests every sphere for each of its active lanes; a shadow
+    ray tests none when a triangle occludes it, else every sphere up to its
+    first occluder, the shading point's own left out.  Every sweep inside
+    must run on these n_lanes lanes."""
+    global _sph_log
+    lanes = _sph_log = torch.zeros(n_lanes, dtype=torch.int64, device=device)
+    try:
+        yield lanes
+    finally:
+        _sph_log = None
+
+
+def _sph_tests(lanes: torch.Tensor, tests) -> None:
+    """Add `tests` (a number, or [R]) to each lane of mask `lanes`, where
+    count_sph_tests is counting."""
+    if _sph_log is not None:
+        _sph_log.add_(torch.where(lanes, torch.as_tensor(tests, dtype=torch.int64), 0))
+
+
 def _shared_pass():
     """One pass for the sweeps inside, where a ChunkLog is active."""
     return _chunk_log.one_pass() if _chunk_log is not None else contextlib.nullcontext()
@@ -996,8 +1038,7 @@ class _BlockedShadowSweep:
         s = lt["s"]
         dx, dy, dz = lt["tx"] - s * px, lt["ty"] - s * py, lt["tz"] - s * pz
         lim = lt["tlim"]
-        out = self.sph.blocked(lt)
-        hit = torch.zeros_like(out)
+        hit = torch.zeros_like(lt["act"])
         pending = lambda: lt["act"] & ~hit
         for c, enter in _chunks(self.bt, self.p, (1.0 / dx, 1.0 / dy, 1.0 / dz),
                                 lambda: lim, pending):
@@ -1014,7 +1055,7 @@ class _BlockedShadowSweep:
                 ok = ok & (ogh + t * (g0 * dx + g1 * dy + g2 * dz) >= 0.0)
             ok = ok & torch.isfinite(t) & (t < lim) & enter
             hit = hit | ok.any(dim=0)
-        return out | hit
+        return hit | self.sph.blocked(lt, lt["act"] & ~hit)
 
 
 class DenseGeom:

@@ -20,6 +20,12 @@ on this route traces the whole frame in one call (render.epoch_frame).
 The random draws are an operand ([depth, 3, N] uniforms: roulette u, lobe
 u_phi, lobe theta), so the kernel, the plain version and the JAX package
 can be fed identical randomness and compared lane for lane.
+
+Asked to (`sph_tests=`), the walk counts its sphere tests: every sweep's,
+added once at its end (csrc/common.cuh SphCount, launched only then, so the
+untraced walk runs no counting instruction; the plain version through
+kernel_common.count_sph_tests).  Inside a unit that utils/tracing records,
+`trace` asks, and adds the call's sum to the counter `mc.sph_tests`.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from raytracer_tpu_torch.ops import kernel_common as kc
 from raytracer_tpu_torch.scene.textures import kernel_textures_ok
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, NO_EXCLUDE, Scene
-from raytracer_tpu_torch.utils import kernels
+from raytracer_tpu_torch.utils import kernels, tracing
 
 
 COUNTS = kernels.LaunchCounts()  # the dense instantiation
@@ -208,7 +214,8 @@ def trace_plain(geom, textures, ray_o, ray_d, unifs, depth: int,
 
 
 def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
-          max_retries: int, work: torch.Tensor | None = None):
+          max_retries: int, work: torch.Tensor | None = None,
+          sph_tests: torch.Tensor | None = None):
     """One MC sample per primary ray -> (photon [N, 3] UNfiltered, casts
     0-d tensor).  unifs: [depth, 3, N] float32.
 
@@ -217,32 +224,49 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     blocked one on a blocked scene) or raise — there is no fallback.
     `work`: an optional int32 [len(kernels.WORK_ROWS), N] tensor; given one,
     the kernel's counting instantiation fills it with each lane's tests by
-    kind."""
+    kind.  `sph_tests`: an optional int64 [N] tensor; given one, it
+    receives each lane's sphere tests.  Inside a recorded unit
+    (utils/tracing) their sum is counted as `mc.sph_tests`."""
+    n, dev = ray_o.shape[0], ray_o.device
+    if sph_tests is None and tracing.active():
+        sph_tests = torch.empty((n,), dtype=torch.int64, device=dev)
     counts = COUNTS_BLK if scene.blocked else COUNTS
-    if ray_o.device.type == "cpu":
+    if dev.type == "cpu":
         counts.plain += 1
-        return trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
-                           depth, max_distance, max_retries)
-    return _launch("rt_mc_trace_blk" if scene.blocked else "rt_mc_trace", True, counts, scene,
-                   ray_o, ray_d, unifs, depth, max_distance, max_retries, work)
+        if sph_tests is None:
+            return trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
+                               depth, max_distance, max_retries)
+        kernels.check("sph_tests", sph_tests, torch.int64, (n,), dev)
+        with kc.count_sph_tests(n, dev) as lanes:
+            out = trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
+                              depth, max_distance, max_retries)
+        sph_tests.copy_(lanes)
+    else:
+        out = _launch("rt_mc_trace_blk" if scene.blocked else "rt_mc_trace", True, counts,
+                      scene, ray_o, ray_d, unifs, depth, max_distance, max_retries, work,
+                      sph_tests)
+    if sph_tests is not None:
+        tracing.count("mc.sph_tests", sph_tests)
+    return out
 
 
 def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
-                     max_retries: int, work: torch.Tensor | None = None):
+                     max_retries: int, work: torch.Tensor | None = None,
+                     sph_tests: torch.Tensor | None = None):
     """`trace` on CUDA tensors through the kernel's per-thread
     instantiation (every thread sweeps the dense table, or walks its own
     chunk list, out of global memory alone).  The main path's walk must
     give its photons, casts and test counts; nothing on the main path calls
-    this."""
+    this, and it counts nothing into utils/tracing."""
     if scene.blocked:
         return _launch("rt_mc_trace_blk_thread", False, COUNTS_BLK_THREAD, scene, ray_o, ray_d,
-                       unifs, depth, max_distance, max_retries, work)
+                       unifs, depth, max_distance, max_retries, work, sph_tests)
     return _launch("rt_mc_trace_thread", False, COUNTS_THREAD, scene, ray_o, ray_d, unifs, depth,
-                   max_distance, max_retries, work)
+                   max_distance, max_retries, work, sph_tests)
 
 
 def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, depth,
-            max_distance, max_retries, work):
+            max_distance, max_retries, work, sph_tests):
     """Check the operands and launch C entry `entry` (`hot`: it takes the
     hot rows of the staged or cooperative walk) and advance its launch
     counter `counts`."""
@@ -259,12 +283,14 @@ def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, de
     kernels.check("ray_d", ray_d, torch.float32, (n, 3), dev)
     kernels.check("unifs", unifs, torch.float32, (depth, 3, n), dev)
     kernels.check_work(work, n, dev)
+    if sph_tests is not None:
+        kernels.check("sph_tests", sph_tests, torch.int64, (n,), dev)
     o_t = ray_o.t().contiguous()
     d_t = ray_d.t().contiguous()
     photon = torch.empty((3, n), dtype=torch.float32, device=dev)
     casts = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         kernels.launch(entry, o_t, d_t, unifs, *kc.kernel_geometry(tb, bt, hot), photon,
-                       casts, work, n, depth, float(max_distance), int(max_retries))
+                       casts, work, sph_tests, n, depth, float(max_distance), int(max_retries))
         counts.launches += 1
     return photon.t(), casts.sum()

@@ -43,6 +43,7 @@ from raytracer_tpu_torch.parallel.mesh import (
     train_steps_sharded,
 )
 from raytracer_tpu_torch.scene.types import Camera, Scene
+from raytracer_tpu_torch.utils import tracing
 from raytracer_tpu_torch.utils.color import linear_to_u8
 from raytracer_tpu_torch.utils.png import write_png_atomic
 
@@ -127,15 +128,20 @@ def check_finite(x: torch.Tensor, stage: str, epoch: int) -> None:
 
 def _output_job(out_path, checkpoint_path, on_epoch, log, u8, snap, epoch, seed, stats, dt):
     """The writer thread's work after a group of epochs: the throughput
-    line, the PNG, the checkpoint, the callback."""
+    line, the PNG, the checkpoint, the callback.  A unit of utils/tracing
+    (`rt.png.job`, id: the epoch) when the caller's thread records: the
+    profiler does not see the writer's."""
+    recorded = tracing.recording()
+
     def job():
-        kept = stats["primary_rays"] - stats["filtered"]
-        log(f"{kept} rays in {dt * 1e3:.0f} ms ({stats['casts'] / dt:,.0f} casts/s)")
-        write_png_atomic(out_path, u8)
-        if checkpoint_path:
-            save_checkpoint(checkpoint_path, snap, epoch, seed)
-        if on_epoch:
-            on_epoch(epoch, stats)
+        with tracing.unit("rt.png.job", epoch, recorded=recorded):
+            kept = stats["primary_rays"] - stats["filtered"]
+            log(f"{kept} rays in {dt * 1e3:.0f} ms ({stats['casts'] / dt:,.0f} casts/s)")
+            write_png_atomic(out_path, u8)
+            if checkpoint_path:
+                save_checkpoint(checkpoint_path, snap, epoch, seed)
+            if on_epoch:
+                on_epoch(epoch, stats)
     return job
 
 
@@ -218,6 +224,7 @@ def render_progressive(
                                                     state.seed, k, state.epoch, check)
             state = ProgressiveState(img=img, epoch=state.epoch + k, seed=state.seed)
             casts, filtered = counters.tolist()  # one read a group; waits for the device
+            tracing.settle()  # the group's device counts, while the host waits anyway
             if not lead:
                 continue
             u8 = u8.cpu().numpy()

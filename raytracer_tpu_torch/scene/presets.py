@@ -10,6 +10,10 @@ presets.py:321-410, the heightfield terrain `mesh_scene` that the JAX
 package's mesh bench and goldens render.  A maker returns a Scene whose
 `textures` are DEFAULT_TEXTURES (the JAX makers return a (scene,
 textures) pair); makers build on the card unless given device="cpu".
+
+The port's own preset, with no JAX counterpart: `spd-balls`, the
+sphereflake of the Standard Procedural Databases (7,381 spheres, its own
+z-up view), whose maker returns (scene, camera).
 """
 
 from __future__ import annotations
@@ -380,6 +384,121 @@ def mesh_scene(grid: int = 24, device=DEFAULT_DEVICE) -> tuple[Scene, Camera]:
     return b.build(use_bvh=True, device=device), cam
 
 
+# ---------------------------------------------------------------------------
+# SPD `balls`: the sphereflake of E. Haines's Standard Procedural Databases
+# ---------------------------------------------------------------------------
+
+def _axis_angle(axis, angle: float) -> np.ndarray:
+    """The right-handed rotation by `angle` about `axis` (Rodrigues), float64."""
+    k = np.asarray(axis, np.float64)
+    k = k / np.linalg.norm(k)
+    cross = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return (np.eye(3) * np.cos(angle) + np.sin(angle) * cross
+            + (1.0 - np.cos(angle)) * np.outer(k, k))
+
+
+def _from_z(a: np.ndarray) -> np.ndarray:
+    """The rotation carrying +z onto the unit vector a along the shortest
+    arc (the identity for +z; by pi about +x for -z)."""
+    v = np.array([-a[1], a[0], 0.0])  # +z x a
+    if np.linalg.norm(v) < 1e-12:
+        return np.eye(3) if a[2] > 0.0 else np.diag([1.0, -1.0, -1.0])
+    cross = np.array([[0.0, -v[2], v[1]], [v[2], 0.0, -v[0]], [-v[1], v[0], 0.0]])
+    return np.eye(3) + cross + cross @ cross / (1.0 + a[2])
+
+
+def spd_objset() -> np.ndarray:
+    """The 9 unit directions of a sphere's children about its axis +z
+    (balls.c's objset): (1, 1, 0), (1, 0, -1), (0, 1, -1) over sqrt(2),
+    rotated by asin(2 / sqrt(6)) about (1, -1, 0) / sqrt(2), then copied
+    about +z at 0, 120 and 240 degrees: six on the equator, three at
+    z = sqrt(2/3)."""
+    s = 1.0 / np.sqrt(2.0)
+    tilt = _axis_angle((1.0, -1.0, 0.0), np.arcsin(2.0 / np.sqrt(6.0)))
+    base = np.array([[s, s, 0.0], [s, 0.0, -s], [0.0, s, -s]]) @ tilt.T
+    return np.array([_axis_angle((0.0, 0.0, 1.0), a) @ v
+                     for a in (0.0, 2.0 * np.pi / 3.0, 4.0 * np.pi / 3.0) for v in base])
+
+
+def spd_balls_spheres(size_factor: int = 4):
+    """The sphereflake's spheres, depth first, in float64 -> (centers [S, 3],
+    radii [S], parent [S] (-1 for the root)).  The root: (0, 0, 0), radius
+    0.5, axis +z; a sphere (c, r, axis a) with levels left gets 9 children,
+    one along each d = R o (R carries +z onto a, o in spd_objset()), at
+    c + d (r + r/3) with radius r/3 and axis d: each touches its parent.
+    size_factor levels below the root: (9^(size_factor+1) - 1) / 8 spheres."""
+    objset = spd_objset()
+    centers, radii, parents = [], [], []
+
+    def add(c, r, axis, levels, parent):
+        index = len(centers)
+        centers.append(c)
+        radii.append(r)
+        parents.append(parent)
+        if levels:
+            rot = _from_z(axis)
+            for o in objset:
+                d = rot @ o
+                add(c + d * (r + r / 3.0), r / 3.0, d, levels - 1, index)
+
+    add(np.zeros(3), 0.5, np.array([0.0, 0.0, 1.0]), size_factor, -1)
+    return np.array(centers), np.array(radii), np.array(parents)
+
+
+SPD_BALLS_SPHERE = MaterialSpec(  # NFF "f 1 .9 .7 Kd 0.5 Ks 0.5 Shine 3"
+    diffuse_color=(0.5, 0.45, 0.35), shiness=0.5, specular_color=WHITE,
+    smoothness=1.0 / 3.0)
+SPD_BALLS_FLOOR = MaterialSpec(  # NFF "f 1 .75 .33 Kd 0.8 Ks 0"
+    diffuse_color=(0.8, 0.6, 0.264), shiness=0.0, specular_color=WHITE)
+
+
+def spd_balls_builder(size_factor: int = 4) -> SceneBuilder:
+    """SPD `balls` (E. Haines, IEEE CG&A 7(11), 1987), z up: the sphereflake
+    of spd_balls_spheres over a floor square at z = -0.5 (half-side 12, two
+    triangles), under three white point lights of intensity 1/sqrt(3).
+    Materials map NFF's onto MaterialSpec: diffuse_color = Kd x colour,
+    shiness = Ks (the reflect weight), smoothness = 1 / Phong power (the
+    specular exponent is 1 / smoothness)."""
+    b = SceneBuilder()
+    h, z = 12.0, -0.5
+    b.push_object(SPD_BALLS_FLOOR).push_triangles(square([
+        ((-h, -h, z), (0.0, 0.0)), ((h, -h, z), (1.0, 0.0)),
+        ((h, h, z), (1.0, 1.0)), ((-h, h, z), (0.0, 1.0)),
+    ]))
+    flake = b.push_object(SPD_BALLS_SPHERE)
+    centers, radii, _ = spd_balls_spheres(size_factor)
+    for c, r in zip(centers, radii):
+        flake.push_sphere(c, float(r))
+    white = np.full(3, 1.0 / np.sqrt(3.0))
+    for origin in ((4.0, 3.0, 2.0), (1.0, -4.0, 4.0), (-3.0, 1.0, 5.0)):
+        b.push_point_light(origin=origin, color=white)
+    return b
+
+
+# NFF's `angle` is the whole vertical field of view; the camera's fovy
+# scales clip coordinates of +-0.5 by tan(fovy / 2) (main.rs:85-90), so an
+# angle A takes fovy = 2 atan(2 tan(A / 2)).
+SPD_BALLS_FOVY_DEG = 2.0 * float(np.degrees(np.arctan(2.0 * np.tan(np.radians(45.0 / 2.0)))))
+
+
+def spd_balls_camera(device=DEFAULT_DEVICE) -> Camera:
+    """SPD `balls`' view: from (2.1, 1.3, 1.7) toward the origin, up +z,
+    a 45 degree field of view (SPD_BALLS_FOVY_DEG); the rays start at the
+    eye (near 0), 3.0 from the flake's centre, the renderer's default
+    focus."""
+    eye = np.asarray([2.1, 1.3, 1.7])
+    return Camera.create(fovy_deg=SPD_BALLS_FOVY_DEG, center=eye,
+                         toward=-eye / np.linalg.norm(eye), up=(0.0, 0.0, 1.0), near=0.0,
+                         device=device)
+
+
+def spd_balls_scene(size_factor: int = 4, device=DEFAULT_DEVICE) -> tuple[Scene, Camera]:
+    """SPD `balls` at `size_factor` (4: 7,381 spheres and the 2-triangle
+    floor, on the dense walks) -> (scene, its own camera)."""
+    return (spd_balls_builder(size_factor).build(device=device),
+            spd_balls_camera(device))
+
+
 PRESETS = {
     "01-spheres": spheres_scene,
     "02-triangles": triangles_scene,
@@ -391,4 +510,5 @@ PRESETS = {
     "08-full": full_scene,
     "full": full_scene,
     "demo": demo_scene,
+    "spd-balls": spd_balls_scene,  # the port's own: returns (scene, camera)
 }

@@ -37,9 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures: p = pointer (a CUDA tensor), o = optional pointer (a CUDA
 # tensor or None), i = int, f = float; every entry also takes the CUDA
-# stream last.  The one optional pointer is `work`: given a tensor, the
-# entry runs the instantiation that counts each lane's tests into it
-# (WORK_ROWS); None runs the main path's, which counts nothing.
+# stream last.  The optional pointer `work`: given a tensor, the entry runs
+# the instantiation that counts each lane's tests into it (WORK_ROWS); None
+# runs the main path's, which counts nothing.  The MC entries' second
+# optional pointer, `sph_tests` (int64 [n]): given a tensor, the main path's
+# walk counting its sphere tests alone fills it with each lane's.
 _TABLES = "p" + "ip" * 3 + "i"  # tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light
 _BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
 # what the warp-cooperative walks read besides: hot rows, their ids, the
@@ -49,12 +51,12 @@ _HOT = "pppp"
 _GEO = "pipi"  # tri, n_tri, sph, n_sph
 _RAYS = "pppppp"  # ray_o, ray_d, face, excl_prim, excl_face, active
 SIGNATURES = {
-    # ray_o, ray_d, unifs, tables, photon, casts, work, n, depth,
-    # max_distance, max_retries
-    "rt_mc_trace": "ppp" + _TABLES + "p" + "ppo" + "ii" + "fi",
-    "rt_mc_trace_thread": "ppp" + _TABLES + "ppo" + "ii" + "fi",
-    "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + _HOT + "ppo" + "ii" + "fi",
-    "rt_mc_trace_blk_thread": "ppp" + _TABLES + _BLK + "ppo" + "ii" + "fi",
+    # ray_o, ray_d, unifs, tables, photon, casts, work, (sph_tests,) n,
+    # depth, max_distance, max_retries
+    "rt_mc_trace": "ppp" + _TABLES + "p" + "ppoo" + "ii" + "fi",
+    "rt_mc_trace_thread": "ppp" + _TABLES + "ppoo" + "ii" + "fi",
+    "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + _HOT + "ppoo" + "ii" + "fi",
+    "rt_mc_trace_blk_thread": "ppp" + _TABLES + _BLK + "ppoo" + "ii" + "fi",
     # pf, pi, tables, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
     # threshold, max_distance, max_retries
     "rt_level": "pp" + _TABLES + "p" + "ppppppo" + "iii" + "ffi",

@@ -5,7 +5,9 @@ atomically, so a killed progressive render always leaves a valid image
 (src/main.rs:764-776).  write_png_atomic takes the C++ writer
 (utils/native.py) when its library loads, as the JAX package does; this
 module's encoder is the pure-Python path and what the native writer is
-tested against.
+tested against.  Inside a unit that utils/tracing records, the phases are
+spans: `rt.png.encode` (the Python encoder) and `rt.png.write` (the temp
+file written, fsynced and renamed; the native writer's encode too).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from raytracer_tpu_torch.utils import tracing
 
 
 def _chunk(tag: bytes, payload: bytes) -> bytes:
@@ -66,9 +70,13 @@ def write_png_atomic(path: str, rgb: np.ndarray) -> None:
     from raytracer_tpu_torch.utils import native
 
     if native.available():
-        native.write_png_atomic(path, rgb)
+        with tracing.span("rt.png.write"):
+            native.write_png_atomic(path, rgb)
         return
-    os.replace(write_tmp(path, encode_png_rgb8(rgb)), path)
+    with tracing.span("rt.png.encode"):
+        data = encode_png_rgb8(rgb)
+    with tracing.span("rt.png.write"):
+        os.replace(write_tmp(path, data), path)
 
 
 def write_tmp(path: str, data: bytes) -> str:

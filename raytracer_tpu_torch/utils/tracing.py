@@ -32,14 +32,18 @@ host), so that a count of a traced window's device operations can leave
 them out.
 
 Span names start with `rt.`.  Units and spans of one process share one
-recorder; the render calls them from one thread and counts on one device.
-A profiler left on with no take() fills the record up to MAX_SPANS spans;
-later units are not recorded until a take() empties it.
+recorder, which keeps each thread's open unit and spans apart; the render
+counts from one thread and on one device.  A torch.profiler sees only the
+thread that started it: a thread of the program's own (the PNG writer)
+records a unit that its caller's `recording()` asked for, and its spans have
+no Kineto twin.  A profiler left on with no take() fills the record up to
+MAX_SPANS spans; later units are not recorded until a take() empties it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -65,14 +69,22 @@ class Record(NamedTuple):
     counters: Dict[str, int]
 
 
-class Recorder:
-    """What the process has recorded since the last take."""
+class _Thread(threading.local):
+    """A thread's place in the record."""
 
     def __init__(self):
         self.on = False  # inside a recorded unit
         self.uid = None  # that unit's id
-        self.rows: list = []  # [name, start, end, parent, unit, attrs], in opening order
         self.stack: list = []  # indices of the open rows
+
+
+class Recorder:
+    """What the process has recorded since the last take."""
+
+    def __init__(self):
+        self.t = _Thread()
+        self.lock = threading.Lock()  # a row's index and its append, across threads
+        self.rows: list = []  # [name, start, end, parent, unit, attrs], in opening order
         self.counts: Dict[str, int] = {}
         # dtype -> (buffer, the counter of each slot used), not yet read
         self.device: dict = {}
@@ -105,8 +117,8 @@ class Recorder:
         self.device = {}
 
     def take(self) -> Record:
-        if self.stack:
-            raise RuntimeError(f"take() inside the open span {self.rows[self.stack[-1]][0]}")
+        if self.t.stack:
+            raise RuntimeError(f"take() inside the open span {self.rows[self.t.stack[-1]][0]}")
         self.settle()
         spans = [Span(*row) for row in self.rows]
         counts, self.rows, self.counts = self.counts, [], {}
@@ -125,32 +137,43 @@ class _Open:
         self.name, self.uid, self.attrs = name, uid, attrs
 
     def __enter__(self):
-        rec = _REC
-        self.outer = (rec.on, rec.uid)
+        rec, t = _REC, _REC.t
+        self.outer = (t.on, t.uid)
         if self.uid is not None:
-            rec.on, rec.uid = True, self.uid
+            t.on, t.uid = True, self.uid
         self.fast = torch._C._profiler._RecordFunctionFast(self.name)
         self.fast.__enter__()
-        self.row = [self.name, time.time_ns(), None, rec.stack[-1] if rec.stack else None,
-                    rec.uid, self.attrs]
-        rec.stack.append(len(rec.rows))
-        rec.rows.append(self.row)
+        self.row = [self.name, time.time_ns(), None, t.stack[-1] if t.stack else None,
+                    t.uid, self.attrs]
+        with rec.lock:
+            t.stack.append(len(rec.rows))
+            rec.rows.append(self.row)
         return self
 
     def __exit__(self, *exc):
         self.row[2] = time.time_ns()
-        rec = _REC
-        rec.stack.pop()
-        rec.on, rec.uid = self.outer
+        t = _REC.t
+        t.stack.pop()
+        t.on, t.uid = self.outer
         self.fast.__exit__(*exc)
         return False
 
 
-def unit(name: str, uid=None):
+def recording() -> bool:
+    """Would a unit opened now on this thread be recorded: inside a
+    recorded unit, or under a recording torch.profiler?"""
+    return _REC.t.on or torch._C._autograd._profiler_enabled()
+
+
+def unit(name: str, uid=None, recorded=None):
     """A top-level unit of work: recorded, with its spans and counters, if a
-    torch.profiler is recording as it opens.  uid: its id (default: the
-    number of units of this name opened before it while recording)."""
-    if not (_REC.on or torch._C._autograd._profiler_enabled()) or len(_REC.rows) >= MAX_SPANS:
+    torch.profiler is recording as it opens (`recorded`: the caller's
+    decision in its place, for a thread that the profiler does not see).
+    uid: its id (default: the number of units of this name opened before
+    it while recording)."""
+    if recorded is None:
+        recorded = recording()
+    if not recorded or len(_REC.rows) >= MAX_SPANS:
         return _NULL
     if uid is None:
         uid = _REC.numbers.get(name, 0)
@@ -160,7 +183,7 @@ def unit(name: str, uid=None):
 
 def span(name: str, **attrs):
     """A span inside the open unit (nothing outside a recorded one)."""
-    if not _REC.on:
+    if not _REC.t.on:
         return _NULL
     return _Open(name, None, attrs)
 
@@ -168,7 +191,7 @@ def span(name: str, **attrs):
 def active() -> bool:
     """Is a unit being recorded, or are counts redirected?  Guards work done
     only to be counted."""
-    return _REC.on or _REC.sink is not None
+    return _REC.t.on or _REC.sink is not None
 
 
 def count(name: str, value) -> None:
@@ -178,7 +201,7 @@ def count(name: str, value) -> None:
     if _REC.sink is not None:
         _REC.sink(name, value)
         return
-    if not _REC.on:
+    if not _REC.t.on:
         return
     if isinstance(value, torch.Tensor):
         _REC.add(name, value)
@@ -195,12 +218,12 @@ def redirect(sink):
     recorded, and active() does not hold."""
     if _REC.sink is not None:
         raise RuntimeError("counts are already redirected")
-    outer = (_REC.on, _REC.sink)
-    _REC.on, _REC.sink = False, sink
+    outer = (_REC.t.on, _REC.sink)
+    _REC.t.on, _REC.sink = False, sink
     try:
         yield
     finally:
-        _REC.on, _REC.sink = outer
+        _REC.t.on, _REC.sink = outer
 
 
 def settle() -> None:

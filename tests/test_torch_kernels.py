@@ -30,14 +30,14 @@ def _c_entries() -> dict[str, list[str]]:
 
 def _code(param: str) -> str:
     if "*" in param:
-        return "o" if param.split("*")[-1].strip() == "work" else "p"
+        return "o" if param.split("*")[-1].strip() in ("work", "sph_tests") else "p"
     return {"int": "i", "float": "f"}[param.split()[0]]
 
 
 def test_c_entries_match_signatures():
     """Every bound entry exists with SIGNATURES' types in order, the stream
     last, and `work` is its one optional pointer (the ordered delivery,
-    which runs no tests, has none)."""
+    which runs no tests, has none; the MC walks have `sph_tests` too)."""
     entries = _c_entries()
     assert {"rt_nearest_hit", "rt_any_hit", "rt_shadow_any_hit", "rt_march"} <= set(entries)
     assert {"intersect_kernels.cu", "march_kernel.cu"} <= set(kernels.SOURCES)
@@ -47,7 +47,8 @@ def test_c_entries_match_signatures():
         params = entries[name]
         assert params[-1] == "void* stream", (name, params[-1])
         assert "".join(_code(p) for p in params[:-1]) == sig, name
-        assert sig.count("o") == (0 if name == "rt_deliver" else 1), name
+        want = 0 if name == "rt_deliver" else 2 if name.startswith("rt_mc_trace") else 1
+        assert sig.count("o") == want, name
     for entry, _ in kernels.ATTRS.values():
         n_tri = ["int n_tri"] if entry in kernels.ATTRS_N_TRI else []
         assert entries[entry] == ["int which", *n_tri, "int* out"], entry

@@ -46,7 +46,8 @@ def from_jax(jscene):
 
 
 def test_presets_have_the_jax_keys_and_makers():
-    assert sorted(tpresets.PRESETS) == sorted(jpresets.PRESETS)
+    """Every preset of the JAX package, and the port's own `spd-balls`."""
+    assert sorted(tpresets.PRESETS) == sorted([*jpresets.PRESETS, "spd-balls"])
     for key, maker in jpresets.PRESETS.items():
         assert tpresets.PRESETS[key].__name__ == maker.__name__, key
 

@@ -235,3 +235,60 @@ def test_a_full_device_buffer_is_read_at_once(monkeypatch):
     # read as the third and the fifth count find the buffer full, then by take()
     assert tracing.take().counters == {"n": 4 * (0 + 1 + 2 + 3 + 4), "tracing.sums": 5,
                                        "tracing.reads": 3}
+
+
+def test_units_on_several_threads_keep_their_own_spans():
+    """Each thread keeps its own open unit and spans: a span's parent is the
+    unit its own thread opened, however the threads interleave."""
+    import sys
+    import threading
+
+    n_threads, n_units = 8, 40
+    tracing.take()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(t):
+            for i in range(n_units):
+                with tracing.unit("rt.test", uid=(t, i), recorded=True):
+                    with tracing.span("rt.test.child", t=t):
+                        with tracing.span("rt.test.leaf"):
+                            pass
+
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    spans = tracing.take().spans
+    assert len(spans) == 3 * n_threads * n_units
+    for s in spans:
+        if s.name == "rt.test":
+            assert s.parent is None
+            continue
+        parent = spans[s.parent]
+        assert parent.unit == s.unit, (s, parent)
+        assert parent.name == ("rt.test" if s.name == "rt.test.child" else "rt.test.child")
+    assert not tracing.active()
+
+
+def test_the_png_writers_spans_are_units_of_its_thread(demo, tmp_path):
+    """render_progressive's writer thread records a unit `rt.png.job` an
+    epoch (id: the epoch it ends) holding the PNG's phases, as the thread
+    that started the profiler asks; the epochs' own units are untouched."""
+    from raytracer_tpu_torch.parallel.progressive import render_progressive
+
+    cfg = RenderConfig(width=64, height=48, depth=2, tile_rays=1024, epochs=2)
+    tracing.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        render_progressive(*demo, cfg, out_path=str(tmp_path / "out.png"), log=lambda m: None)
+    spans = tracing.take().spans
+    jobs = [s for s in spans if s.name == "rt.png.job"]
+    assert [s.unit for s in jobs] == [1, 2] and all(s.parent is None for s in jobs)
+    phases = [s for s in spans if s.name.startswith("rt.png.") and s.name != "rt.png.job"]
+    assert {s.name for s in phases} in ({"rt.png.write"}, {"rt.png.encode", "rt.png.write"})
+    assert all(spans[s.parent].name == "rt.png.job" for s in phases)
+    assert [s.unit for s in spans if s.name == "rt.step.epoch"] == [0, 1]
