@@ -4,6 +4,7 @@ main paths once.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase graph       # phase 5b alone, one card
+    python3 chip_smoke.py --phase spd         # phase 5c alone, one card
     python3 chip_smoke.py --phase multicard   # phase 7 alone, 2-4 cards
     python3 chip_smoke.py --phase schedule    # phase 8 alone, one card
     python3 chip_smoke.py --phase bench       # phase 9 alone, one card
@@ -108,6 +109,15 @@ Phases (each asserts; none catches a failure):
      graphed.
      `python3 chip_smoke.py --phase graph` builds the kernels and runs this
      phase alone.
+  5c. the SPD sphereflake (7,381 spheres; the scene carries the sphere
+     chunk table) at its benchmark cell's shapes, 512x512, depth 5: one
+     epoch's rays through the MC wrapper with the launch counts set to 0
+     just before and read just after (one launch, the gated staged walk by
+     its kernel name), against the plain version at the cell's photon
+     tolerance and against the linear walk (the scene without the table)
+     bit for bit; sphere and box tests a cast; the device ms of both walks;
+     render_distributed_epoch's launches; the gated instantiations'
+     registers.  `python3 chip_smoke.py --phase spd` runs it alone.
   6. multi-card rendering (parallel/mesh.py) on the one card: the demo's
      1280x960 Whitted frame rendered twice, equal bit for bit, and the
      ordered delivery kernel (csrc/deliver.cu) against the CPU's index_add
@@ -1173,6 +1183,92 @@ def cli_devices_phase():
             assert results[2][2] == 0 and "mesh: {'dp': 1, 'sp': 2}" in results[2][0], results[2]
         else:
             assert results[2][2] != 0 and "CUDA device(s)" in results[2][1], results[2]
+
+
+def spd_phase(dev):
+    """Phase 5c: the SPD sphereflake (presets.spd_balls_scene, 7,381 spheres
+    over 2 floor triangles), whose scene carries the sphere chunk table, at
+    the spd-balls.progressive cell's shapes (512x512, depth 5, one epoch of
+    262,144 rays): the epoch's rays through mc_kernel.trace, the kernels'
+    launch counts set to 0 just before it and read just after (one launch
+    of the staged MC walk, its gated instantiation by the profiler's kernel
+    name, nothing else), held against the plain version on the same inputs
+    at the cell's photon tolerance (1e-3 + 2e-2 |ref| in every channel, on
+    all but 0.5 % of lanes; casts within 1 %) and against the same scene
+    without the table (the linear walk), photons and casts equal; the sphere
+    and box tests a cast, counted; render_distributed_epoch's launches; and
+    the gated instantiations' registers.  -> the numbers printed."""
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.ops import camera as camera_ops
+    from raytracer_tpu_torch.ops import mc_kernel
+    from raytracer_tpu_torch.render import _clips, frame_draws, render_distributed_epoch, tile_draws
+    from raytracer_tpu_torch.scene.presets import spd_balls_scene
+    from raytracer_tpu_torch.utils import kernels
+
+    counts = kernel_counts()
+
+    def launched(fn):
+        for c in counts.values():
+            c.launches = c.plain = 0
+        out = fn()
+        torch.cuda.synchronize()
+        assert all(c.plain == 0 for c in counts.values()), {k: c.plain for k, c in counts.items()}
+        return out, {k: c.launches for k, c in counts.items() if c.launches}
+
+    cfg = RenderConfig(width=512, height=512, depth=DEPTH)
+    scene, cam = spd_balls_scene(device=dev)
+    assert scene.sph_perm is not None and not scene.blocked
+    linear = dataclasses.replace(scene, sph_perm=None, sph_box=None)
+    seed, epoch = 2**31 + 12345, 3
+    clips = _clips(cfg, dev)[0]
+    normals, unifs = frame_draws([tile_draws(cfg, seed, epoch, t, c.shape[0], dev)
+                                  for t, c in enumerate(clips)])
+    o, d = camera_ops.shoot_focus(cam, clips.reshape(-1, 2), normals * cfg.blur, cfg.focus)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    walk = lambda sc, **kw: mc_kernel.trace(sc, o, d, unifs, DEPTH, MD, MR, **kw)
+
+    (got, casts), ran = launched(lambda: walk(scene))
+    assert ran == {"mc": 1}, ran
+    _, seen = profiled_ms(lambda: walk(scene), "SphGatedGeom")
+    assert seen == 1, seen
+    lin, lin_casts = walk(linear)
+    assert torch.equal(got, lin) and int(casts) == int(lin_casts), "gated vs linear"
+    t0 = time.perf_counter()
+    ref, ref_casts = mc_kernel.trace_plain(scene.geom, scene.textures, o, d, unifs, DEPTH, MD,
+                                           MR)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    a, b = got.cpu().numpy(), ref.cpu().numpy()
+    bad = 1.0 - frac_close(a, b)
+    tests, boxes = (torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(2))
+    counted, _ = walk(scene, sph_tests=tests, sph_box_tests=boxes)
+    assert torch.equal(counted, got)
+    per_cast = lambda x: float(x.sum()) / int(casts)
+    gated_ms = device_ms(lambda: walk(scene), 3, "SphGatedGeom")
+    linear_ms = device_ms(lambda: walk(linear), 1, "mc_kernel_staged")
+    (img, stats), ran_epoch = launched(
+        lambda: render_distributed_epoch(scene, cam, cfg, seed=seed, epoch=epoch))
+    attrs = {k: kernels.kernel_attrs(k, scene.n_tri) for k in ("mc", "mc_gated", "mc_thread",
+                                                               "mc_gated_thread")}
+    print(f"spd-balls {cfg.width}x{cfg.height} ({scene.n_sph} spheres, {scene.sph_box.shape[0]} sphere chunks), "
+          f"one epoch's {n} rays through mc_kernel.trace: launches {ran} (the gated staged "
+          f"walk); kernel vs plain: {bad:.6f} of lanes off (limit 0.005), casts {int(casts)} vs "
+          f"{int(ref_casts)}, max |err| {np.abs(a - b).max():.3g}, plain {plain_s:.1f} s; gated "
+          f"vs linear walk: photons and casts equal; {per_cast(tests):.2f} sphere and "
+          f"{per_cast(boxes):.2f} box tests a cast; device ms gated {gated_ms:.3f}, linear "
+          f"{linear_ms:.3f}; render_distributed_epoch launches {ran_epoch}, casts "
+          f"{stats['casts']}")
+    for k, v in attrs.items():
+        print(f"spd-balls {k} kernel: {v['registers']} registers/thread, {v['local_bytes']} "
+              f"local bytes/thread, {v['blocks_per_sm']} blocks of 128 threads an SM")
+    assert bad <= 0.005 and np.isfinite(a).all(), bad
+    assert casts_close(casts, ref_casts), (int(casts), int(ref_casts))
+    assert ran_epoch == {"mc": 1}, ran_epoch
+    assert torch.isfinite(img).all() and float(img.max()) > 0
+    return {"lanes_off": bad, "casts": int(casts), "plain_casts": int(ref_casts),
+            "sph_tests_per_cast": per_cast(tests), "box_tests_per_cast": per_cast(boxes),
+            "gated_ms": gated_ms, "linear_ms": linear_ms, "attrs": attrs}
 
 
 def ladder_graph_phase(dev, cases):
@@ -3097,6 +3193,9 @@ def main() -> int:
                                            ("mesh11k 1024x1024", mesh11k, mesh11k_cam,
                                             mesh_cfg)])
 
+    # ---- 5c. the SPD sphereflake's gated MC walk ---------------------------
+    spd = spd_phase(dev)
+
     # ---- 6. multi-card rendering ------------------------------------------
     mesh_times, world1_launches = mesh_phase(dev, reset_counts, read_counts, demo, demo_cam,
                                              full, mesh11k, mesh11k_cam, mesh_cfg, state,
@@ -3601,7 +3700,7 @@ def main() -> int:
     bench_launches = {k: sum(sec[k] for sec in bench_out["launches"].values()) for k in counts}
 
     print(json.dumps({"frames": frames, "presets": preset_times, "routes": routes,
-                      "attrs": attrs, "per_launch": per, "ladder_graph": graph_times,
+                      "attrs": attrs, "per_launch": per, "ladder_graph": graph_times, "spd": spd,
                       "mesh": mesh_times,
                       "multicard": multicard, "schedule": schedule, "bench": bench_out,
                       "profiles": profiles, "bounce_orders": orders}))
@@ -3720,6 +3819,26 @@ def bench_main() -> int:
     return 0
 
 
+def spd_main() -> int:
+    """`--phase spd`: build the kernels and run phase 5c alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from raytracer_tpu_torch.utils import kernels
+
+    smi = nvidia_smi()
+    _, build_s = kernels.build()
+    print(f"{smi[0]}; torch {torch.__version__} cuda {torch.version.cuda}; kernels built in "
+          f"{build_s:.1f} s")
+    out = spd_phase(torch.device("cuda"))
+    print(json.dumps({"spd": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def graph_main() -> int:
     """`--phase graph`: build the kernels and run phase 5b alone."""
     if not torch.cuda.is_available():
@@ -3775,9 +3894,9 @@ if __name__ == "__main__":
     import argparse
 
     parser = argparse.ArgumentParser(description="Build and check the port on the host's GPUs.")
-    parser.add_argument("--phase", choices=["graph", "multicard", "schedule", "bench"],
-                        help="run phase 5b alone, phase 7 (a host with 2 or more cards), phase 8 "
-                             "or phase 9")
+    parser.add_argument("--phase", choices=["graph", "spd", "multicard", "schedule", "bench"],
+                        help="run phase 5b alone, 5c, phase 7 (a host with 2 or more cards), "
+                             "phase 8 or phase 9")
     phase = parser.parse_args().phase
-    sys.exit({"graph": graph_main, "multicard": multicard_main, "schedule": schedule_main,
-              "bench": bench_main}.get(phase, main)())
+    sys.exit({"graph": graph_main, "spd": spd_main, "multicard": multicard_main,
+              "schedule": schedule_main, "bench": bench_main}.get(phase, main)())

@@ -67,6 +67,17 @@
 // NoWork, below); chip_smoke.py derives each kernel's operation bound from
 // what Work counts.
 //
+// The sphere sweeps (sph_nearest, sph_occluded, finish_back) test every
+// sphere in index order; their overloads given a SphGated walk the sphere
+// chunk table (scene/blocked.py build_sph_chunks) as blocked_tris walks the
+// blocked triangles: a supergroup's box, each of its chunks' boxes, bounded
+// by the ray's best hit (or shadow limit), then the chunk's spheres.  Their
+// hits are the linear sweeps': the least t, ties to the larger primitive
+// id.  A geometry names its sweeps' policy (G::Sph): SphLinear, or SphGated
+// for SphGatedGeom, which carries the table beside its base geometry's
+// members; only the MC kernel's dense routes instantiate it, and its entry
+// launches them on a scene that carries the table.
+//
 // Scene tables are read from global memory, but for what DenseRowsGeom
 // and CoopGeom stage in shared memory.  Build without --use_fast_math: the
 // photon filter needs subnormals, and division/sqrt must stay IEEE.
@@ -97,6 +108,16 @@ constexpr int BLK_CHUNK = 128;
 constexpr int SUP_CHUNKS = 8;
 constexpr int BLK_COLS = 36;
 constexpr int BLK_ID = 34;  // original triangle id, as float (-1 = pad row)
+
+// The sphere chunk table (scene/blocked.py, ops/kernel_common.py
+// pack_sph_chunks): rows of SPH_COLS in chunk order, SPH_CHUNK a chunk.
+constexpr int SPH_CHUNK = 16;
+constexpr int SPH_SUP = 8;  // chunks per supergroup
+constexpr int SPH_ID = 5;   // original sphere index, as float (-1 = pad row)
+// The gate's slack, 2^-15 (scene/blocked.py SPH_PAD): a box is widened by
+// SPH_PAD times the ray origin's largest coordinate magnitude (sph_gate),
+// as the table widened it by SPH_PAD times the spheres' own.
+constexpr float SPH_PAD = 3.0517578125e-05f;
 
 // The lanes that sweep together (CoopGeom).  32 on the card; a host
 // emulation that steps the threads one by one builds with 1: every thread
@@ -175,7 +196,8 @@ __device__ __forceinline__ int cycles() {
 // nothing; an MC launch given a `sph_tests` output takes SphCount, which
 // counts its sphere tests alone (below); a launch given a `work` output
 // takes Work.  A sphere sweep also reports its tests in one call at its end
-// (sph_tests: nothing in Work, which has counted each).
+// (sph_tests: nothing in Work, which has counted each), and a gated one its
+// box tests (sph_box_tests: in Work's box row).
 constexpr int WORK_ROWS = 16;
 
 struct Work {
@@ -200,6 +222,7 @@ struct Work {
   __device__ __forceinline__ void sph_tests(int) {}
   __device__ __forceinline__ void box_test() { ++box; }
   __device__ __forceinline__ void box_tests(int n) { box += n; }
+  __device__ __forceinline__ void sph_box_tests(int n) { box += n; }
   __device__ __forceinline__ void chunk(int n = 1) { chunks += n; }
   __device__ __forceinline__ void stage() { ++staged; }
   // Triangle tests kept apart until it is known whether they count (rows
@@ -250,6 +273,11 @@ struct Work {
   __device__ __forceinline__ void put_sph(long long* __restrict__ out, int lane) const {
     if (out) out[lane] = sph;
   }
+  // the lane's box tests (a gated walk's: its sphere gate's alone) into out
+  // [n], if given (SphGated::box_tests)
+  __device__ __forceinline__ void put_sph_box(long long* __restrict__ out, int lane) const {
+    if (out) out[lane] = box;
+  }
 };
 
 struct NoWork {
@@ -260,6 +288,7 @@ struct NoWork {
   __device__ __forceinline__ void sph_tests(int) {}
   __device__ __forceinline__ void box_test() {}
   __device__ __forceinline__ void box_tests(int) {}
+  __device__ __forceinline__ void sph_box_tests(int) {}
   __device__ __forceinline__ void chunk(int = 1) {}
   __device__ __forceinline__ void stage() {}
   __device__ __forceinline__ int tic() const { return 0; }
@@ -278,17 +307,23 @@ struct NoWork {
   __device__ __forceinline__ void put(int*, int, int) const {}
   __device__ __forceinline__ void put_helped(int*, int, int) const {}
   __device__ __forceinline__ void put_sph(long long*, int) const {}
+  __device__ __forceinline__ void put_sph_box(long long*, int) const {}
 };
 
-// The MC walk's sphere counter (mc.sph_tests): NoWork, but each sphere
-// sweep adds the tests it made once, at its end, to one register, which
-// put_sph writes out.  A lane past the tile's end tests no sphere, so no
+// The MC walk's sphere counters (mc.sph_tests, mc.sph_box_tests): NoWork,
+// but each sphere sweep adds the tests it made once, at its end, to one
+// register, and a gated one its box tests to another, which put_sph and
+// put_sph_box write out.  A lane past the tile's end tests no sphere, so no
 // put_helped is needed.
 struct SphCount : NoWork {
-  int sph = 0;
+  int sph = 0, sph_box = 0;
   __device__ __forceinline__ void sph_tests(int k) { sph += k; }
+  __device__ __forceinline__ void sph_box_tests(int k) { sph_box += k; }
   __device__ __forceinline__ void put_sph(long long* __restrict__ out, int lane) const {
     if (out) out[lane] = sph;
+  }
+  __device__ __forceinline__ void put_sph_box(long long* __restrict__ out, int lane) const {
+    if (out) out[lane] = sph_box;
   }
 };
 
@@ -435,7 +470,101 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b, V3 o, V3 inv, 
   return tn <= fminf(tf, tmax) && tf >= 0.0f;
 }
 
+// slab with the min faces measured from origin lo and the max faces from
+// hi: with lo = o + w and hi = o - w, the box widened by w (sph_gate;
+// kernel_common.slab_from).
+__device__ __forceinline__ bool slab_from(const float* __restrict__ b, V3 lo, V3 hi, V3 inv,
+                                          float tmax) {
+  float t0x = (b[0] - lo.x) * inv.x, t1x = (b[3] - hi.x) * inv.x;
+  float t0y = (b[1] - lo.y) * inv.y, t1y = (b[4] - hi.y) * inv.y;
+  float t0z = (b[2] - lo.z) * inv.z, t1z = (b[5] - hi.z) * inv.z;
+  if (isnan(t0x) || isnan(t1x) || isnan(t0y) || isnan(t1y) || isnan(t0z) || isnan(t1z))
+    return false;
+  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return tn <= fminf(tf, tmax) && tf >= 0.0f;
+}
+
 __device__ __forceinline__ V3 inv3(V3 d) { return V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z}; }
+
+// ---------------------------------------------------------------------------
+// The sphere policies and the sphere chunk table's gate
+// ---------------------------------------------------------------------------
+
+// SphLinear: every sphere, in index order (the geometries' own sweeps).
+struct SphLinear {
+  static constexpr bool GATED = false;
+};
+// SphGated: the sphere chunk table (scene/blocked.py build_sph_chunks,
+// ops/kernel_common.py pack_sph_chunks), which a gated geometry
+// (SphGatedGeom, below) carries beside its Tables, and where a counting
+// walk writes each lane's box tests.
+struct SphGated {
+  static constexpr bool GATED = true;
+  const float* __restrict__ rows;  // [NCH * SPH_CHUNK, 8] the sphere rows in chunk order
+  const float* __restrict__ box;   // [NCH, 8] chunk AABBs (min 0:3, max 3:6)
+  const float* __restrict__ sup;   // [ceil(NCH / SPH_SUP), 8] supergroup AABBs
+  int n_chunks;                    // NCH
+  long long* __restrict__ box_tests;  // [n] or null (W::put_sph_box)
+};
+
+// One sphere (centre c, squared radius r2) against the ray o + t d: the
+// squared distance of c from the ray, the t of its closest approach and the
+// half chord (main.rs:255-281), as every sphere sweep computes them.
+struct SphRay {
+  float dist2, tc, kk;
+};
+
+__device__ __forceinline__ SphRay sph_ray(V3 sc, float r2, V3 o, V3 d) {
+  V3 c = v3(sc.x - o.x, sc.y - o.y, sc.z - o.z);
+  float qx = c.y * d.z - c.z * d.y, qy = c.z * d.x - c.x * d.z, qz = c.x * d.y - c.y * d.x;
+  float dist2 = qx * qx + qy * qy + qz * qz;
+  float tc = d.x * c.x + d.y * c.y + d.z * c.z;
+  return SphRay{dist2, tc, sqrtf(fmaxf(r2 - dist2, 0.0f))};
+}
+
+// What the gate of one ray measures boxes with: its direction's inverse,
+// and the origins of the box tests' min and max faces, o moved SPH_PAD
+// |o|inf outward past each.  The widening covers the rounding of both the
+// f32 sphere test, which accepts a grazing ray up to some tens of units of
+// 2^-24 of the ray's distance past the radius, and the f32 box test, off
+// by as many units of 2^-24 of its t's: so a ray that the sphere test
+// accepts always enters the box, at any distance from the origin.
+struct SphGate {
+  V3 lo, hi, inv;
+};
+
+__device__ __forceinline__ SphGate sph_gate(V3 o, V3 d) {
+  float w = SPH_PAD * fmaxf(fmaxf(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
+  return SphGate{v3(o.x + w, o.y + w, o.z + w), v3(o.x - w, o.y - w, o.z - w), inv3(d)};
+}
+
+// The two gate tiers over the sphere chunk table for one ray: each
+// supergroup's box, then each chunk's box of a supergroup it enters, within
+// tmax() (read at each box test: a hit found in one chunk prunes the next),
+// then row(s, j) for every sphere row s of a chunk it enters, j the
+// sphere's original index, until a row returns true.  Adds the box tests
+// made to `boxes`.
+template <class TMax, class Row>
+__device__ __forceinline__ void sph_chunks(const SphGated& sg, V3 o, V3 d, TMax&& tmax,
+                                           int& boxes, Row&& row) {
+  const SphGate g = sph_gate(o, d);
+  for (int c0 = 0; c0 < sg.n_chunks; c0 += SPH_SUP) {
+    ++boxes;
+    if (!slab_from(sg.sup + (c0 / SPH_SUP) * 8, g.lo, g.hi, g.inv, tmax())) continue;
+    int c1 = c0 + SPH_SUP < sg.n_chunks ? c0 + SPH_SUP : sg.n_chunks;
+    for (int c = c0; c < c1; ++c) {
+      ++boxes;
+      if (!slab_from(sg.box + c * 8, g.lo, g.hi, g.inv, tmax())) continue;
+      const float4* r = (const float4*)(sg.rows + (size_t)c * SPH_CHUNK * SPH_COLS);
+      for (int k = 0; k < SPH_CHUNK; ++k, r += 2) {
+        int j = (int)r[1].y;  // column SPH_ID
+        if (j < 0) break;     // pad rows trail the last chunk's spheres
+        if (row(r[0], j)) return;
+      }
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Nearest sweep with attributes (World::cast, kernel_common.full_sweep)
@@ -473,6 +602,34 @@ __device__ inline void sph_nearest(const Tables& tb, V3 o, V3 d, int face, int e
     }
   }
   w.sph_tests(tb.n_sph);
+}
+
+// The same sweep gated by the sphere chunk table, in chunk order: the least
+// t, ties to the larger primitive id (a sphere's is above every
+// triangle's), which is the same winner.
+template <class W>
+__device__ inline void sph_nearest(const Tables& tb, const SphGated& sg, V3 o, V3 d, int face,
+                                   int excl_prim, int excl_face, float& best_t, int& best_i,
+                                   bool& best_bf, W& w) {
+  int tests = 0, boxes = 0;
+  sph_chunks(sg, o, d, [&] { return best_t; }, boxes, [&](float4 s, int j) {
+    ++tests;
+    w.sph_test();
+    SphRay r = sph_ray(v3(s.x, s.y, s.z), s.w, o, d);
+    bool bf = face == FACE_BACK || (face != FACE_FRONT && r.tc < r.kk);
+    float t = bf ? r.tc + r.kk : r.tc - r.kk;
+    int prim = tb.n_tri + j;
+    if (excl_prim == prim && excl_crit(excl_face, bf)) return false;
+    if (!(r.dist2 <= s.w) || !(t > 0.0f) || !isfinite(t) || !(t < BIG)) return false;
+    if (t < best_t || (t == best_t && prim > best_i)) {
+      best_t = t;
+      best_i = prim;
+      best_bf = bf;
+    }
+    return false;
+  });
+  w.sph_tests(tests);
+  w.sph_box_tests(boxes);
 }
 
 // o + t d rounded as written, a product and then a sum, as the plain
@@ -621,6 +778,25 @@ __device__ inline Hit full_sweep(const Tables& tb, R rows, V3 o, V3 d, int face,
     tri_nearest<false>(rows, tb.n_tri, o, d, face, excl_prim, excl_face, best_t, best_i,
                        best_bf, w);
     sph_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
+  }
+  const float* row = (best_i >= 0 && best_i < tb.n_tri) ? tb.tri + best_i * TRI_COLS : nullptr;
+  return finish_hit(tb, row, o, d, best_t, best_i, best_bf, active);
+}
+
+// The same with its spheres gated by the sphere chunk table (SphGatedGeom).
+// The gated sweeps are overloads beside the linear ones, not folded into
+// them: a shared body (a parameter pack, the interior loop in a helper)
+// changed the linear kernels' SASS (PERF.md §6).
+template <class R, class W>
+__device__ inline Hit full_sweep(const Tables& tb, const SphGated& sg, R rows, V3 o, V3 d,
+                                 int face, int excl_prim, int excl_face, bool active, W& w) {
+  float best_t = BIG;
+  int best_i = -1;
+  bool best_bf = false;
+  if (active) {
+    tri_nearest<false>(rows, tb.n_tri, o, d, face, excl_prim, excl_face, best_t, best_i,
+                       best_bf, w);
+    sph_nearest(tb, sg, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
   }
   const float* row = (best_i >= 0 && best_i < tb.n_tri) ? tb.tri + best_i * TRI_COLS : nullptr;
   return finish_hit(tb, row, o, d, best_t, best_i, best_bf, active);
@@ -841,6 +1017,28 @@ __device__ inline bool sph_occluded(const Tables& tb, V3 p, int self_prim, V3 nd
   return false;
 }
 
+// The same sweep gated by the sphere chunk table: every sphere of the
+// chunks the ray enters within slim, up to the first occluder.
+template <class W>
+__device__ inline bool sph_occluded(const Tables& tb, const SphGated& sg, V3 p, int self_prim,
+                                    V3 nd, float slim, W& w) {
+  const int self_j = self_prim - tb.n_tri;
+  int tests = 0, boxes = 0;
+  bool hit = false;
+  sph_chunks(sg, p, nd, [&] { return slim; }, boxes, [&](float4 sp, int j) {
+    if (j == self_j) return false;
+    ++tests;
+    w.sph_test();
+    SphRay r = sph_ray(v3(sp.x, sp.y, sp.z), sp.w, p, nd);
+    float t = r.tc + r.kk;  // far shell
+    hit = r.dist2 <= sp.w && t > 0.0f && isfinite(t) && t < slim;
+    return hit;
+  });
+  w.sph_tests(tests);
+  w.sph_box_tests(boxes);
+  return hit;
+}
+
 // ---------------------------------------------------------------------------
 // Interior back-face sweep (back_sweep_with_normal / blocked_back_sweep)
 // ---------------------------------------------------------------------------
@@ -904,6 +1102,46 @@ __device__ inline BackHit back_sweep(const Tables& tb, R rows, V3 p, V3 d, W& w)
   tri_nearest<true>(rows, tb.n_tri, p, d, FACE_BACK, -1, FACE_BACK, best_t, best_i, bf, w);
   const float* row = (best_i >= 0) ? tb.tri + best_i * TRI_COLS : nullptr;
   return finish_back(tb, row, p, d, best_t, best_i, w);
+}
+
+// finish_back with its spheres gated by the sphere chunk table (ties to the
+// larger primitive id, as the gated sph_nearest), then finish_back's own
+// hit point and normal: its loop over no sphere.
+template <class W>
+__device__ inline BackHit finish_back(const Tables& tb, const SphGated& sg,
+                                      const float* __restrict__ row, V3 p, V3 d, float best_t,
+                                      int best_i, W& w) {
+  int tests = 0, boxes = 0;
+  sph_chunks(sg, p, d, [&] { return best_t; }, boxes, [&](float4 s, int j) {
+    ++tests;
+    w.sph_test();
+    SphRay r = sph_ray(v3(s.x, s.y, s.z), s.w, p, d);
+    float t = r.tc + r.kk;  // far shell (main.rs:273-281)
+    int prim = tb.n_tri + j;
+    if (!(r.dist2 <= s.w) || !(t > 0.0f) || !isfinite(t) || !(t < BIG)) return false;
+    if (t < best_t || (t == best_t && prim > best_i)) {
+      best_t = t;
+      best_i = prim;
+    }
+    return false;
+  });
+  w.sph_tests(tests);
+  w.sph_box_tests(boxes);
+  Tables none = tb;
+  none.n_sph = 0;
+  return finish_back(none, row, p, d, best_t, best_i, w);
+}
+
+// back_sweep with its spheres gated by the sphere chunk table.
+template <class R, class W>
+__device__ inline BackHit back_sweep(const Tables& tb, const SphGated& sg, R rows, V3 p, V3 d,
+                                     W& w) {
+  float best_t = BIG;
+  int best_i = -1;
+  bool bf = false;
+  tri_nearest<true>(rows, tb.n_tri, p, d, FACE_BACK, -1, FACE_BACK, best_t, best_i, bf, w);
+  const float* row = (best_i >= 0) ? tb.tri + best_i * TRI_COLS : nullptr;
+  return finish_back(tb, sg, row, p, d, best_t, best_i, w);
 }
 
 template <class W>
@@ -1275,7 +1513,8 @@ struct ShadowGroup {
   float s[LIGHT_GROUP], tlim[LIGHT_GROUP];
 };
 
-// COOP: do all lanes of a warp make every sweep together?  any(x): does
+// COOP: do all lanes of a warp make every sweep together?  Sph: the policy
+// of its sphere sweeps (SphLinear; SphGatedGeom's SphGated).  any(x): does
 // any lane that sweeps with this one hold x?  GROUPED: does a shading point
 // test its shadow rays to all lights in one pass (occluded) or light by
 // light (tri_occluded)?  stage(): called by every thread of a block before
@@ -1284,6 +1523,7 @@ struct ShadowGroup {
 // block of `threads` threads needs (host).
 struct DenseGeom {
   static constexpr bool COOP = false, GROUPED = false;
+  using Sph = SphLinear;
   __device__ __forceinline__ void stage() const {}
   int smem(int) const { return 0; }
   Tables tb;
@@ -1309,6 +1549,7 @@ struct DenseGeom {
 
 struct BlockedGeom {
   static constexpr bool COOP = false, GROUPED = false;
+  using Sph = SphLinear;
   __device__ __forceinline__ void stage() const {}
   int smem(int) const { return 0; }
   Tables tb;  // spheres, materials, lights (tb.tri is not read)
@@ -1338,6 +1579,7 @@ struct BlockedGeom {
 // off gets a miss and runs no test.
 struct CoopGeom {
   static constexpr bool COOP = true, GROUPED = true;
+  using Sph = SphLinear;
   __device__ __forceinline__ void stage() const {}
   int smem(int threads) const { return coop_shared_bytes(threads); }
   Tables tb;
@@ -1390,6 +1632,7 @@ constexpr int DENSE_SMEM_MAX = 96 * 1024;  // bytes of staged rows a block may t
 template <bool GROUP>
 struct DenseRowsGeom {
   static constexpr bool COOP = false, GROUPED = GROUP;
+  using Sph = SphLinear;
   Tables tb;  // tb.tri: the winners' whole rows (finish_hit), spheres, materials, lights
   const float4* __restrict__ rows;  // [n_tri, 4] hot rows in global memory
   static __device__ __forceinline__ bool any(bool x) { return x; }
@@ -1472,6 +1715,40 @@ struct DenseRowsGeom {
 // shadow pass takes registers that the MC kernel, which fills the card,
 // pays for in blocks per SM)
 constexpr bool DENSE_LEVEL_GROUPED = true, DENSE_MC_GROUPED = false;
+
+// The triangle rows a dense geometry's sweeps read: its hot rows staged in
+// the block's shared memory, or the [T, 34] table in global memory.
+__device__ __forceinline__ TriRows dense_rows(const DenseGeom& g) { return TriRows{g.tb.tri}; }
+template <bool GROUP>
+__device__ __forceinline__ HotRows dense_rows(const DenseRowsGeom<GROUP>& g) {
+  return g.staged();
+}
+
+// Dense geometry G (DenseGeom, DenseRowsGeom) with its sphere sweeps gated
+// by the sphere chunk table `sph`, which it carries after G's members: its
+// nearest and interior sweeps are G's but for the spheres, and get_shade's
+// shadow sweeps take the gate through Sph (sph_occluded_in).
+template <class G>
+struct SphGatedGeom : G {
+  using Sph = SphGated;
+  SphGated sph;
+  template <class W>
+  __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
+                         W& w) const {
+    int t0 = w.tic();
+    Hit h = full_sweep(this->tb, sph, dense_rows(*this), o, d, face, excl_prim, excl_face,
+                       active, w);
+    w.near_cycles(t0);
+    return h;
+  }
+  template <class W>
+  __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
+    if (!want) return no_back(p);
+    return back_sweep(this->tb, sph, dense_rows(*this), p, d, w);
+  }
+};
+
+using DenseGeomGated = SphGatedGeom<DenseGeom>;
 
 // ---------------------------------------------------------------------------
 // The lanes that have work (the unfused path's standalone kernels)
@@ -1593,6 +1870,17 @@ __device__ __forceinline__ void phong_add(V3& out, const Mat& m, const float* __
   out.z += (m.diffuse.z * dterm + m.specular.z * sterm) * L[9] * t.att;
 }
 
+// The shadow sweep over the spheres in geometry G: gated by its sphere
+// chunk table where G carries one (SphGatedGeom).
+template <class G, class W>
+__device__ __forceinline__ bool sph_occluded_in(const G& g, const Tables& tb, V3 p,
+                                                int self_prim, V3 nd, float slim, W& w) {
+  if constexpr (G::Sph::GATED)
+    return sph_occluded(tb, g.sph, p, self_prim, nd, slim, w);
+  else
+    return sph_occluded(tb, p, self_prim, nd, slim, w);
+}
+
 // Direct radiance at p (get_shade): na = bump-ADJUSTED normal, vd = view
 // (-ray direction).  Adds the shadow rays cast to `count`.  A geometry that
 // is not GROUPED sweeps once per light; a GROUPED one takes the lights in
@@ -1641,7 +1929,7 @@ __device__ inline V3 get_shade(const G& g, const Mat& m, V3 p, V3 na, V3 vd, boo
         const float* L = tb.lights + (base + l) * LIGHT_COLS;
         LightTerm t = light_term(L, p, na);
         t0 = w.tic();
-        bool behind_sphere = sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w);
+        bool behind_sphere = sph_occluded_in(g, tb, p, self_prim, neg(t.ld), t.limit, w);
         w.shadow_cycles(t0);
         if (behind_sphere) continue;
         phong_add(out, m, L, t, na, vd, e, energy);
@@ -1656,7 +1944,7 @@ __device__ inline V3 get_shade(const G& g, const Mat& m, V3 p, V3 na, V3 vd, boo
       int t0 = w.tic();
       bool occluded =
           g.tri_occluded(p, self_prim, shadow_s(t), shadow_target(L, t), shadow_tlim(t), w) ||
-          sph_occluded(tb, p, self_prim, neg(t.ld), t.limit, w);
+          sph_occluded_in(g, tb, p, self_prim, neg(t.ld), t.limit, w);
       w.shadow_cycles(t0);
       if (occluded) continue;
       phong_add(out, m, L, t, na, vd, e, energy);

@@ -50,6 +50,16 @@
 // traced epoch's mc.sph_tests: each sweep adds its tests to one register at
 // its end), so the untraced walk runs no counting instruction; Work when the
 // caller asks for the per-lane test counts.
+//
+// On a scene of many spheres (the SPD sphereflake's 7,381) linear sphere
+// sweeps test some 6,300 spheres a cast, nearly all of the dense walk's
+// work.  A scene that carries the sphere chunk table (scene/blocked.py
+// build_sph_chunks) is walked by the gated dense instantiations
+// (common.cuh SphGatedGeom), which test a chunk's spheres only where the ray
+// enters its box before its best hit or shadow limit, and give the linear
+// sweeps' hits; every other scene, by the linear ones, as before.  (A branch
+// at run time would make every scene's walk carry the gated loops'
+// registers.)
 #include <type_traits>
 
 #include "mc_walk.cuh"
@@ -59,8 +69,9 @@ namespace rt {
 constexpr int MC_THREADS = 128;
 
 // The dense walk (common.cuh DenseRowsGeom): the hot rows out of shared
-// memory.
+// memory; its spheres linear, or gated by the sphere chunk table.
 using SharedDense = DenseRowsGeom<DENSE_MC_GROUPED>;
+using SharedDenseGated = SphGatedGeom<SharedDense>;
 
 // One MC sample a thread, the walk of mc_kernel and mc_kernel_staged.
 template <class G, class W>
@@ -137,6 +148,7 @@ __device__ __forceinline__ void mc_walk(const float* __restrict__ ray_o,
     casts_out[lane] = casts;
     w.put(work_out, n, lane);
     w.put_sph(sph_out, lane);
+    if constexpr (G::Sph::GATED) w.put_sph_box(g.sph.box_tests, lane);
   }
   if constexpr (G::COOP) {
     __syncwarp();
@@ -161,23 +173,24 @@ mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
 // 6.24 ms against 5.46 with the cap (NVIDIA H100 80GB HBM3, 700 W;
 // PERF.md §6).  The other walks
 // keep mc_kernel's bounds: a second argument of 1 there let ptxas give
-// the cooperative walk 183 registers (2 blocks an SM, not 3).
-template <class W>
+// the cooperative walk 183 registers (2 blocks an SM, not 3).  G:
+// SharedDense or SharedDenseGated.
+template <class G, class W>
 __global__ void __launch_bounds__(MC_THREADS, 5)
 mc_kernel_staged(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-                 const float* __restrict__ unifs, SharedDense g, float* __restrict__ photon,
+                 const float* __restrict__ unifs, G g, float* __restrict__ photon,
                  int* __restrict__ casts_out, int* __restrict__ work_out,
                  long long* __restrict__ sph_out, int n, int depth, float max_distance,
                  int max_retries) {
-  mc_walk<SharedDense, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, sph_out, n,
-                          depth, max_distance, max_retries);
+  mc_walk<G, W>(ray_o, ray_d, unifs, g, photon, casts_out, work_out, sph_out, n, depth,
+                max_distance, max_retries);
 }
 
 // The kernel of geometry G and counter W.
 template <class G, class W>
 constexpr auto mc_entry() {
-  if constexpr (std::is_same<G, SharedDense>::value)
-    return &mc_kernel_staged<W>;
+  if constexpr (std::is_same<G, SharedDense>::value || std::is_same<G, SharedDenseGated>::value)
+    return &mc_kernel_staged<G, W>;
   else
     return &mc_kernel<G, W>;
 }
@@ -187,9 +200,11 @@ int launch_mc(const float* ray_o, const float* ray_d, const float* unifs, G g, f
               int* casts, int* work, long long* sph, int n, int depth, float max_distance,
               int max_retries, void* stream) {
   int blocks = (n + MC_THREADS - 1) / MC_THREADS;
-  auto kernel = work  ? mc_entry<G, Work>()
-                : sph ? mc_entry<G, SphCount>()
-                      : mc_entry<G, NoWork>();
+  bool count_sph = sph;
+  if constexpr (G::Sph::GATED) count_sph = count_sph || g.sph.box_tests;
+  auto kernel = work        ? mc_entry<G, Work>()
+                : count_sph ? mc_entry<G, SphCount>()
+                            : mc_entry<G, NoWork>();
   int shared = g.smem(MC_THREADS);
   if (shared) {
     int err = coop_opt_in((const void*)kernel, shared);
@@ -207,32 +222,52 @@ extern "C" {
 // ray_o, ray_d: [3, n]; unifs: [depth, 3, n]; photon: [3, n]; casts: [n];
 // work: [WORK_ROWS, n] or null (null runs the instantiation that counts
 // nothing, or with sph_tests given the one that counts sphere tests alone);
-// sph_tests: [n] int64, each lane's sphere tests, or null; hot: the [n_tri,
-// 16] hot rows.  A table too large to stage (DenseRowsGeom::fits) is walked
-// per thread.
+// sph_tests: [n] int64, each lane's sphere tests, or null; sph_box_tests:
+// [n] int64, each lane's sphere gate box tests, or null; hot: the [n_tri,
+// 16] hot rows; sph_rows, sph_box, sph_sup, n_sph_chunks: the sphere chunk
+// table (null and 0: none), whose presence picks the gated instantiation.  A
+// table too large to stage (DenseRowsGeom::fits) is walked per thread.
 int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, const float* tri,
                 int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
-                const float* lights, int n_light, const float* hot, float* photon, int* casts,
-                int* work, long long* sph_tests, int n, int depth, float max_distance,
-                int max_retries, void* stream) {
+                const float* lights, int n_light, const float* hot, const float* sph_rows,
+                const float* sph_box, const float* sph_sup, int n_sph_chunks, float* photon,
+                int* casts, int* work, long long* sph_tests, long long* sph_box_tests, int n,
+                int depth, float max_distance, int max_retries, void* stream) {
   rt::Tables tb{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light};
+  rt::SphGated sg{sph_rows, sph_box, sph_sup, n_sph_chunks, sph_box_tests};
   const float4* rows = (const float4*)hot;
-  if (rt::SharedDense::fits(n_tri))
+  if (rt::SharedDense::fits(n_tri)) {
+    if (n_sph_chunks)
+      return rt::launch_mc(ray_o, ray_d, unifs, rt::SharedDenseGated{{tb, rows}, sg}, photon,
+                           casts, work, sph_tests, n, depth, max_distance, max_retries, stream);
     return rt::launch_mc(ray_o, ray_d, unifs, rt::SharedDense{tb, rows}, photon, casts, work,
+                         sph_tests, n, depth, max_distance, max_retries, stream);
+  }
+  if (n_sph_chunks)
+    return rt::launch_mc(ray_o, ray_d, unifs, rt::DenseGeomGated{{tb}, sg}, photon, casts, work,
                          sph_tests, n, depth, max_distance, max_retries, stream);
   return rt::launch_mc(ray_o, ray_d, unifs, rt::DenseGeom{tb}, photon, casts, work, sph_tests,
                        n, depth, max_distance, max_retries, stream);
 }
 
 // The same walk with every thread reading the dense table from global
-// memory and sweeping once per light (DenseGeom): what the staged walk is
-// held against.
+// memory and sweeping once per light (DenseGeom, or DenseGeomGated on a
+// scene with the sphere chunk table): what the staged walk is held against.
 int rt_mc_trace_thread(const float* ray_o, const float* ray_d, const float* unifs,
                        const float* tri, int n_tri, const float* sph, int n_sph, const float* mat,
-                       int n_obj, const float* lights, int n_light, float* photon, int* casts,
-                       int* work, long long* sph_tests, int n, int depth, float max_distance,
+                       int n_obj, const float* lights, int n_light, const float* sph_rows,
+                       const float* sph_box, const float* sph_sup, int n_sph_chunks,
+                       float* photon, int* casts, int* work, long long* sph_tests,
+                       long long* sph_box_tests, int n, int depth, float max_distance,
                        int max_retries, void* stream) {
   rt::DenseGeom g{rt::Tables{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light}};
+  if (n_sph_chunks)
+    return rt::launch_mc(ray_o, ray_d, unifs,
+                         rt::DenseGeomGated{{g},
+                                            {sph_rows, sph_box, sph_sup, n_sph_chunks,
+                                             sph_box_tests}},
+                         photon, casts, work, sph_tests, n, depth, max_distance, max_retries,
+                         stream);
   return rt::launch_mc(ray_o, ray_d, unifs, g, photon, casts, work, sph_tests, n, depth,
                        max_distance, max_retries, stream);
 }
@@ -272,13 +307,19 @@ int rt_mc_trace_blk_thread(const float* ray_o, const float* ray_d, const float* 
 // Compiled attributes of instantiation `which` (0 dense: the staged walk,
 // holding the rows of a table of n_tri triangles; 1 blocked: the
 // cooperative walk, 2 the per-thread blocked walk, 3 the per-thread dense
-// walk), layout as rt_level_attrs.
+// walk; 4 and 5 the walks of 0 and 3 with gated sphere sweeps), layout as
+// rt_level_attrs.
 int rt_mc_attrs(int which, int n_tri, int* out) {
   using rt::NoWork;
   switch (which) {
     case 0:
-      return rt::attrs_of((const void*)rt::mc_kernel_staged<NoWork>, out,
+      return rt::attrs_of((const void*)rt::mc_kernel_staged<rt::SharedDense, NoWork>, out,
                           rt::SharedDense::smem_bytes(n_tri));
+    case 4:
+      return rt::attrs_of((const void*)rt::mc_kernel_staged<rt::SharedDenseGated, NoWork>, out,
+                          rt::SharedDenseGated::smem_bytes(n_tri));
+    case 5:
+      return rt::attrs_of((const void*)rt::mc_kernel<rt::DenseGeomGated, NoWork>, out);
     case 1:
       return rt::attrs_of((const void*)rt::mc_kernel<rt::CoopGeom, NoWork>, out,
                           rt::coop_shared_bytes(rt::MC_THREADS));

@@ -16,6 +16,14 @@ tile), its supergroup visit order and its HBM chunk streaming are not
 ported: any visit order gives the same hits, and the permuted table stays
 in global memory.
 
+The sphere sweeps gate the same way where the scene carries the sphere
+chunk table (scene/blocked.py build_sph_chunks; Tables.sph_rows): a lane
+tests a supergroup's box, each of its chunks' boxes, and a chunk's spheres
+only where its ray enters the box before its current best hit (or shadow
+limit).  The hits are the linear sweep's: the least t, ties to the larger
+primitive id.  The MC kernel's dense routes gate as these do
+(csrc/common.cuh SphGated); the other kernels sweep every sphere.
+
 What differs from the TPU blocks (the TPU workarounds are not ported):
   * torch.acos / torch.atan2 / torch.pow replace the Mosaic polynomials;
   * a gather by winner index replaces the one-hot MXU contraction
@@ -37,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.scene.blocked import BLK_CHUNK, SUP_CHUNKS
+from raytracer_tpu_torch.scene.blocked import BLK_CHUNK, SPH_CHUNK, SPH_PAD, SPH_SUP, SUP_CHUNKS
 from raytracer_tpu_torch.scene.types import FACE_BACK, FACE_FRONT, Scene
 from raytracer_tpu_torch.utils.kernels import check
 
@@ -48,6 +56,9 @@ _HALF_INV_PI = float(np.float32(0.5 / np.pi))
 _EIGHT_PI = float(np.float32(8.0 * np.pi))
 
 TRI_COLS, SPH_COLS, MAT_COLS, LIGHT_COLS = 34, 8, 16, 16
+# A sphere chunk row: pack_sph's columns with the ORIGINAL sphere index in
+# column 5 (as float32: exact below 2^24); -1 on a pad row, whose r^2 is -1.
+SPH_ID = 5
 # Blocked triangle rows: pack_tri's 34 columns, the original triangle id
 # (34, as float32: exact below 2^24) and one pad column (a 144-byte row).
 BLK_COLS, BLK_ID = 36, 34
@@ -69,6 +80,10 @@ class Tables(NamedTuple):
     # what the dense kernels' staged walks read of `tri`: its first 16
     # columns as 64-byte rows
     hot: torch.Tensor | None = None  # [T, 16]
+    # the sphere chunk table (pack_sph_chunks), on scenes that carry one
+    sph_rows: torch.Tensor | None = None  # [NCH * SPH_CHUNK, 8] rows in chunk order
+    sph_box: torch.Tensor | None = None  # [NCH, 8] chunk AABBs: min xyz 0:3, max xyz 3:6
+    sph_sup: torch.Tensor | None = None  # [ceil(NCH / SPH_SUP), 8] supergroup AABBs
 
 
 def pack_tri(scene: Scene) -> torch.Tensor:
@@ -121,10 +136,31 @@ def pack_lights(scene: Scene) -> torch.Tensor:
     ], dim=1).float().contiguous()
 
 
+def pack_sph_chunks(scene: Scene, sph: torch.Tensor):
+    """The sphere chunk table from Scene.sph_perm / sph_box and pack_sph's
+    rows -> (rows [S_pad, 8]: the rows in chunk order, the original index
+    in column SPH_ID; pad rows r^2 -1 and index -1, so no ray hits one;
+    box [NCH, 8]; sup [ceil(NCH / SPH_SUP), 8], the union of each
+    SPH_SUP chunks' boxes, the last supergroup's of the chunks it has)."""
+    perm = scene.sph_perm.long()
+    live = perm >= 0
+    rows = torch.where(live[:, None], sph[perm.clamp(min=0)], 0.0)
+    rows[:, 3] = torch.where(live, rows[:, 3], -1.0)
+    rows[:, SPH_ID] = torch.where(live, perm, -1).float()
+    box = scene.sph_box.float().contiguous()
+    groups = box.split(SPH_SUP)
+    sup = torch.stack([torch.cat([g[:, 0:3].amin(dim=0), g[:, 3:6].amax(dim=0),
+                                  g.new_zeros(2)]) for g in groups])
+    return rows.contiguous(), box, sup.contiguous()
+
+
 def pack_tables(scene: Scene) -> Tables:
     tri = pack_tri(scene)
-    return Tables(tri, pack_sph(scene), pack_materials(scene), pack_lights(scene),
-                  scene.n_tri, scene.n_sph, scene.n_light, tri[:, :HOT_COLS].contiguous())
+    sph = pack_sph(scene)
+    chunks = () if scene.sph_perm is None else pack_sph_chunks(scene, sph)
+    return Tables(tri, sph, pack_materials(scene), pack_lights(scene),
+                  scene.n_tri, scene.n_sph, scene.n_light, tri[:, :HOT_COLS].contiguous(),
+                  *chunks)
 
 
 class BlkTables(NamedTuple):
@@ -305,24 +341,52 @@ def tri_candidates(o, d, face, excl_prim, excl_face, active, tb: Tables):
     return torch.where(ok, t, BIG), backface
 
 
-def sph_candidates(o, d, face, excl_prim, excl_face, active, tb: Tables):
-    """Every sphere's candidate t per lane (intersect_pallas._sph_sweep
-    :127) -> (tm [S, R], BIG where invalid; backface [S, R])."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    sph = tb.sph
+def _sph_terms(sph, o, d):
+    """Sphere rows `sph` [K, 8] against the rays o + t d: the squared
+    distance of each centre from each ray, the t of its closest approach and
+    the half chord (main.rs:255-281; csrc/common.cuh sph_ray) -> [K, R]
+    each."""
+    (ox, oy, oz), (dx, dy, dz) = o, d
     wx, wy, wz = _col(sph, 0) - ox, _col(sph, 1) - oy, _col(sph, 2) - oz
     qx = wy * dz - wz * dy
     qy = wz * dx - wx * dz
     qz = wx * dy - wy * dx
     dist2 = qx * qx + qy * qy + qz * qz
     tc = dx * wx + dy * wy + dz * wz
-    kk = torch.sqrt(torch.clamp_min(_col(sph, 3) - dist2, 0.0))
+    return dist2, tc, torch.sqrt(torch.clamp_min(_col(sph, 3) - dist2, 0.0))
+
+
+def _sph_blocks(tb: Tables, o, d, tmax_fn, gate):
+    """The sphere rows a sweep tests for lanes `gate`: yields (rows [K, 8],
+    ids [K, 1] int32, the spheres' indices, -1 on a pad row; the [R] mask
+    of lanes that test them).  Linear: every sphere at once, for gate();
+    over the sphere chunk table: each chunk whose boxes a lane's ray enters
+    within tmax_fn() (_sph_chunks)."""
+    if tb.sph_rows is None:
+        if tb.n_sph > 0:
+            yield tb.sph, torch.arange(tb.n_sph, dtype=torch.int32,
+                                       device=tb.sph.device)[:, None], gate()
+        return
+    for c, enter in _sph_chunks(tb, o, d, tmax_fn, gate):
+        rows = tb.sph_rows[c * SPH_CHUNK:(c + 1) * SPH_CHUNK]
+        yield rows, _col(rows, SPH_ID).to(torch.int32), enter
+
+
+def sph_candidates(o, d, face, excl_prim, excl_face, active, tb: Tables):
+    """Every sphere's candidate t per lane (intersect_pallas._sph_sweep
+    :127) -> (tm [S, R], BIG where invalid; backface [S, R])."""
+    prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=o[0].device)[:, None]
+    return _sph_rows_candidates(o, d, face, excl_prim, excl_face, active, tb.sph, prim)
+
+
+def _sph_rows_candidates(o, d, face, excl_prim, excl_face, active, sph, prim):
+    """sph_candidates over sphere rows `sph` [K, 8] of primitive ids `prim`
+    [K, 1] -> (tm [K, R], backface [K, R])."""
+    dist2, tc, kk = _sph_terms(sph, o, d)
     is_back = face == FACE_BACK
     is_front = face == FACE_FRONT
     backface = is_back | (~is_front & ~is_back & (tc < kk))
     t = torch.where(backface, tc + kk, tc - kk)
-    prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=ox.device)[:, None]
     excl = (excl_prim == prim) & _excl_crit(excl_face, backface)
     ok = active & (dist2 <= _col(sph, 3)) & (t > 0.0) & ~excl & torch.isfinite(t)
     return torch.where(ok, t, BIG), backface
@@ -350,18 +414,22 @@ def _tri_nearest(o, d, face, excl_prim, excl_face, active, tb: Tables):
 
 def _sph_nearest(o, d, face, excl_prim, excl_face, active, tb: Tables,
                  best_t, best_i, best_bf):
-    """Spheres after the triangles: they win exact ties (update on <=)."""
-    if tb.n_sph > 0:
-        _sph_tests(active, tb.n_sph)
-        tm, backface = sph_candidates(o, d, face, excl_prim, excl_face, active, tb)
-        prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32,
-                                       device=best_t.device)[:, None]
+    """Spheres after the triangles: the least t wins, ties to the larger
+    primitive id, a sphere's being above every triangle's (so a sphere wins
+    an exact tie, as an update on <= in index order gives); a block of
+    spheres at a time (_sph_blocks), the same winners in any order."""
+    for rows, ids, enter in _sph_blocks(tb, o, d, lambda: best_t, lambda: active):
+        _sph_tests(enter, (ids >= 0).sum())
+        prim = tb.n_tri + ids
+        tm, backface = _sph_rows_candidates(o, d, face, excl_prim, excl_face, enter, rows, prim)
         t_min, win = _winner(tm, prim)
-        bf = torch.gather(backface, 0, (win - tb.n_tri).clamp(min=0).long()[None])[0]
-        found = (t_min < BIG) & (t_min <= best_t)
-        best_t = torch.where(found, t_min, best_t)
-        best_i = torch.where(found, win, best_i)
-        best_bf = torch.where(found, bf, best_bf)
+        loc = torch.where(prim == win, torch.arange(rows.shape[0], device=tm.device)[:, None],
+                          -1).max(dim=0).values.clamp(min=0)
+        bf = torch.gather(backface, 0, loc[None])[0]
+        better = (t_min < BIG) & ((t_min < best_t) | ((t_min == best_t) & (win > best_i)))
+        best_t = torch.where(better, t_min, best_t)
+        best_i = torch.where(better, win, best_i)
+        best_bf = torch.where(better, bf, best_bf)
     return best_t, best_i, best_bf
 
 
@@ -548,44 +616,34 @@ class _SphShadow:
 
     def __init__(self, px, py, pz, self_prim, tb: Tables):
         self.tb = tb
+        self.p = (px, py, pz)
+        self.self_j = (self_prim - tb.n_tri).long()
         self.none = torch.zeros_like(px, dtype=torch.bool)
-        if tb.n_sph > 0:
-            sph = tb.sph
-            self.wx = _col(sph, 0) - px
-            self.wy = _col(sph, 1) - py
-            self.wz = _col(sph, 2) - pz
-            prim = tb.n_tri + torch.arange(tb.n_sph, dtype=torch.int32, device=px.device)[:, None]
-            self.not_self_sph = self_prim != prim
-            self.self_j = (self_prim - tb.n_tri).long()
 
     def blocked(self, lt, tested):
-        """Lanes whose shadow ray toward light `lt` a sphere occludes.
-        tested: the lanes that the kernels sweep the spheres for (the ray
-        considered and no triangle occluding it), counted where
-        count_sph_tests is counting."""
-        if self.tb.n_sph == 0:
-            return self.none
-        r2 = _col(self.tb.sph, 3)
-        dx, dy, dz = lt["ndx"], lt["ndy"], lt["ndz"]
-        wx, wy, wz = self.wx, self.wy, self.wz
-        qx = wy * dz - wz * dy
-        qy = wz * dx - wx * dz
-        qz = wx * dy - wy * dx
-        dist2 = qx * qx + qy * qy + qz * qz
-        tc = dx * wx + dy * wy + dz * wz
-        kk = torch.sqrt(torch.clamp_min(r2 - dist2, 0.0))
-        t = tc + kk  # shadow rays are Back-face rays: far shell
-        ok = ((dist2 <= r2) & (t > 0.0) & self.not_self_sph & lt["act"]
-              & torch.isfinite(t) & (t < lt["slim"]))
-        occluded = ok.any(dim=0)
-        if _sph_log is not None:
-            # the kernels' early exit: every sphere up to the first
-            # occluder, the shading point's own left out
-            n = self.tb.n_sph
-            end = torch.where(occluded, ok.to(torch.int8).argmax(dim=0) + 1, n)
-            own = (self.self_j >= 0) & (self.self_j < end)
-            _sph_tests(tested, end - own.long())
-        return occluded
+        """Lanes of `tested` whose shadow ray toward light `lt` a sphere
+        occludes.  tested: the lanes that the kernels sweep the spheres for
+        (the ray considered and no triangle occluding it), counted where
+        count_sph_tests is counting: the spheres in row order, the shading
+        point's own left out, up to the first occluder, where the lane
+        leaves the sweep."""
+        nd = (lt["ndx"], lt["ndy"], lt["ndz"])
+        found = self.none
+        for rows, ids, enter in _sph_blocks(self.tb, self.p, nd, lambda: lt["slim"],
+                                            lambda: tested & ~found):
+            dist2, tc, kk = _sph_terms(rows, self.p, nd)
+            t = tc + kk  # shadow rays are Back-face rays: far shell
+            own = (ids >= 0) & (ids == self.self_j)
+            ok = ((dist2 <= _col(rows, 3)) & (t > 0.0) & ~own & torch.isfinite(t)
+                  & (t < lt["slim"]) & enter)
+            occluded = ok.any(dim=0)
+            if _sph_log is not None:
+                end = torch.where(occluded, ok.to(torch.int8).argmax(dim=0) + 1,
+                                  (ids >= 0).sum())
+                local = torch.arange(rows.shape[0], device=ok.device)[:, None]
+                _sph_tests(enter, end - (own & (local < end)).any(dim=0).long())
+            found = found | occluded
+        return found
 
 
 def get_shade(m, geom, px, py, pz, nax, nay, naz, vdx, vdy, vdz,
@@ -707,25 +765,16 @@ def _finish_back(p, d, active, tb: Tables, best_t, best_i, tri_rows, tri_row):
     flipped interior normal (tri_rows[tri_row] is the winner's row)."""
     px, py, pz = p
     dx, dy, dz = d
-    dev = px.device
     n_tri, n_sph = tb.n_tri, tb.n_sph
-    if n_sph > 0:
-        _sph_tests(active, n_sph)
-        sph = tb.sph
-        wx, wy, wz = _col(sph, 0) - px, _col(sph, 1) - py, _col(sph, 2) - pz
-        qx = wy * dz - wz * dy
-        qy = wz * dx - wx * dz
-        qz = wx * dy - wy * dx
-        dist2 = qx * qx + qy * qy + qz * qz
-        tc = dx * wx + dy * wy + dz * wz
-        kk = torch.sqrt(torch.clamp_min(_col(sph, 3) - dist2, 0.0))
+    for rows, ids, enter in _sph_blocks(tb, p, d, lambda: best_t, lambda: active):
+        _sph_tests(enter, (ids >= 0).sum())
+        dist2, tc, kk = _sph_terms(rows, p, d)
         t = tc + kk  # Back rays take the far shell (main.rs:273-281)
-        ok = active & (dist2 <= _col(sph, 3)) & (t > 0.0) & torch.isfinite(t)
-        prim = n_tri + torch.arange(n_sph, dtype=torch.int32, device=dev)[:, None]
-        t_min, win = _winner(torch.where(ok, t, BIG), prim)
-        found = (t_min < BIG) & (t_min <= best_t)
-        best_t = torch.where(found, t_min, best_t)
-        best_i = torch.where(found, win, best_i)
+        ok = enter & (dist2 <= _col(rows, 3)) & (t > 0.0) & torch.isfinite(t)
+        t_min, win = _winner(torch.where(ok, t, BIG), n_tri + ids)
+        better = (t_min < BIG) & ((t_min < best_t) | ((t_min == best_t) & (win > best_i)))
+        best_t = torch.where(better, t_min, best_t)
+        best_i = torch.where(better, win, best_i)
 
     hx, hy, hz = px + best_t * dx, py + best_t * dy, pz + best_t * dz
     zero = torch.zeros_like(px)
@@ -830,9 +879,17 @@ def slab(box, ox, oy, oz, ix, iy, iz, tmax):
     win.  minimum/maximum propagate NaN, so a ray lying in a box face's
     plane with a zero direction component (0 * inf) misses, as in
     ops/intersect_bvh.py:97-102."""
-    t0x, t1x = (box[0] - ox) * ix, (box[3] - ox) * ix
-    t0y, t1y = (box[1] - oy) * iy, (box[4] - oy) * iy
-    t0z, t1z = (box[2] - oz) * iz, (box[5] - oz) * iz
+    return slab_from(box, (ox, oy, oz), (ox, oy, oz), (ix, iy, iz), tmax)
+
+
+def slab_from(box, lo, hi, inv, tmax):
+    """slab() measuring the box's min faces from origin `lo` and its max
+    faces from `hi`: with lo = o + w and hi = o - w, the box widened by w
+    (the sphere gate's slack, _sph_gate)."""
+    (lx, ly, lz), (hx, hy, hz), (ix, iy, iz) = lo, hi, inv
+    t0x, t1x = (box[0] - lx) * ix, (box[3] - hx) * ix
+    t0y, t1y = (box[1] - ly) * iy, (box[4] - hy) * iy
+    t0z, t1z = (box[2] - lz) * iz, (box[5] - hz) * iz
     tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
                        torch.minimum(t0z, t1z))
     tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
@@ -897,31 +954,67 @@ def count_chunks(n_lanes: int, device="cpu", groups=(32,)):
         _chunk_log = None
 
 
-_sph_log: torch.Tensor | None = None  # count_sph_tests' per-lane counts
+_sph_log: tuple | None = None  # count_sph_tests' per-lane counts: tests, box tests
 
 
 @contextlib.contextmanager
 def count_sph_tests(n_lanes: int, device="cpu"):
     """Count the sphere tests of the plain sweeps of n_lanes lanes inside
     the block, as the MC kernel counts them (csrc/common.cuh SphCount; the
-    `sph` row of WORK_ROWS) -> int64 [n_lanes], each lane's: each nearest or
-    interior sweep tests every sphere for each of its active lanes; a shadow
-    ray tests none when a triangle occludes it, else every sphere up to its
-    first occluder, the shading point's own left out.  Every sweep inside
-    must run on these n_lanes lanes."""
+    `sph` and `box` rows of WORK_ROWS) -> (tests, boxes), int64 [n_lanes]
+    each, each lane's.  A linear sweep: each nearest or interior sweep
+    tests every sphere for each of its active lanes; a shadow ray tests none
+    when a triangle occludes it, else every sphere up to its first
+    occluder, the shading point's own left out.  A gated sweep (a scene with
+    the sphere chunk table) tests the spheres of the chunks its ray enters,
+    by the same rules, and counts its box tests: every supergroup's, and
+    each chunk's of the supergroups it enters, up to a shadow ray's first
+    occluder.  Every sweep inside must run on these n_lanes lanes."""
     global _sph_log
-    lanes = _sph_log = torch.zeros(n_lanes, dtype=torch.int64, device=device)
+    lanes = _sph_log = tuple(torch.zeros(n_lanes, dtype=torch.int64, device=device)
+                             for _ in range(2))
     try:
         yield lanes
     finally:
         _sph_log = None
 
 
-def _sph_tests(lanes: torch.Tensor, tests) -> None:
+def _sph_tests(lanes: torch.Tensor, tests, kind: int = 0) -> None:
     """Add `tests` (a number, or [R]) to each lane of mask `lanes`, where
-    count_sph_tests is counting."""
+    count_sph_tests is counting: sphere tests (kind 0) or box tests (1)."""
     if _sph_log is not None:
-        _sph_log.add_(torch.where(lanes, torch.as_tensor(tests, dtype=torch.int64), 0))
+        _sph_log[kind].add_(torch.where(lanes, torch.as_tensor(tests, dtype=torch.int64), 0))
+
+
+def _sph_gate(o):
+    """The origins a sphere gate measures a box's min and max faces from:
+    o moved SPH_PAD |o|inf outward past each (scene/blocked.py SPH_PAD)."""
+    ox, oy, oz = o
+    w = SPH_PAD * torch.maximum(torch.maximum(ox.abs(), oy.abs()), oz.abs())
+    return (ox + w, oy + w, oz + w), (ox - w, oy - w, oz - w)
+
+
+def _sph_chunks(tb: Tables, o, d, tmax_fn, gate):
+    """The sphere chunk table's two gate tiers for lanes `gate`: yields
+    (chunk index, [R] mask of lanes whose ray enters the supergroup's and
+    the chunk's box within tmax_fn()).  tmax_fn and gate are read at each
+    test, so a hit found in one chunk prunes the next, and a shadow ray
+    leaves at its occluder, as in the kernels; each box test is counted."""
+    lo, hi = _sph_gate(o)
+    inv = (1.0 / d[0], 1.0 / d[1], 1.0 / d[2])
+    n = tb.sph_box.shape[0]
+    for s in range(tb.sph_sup.shape[0]):
+        lanes = gate()
+        _sph_tests(lanes, 1, 1)
+        in_sup = slab_from(tb.sph_sup[s], lo, hi, inv, tmax_fn()) & lanes
+        if not bool(in_sup.any()):
+            continue
+        for c in range(s * SPH_SUP, min((s + 1) * SPH_SUP, n)):
+            lanes = in_sup & gate()
+            _sph_tests(lanes, 1, 1)
+            enter = slab_from(tb.sph_box[c], lo, hi, inv, tmax_fn()) & lanes
+            if bool(enter.any()):
+                yield c, enter
 
 
 def _shared_pass():
@@ -1106,6 +1199,13 @@ def check_tables(tb: Tables, device, bt: BlkTables | None = None) -> None:
         check("hot", tb.hot, torch.float32, (tb.n_tri, HOT_COLS), device)
         if tb.hot.data_ptr() % 16:
             raise ValueError("hot must be 16-byte aligned")
+    if tb.sph_rows is not None:  # the sphere chunk table, rows read as float4s
+        nch = tb.sph_box.shape[0]
+        check("sph_rows", tb.sph_rows, torch.float32, (nch * SPH_CHUNK, SPH_COLS), device)
+        check("sph_box", tb.sph_box, torch.float32, (nch, 8), device)
+        check("sph_sup", tb.sph_sup, torch.float32, (-(-nch // SPH_SUP), 8), device)
+        if nch != -(-tb.n_sph // SPH_CHUNK) or tb.sph_rows.data_ptr() % 16:
+            raise ValueError("the sphere chunk table does not fit the scene")
     if bt is not None:
         nch = bt.box.shape[0]
         check("blk_tri", bt.tri, torch.float32, (nch * BLK_CHUNK, BLK_COLS), device)
@@ -1122,13 +1222,17 @@ def check_tables(tb: Tables, device, bt: BlkTables | None = None) -> None:
                 raise ValueError("blk_hot and blk_ids must be 16-byte aligned")
 
 
-def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False) -> tuple:
+def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False,
+                    sph_chunks: bool = False) -> tuple:
     """The scene arguments of a kernel's C entry (utils/kernels.py
     SIGNATURES): the dense tables and their counts, then, for a blocked
     instantiation, the blocked rows, chunk and supergroup boxes and the
     chunk count, then, for a warp-cooperative one (`hot`), the hot rows,
     their ids, the chunks' live row counts and the triangles' rows; for a
-    dense staged walk (`hot`, no blocked tables), the dense hot rows."""
+    dense staged walk (`hot`, no blocked tables), the dense hot rows.  Last,
+    for an entry that gates its sphere sweeps (`sph_chunks`), the sphere
+    chunk rows, chunk and supergroup boxes and the chunk count (None and 0
+    on a scene without the table)."""
     geo = (tb.tri, tb.n_tri, tb.sph, tb.n_sph, tb.mat, tb.mat.shape[0],
            tb.lights, tb.n_light)
     if bt is not None:
@@ -1141,4 +1245,7 @@ def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False) 
         if bt.hot is None:
             raise ValueError("the cooperative kernels need the hot tables (pack_blocked)")
         geo += (bt.hot, bt.ids, bt.live, bt.row_of_tri)
+    if sph_chunks:
+        n = 0 if tb.sph_box is None else tb.sph_box.shape[0]
+        geo += (tb.sph_rows, tb.sph_box, tb.sph_sup, n)
     return geo

@@ -21,11 +21,19 @@ The random draws are an operand ([depth, 3, N] uniforms: roulette u, lobe
 u_phi, lobe theta), so the kernel, the plain version and the JAX package
 can be fed identical randomness and compared lane for lane.
 
+On a scene that carries the sphere chunk table (a dense scene of more
+spheres than one chunk holds: scene/blocked.py build_sph_chunks), both
+dense entries launch the instantiations whose sphere sweeps test only the
+spheres of the chunks a ray enters (csrc/common.cuh SphGated), with the
+linear sweeps' hits; the plain version gates alike.
+
 Asked to (`sph_tests=`), the walk counts its sphere tests: every sweep's,
 added once at its end (csrc/common.cuh SphCount, launched only then, so the
 untraced walk runs no counting instruction; the plain version through
-kernel_common.count_sph_tests).  Inside a unit that utils/tracing records,
-`trace` asks, and adds the call's sum to the counter `mc.sph_tests`.
+kernel_common.count_sph_tests), and a gated walk its box tests
+(`sph_box_tests=`).  Inside a unit that utils/tracing records, `trace`
+asks, and adds the call's sums to the counters `mc.sph_tests` and, on a
+gated walk, `mc.sph_box_tests`.
 """
 
 from __future__ import annotations
@@ -215,7 +223,7 @@ def trace_plain(geom, textures, ray_o, ray_d, unifs, depth: int,
 
 def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
           max_retries: int, work: torch.Tensor | None = None,
-          sph_tests: torch.Tensor | None = None):
+          sph_tests: torch.Tensor | None = None, sph_box_tests: torch.Tensor | None = None):
     """One MC sample per primary ray -> (photon [N, 3] UNfiltered, casts
     0-d tensor).  unifs: [depth, 3, N] float32.
 
@@ -224,35 +232,48 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     blocked one on a blocked scene) or raise — there is no fallback.
     `work`: an optional int32 [len(kernels.WORK_ROWS), N] tensor; given one,
     the kernel's counting instantiation fills it with each lane's tests by
-    kind.  `sph_tests`: an optional int64 [N] tensor; given one, it
-    receives each lane's sphere tests.  Inside a recorded unit
-    (utils/tracing) their sum is counted as `mc.sph_tests`."""
+    kind.  `sph_tests`, `sph_box_tests`: optional int64 [N] tensors; given
+    one, it receives each lane's sphere tests, or its sphere gate's box tests
+    (0 where the walk's sphere sweeps are linear).  Inside a recorded unit
+    (utils/tracing) their sums are counted as `mc.sph_tests` and, on a
+    gated walk, `mc.sph_box_tests`."""
     n, dev = ray_o.shape[0], ray_o.device
-    if sph_tests is None and tracing.active():
-        sph_tests = torch.empty((n,), dtype=torch.int64, device=dev)
+    if tracing.active():
+        if sph_tests is None:
+            sph_tests = torch.empty((n,), dtype=torch.int64, device=dev)
+        if sph_box_tests is None and scene.sph_perm is not None:
+            sph_box_tests = torch.empty((n,), dtype=torch.int64, device=dev)
     counts = COUNTS_BLK if scene.blocked else COUNTS
     if dev.type == "cpu":
         counts.plain += 1
-        if sph_tests is None:
+        if sph_tests is None and sph_box_tests is None:
             return trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
                                depth, max_distance, max_retries)
-        kernels.check("sph_tests", sph_tests, torch.int64, (n,), dev)
-        with kc.count_sph_tests(n, dev) as lanes:
+        outs = [t for t in (sph_tests, sph_box_tests) if t is not None]
+        for t in outs:
+            kernels.check("sph_tests", t, torch.int64, (n,), dev)
+        with kc.count_sph_tests(n, dev) as (lanes, boxes):
             out = trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
                               depth, max_distance, max_retries)
-        sph_tests.copy_(lanes)
+        if sph_tests is not None:
+            sph_tests.copy_(lanes)
+        if sph_box_tests is not None:
+            sph_box_tests.copy_(boxes)
     else:
         out = _launch("rt_mc_trace_blk" if scene.blocked else "rt_mc_trace", True, counts,
                       scene, ray_o, ray_d, unifs, depth, max_distance, max_retries, work,
-                      sph_tests)
+                      sph_tests, sph_box_tests)
     if sph_tests is not None:
         tracing.count("mc.sph_tests", sph_tests)
+    if sph_box_tests is not None and scene.sph_perm is not None:
+        tracing.count("mc.sph_box_tests", sph_box_tests)
     return out
 
 
 def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
                      max_retries: int, work: torch.Tensor | None = None,
-                     sph_tests: torch.Tensor | None = None):
+                     sph_tests: torch.Tensor | None = None,
+                     sph_box_tests: torch.Tensor | None = None):
     """`trace` on CUDA tensors through the kernel's per-thread
     instantiation (every thread sweeps the dense table, or walks its own
     chunk list, out of global memory alone).  The main path's walk must
@@ -260,16 +281,17 @@ def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance
     this, and it counts nothing into utils/tracing."""
     if scene.blocked:
         return _launch("rt_mc_trace_blk_thread", False, COUNTS_BLK_THREAD, scene, ray_o, ray_d,
-                       unifs, depth, max_distance, max_retries, work, sph_tests)
+                       unifs, depth, max_distance, max_retries, work, sph_tests, sph_box_tests)
     return _launch("rt_mc_trace_thread", False, COUNTS_THREAD, scene, ray_o, ray_d, unifs, depth,
-                   max_distance, max_retries, work, sph_tests)
+                   max_distance, max_retries, work, sph_tests, sph_box_tests)
 
 
 def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, depth,
-            max_distance, max_retries, work, sph_tests):
+            max_distance, max_retries, work, sph_tests, sph_box_tests):
     """Check the operands and launch C entry `entry` (`hot`: it takes the
-    hot rows of the staged or cooperative walk) and advance its launch
-    counter `counts`."""
+    hot rows of the staged or cooperative walk; a dense entry takes the
+    sphere chunk table and `sph_box_tests`, a blocked one neither, and its
+    `sph_box_tests` is zeroed) and advance its launch counter `counts`."""
     dev = ray_o.device
     n = ray_o.shape[0]
     if dev.type != "cuda":
@@ -283,14 +305,20 @@ def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, de
     kernels.check("ray_d", ray_d, torch.float32, (n, 3), dev)
     kernels.check("unifs", unifs, torch.float32, (depth, 3, n), dev)
     kernels.check_work(work, n, dev)
-    if sph_tests is not None:
-        kernels.check("sph_tests", sph_tests, torch.int64, (n,), dev)
+    for t in (sph_tests, sph_box_tests):
+        if t is not None:
+            kernels.check("sph_tests", t, torch.int64, (n,), dev)
     o_t = ray_o.t().contiguous()
     d_t = ray_d.t().contiguous()
     photon = torch.empty((3, n), dtype=torch.float32, device=dev)
     casts = torch.empty((n,), dtype=torch.int32, device=dev)
+    outs = (photon, casts, work, sph_tests)
+    if bt is None:
+        outs += (sph_box_tests,)
+    elif sph_box_tests is not None:
+        sph_box_tests.zero_()
     if n:
-        kernels.launch(entry, o_t, d_t, unifs, *kc.kernel_geometry(tb, bt, hot), photon,
-                       casts, work, sph_tests, n, depth, float(max_distance), int(max_retries))
+        kernels.launch(entry, o_t, d_t, unifs, *kc.kernel_geometry(tb, bt, hot, bt is None),
+                       *outs, n, depth, float(max_distance), int(max_retries))
         counts.launches += 1
     return photon.t(), casts.sum()

@@ -6,6 +6,9 @@ numpy precomputation of the intersection constants, returning torch
 tensors.  From BVH_MIN_TRIS triangles on (or when asked), the scene also
 carries a BVH (scene/bvh.py) and the blocked layout derived from its leaf
 order (scene/blocked.py), as raytracer_tpu/scene/builder.py:229-252 does.
+A scene without them and of more than SPH_CHUNK spheres carries the sphere
+chunk table (scene/blocked.py build_sph_chunks), which the dense MC walk
+gates its sphere sweeps by.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.scene.blocked import build_blocked
+from raytracer_tpu_torch.scene.blocked import SPH_CHUNK, build_blocked, build_sph_chunks
 from raytracer_tpu_torch.scene.bvh import build_bvh
 from raytracer_tpu_torch.scene.textures import DEFAULT_TEXTURES
 from raytracer_tpu_torch.scene.types import (
@@ -191,18 +194,21 @@ class SceneBuilder:
         lf = lambda key, w: np.asarray([l[key] for l in lights], f32).reshape(L, *w)
 
         t = torch.as_tensor
-        bvh_fields: dict = {}
+        opt: dict = {}
         if (use_bvh is True or (use_bvh == "auto" and T >= BVH_MIN_TRIS)) and T > 0:
             bvh = build_bvh(tri_v)
             perm, boxes = build_blocked(tri_v, bvh.prim_order)
-            bvh_fields = dict(
+            opt = dict(
                 bvh_node_min=t(bvh.node_min), bvh_node_max=t(bvh.node_max),
                 bvh_node_right=t(bvh.node_right), bvh_node_count=t(bvh.node_count),
                 bvh_prim_order=t(bvh.prim_order), bvh_depth=bvh.depth,
                 blk_perm=t(perm), blk_box=t(boxes),
             )
+        if S > SPH_CHUNK and not opt:  # the blocked walks sweep spheres linearly
+            sph_perm, sph_box = build_sph_chunks(sph_c, sph_r)
+            opt.update(sph_perm=t(sph_perm), sph_box=t(sph_box))
         return Scene(
-            **bvh_fields,
+            **opt,
             tri_v=t(tri_v), tri_n=t(tri_n), tri_uv=t(tri_uv), tri_obj=t(tri_obj),
             tri_fn=t(fn.astype(f32)), tri_d=t(tri_d.astype(f32)),
             tri_g=t(tri_g.astype(f32)), tri_h=t(tri_h.astype(f32)),

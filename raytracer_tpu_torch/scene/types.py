@@ -8,7 +8,10 @@ i has id i, sphere j has id n_tri + j.
 
 Scenes with many triangles also carry the BVH (scene/bvh.py) and the
 blocked layout derived from it (scene/blocked.py); the kernels take the
-blocked branch when `Scene.blocked` holds.
+blocked branch when `Scene.blocked` holds.  Other scenes with more spheres
+than one chunk holds carry the sphere chunk table (scene/blocked.py
+build_sph_chunks), which the MC walk's dense routes gate their sphere
+sweeps by.
 
 Scenes and cameras are made on the card unless the caller asks for the CPU
 (`device="cpu"`, the plain PyTorch path): see `render_device`.
@@ -65,6 +68,10 @@ BVH_FIELDS = (
     "bvh_prim_order", "blk_perm", "blk_box",
 )
 
+# Optional tensor fields of Scene: the sphere chunk table; None on blocked
+# scenes and on scenes of at most SPH_CHUNK spheres.
+SPH_CHUNK_FIELDS = ("sph_perm", "sph_box")
+
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
@@ -109,6 +116,9 @@ class Scene:
     bvh_depth: int = 0
     blk_perm: torch.Tensor | None = None  # [T_pad] int32 (-1 = pad row)
     blk_box: torch.Tensor | None = None  # [NCH, 8] chunk AABB min/max
+    # sphere chunk table (scene/blocked.py build_sph_chunks)
+    sph_perm: torch.Tensor | None = None  # [S_pad] int32 (-1 = pad row)
+    sph_box: torch.Tensor | None = None  # [NCH, 8] chunk AABB min/max
 
     @property
     def device(self) -> torch.device:
@@ -140,7 +150,7 @@ class Scene:
         return self.blk_perm is not None and self.n_tri > 0
 
     def to(self, device) -> "Scene":
-        fields = SCENE_FIELDS + tuple(f for f in BVH_FIELDS
+        fields = SCENE_FIELDS + tuple(f for f in BVH_FIELDS + SPH_CHUNK_FIELDS
                                       if getattr(self, f) is not None)
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in fields}

@@ -41,20 +41,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the instantiation that counts each lane's tests into it (WORK_ROWS); None
 # runs the main path's, which counts nothing.  The MC entries' second
 # optional pointer, `sph_tests` (int64 [n]): given a tensor, the main path's
-# walk counting its sphere tests alone fills it with each lane's.
+# walk counting its sphere tests alone fills it with each lane's.  The dense
+# MC entries' third, `sph_box_tests` (int64 [n]), receives the gate's box
+# tests of the same walk; they take the sphere chunk table as optional
+# pointers too (None and a count of 0: a scene without one).
 _TABLES = "p" + "ip" * 3 + "i"  # tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light
 _BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
 # what the warp-cooperative walks read besides: hot rows, their ids, the
 # chunks' live row counts, the triangles' blocked rows (a dense scene's
 # staged walks read its hot rows only, after _TABLES: "p")
 _HOT = "pppp"
+_SPH = "oooi"  # sphere chunk rows, chunk boxes, supergroup boxes, n_sph_chunks
 _GEO = "pipi"  # tri, n_tri, sph, n_sph
 _RAYS = "pppppp"  # ray_o, ray_d, face, excl_prim, excl_face, active
 SIGNATURES = {
-    # ray_o, ray_d, unifs, tables, photon, casts, work, (sph_tests,) n,
-    # depth, max_distance, max_retries
-    "rt_mc_trace": "ppp" + _TABLES + "p" + "ppoo" + "ii" + "fi",
-    "rt_mc_trace_thread": "ppp" + _TABLES + "ppoo" + "ii" + "fi",
+    # ray_o, ray_d, unifs, tables, photon, casts, work, sph_tests,
+    # (sph_box_tests,) n, depth, max_distance, max_retries
+    "rt_mc_trace": "ppp" + _TABLES + "p" + _SPH + "ppooo" + "ii" + "fi",
+    "rt_mc_trace_thread": "ppp" + _TABLES + _SPH + "ppooo" + "ii" + "fi",
     "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + _HOT + "ppoo" + "ii" + "fi",
     "rt_mc_trace_blk_thread": "ppp" + _TABLES + _BLK + "ppoo" + "ii" + "fi",
     # pf, pi, tables, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
@@ -108,12 +112,15 @@ WORK_ROWS = ("tri", "plane", "edge", "sph", "box", "chunk", "wchunk", "t_in", "t
 # "level", "mc", "nearest_hit", "any_hit", "shadow_any_hit" and "march" are
 # the dense walks out of shared memory, "level_blk", "mc_blk" and the binned
 # primary, bounce and terminal kernels the warp-cooperative walks of the
-# main path; the "*_thread" ones are their per-thread yardsticks.
+# main path; the "*_thread" ones are their per-thread yardsticks;
+# "mc_gated" is the dense MC walk with its sphere sweeps gated by the
+# sphere chunk table.
 ATTRS = {
     "level": ("rt_level_attrs", 0), "level_thread": ("rt_level_attrs", 3),
     "level_blk": ("rt_level_attrs", 1), "level_blk_thread": ("rt_level_attrs", 2),
     "mc": ("rt_mc_attrs", 0), "mc_thread": ("rt_mc_attrs", 3),
     "mc_blk": ("rt_mc_attrs", 1), "mc_blk_thread": ("rt_mc_attrs", 2),
+    "mc_gated": ("rt_mc_attrs", 4), "mc_gated_thread": ("rt_mc_attrs", 5),
     "binned_primary": ("rt_binned_attrs", 0),
     "binned_bounce_first": ("rt_binned_attrs", 1),
     "binned_bounce": ("rt_binned_attrs", 2),

@@ -28,16 +28,21 @@ def _c_entries() -> dict[str, list[str]]:
     return out
 
 
+# the optional pointers: the counters' outputs, and the sphere chunk table
+OPTIONAL = ("work", "sph_tests", "sph_box_tests", "sph_rows", "sph_box", "sph_sup")
+
+
 def _code(param: str) -> str:
     if "*" in param:
-        return "o" if param.split("*")[-1].strip() in ("work", "sph_tests") else "p"
+        return "o" if param.split("*")[-1].strip() in OPTIONAL else "p"
     return {"int": "i", "float": "f"}[param.split()[0]]
 
 
 def test_c_entries_match_signatures():
     """Every bound entry exists with SIGNATURES' types in order, the stream
     last, and `work` is its one optional pointer (the ordered delivery,
-    which runs no tests, has none; the MC walks have `sph_tests` too)."""
+    which runs no tests, has none; the MC walks have `sph_tests` too, and
+    the dense ones `sph_box_tests` and the sphere chunk table's three)."""
     entries = _c_entries()
     assert {"rt_nearest_hit", "rt_any_hit", "rt_shadow_any_hit", "rt_march"} <= set(entries)
     assert {"intersect_kernels.cu", "march_kernel.cu"} <= set(kernels.SOURCES)
@@ -47,7 +52,8 @@ def test_c_entries_match_signatures():
         params = entries[name]
         assert params[-1] == "void* stream", (name, params[-1])
         assert "".join(_code(p) for p in params[:-1]) == sig, name
-        want = 0 if name == "rt_deliver" else 2 if name.startswith("rt_mc_trace") else 1
+        want = (0 if name == "rt_deliver" else 2 if name.startswith("rt_mc_trace_blk")
+                else 6 if name.startswith("rt_mc_trace") else 1)
         assert sig.count("o") == want, name
     for entry, _ in kernels.ATTRS.values():
         n_tri = ["int n_tri"] if entry in kernels.ATTRS_N_TRI else []
@@ -214,8 +220,9 @@ def test_dense_hot_rows_are_what_the_staged_walks_read():
 
 
 def test_attrs_name_both_walks_of_the_redesigned_kernels():
-    for coop in ("level", "mc", "level_blk", "mc_blk", "binned_bounce", "binned_terminal",
-                 "binned_primary", "march", "shadow_any_hit", "nearest_hit", "any_hit"):
+    for coop in ("level", "mc", "mc_gated", "level_blk", "mc_blk", "binned_bounce",
+                 "binned_terminal", "binned_primary", "march", "shadow_any_hit", "nearest_hit",
+                 "any_hit"):
         assert kernels.ATTRS[coop] != kernels.ATTRS[coop + "_thread"]
         assert kernels.ATTRS[coop][0] == kernels.ATTRS[coop + "_thread"][0]
     assert len(set(kernels.ATTRS.values())) == len(kernels.ATTRS)
