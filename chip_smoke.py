@@ -175,11 +175,14 @@ Phases (each asserts; none catches a failure):
      delivery once a tile and nothing else; every port-vs-JAX score >= the
      JAX two-seed floor (artifacts/PSNR.json self_psnr_*) - 0.6 dB at raw,
      down4 and down8, the port's own floor within 0.6 dB of the JAX floor
-     at each, nothing dropped in either Whitted pass.  Then
-     scripts/profile_torch_schedule.py's epoch loop (--png-every 1 over 20
-     epochs and 10 over 60: at least five groups past the first) on a JSON
-     line each: dispatch, device, fetch, the PNG writer's phases, the
-     serial group and render_progressive's pipelined group and wall.
+     at each, nothing dropped in either Whitted pass.  Then the epoch loop
+     profiled (schedule_profile: --png-every 1 over 20 epochs and 10 over
+     60, at least five groups past the first): one render_progressive
+     under torch.profiler, read from the loop's own spans (utils/tracing),
+     on a JSON line each: a group's epochs less their waits, the waits, the
+     u8 encode, the main thread's unspanned rest (the reads and the
+     writer's hand-over), the writer thread's job with its PNG encode and
+     write, and render_progressive's wall.
      `python3 chip_smoke.py --phase schedule` builds the kernels and runs
      this phase alone.
   9. the benchmark harness (raytracer_tpu_torch/bench.py, after phase 8):
@@ -2052,7 +2055,6 @@ def schedule_phase(spec, smi):
     within 0.6 dB of the JAX floor at every scale, no Whitted ray
     dropped."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
-    import profile_torch_schedule
     import psnr_torch_vs_reference as fidelity
 
     from raytracer_tpu_torch.config import RenderConfig
@@ -2099,12 +2101,12 @@ def schedule_phase(spec, smi):
             own = out["port_floor"][f"self_psnr_{k}_db"]
             assert abs(own - jax_floor[k]) <= FLOOR_MARGIN_DB, ("port floor", k, own,
                                                                 jax_floor[k])
-        # (b) the epoch loop's phases
+        # (b) the epoch loop, read from its own spans
         scene, cam = demo_scene(device=spec.device), demo_camera(device=spec.device)
         out["profile"] = {}
         for k in spec.png_every:
             prof_cfg = dataclasses.replace(cfg, epochs=max(spec.profile_epochs, 6 * k))
-            prof = profile_torch_schedule.profile(scene, cam, prof_cfg, k, tmp)
+            prof = schedule_profile(scene, cam, prof_cfg, k, tmp)
             print(json.dumps({"profile_png_every": k, **prof}))
             out["profile"][k] = prof
         report_profile(out["profile"], smi)
@@ -2137,21 +2139,83 @@ def report_fidelity(out, spec):
             f"{k} {row[f'{prefix}{k}_db']:.2f} dB (JAX floor {floor[k]:.2f})" for k in SCALES))
 
 
+# schedule_profile's figures a group of epochs, host ms
+GROUP_FIGURES = ("wall_ms", "epoch_host_ms", "wait_ms", "encode_u8_ms", "read_ms", "png_job_ms",
+                 "png_encode_ms", "png_write_ms")
+
+
+def schedule_profile(scene, camera, cfg, png_every, out_dir):
+    """render_progressive's cfg.epochs epochs, a PNG every png_every, run
+    once under torch.profiler (CPU activity, and CUDA on a card) and read
+    from the loop's own spans (utils/tracing) -> each group's host ms:
+    wall_ms (from its first rt.step.epoch's start to the next group's, the
+    last group's to render_progressive's return), epoch_host_ms (its
+    rt.step.epoch units less their rt.step.wait spans), wait_ms (those
+    waits), encode_u8_ms (its rt.step.encode unit), read_ms (the wall less
+    those units: the counters' and the u8 frame's reads and the hand-over
+    of the writer's job, which no span covers; the last group's also the
+    wait for the writer's last job), png_job_ms (the writer thread's
+    rt.png.job unit), png_encode_ms and png_write_ms (its spans); the
+    medians of every group but the first, which meets every first-call
+    set-up; render_progressive's wall and the writer's route.  Every
+    figure carries the profiler's cost per host operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.parallel.progressive import render_progressive
+    from raytracer_tpu_torch.utils import native, tracing
+
+    device = scene.device
+    cuda = device.type == "cuda"
+    tracing.take()  # what an earlier window left
+    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])):
+        t0 = time.time_ns()
+        render_progressive(scene, camera, cfg, out_path=os.path.join(out_dir, "profile.png"),
+                           log=lambda m: None, png_every=png_every)
+        t_end = time.time_ns()
+    spans = tracing.take().spans
+    root = []  # each span's unit: the index of its outermost span
+    for i, s in enumerate(spans):
+        root.append(i if s.parent is None else root[s.parent])
+    unit = {(s.name, s.unit): i for i, s in enumerate(spans) if s.parent is None}
+    ns = lambda i: spans[i].end_ns - spans[i].start_ns
+    inside = lambda name, units: sum(ns(i) for i, s in enumerate(spans)
+                                     if s.name == name and root[i] in units)
+    firsts = list(range(0, cfg.epochs, png_every))
+    starts = [spans[unit["rt.step.epoch", e]].start_ns for e in firsts] + [t_end]
+    groups = []
+    for e0, start, end in zip(firsts, starts, starts[1:]):
+        e1 = min(e0 + png_every, cfg.epochs)
+        epochs = {unit["rt.step.epoch", e] for e in range(e0, e1)}
+        encode, job = unit["rt.step.encode", e0], unit["rt.png.job", e1]
+        epoch, wait = sum(ns(i) for i in epochs), inside("rt.step.wait", epochs)
+        group = {"wall_ms": end - start, "epoch_host_ms": epoch - wait, "wait_ms": wait,
+                 "encode_u8_ms": ns(encode), "read_ms": end - start - epoch - ns(encode),
+                 "png_job_ms": ns(job), "png_encode_ms": inside("rt.png.encode", {job}),
+                 "png_write_ms": inside("rt.png.write", {job})}
+        groups.append({"epochs": e1 - e0, **{k: v / 1e6 for k, v in group.items()}})
+    timed = groups[1:]
+    return {"device": str(device),
+            "device_name": torch.cuda.get_device_name(device) if cuda else "cpu",
+            "width": cfg.width, "height": cfg.height, "epochs": cfg.epochs,
+            "png_every": png_every, "writer_route": "native" if native.available() else "python",
+            "groups_timed": len(timed), "render_progressive_s": (t_end - t0) / 1e9,
+            **{k: float(np.median([g[k] for g in timed])) for k in GROUP_FIGURES},
+            "groups": groups}
+
+
 def report_profile(profiles, smi):
-    """Phase 8 (b)'s medians on a line a group size."""
-    ms = lambda x: "n/a" if x is None else f"{x * 1e3:.2f}"
+    """Phase 8 (b)'s medians on a line a group size, under the spans'
+    names."""
     for k, p in profiles.items():
-        once = p["python_route_once"]
         print(f"epoch loop, --png-every {k}, {p['epochs']} epochs at {p['width']}x{p['height']} "
-              f"({'; '.join(smi)}; writer route {p['writer_route']}; medians of "
-              f"{p['groups_timed']} groups, ms): dispatch {ms(p['dispatch_s'])}, device "
-              f"{ms(p['device_s'])}, fetch {ms(p['fetch_s'])}, encode {ms(p['encode_s'])}, write "
-              f"{ms(p['write_s'])}, rename {ms(p['rename_s'])}; serial group "
-              f"{ms(p['serial_group_s'])}; pipelined group {ms(p['pipelined_group_s'])}, "
-              f"render_progressive wall {p['pipelined_wall_s']:.3f} s"
-              + ("" if once is None else f"; the Python route once: encode "
-                 f"{ms(once['encode_s'])}, write {ms(once['write_s'])}, rename "
-                 f"{ms(once['rename_s'])}"))
+              f"({'; '.join(smi)}; writer route {p['writer_route']}; its spans under "
+              f"torch.profiler, medians of {p['groups_timed']} groups, host ms a group): wall "
+              f"{p['wall_ms']:.2f}; rt.step.epoch less its waits {p['epoch_host_ms']:.2f}, "
+              f"rt.step.wait {p['wait_ms']:.2f}, rt.step.encode {p['encode_u8_ms']:.2f}, reads "
+              f"and hand-over (no span) {p['read_ms']:.2f}; the writer's rt.png.job "
+              f"{p['png_job_ms']:.2f} (rt.png.encode {p['png_encode_ms']:.2f}, rt.png.write "
+              f"{p['png_write_ms']:.2f}); render_progressive wall "
+              f"{p['render_progressive_s']:.3f} s")
 
 
 # ---- phase 9: the benchmark harness (raytracer_tpu_torch/bench.py) ----------

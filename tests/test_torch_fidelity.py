@@ -3,10 +3,10 @@ scripts/psnr_torch_vs_reference.py against scripts/psnr_vs_reference.py
 and the JAX package's recorded noise floor, the draws' seeds over the
 schedule's epochs and tiles, the tone normaliser's percentile at the
 schedule's 1,228,800 pixels against the JAX package's, the roofline cost
-model against the JAX package's, scripts/profile_torch_schedule.py at
-64x48, and chip_smoke.py's phase 8 at 64x48 against the port's own
-renders, with a planted golden and a planted floor that its gates must
-refuse."""
+model against the JAX package's, chip_smoke.schedule_profile (phase 8's
+profile of the epoch loop from its own spans) at 64x48, and
+chip_smoke.py's phase 8 at 64x48 against the port's own renders, with a
+planted golden and a planted floor that its gates must refuse."""
 
 import json
 import os
@@ -23,6 +23,7 @@ from raytracer_tpu.utils import roofline as jax_roofline
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.ops.tonemap import luma_percentile_scale
 from raytracer_tpu_torch.render import _clips, _seed, tile_draws
+from raytracer_tpu_torch.scene.presets import demo_camera, demo_scene
 from raytracer_tpu_torch.utils import native, roofline
 from raytracer_tpu_torch.utils.png import read_png_rgb8, write_png_atomic
 
@@ -30,7 +31,6 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
-import profile_torch_schedule  # noqa: E402
 import psnr_torch_vs_reference as port_psnr  # noqa: E402
 import psnr_vs_reference as jax_psnr  # noqa: E402
 
@@ -138,40 +138,35 @@ def test_roofline_cost_model_matches_jax():
 
 
 @pytest.mark.parametrize("route", ["python", "native"])
-def test_profile_schedule_prints_every_phase(capsys, monkeypatch, route):
-    """profile_torch_schedule.main at 64x48, 3 epochs on the CPU prints one
-    JSON line with every phase, the route it took (the native route
-    faked: its writer is one call), each group's phases summing to no
-    more than its serial time, and the pipelined run's wall."""
+def test_schedule_profile_reads_the_spans(tmp_path, monkeypatch, route):
+    """chip_smoke.schedule_profile at 64x48, 3 epochs, a PNG every epoch,
+    on the CPU: three groups, two timed, every figure present and >= 0 in
+    each, each group's main-thread units within its wall, and the route it
+    took (the native route faked: its writer is one call, one
+    rt.png.write span and no rt.png.encode)."""
     written = []
     monkeypatch.setattr(native, "available", lambda: route == "native")
     if route == "native":
         monkeypatch.setattr(native, "write_png_atomic",
                             lambda path, rgb: written.append(rgb.shape))
-    args = ["--device", "cpu", "--width", "64", "--height", "48", "--epochs", "3"]
-    assert profile_torch_schedule.main(args + (["--checkpoint"] if route == "python" else [])) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1
-    out = json.loads(lines[0])
+    cfg = RenderConfig(width=64, height=48, depth=5, epochs=3)
+    out = chip_smoke.schedule_profile(demo_scene(device="cpu"), demo_camera(device="cpu"), cfg,
+                                      1, str(tmp_path))
     assert out["writer_route"] == route and out["device"] == "cpu"
     assert (out["width"], out["height"], out["epochs"], out["png_every"]) == (64, 48, 3, 1)
     assert len(out["groups"]) == 3 and out["groups_timed"] == 2
-    python_phases = ("encode_s", "rename_s")
+    assert out["render_progressive_s"] > 0
     for g in out["groups"]:
-        assert set(profile_torch_schedule.PHASES) <= set(g)
-        phases = [g[p] for p in profile_torch_schedule.PHASES if g[p] is not None]
-        assert all(x >= 0 for x in phases) and sum(phases) <= g["serial_s"], g
-        assert all((g[p] is None) == (route == "native") for p in python_phases), g
-        assert (g["checkpoint_s"] is None) == (route == "native"), g
-    for key in (*profile_torch_schedule.PHASES, "serial_group_s", "pipelined_wall_s",
-                "pipelined_group_s", "whitted_s"):
-        assert key in out
-    assert out["pipelined_wall_s"] > 0 and out["pipelined_group_s"] > 0
-    if route == "native":
-        assert written[:3] == [(48, 64, 3)] * 3
-        assert set(out["python_route_once"]) == {"encode_s", "write_s", "rename_s"}
-    else:
-        assert out["python_route_once"] is None
+        assert g["epochs"] == 1
+        assert all(g[k] >= 0 for k in chip_smoke.GROUP_FIGURES), g
+        units = g["epoch_host_ms"] + g["wait_ms"] + g["encode_u8_ms"]
+        assert units <= g["wall_ms"] and g["read_ms"] == pytest.approx(g["wall_ms"] - units), g
+        assert g["png_job_ms"] >= g["png_encode_ms"] + g["png_write_ms"] > 0, g
+        assert (g["png_encode_ms"] > 0) == (route == "python"), g
+    assert all(out[k] >= 0 for k in chip_smoke.GROUP_FIGURES)
+    # the Whitted frame's PNG, then one an epoch
+    assert written == ([(48, 64, 3)] * 4 if route == "native" else [])
+    json.dumps(out)
 
 
 def test_psnr_tool_renders_and_scores_on_the_cpu(tmp_path, capsys):

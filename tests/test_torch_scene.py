@@ -199,7 +199,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
              if f.endswith(".py")]
     files += [os.path.join(ROOT, "chip_smoke.py"),
               os.path.join(ROOT, "scripts", "psnr_torch_vs_reference.py"),
-              os.path.join(ROOT, "scripts", "profile_torch_schedule.py"),
               os.path.join(ROOT, "scripts", "bench_torch_mesh.py")]
     assert len(files) > 15 and os.path.join(PKG, "parallel", "mesh.py") in files
     assert os.path.join(PKG, "bench.py") in files
