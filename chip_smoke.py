@@ -147,10 +147,15 @@ Phases (each asserts; none catches a failure):
      at 1280x960 on the dp-only world ((4, 1); (2, 1) on two cards):
      render_whitted_sharded, train_steps_sharded(k=3) and render_progressive
      and its PNG the single card's bit for bit, counters equal, nothing
-     dropped; on the sample-parallel world ((2, 2); (1, 2)): the Whitted
+     dropped, and a group of 10 epochs of train_steps_sharded runs under
+     the sync debug mode "error" (sync_free_group: the host neither reads
+     from the card nor copies to it between the group's start and its
+     read; the reads outside the mode; the group again outside it bit for
+     bit); on the sample-parallel world ((2, 2); (1, 2)): the Whitted
      frame the single card's, the MC epoch and train_steps_sharded(k=3) the
      emulated rank bodies' (rank_sum); mesh11k at 1024x1024 on the dp-only
-     world: frame, epoch and binned epoch the single card's; a
+     world: frame, epoch and binned epoch the single card's, and its group
+     under the sync debug mode; a
      render_progressive of one epoch with a checkpoint, resumed to three,
      writes the uninterrupted render's PNG byte for byte; then the CLI
      (--devices 4 and 2, or 2) writes the PNG of the same world shape's
@@ -182,7 +187,11 @@ Phases (each asserts; none catches a failure):
      on a JSON line each: a group's epochs less their waits, the waits, the
      u8 encode, the main thread's unspanned rest (the reads and the
      writer's hand-over), the writer thread's job with its PNG encode and
-     write, and render_progressive's wall.
+     write, and render_progressive's wall.  Last, sync_free_phase: a group
+     of 10 epochs under the sync debug mode "error" on the demo at
+     1280x960, mesh11k at 1024x1024 and the SPD sphereflake at 512x512
+     (the routes of the benchmark's one-card progressive cells), each
+     group's queued and read host ms printed.
      `python3 chip_smoke.py --phase schedule` builds the kernels and runs
      this phase alone.
   9. the benchmark harness (raytracer_tpu_torch/bench.py, after phase 8):
@@ -1473,7 +1482,8 @@ class MulticardSpec:
     """Phase 7's work: the demo at `demo` (Whitted + demo.epochs epochs of
     `seed`, from epoch 0), mesh_scene(`grid`) at `mesh`, on `device`
     ("cuda": rank r on cuda:r, NCCL; "cpu": gloo, the rehearsal); host
-    seconds the least of `reps`; the CLI's wall over `wall_epochs` epochs."""
+    seconds the least of `reps`; the CLI's wall over `wall_epochs` epochs;
+    sync_free_group's group of `sync_epochs` epochs on the dp-only world."""
 
     demo: RenderConfig
     grid: int
@@ -1482,6 +1492,7 @@ class MulticardSpec:
     reps: int = 3
     device: str = "cuda"
     wall_epochs: int = 100
+    sync_epochs: int = 10
 
 
 def card_spec():
@@ -1523,6 +1534,61 @@ def _barrier(dev, group):
     _sync(dev)
     dist.all_reduce(torch.zeros(1, device=dev), group=group)
     _sync(dev)
+
+
+@contextlib.contextmanager
+def sync_errors(dev):
+    """Inside, a call that synchronises the host with `dev`'s stream
+    raises (torch.cuda.set_sync_debug_mode("error")); on the CPU, nothing."""
+    if dev.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def sync_free_group(scene, camera, cfg, mesh, seed, k):
+    """One group of k epochs of train_steps_sharded from a warmed
+    accumulator under sync_errors: between the group's start and its one
+    read at the end (the counters and the u8 frame) the host neither reads
+    a value from the card nor copies host data to it, so it queues epoch
+    e + 1 while the card walks epoch e.  A warm epoch first fills the
+    first calls' caches (the luma weights, the tile clips, the kernel
+    library, the collectives' communicator); the reads run outside the
+    mode; the group run again outside it gives the same state bit for bit.
+    -> host ms: the group queued (the call's return) and read, an epoch."""
+    from raytracer_tpu_torch.parallel.mesh import train_steps_sharded
+
+    dev = scene.device
+    accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=dev)
+    accum, _, counters = train_steps_sharded(scene, camera, cfg, mesh, accum, seed, 1, 0)
+    counters.tolist()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with sync_errors(dev):
+        got = train_steps_sharded(scene, camera, cfg, mesh, accum, seed, k, 1)
+    queued = time.perf_counter() - t0
+    casts, filtered = got[2].tolist()
+    u8 = got[1].cpu()
+    read = time.perf_counter() - t0
+    again = train_steps_sharded(scene, camera, cfg, mesh, accum, seed, k, 1)
+    assert torch.equal(got[0], again[0]) and torch.equal(u8, again[1].cpu())
+    assert again[2].tolist() == [casts, filtered], (again[2].tolist(), casts, filtered)
+    return {"epochs": k, "queued_ms": 1e3 * queued, "read_ms": 1e3 * read,
+            "epoch_ms": 1e3 * read / k, "casts": casts, "sync_debug": dev.type == "cuda"}
+
+
+def report_sync_free(rows):
+    """sync_free_group's numbers of one group on each rank in `rows`."""
+    mode = "under the sync debug mode 'error'" if rows[0]["sync_debug"] else "(no card)"
+    return (f"{rows[0]['epochs']} epochs {mode}, no error; queued in "
+            + ", ".join(f"{r['queued_ms']:.2f}" for r in rows) + " ms, read at "
+            + ", ".join(f"{r['read_ms']:.2f}" for r in rows) + " ms ("
+            + ", ".join(f"{r['epoch_ms']:.3f}" for r in rows) + " ms an epoch), by rank; "
+            "host clock; the group again outside the mode bit for bit")
 
 
 def multicard_refs(dev, spec, world):
@@ -1632,6 +1698,7 @@ def multicard_body(dev, mesh, spec, refs, out_dir):
     on_mine(*steps)
     assert torch.equal(steps[0], refs["steps"][0]) and torch.equal(steps[1], refs["steps"][1])
     assert steps[2].tolist() == refs["steps"][2], (steps[2].tolist(), refs["steps"][2])
+    out["sync_free"] = {"demo": sync_free_group(demo, cam, cfg, dp_only, seed, spec.sync_epochs)}
     counts = {"level": level_kernel.COUNTS, "mc": mc_kernel.COUNTS,
               "deliver": trace_ops.DELIVER_COUNTS, "level_thread": level_kernel.COUNTS_THREAD,
               "mc_thread": mc_kernel.COUNTS_THREAD}
@@ -1682,6 +1749,8 @@ def multicard_body(dev, mesh, spec, refs, out_dir):
                                                                    dp_only, seed, 0))
     assert torch.equal(photons, refs["binned_epoch"]) and est["casts"] == refs[
         "binned_epoch_stats"]["casts"]
+    out["sync_free"]["mesh"] = sync_free_group(scene, mcam, spec.mesh, dp_only, seed,
+                                               spec.sync_epochs)
 
     # 5. checkpoint across ranks: one epoch, then resumed to all of them,
     # writes the uninterrupted render's PNG byte for byte
@@ -1941,6 +2010,9 @@ def report_multicard(out, spec):
                   f"on rank 0 (the host's pace); NVLink bound {bound:.5f} ms (a ring moves "
                   f"2(N-1)/N of the bytes through each card at 450 GB/s each way, latency not "
                   f"counted: a reckoning from the data sheet)")
+    for label in ranks[0]["sync_free"]:
+        print(f"sync-free group, {label} on the dp-only world of {world}: "
+              + report_sync_free([x["sync_free"][label] for x in ranks]))
     for label, parts in out["cli_wall"].items():
         print(f"cli {label} --epochs {spec.wall_epochs} at {spec.demo.width}x{spec.demo.height}: "
               f"wall {parts['wall_s']:.2f} s = start {parts['start_s']:.2f} s"
@@ -2053,7 +2125,7 @@ def schedule_phase(spec, smi):
     delivery once a tile, nothing else), every port-vs-JAX score >= the
     JAX floor - 0.6 dB at every scale, the port's own two-seed floor
     within 0.6 dB of the JAX floor at every scale, no Whitted ray
-    dropped."""
+    dropped; on a card, sync_free_phase's groups run without an error."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import psnr_torch_vs_reference as fidelity
 
@@ -2110,8 +2182,40 @@ def schedule_phase(spec, smi):
             print(json.dumps({"profile_png_every": k, **prof}))
             out["profile"][k] = prof
         report_profile(out["profile"], smi)
+    if spec.device == "cuda":  # the sync debug mode needs a card
+        out["sync_free"] = sync_free_phase(torch.device(spec.device))
     out["phase_s"] = time.time() - t_phase
     print(f"phase 8 took {out['phase_s']:.1f} s")
+    return out
+
+
+def sync_free_phase(dev, k=10):
+    """Phase 8's check that the host waits nowhere inside a group of
+    epochs: sync_free_group on one card on the routes of the benchmark's
+    one-card progressive cells: the demo at 1280x960 (the frame-wide
+    walk, one launch an epoch), mesh_scene(75) at 1024x1024 (tile by tile,
+    16 walks an epoch), the SPD sphereflake at 512x512 (the gated dense
+    walk) -> its numbers by label."""
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.parallel.mesh import RenderMesh
+    from raytracer_tpu_torch.scene.presets import (
+        demo_camera,
+        demo_scene,
+        mesh_scene,
+        spd_balls_scene,
+    )
+
+    cases = {"demo 1280x960": (lambda: (demo_scene(device=dev), demo_camera(device=dev)),
+                               RenderConfig(depth=DEPTH)),
+             "mesh11k 1024x1024": (lambda: mesh_scene(75, device=dev),
+                                   RenderConfig(width=1024, height=1024, depth=DEPTH)),
+             "spd-balls 512x512": (lambda: spd_balls_scene(device=dev),
+                                   RenderConfig(width=512, height=512, depth=DEPTH))}
+    out = {}
+    for label, (make, cfg) in cases.items():
+        scene, cam = make()
+        out[label] = sync_free_group(scene, cam, cfg, RenderMesh(dp=1, sp=1), 0, k)
+        print(f"sync-free group, {label}: {report_sync_free([out[label]])}")
     return out
 
 

@@ -205,20 +205,25 @@ Draws = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _epoch(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, epoch: int,
-           draws: Optional[Draws], tiles: Optional[Sequence[int]] = None, sample: int = 0):
+           draws: Optional[Draws], tiles: Optional[range] = None, sample: int = 0):
     """One MC epoch -> ([H, W, 3] photons, casts, filtered), the counters
     as device tensors.
 
-    tiles: trace only these tile indices (draws[t] for each, when given),
-    in one call or tile by tile as the whole frame's route takes them; the
-    photons are zero outside them and the counters are theirs.  A lane's
-    photon does not depend on the other lanes of its call, so each
-    traced pixel is the whole frame's bit for bit.  sample: the draws'
-    sample index (tile_draws)."""
+    tiles: trace only this contiguous range of tile indices (rank_tiles;
+    draws[t] for each, when given), in one call or tile by tile as the
+    whole frame's route takes them; the photons are zero outside them and
+    the counters are theirs.  A lane's photon does not depend on the other
+    lanes of its call, so each traced pixel is the whole frame's bit for
+    bit.  The range is cut out of the frame's tiles and written back by
+    slices: an index made on the host would be copied to the card, which
+    waits for the card's queue.  sample: the draws' sample index
+    (tile_draws)."""
     clips, inv = _clips(cfg, scene.device)
     if draws is not None and len(draws) != len(clips):
         raise ValueError(f"draws for {len(draws)} tiles, the frame has {len(clips)}")
-    picked = range(len(clips)) if tiles is None else sorted(tiles)
+    picked = range(len(clips)) if tiles is None else tiles
+    if picked.step != 1:
+        raise ValueError(f"tiles must be a contiguous range, got {picked}")
     with tracing.span("rt.epoch.draws"):
         tile_in = [draws[t] if draws is not None else
                    tile_draws(cfg, seed, epoch, t, clips.shape[1], clips.device, sample)
@@ -228,13 +233,13 @@ def _epoch(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, epoch: in
                 torch.zeros((), dtype=torch.int64, device=clips.device),
                 torch.zeros((), dtype=torch.int64, device=clips.device))
     run = epoch_frame if frame_wide_route(scene) else epoch_tiles
-    traced = clips if tiles is None else clips[list(picked)]
+    part = slice(picked.start, picked.stop)
     with tracing.span("rt.epoch.walk"):
-        photon, casts, filtered = run(scene, camera, cfg, traced, tile_in)
+        photon, casts, filtered = run(scene, camera, cfg, clips[part], tile_in)
     with tracing.span("rt.epoch.assemble"):
         if tiles is not None:
             full = photon.new_zeros((clips.shape[0], clips.shape[1], 3))
-            full[list(picked)] = photon.view(len(picked), clips.shape[1], 3)
+            full[part] = photon.view(len(picked), clips.shape[1], 3)
             photon = full.view(-1, 3)
         img = _to_image(cfg, [photon], inv)
     return img, casts, filtered

@@ -4,6 +4,8 @@ src/image.rs:50-88)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # Luminance weights of linear sRGB primaries (D65), as palette's
@@ -21,9 +23,15 @@ CYAN = (0.0, 1.0, 1.0)
 MAGENTA = (1.0, 0.0, 1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _luma_weights(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """LUMA_WEIGHTS on `device`, made once: a copy from the host to a card
+    waits for the card's queue to drain."""
+    return torch.tensor(LUMA_WEIGHTS, dtype=dtype, device=device)
+
+
 def luma(rgb):
-    w = torch.tensor(LUMA_WEIGHTS, dtype=rgb.dtype, device=rgb.device)
-    return torch.sum(rgb * w, dim=-1)
+    return torch.sum(rgb * _luma_weights(rgb.device, rgb.dtype), dim=-1)
 
 
 def srgb_encode(linear):

@@ -53,7 +53,7 @@ WORLD = 4
 MC_SPEC = chip_smoke.MulticardSpec(
     demo=dataclasses.replace(WORLD_CFG, epochs=2), grid=24,
     mesh=RenderConfig(width=32, height=16, depth=1, tile_rays=128), seed=3, reps=1,
-    device="cpu")
+    device="cpu", sync_epochs=1)
 
 
 def _meshes(dp, sp):
@@ -414,6 +414,11 @@ def test_world_runs_phase_7s_rank_body(world, multicard_refs, multicard_dir):
         assert r["launches"] == {"level": 6, "mc": 2, "deliver": 1, "level_thread": 0,
                                  "mc_thread": 0}
         assert set(r["times"]) == {"demo (4, 1)", "demo (2, 2)", "mesh (4, 1)"}
+        # the group of epochs that may not wait (sync_free_group): the
+        # world's counters, alike on every rank
+        assert {k: (v["epochs"], v["casts"]) for k, v in r["sync_free"].items()} == {
+            k: (1, v["casts"]) for k, v in runs[0]["sync_free"].items()}
+    assert set(runs[0]["sync_free"]) == {"demo", "mesh"}
     assert runs[0]["launches_world"] == {"level": 24, "mc": 8, "deliver": 4}
     assert sorted(os.listdir(multicard_dir)) == ["ck.npz", "dp.png", "full.png", "pair.png",
                                           "part.png", "refs.pt"]
