@@ -6,11 +6,16 @@ An independent implementation of /src/main.rs of the reference program
 ray_trace 466-519, distributed_ray_trace 521-614) and of its materials,
 lights and textures (materials.rs, lights.rs, main.rs:848-863,
 1019-1025), written from those semantics and not from the port: every cast
-tests every triangle and every sphere (no BVH, no blocked tables, no
-kernels), a hit's attributes are recomputed for its winner, the Whitted
+tests every triangle, every sphere and every cone (no BVH, no blocked
+tables, no kernels), a hit's attributes are recomputed for its winner, the Whitted
 recursion runs as a queue of rays a level, the Monte-Carlo walk as one
 masked loop over bounces.  It reads only a RawScene (plain arrays) and
 imports nothing of the port.
+
+A cone is NFF's open truncated cone (a cylinder where its radii are equal),
+which the reference program does not have: `_cone` is written from NFF's
+semantics, as the surface |rho| = r(h) between the base (h = 0) and the
+apex (h = L), rho the point's part off the axis, r(h) = r0 + s h.
 
 `dtype` is the arithmetic's precision: float32 is what the configurations
 state; the lower-precision control runs the same code in bfloat16.
@@ -30,7 +35,7 @@ FRONT, BACK, BOTH = 0, 1, 2
 THRESHOLD = 0.001  # main.rs:467
 F32_EPS = float(np.finfo(np.float32).eps)
 F32_TINY = float(np.finfo(np.float32).tiny)
-PAIRS_PER_CHUNK = 1 << 24  # ray x triangle pairs a cast holds at once
+PAIRS_PER_CHUNK = 1 << 24  # ray x triangle (or ray x cone) pairs a cast holds at once
 
 
 @contextlib.contextmanager
@@ -53,10 +58,16 @@ def unit(a):
     return a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
 
 
+def _is_face(sel, back):
+    """[R, n]: whether each hit's face (back [R, n]) is the face sel [R] names."""
+    return torch.where((sel == FRONT)[:, None], ~back,
+                       torch.where((sel == BACK)[:, None], back, True))
+
+
 class Hit(NamedTuple):
     valid: torch.Tensor  # [R] bool
     t: torch.Tensor  # [R]
-    prim: torch.Tensor  # [R] int64: triangles 0..T-1, then spheres T..T+S-1
+    prim: torch.Tensor  # [R] int64: triangles 0..T-1, spheres T..T+S-1, cones T+S..T+S+C-1
     obj: torch.Tensor  # [R] int64
     pos: torch.Tensor  # [R, 3]
     normal: torch.Tensor  # [R, 3] interpolated, not renormalised, flipped on a back face
@@ -83,8 +94,18 @@ class World:
         self.area2 = dot(torch.linalg.cross(self.v1 - self.v0, self.v2 - self.v0), self.fn)
         self.tri_n, self.tri_uv = t(raw.tri_n), t(raw.tri_uv)
         self.obj_of = torch.cat([torch.as_tensor(raw.tri_obj, device=device).long(),
-                                 torch.as_tensor(raw.sph_obj, device=device).long()])
+                                 torch.as_tensor(raw.sph_obj, device=device).long(),
+                                 torch.as_tensor(raw.cone_obj, device=device).long()])
         self.sph_c, self.sph_r = t(raw.sph_c).reshape(-1, 3), t(raw.sph_r)
+        # a cone: base B, unit axis a towards the apex, length L, radius
+        # r(h) = r0 + s h at height h along it
+        self.C = int(raw.cone_base.shape[0])
+        self.cone_b = t(raw.cone_base).reshape(-1, 3)
+        axis = t(raw.cone_apex).reshape(-1, 3) - self.cone_b
+        self.cone_len = torch.linalg.vector_norm(axis, dim=-1)
+        self.cone_a = axis / self.cone_len[:, None]
+        self.cone_r0 = t(raw.cone_base_r)
+        self.cone_s = (t(raw.cone_apex_r) - self.cone_r0) / self.cone_len
         mats = raw.materials
         col = lambda k: t([m[k] for m in mats])
         self.mat = {k: col(k) for k in ("diffuse_color", "shiness", "specular_color",
@@ -130,8 +151,47 @@ class World:
         ok = (dist <= r) & (t > 0.0)
         return torch.where(ok, t, torch.inf), back
 
+    def _cone(self, o, d, face, excl_prim, excl_face, lo, hi):
+        """(t [R, hi-lo], backface [R, hi-lo]) against cones lo..hi-1 (inf
+        where missed): of the roots of |rho(t)|^2 = r(h(t))^2 with t > 0 and
+        0 <= h <= L, the nearest that `face` keeps and the exclusion leaves;
+        the exclusion drops a root, not the cone, so a ray that leaves an
+        open cylinder can meet its inside."""
+        b, a, s, r0, length = (x[lo:hi][None] for x in (
+            self.cone_b, self.cone_a, self.cone_s, self.cone_r0, self.cone_len))
+        w = o[:, None, :] - b
+        wa, da = dot(w, a), d @ self.cone_a[lo:hi].T
+        rho_w = w - wa[..., None] * a
+        rho_d = d[:, None, :] - da[..., None] * a
+        dd, wd = dot(rho_d, rho_d), dot(rho_w, rho_d)
+        q = r0 + s * wa
+        alpha = dd - s * s * da * da
+        beta = wd - s * q * da
+        gamma = dot(rho_w, rho_w) - q * q
+        # the roots of alpha t^2 + 2 beta t + gamma = 0, each in the form
+        # that does not cancel; where alpha = 0, k / alpha is not finite and
+        # gamma / k is the one root -gamma / 2 beta (none where beta = 0 too)
+        disc = beta * beta - alpha * gamma
+        k = -(beta + torch.copysign(torch.sqrt(torch.clamp_min(disc, 0.0)), beta))
+        roots = (k / alpha, gamma / k)
+        ids = torch.arange(lo, hi, device=self.device)[None, :] + self.T + self.S
+        kept = []
+        for root in roots:
+            h = wa + root * da
+            # the outward normal's direction rho - s r(h) a, dotted with d
+            back = (wd + root * dd) - s * (r0 + s * h) * da > 0.0
+            keep = (disc >= 0.0) & torch.isfinite(root) & (root > 0.0)
+            keep &= (h >= 0.0) & (h <= length)
+            keep &= _is_face(face, back)
+            keep &= ~((excl_prim[:, None] == ids) & _is_face(excl_face, back))
+            kept.append((torch.where(keep, root, torch.inf), back))
+        (t1, back1), (t2, back2) = kept
+        second = t2 < t1
+        return torch.where(second, t2, t1), torch.where(second, back2, back1)
+
     def cast(self, o, d, face, excl_prim, excl_face, active=None, limit=None):
-        """Nearest hit of each ray (last wins a tie, spheres after triangles).
+        """Nearest hit of each ray (last wins a tie: spheres after triangles,
+        cones after spheres).
         With `limit` ([R]): only whether some hit lies nearer (bool [R])."""
         R = o.shape[0]
         if active is None:
@@ -162,12 +222,24 @@ class World:
             best_i = torch.where(take, last, best_i)
             back_last = torch.gather(backs, 1, (last - self.T).clamp_min(0)[:, None])[:, 0]
             best_back = torch.where(take, back_last, best_back)
+        first = self.T + self.S
+        for lo in range(0, self.C, chunk):
+            hi = min(self.C, lo + chunk)
+            tc, backs = self._cone(o, d, face, excl_prim, excl_face, lo, hi)
+            tmin, _ = tc.min(dim=1)
+            ids = torch.arange(first + lo, first + hi, device=self.device)
+            last = torch.where(tc == tmin[:, None], ids[None, :], -1).max(dim=1).values
+            take = torch.isfinite(tmin) & (tmin <= best_t)
+            best_t = torch.where(take, tmin, best_t)
+            best_i = torch.where(take, last, best_i)
+            back_last = torch.gather(backs, 1, (last - first - lo).clamp_min(0)[:, None])[:, 0]
+            best_back = torch.where(take, back_last, best_back)
         valid = active & (best_i >= 0)
         if limit is not None:
             return valid & (best_t < limit)
         return self._attributes(o, d, valid, best_t, best_i, best_back)
 
-    def _attributes(self, o, d, valid, t, idx, sph_back):
+    def _attributes(self, o, d, valid, t, idx, back):
         R = o.shape[0]
         t = torch.where(valid, t, 0.0)
         pos = o + d * t[:, None]
@@ -190,10 +262,10 @@ class World:
             uv = torch.where(is_tri[:, None], uv_t, uv)
             backface = torch.where(is_tri, bf_t, backface)
         if self.S:
-            is_sph = valid & (idx >= self.T)
+            is_sph = valid & (idx >= self.T) & (idx < self.T + self.S)
             si = torch.where(is_sph, idx - self.T, 0)
             c = self.sph_c[si]
-            bf_s = sph_back
+            bf_s = back
             n_s = unit(pos - c)
             n_s = torch.where(bf_s[:, None], -n_s, n_s)
             uv_s = torch.stack([torch.acos(torch.clamp(n_s[:, 1], -1.0, 1.0)) / math.pi,
@@ -201,6 +273,18 @@ class World:
             normal = torch.where(is_sph[:, None], n_s, normal)
             uv = torch.where(is_sph[:, None], uv_s, uv)
             backface = torch.where(is_sph, bf_s, backface)
+        if self.C:
+            first = self.T + self.S
+            is_cone = valid & (idx >= first)
+            ci = torch.where(is_cone, idx - first, 0)
+            a, s = self.cone_a[ci], self.cone_s[ci]
+            p = pos - self.cone_b[ci]
+            h = dot(p, a)
+            n_c = unit(p - (h + s * (self.cone_r0[ci] + s * h))[:, None] * a)
+            n_c = torch.where(back[:, None], -n_c, n_c)
+            normal = torch.where(is_cone[:, None], n_c, normal)
+            uv = torch.where(is_cone[:, None], 0.0, uv)
+            backface = torch.where(is_cone, back, backface)
         return Hit(valid=valid, t=torch.where(valid, t, torch.inf), prim=torch.where(valid, idx, -1),
                    obj=self.obj_of[idx.clamp_min(0)], pos=pos, normal=normal, uv=uv,
                    backface=backface)

@@ -13,6 +13,14 @@ PEAK_FP32 = 67e12  # FLOP/s, FP32 outside the tensor cores
 # difference, a cross product, two dot products, a square root and compares
 OPS_TRI_BEGUN = 6
 OPS_SPHERE = 30
+# a cone test (benchmark/reference/world.py `_cone`, its axis, slope and
+# slope squared kept per cone): the difference w (3), w.a and d.a (10), the
+# radial parts (12), their three dot products (15), the quadratic's three
+# coefficients (10), its discriminant, compare, square root and two roots
+# (9), and a root's height, radius, face (d.n's sign) and four compares
+# against t > 0, 0 <= h <= L and the best (14 each, 28); the nearer root (1)
+OPS_CONE = 88
+CONE_FLOATS = 8  # base, base radius, apex, apex radius
 F32 = 4
 MC_KERNELS = ("mc_kernel",)  # csrc/mc_kernel.cu: mc_kernel_staged (dense), mc_kernel<CoopGeom> (blocked)
 NCCL_KERNELS = ("ncclDevKernel", "ncclKernel")  # NCCL's kernels, by its versions' names
@@ -57,14 +65,16 @@ def mc_least_ms(ctx) -> float:
     (main.rs:180-326 casts every ray against every object): the larger of
     bytes / PEAK_BYTES (the draws read once, the photons written once,
     the scene's primitives read once) and operations / PEAK_FP32 (the
-    epoch's casts x each triangle's test begun and each sphere's test)."""
+    epoch's casts x each triangle's test begun, each sphere's test and
+    each cone's test)."""
     cfg, raw = ctx["cfg"], ctx["raw"]
     n = cfg.width * cfg.height
     tile = min(cfg.tile_rays, n)
     lanes = -(-n // tile) * tile
     draws = lanes * (2 + 3 * cfg.depth) * F32
     photons = n * 3 * F32
-    scene = raw.n_tri * (9 + 9 + 6 + 1) * F32 + raw.n_sph * 5 * F32
+    scene = (raw.n_tri * (9 + 9 + 6 + 1) * F32 + raw.n_sph * 5 * F32
+             + raw.n_cone * CONE_FLOATS * F32)
     casts = ctx["casts"] / ctx["units"]
-    ops = casts * (raw.n_tri * OPS_TRI_BEGUN + raw.n_sph * OPS_SPHERE)
+    ops = casts * (raw.n_tri * OPS_TRI_BEGUN + raw.n_sph * OPS_SPHERE + raw.n_cone * OPS_CONE)
     return max((draws + photons + scene) / PEAK_BYTES, ops / PEAK_FP32) * 1e3

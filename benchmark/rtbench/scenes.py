@@ -1,17 +1,23 @@
 """Scene data files -> raw primitives, and the program's scene built from them.
 
 A scene file (benchmark/scenes/<name>.json) holds a deployment's scene as
-data: objects (a material and its triangles, squares, spheres, a box, or a
-heightfield generated from a few numbers), lights and the camera.  `load`
-turns it into `RawScene`, plain float32 numpy arrays.  Both sides are handed
-the same RawScene: the program builds its Scene from it through its own
-builder (`program_scene`, the API a user of the port calls), and the plain
-reference (benchmark/reference/) reads the arrays themselves.
+data: objects (a material and its triangles, squares, spheres, cones, a box,
+or a heightfield generated from a few numbers), lights and the camera.
+`load` turns it into `RawScene`, plain float32 numpy arrays; `parse`
+refuses an object key it does not know, so no geometry is dropped unseen.
+Both sides are handed the same RawScene: the program builds its Scene from
+it through its own builder (`program_scene`, the API a user of the port
+calls), and the plain reference (benchmark/reference/) reads the arrays
+themselves.
+
+A cone is NFF's `c` record (E. Haines, the SPD's Neutral File Format):
+`{"base": [x, y, z], "base_radius": r0, "apex": [x, y, z], "apex_radius":
+r1}`, an open truncated cone with no end caps, a cylinder where r0 == r1.
 
 The arithmetic follows the port's presets step for step (per-vertex
 scalar numpy, float32 rounding at the same places), so the demo file and
 the terrain file give the tables of `demo_scene()` and `mesh_scene(75)` bit
-for bit (benchmark/tests/test_rtbench_scenes.py).
+for bit (benchmark/tests/test_rtbench_harness.py).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ MATERIAL_DEFAULTS = {
     "normal": (0.0, 0.0, 1.0), "texture": None,
 }
 TEXTURES = (None, "stripes", "checker")  # the port's texture ids 0, 1, 2
+OBJECT_KEYS = {"material", "triangles", "squares", "heightfield", "box", "spheres", "cones"}
 
 
 @dataclasses.dataclass
@@ -47,6 +54,11 @@ class RawScene:
     materials: List[dict]  # MATERIAL_DEFAULTS' keys
     lights: List[dict]  # type, origin [3], direction [3] (unit), color [3], angle, softness
     camera: dict  # fovy_deg, fovy (radians, float32), center, toward (unit), up, near
+    cone_base: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros((0, 3), F32))
+    cone_base_r: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, F32))
+    cone_apex: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros((0, 3), F32))
+    cone_apex_r: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, F32))
+    cone_obj: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, np.int32))
 
     @property
     def n_tri(self) -> int:
@@ -55,6 +67,10 @@ class RawScene:
     @property
     def n_sph(self) -> int:
         return int(self.sph_c.shape[0])
+
+    @property
+    def n_cone(self) -> int:
+        return int(self.cone_base.shape[0])
 
 
 def _v3(x) -> np.ndarray:
@@ -131,9 +147,32 @@ def _light(spec) -> dict:
             "softness": F32(spec.get("softness", 0.0)) if kind == "spot" else F32(0.0)}
 
 
+def _cone(spec, mat) -> tuple:
+    """(base, base radius, apex, apex radius) of one NFF cone, refused where
+    it has no surface or its object asks what an open cone cannot give: a
+    texture (a cone hit has no uv) or transparency (an open surface has no
+    inside for the refraction march to cross)."""
+    base, apex = _v3(spec["base"]), _v3(spec["apex"])
+    r0, r1 = F32(spec["base_radius"]), F32(spec["apex_radius"])
+    if not np.linalg.norm(apex - base) > 0.0:
+        raise ValueError(f"cone {spec}: its axis has no length")
+    if r0 < 0.0 or r1 < 0.0 or (r0 == 0.0 and r1 == 0.0):
+        raise ValueError(f"cone {spec}: a radius is negative, or both are 0")
+    if mat["texture"] is not None:
+        raise ValueError(f"cone {spec}: a cone hit has no uv, so its object takes no texture")
+    if mat["transparency"] > 0.0:
+        raise ValueError(f"cone {spec}: an open cone has no inside, so its object is not "
+                         "transparent")
+    return base, r0, apex, r1
+
+
 def parse(data: dict) -> RawScene:
     tri_v, tri_n, tri_uv, tri_obj, sph_c, sph_r, sph_obj, mats = [], [], [], [], [], [], [], []
+    cones, cone_obj = [], []
     for idx, obj in enumerate(data["objects"]):
+        unknown = sorted(set(obj) - OBJECT_KEYS)
+        if unknown:
+            raise ValueError(f"object {idx}: unknown keys {unknown} (known: {sorted(OBJECT_KEYS)})")
         mat = dict(MATERIAL_DEFAULTS, **obj.get("material", {}))
         if mat["texture"] not in TEXTURES:
             raise ValueError(f"unknown texture {mat['texture']!r}")
@@ -160,6 +199,9 @@ def parse(data: dict) -> RawScene:
             sph_c.append(_v3(s["center"]))
             sph_r.append(F32(s["radius"]))
             sph_obj.append(idx)
+        for c in obj.get("cones", []):
+            cones.append(_cone(c, mat))
+            cone_obj.append(idx)
     cam = data["camera"]
     toward = np.asarray(cam["toward_unnormalized"], np.float64)
     camera = {"fovy_deg": float(cam["fovy_deg"]), "fovy": F32(np.deg2rad(float(cam["fovy_deg"]))),
@@ -171,7 +213,11 @@ def parse(data: dict) -> RawScene:
         tri_v=arr(tri_v, (0, 3, 3)), tri_n=arr(tri_n, (0, 3, 3)), tri_uv=arr(tri_uv, (0, 3, 2)),
         tri_obj=np.asarray(tri_obj, np.int32), sph_c=arr(sph_c, (0, 3)),
         sph_r=np.asarray(sph_r, F32), sph_obj=np.asarray(sph_obj, np.int32), materials=mats,
-        lights=[_light(l) for l in data["lights"]], camera=camera)
+        lights=[_light(l) for l in data["lights"]], camera=camera,
+        cone_base=arr([c[0] for c in cones], (0, 3)),
+        cone_base_r=np.asarray([c[1] for c in cones], F32),
+        cone_apex=arr([c[2] for c in cones], (0, 3)),
+        cone_apex_r=np.asarray([c[3] for c in cones], F32), cone_obj=np.asarray(cone_obj, np.int32))
 
 
 def load(name: str) -> RawScene:
@@ -181,7 +227,10 @@ def load(name: str) -> RawScene:
 
 
 def program_scene(raw: RawScene, device, use_bvh="auto"):
-    """The port's (Scene, Camera) of `raw`, through its SceneBuilder."""
+    """The port's (Scene, Camera) of `raw`, through its SceneBuilder.  A
+    cone goes to its object's `push_cone(base, base_radius, apex,
+    apex_radius)`; where the port has no such call, a scene with cones
+    raises here and is never built without them."""
     from raytracer_tpu_torch.scene.builder import MaterialSpec, SceneBuilder, Vertex
     from raytracer_tpu_torch.scene.types import Camera
 
@@ -190,11 +239,17 @@ def program_scene(raw: RawScene, device, use_bvh="auto"):
     for m in raw.materials:
         spec = {k: v for k, v in m.items() if k != "texture"}
         proxies.append(b.push_object(MaterialSpec(**spec, texture=TEXTURES.index(m["texture"]))))
+    if any(not hasattr(proxies[i], "push_cone") for i in set(raw.cone_obj.tolist())):
+        raise NotImplementedError("the port's scene builder has no push_cone: a scene with "
+                                  "cones cannot be built")
     for i in range(raw.n_tri):
         proxies[raw.tri_obj[i]].push_triangle(
             [Vertex(raw.tri_v[i, j], raw.tri_n[i, j], raw.tri_uv[i, j]) for j in range(3)])
     for i in range(raw.n_sph):
         proxies[raw.sph_obj[i]].push_sphere(raw.sph_c[i], float(raw.sph_r[i]))
+    for i in range(raw.n_cone):
+        proxies[raw.cone_obj[i]].push_cone(raw.cone_base[i], float(raw.cone_base_r[i]),
+                                           raw.cone_apex[i], float(raw.cone_apex_r[i]))
     for l in raw.lights:
         if l["type"] == "directional":
             b.push_directional_light(l["direction"], l["color"])
