@@ -175,7 +175,7 @@ def _scene(args, device):
     preset = PRESETS[args.scene]
     takes_obj = "obj_path" in inspect.signature(preset).parameters
     made = preset(obj_path=args.obj, device=device) if takes_obj else preset(device=device)
-    if isinstance(made, tuple):  # a preset with a view of its own (spd-balls)
+    if isinstance(made, tuple):  # a preset with a view of its own (spd-balls, spd-rings)
         return made
     return made, demo_camera(device)
 

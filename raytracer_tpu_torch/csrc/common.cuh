@@ -78,6 +78,15 @@
 // members; only the MC kernel's dense routes instantiate it, and its entry
 // launches them on a scene that carries the table.
 //
+// NFF cones (open truncated cones, cylinders where both radii are equal)
+// are a scene's third primitive, ids after the spheres'.  A geometry names
+// its cone policy (G::Cone): ConeNone, or ConeLinear for ConeGeom<G>,
+// which carries the cone table beside G's members and sweeps every cone
+// after the spheres in its nearest, shadow and interior sweeps.  Only the
+// staged dense MC walk (over SphGatedGeom) and the staged dense level
+// kernel instantiate it, on scenes with cones; every other instantiation is
+// the parent's code.
+//
 // Scene tables are read from global memory, but for what DenseRowsGeom
 // and CoopGeom stage in shared memory.  Build without --use_fast_math: the
 // photon filter needs subnormals, and division/sqrt must stay IEEE.
@@ -308,6 +317,8 @@ struct NoWork {
   __device__ __forceinline__ void put_helped(int*, int, int) const {}
   __device__ __forceinline__ void put_sph(long long*, int) const {}
   __device__ __forceinline__ void put_sph_box(long long*, int) const {}
+  __device__ __forceinline__ void cone_tests(int) {}
+  __device__ __forceinline__ void put_cone(long long*, int) const {}
 };
 
 // The MC walk's sphere counters (mc.sph_tests, mc.sph_box_tests): NoWork,
@@ -324,6 +335,17 @@ struct SphCount : NoWork {
   }
   __device__ __forceinline__ void put_sph_box(long long* __restrict__ out, int lane) const {
     if (out) out[lane] = sph_box;
+  }
+};
+
+// SphCount for a walk with cones (mc.cone_tests): each cone sweep adds the
+// tests it made once, at its end, to a third register, which put_cone
+// writes out.
+struct ConeCount : SphCount {
+  int cone = 0;
+  __device__ __forceinline__ void cone_tests(int k) { cone += k; }
+  __device__ __forceinline__ void put_cone(long long* __restrict__ out, int lane) const {
+    if (out) out[lane] = cone;
   }
 };
 
@@ -564,6 +586,85 @@ __device__ __forceinline__ void sph_chunks(const SphGated& sg, V3 o, V3 d, TMax&
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The cone policies and the cone test (NFF `c`, kernel_common.cone_roots)
+// ---------------------------------------------------------------------------
+
+// A cone row (kernel_common.pack_cones), three float4s: base b and base
+// radius r0; unit axis a and slope s = (r1 - r0) / L; axis length L and
+// the object.
+constexpr int CONE_F4 = 3;
+
+// ConeNone: a geometry without cones.  ConeLinear: every cone in index
+// order, and where a counting walk writes each lane's cone tests.
+struct ConeNone {
+  static constexpr bool ON = false;
+};
+struct ConeLinear {
+  static constexpr bool ON = true;
+  const float4* __restrict__ rows;  // [n_cone, CONE_F4]
+  int n_cone;
+  long long* __restrict__ tests;  // [n] or null (ConeCount::put_cone)
+};
+
+// One root of a cone's quadratic: its t, whether the ray meets the
+// surface's back there, whether it counts (t > 0, 0 <= h <= L, a
+// discriminant that is not negative).
+struct ConeRoot {
+  float t;
+  bool back, kept;
+};
+
+// The cone c against the ray o + t d (reference/world.py `_cone`): with w =
+// o - b, rho the part of a vector off the axis and r(h) = r0 + s h, the
+// roots of alpha t^2 + 2 beta t + gamma = 0 (alpha = |rho_d|^2 - s^2
+// (d.a)^2, beta = rho_w.rho_d - s q (d.a), gamma = |rho_w|^2 - q^2, q = r0 +
+// s (w.a)), each in the form that does not cancel; a root faces by the sign
+// of d.(rho - s r(h) a).  Every operation rounded as written, in
+// kernel_common.cone_roots' order, so the plain version gives the same
+// roots.
+__device__ __forceinline__ void cone_ray(const float4* __restrict__ c, V3 o, V3 d,
+                                         ConeRoot root[2]) {
+  const float4 c0 = c[0], c1 = c[1];
+  const float L = c[2].x;
+  const V3 a = v3(c1.x, c1.y, c1.z);
+  const float r0 = c0.w, s = c1.w;
+  V3 w = v3(__fsub_rn(o.x, c0.x), __fsub_rn(o.y, c0.y), __fsub_rn(o.z, c0.z));
+  float wa = dot3_sep(w, a), da = dot3_sep(d, a);
+  V3 rw = v3(__fsub_rn(w.x, __fmul_rn(wa, a.x)), __fsub_rn(w.y, __fmul_rn(wa, a.y)),
+             __fsub_rn(w.z, __fmul_rn(wa, a.z)));
+  V3 rd = v3(__fsub_rn(d.x, __fmul_rn(da, a.x)), __fsub_rn(d.y, __fmul_rn(da, a.y)),
+             __fsub_rn(d.z, __fmul_rn(da, a.z)));
+  float dd = dot3_sep(rd, rd), wd = dot3_sep(rw, rd);
+  float q = __fadd_rn(r0, __fmul_rn(s, wa));
+  float alpha = __fsub_rn(dd, __fmul_rn(__fmul_rn(__fmul_rn(s, s), da), da));
+  float beta = __fsub_rn(wd, __fmul_rn(__fmul_rn(s, q), da));
+  float gamma = __fsub_rn(dot3_sep(rw, rw), __fmul_rn(q, q));
+  float disc = __fsub_rn(__fmul_rn(beta, beta), __fmul_rn(alpha, gamma));
+  float k = -__fadd_rn(beta, copysignf(__fsqrt_rn(fmaxf(disc, 0.0f)), beta));
+  root[0].t = __fdiv_rn(k, alpha);
+  root[1].t = __fdiv_rn(gamma, k);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t = root[i].t;
+    float h = __fadd_rn(wa, __fmul_rn(t, da));
+    float rh = __fmul_rn(s, __fadd_rn(r0, __fmul_rn(s, h)));
+    root[i].back = __fsub_rn(__fadd_rn(wd, __fmul_rn(t, dd)), __fmul_rn(rh, da)) > 0.0f;
+    root[i].kept = disc >= 0.0f && isfinite(t) && t > 0.0f && h >= 0.0f && h <= L;
+  }
+}
+
+// The outward normal of cone c at p on it: rho - s r(h) a, normalized.
+__device__ __forceinline__ V3 cone_normal(const float4* __restrict__ c, V3 p) {
+  const float4 c0 = c[0], c1 = c[1];
+  const V3 a = v3(c1.x, c1.y, c1.z);
+  V3 q = v3(__fsub_rn(p.x, c0.x), __fsub_rn(p.y, c0.y), __fsub_rn(p.z, c0.z));
+  float h = dot3_sep(q, a);
+  float m = __fadd_rn(h, __fmul_rn(c1.w, __fadd_rn(c0.w, __fmul_rn(c1.w, h))));
+  return normalize3(v3(__fsub_rn(q.x, __fmul_rn(m, a.x)), __fsub_rn(q.y, __fmul_rn(m, a.y)),
+                       __fsub_rn(q.z, __fmul_rn(m, a.z))));
 }
 
 // ---------------------------------------------------------------------------
@@ -1514,7 +1615,8 @@ struct ShadowGroup {
 };
 
 // COOP: do all lanes of a warp make every sweep together?  Sph: the policy
-// of its sphere sweeps (SphLinear; SphGatedGeom's SphGated).  any(x): does
+// of its sphere sweeps (SphLinear; SphGatedGeom's SphGated).  Cone: that of
+// its cone sweeps (ConeNone; ConeGeom's ConeLinear).  any(x): does
 // any lane that sweeps with this one hold x?  GROUPED: does a shading point
 // test its shadow rays to all lights in one pass (occluded) or light by
 // light (tri_occluded)?  stage(): called by every thread of a block before
@@ -1524,6 +1626,7 @@ struct ShadowGroup {
 struct DenseGeom {
   static constexpr bool COOP = false, GROUPED = false;
   using Sph = SphLinear;
+  using Cone = ConeNone;
   __device__ __forceinline__ void stage() const {}
   int smem(int) const { return 0; }
   Tables tb;
@@ -1550,6 +1653,7 @@ struct DenseGeom {
 struct BlockedGeom {
   static constexpr bool COOP = false, GROUPED = false;
   using Sph = SphLinear;
+  using Cone = ConeNone;
   __device__ __forceinline__ void stage() const {}
   int smem(int) const { return 0; }
   Tables tb;  // spheres, materials, lights (tb.tri is not read)
@@ -1580,6 +1684,7 @@ struct BlockedGeom {
 struct CoopGeom {
   static constexpr bool COOP = true, GROUPED = true;
   using Sph = SphLinear;
+  using Cone = ConeNone;
   __device__ __forceinline__ void stage() const {}
   int smem(int threads) const { return coop_shared_bytes(threads); }
   Tables tb;
@@ -1633,6 +1738,7 @@ template <bool GROUP>
 struct DenseRowsGeom {
   static constexpr bool COOP = false, GROUPED = GROUP;
   using Sph = SphLinear;
+  using Cone = ConeNone;
   Tables tb;  // tb.tri: the winners' whole rows (finish_hit), spheres, materials, lights
   const float4* __restrict__ rows;  // [n_tri, 4] hot rows in global memory
   static __device__ __forceinline__ bool any(bool x) { return x; }
@@ -1749,6 +1855,153 @@ struct SphGatedGeom : G {
 };
 
 using DenseGeomGated = SphGatedGeom<DenseGeom>;
+
+// ---------------------------------------------------------------------------
+// The cone sweeps (ConeLinear) and the geometry that carries them (ConeGeom)
+// ---------------------------------------------------------------------------
+
+// Cones after the spheres, in index order: update on <=, so a cone wins an
+// exact tie.  A cone's candidate is its nearer root on a face that `face`
+// takes and that the exclusion leaves (the exclusion drops a root, not the
+// cone), the first where both lie at one t.
+template <class W>
+__device__ inline void cone_nearest(const Tables& tb, const ConeLinear& cn, V3 o, V3 d, int face,
+                                    int excl_prim, int excl_face, float& best_t, int& best_i,
+                                    bool& best_bf, W& w) {
+  const int first = tb.n_tri + tb.n_sph;
+  for (int j = 0; j < cn.n_cone; ++j) {
+    ConeRoot r[2];
+    cone_ray(cn.rows + CONE_F4 * j, o, d, r);
+    const int prim = first + j;
+    float t = BIG;
+    bool bf = false;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!r[i].kept || !excl_crit(face, r[i].back)) continue;
+      if (excl_prim == prim && excl_crit(excl_face, r[i].back)) continue;
+      if (r[i].t < t) {
+        t = r[i].t;
+        bf = r[i].back;
+      }
+    }
+    if (t < BIG && t <= best_t) {
+      best_t = t;
+      best_i = prim;
+      best_bf = bf;
+    }
+  }
+  w.cone_tests(cn.n_cone);
+}
+
+// A shadow ray's cones: the normalized direction `nd`, the real-unit limit
+// `slim`, back faces only; the shading point's own cone drops every back
+// root (the exclusion), so it is left out.  The tests made: every cone up
+// to the first occluder.
+template <class W>
+__device__ inline bool cone_occluded(const Tables& tb, const ConeLinear& cn, V3 p, int self_prim,
+                                     V3 nd, float slim, W& w) {
+  const int self_j = self_prim - tb.n_tri - tb.n_sph;  // in [0, n_cone) on a cone's own point
+  for (int j = 0; j < cn.n_cone; ++j) {
+    if (j == self_j) continue;
+    ConeRoot r[2];
+    cone_ray(cn.rows + CONE_F4 * j, p, nd, r);
+    if ((r[0].kept && r[0].back && r[0].t < slim) || (r[1].kept && r[1].back && r[1].t < slim)) {
+      w.cone_tests(j + 1 - (self_j >= 0 && self_j < j));
+      return true;
+    }
+  }
+  w.cone_tests(cn.n_cone - (self_j >= 0 && self_j < cn.n_cone));
+  return false;
+}
+
+// An interior ray's cones after the spheres: back faces only, no exclusion.
+template <class W>
+__device__ inline void cone_back(const Tables& tb, const ConeLinear& cn, V3 p, V3 d,
+                                 float& best_t, int& best_i, W& w) {
+  for (int j = 0; j < cn.n_cone; ++j) {
+    ConeRoot r[2];
+    cone_ray(cn.rows + CONE_F4 * j, p, d, r);
+    float t = BIG;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r[i].kept && r[i].back && r[i].t < t) t = r[i].t;
+    if (t < BIG && t <= best_t) {
+      best_t = t;
+      best_i = tb.n_tri + tb.n_sph + j;
+    }
+  }
+  w.cone_tests(cn.n_cone);
+}
+
+// finish_hit where the winner may be a cone: its outward normal, flipped on
+// a back face; uv (0, 0) (a cone's object takes no texture).
+__device__ inline Hit finish_hit(const Tables& tb, const ConeLinear& cn,
+                                 const float* __restrict__ row, V3 o, V3 d, float best_t,
+                                 int best_i, bool best_bf, bool active) {
+  const int j = best_i - tb.n_tri - tb.n_sph;
+  if (j < 0) return finish_hit(tb, row, o, d, best_t, best_i, best_bf, active);
+  const float4* c = cn.rows + CONE_F4 * j;
+  Hit h;
+  h.p = ray_at(o, d, best_t);
+  V3 n = cone_normal(c, h.p);
+  h.n = best_bf ? neg(n) : n;
+  h.u = 0.0f;
+  h.v = 0.0f;
+  h.valid = active;
+  h.t = active ? best_t : BIG;
+  h.prim = best_i;
+  h.obj = (int)(c[2].y + 0.5f);
+  h.back = best_bf && active;
+  return h;
+}
+
+// Dense geometry G (DenseRowsGeom, or SphGatedGeom over it) with the cone
+// table `cone` after G's members: its nearest sweep is G's triangles and
+// spheres, then the cones, then the winner's attributes; its interior sweep
+// G's, then the cones; get_shade's shadow sweeps take the cones after the
+// spheres (sph_occluded_in).
+template <class G>
+struct ConeGeom : G {
+  using Cone = ConeLinear;
+  ConeLinear cone;
+  template <class W>
+  __device__ Hit nearest(V3 o, V3 d, int face, int excl_prim, int excl_face, bool active,
+                         W& w) const {
+    const Tables& tb = this->tb;
+    int t0 = w.tic();
+    float best_t = BIG;
+    int best_i = -1;
+    bool best_bf = false;
+    if (active) {
+      tri_nearest<false>(dense_rows(*this), tb.n_tri, o, d, face, excl_prim, excl_face, best_t,
+                         best_i, best_bf, w);
+      if constexpr (G::Sph::GATED)
+        sph_nearest(tb, this->sph, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
+      else
+        sph_nearest(tb, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
+      cone_nearest(tb, cone, o, d, face, excl_prim, excl_face, best_t, best_i, best_bf, w);
+    }
+    const float* row = (best_i >= 0 && best_i < tb.n_tri) ? tb.tri + best_i * TRI_COLS : nullptr;
+    Hit h = finish_hit(tb, cone, row, o, d, best_t, best_i, best_bf, active);
+    w.near_cycles(t0);
+    return h;
+  }
+  template <class W>
+  __device__ BackHit back(V3 p, V3 d, bool want, W& w) const {
+    if (!want) return no_back(p);
+    BackHit b = this->G::back(p, d, want, w);
+    float t = b.t;
+    int i = b.prim;
+    cone_back(this->tb, cone, p, d, t, i, w);
+    if (i != b.prim) {  // a cone's inside: its outward normal, flipped
+      b.t = t;
+      b.prim = i;
+      b.h = ray_at(p, d, t);
+      b.n = neg(cone_normal(cone.rows + CONE_F4 * (i - this->tb.n_tri - this->tb.n_sph), b.h));
+    }
+    return b;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // The lanes that have work (the unfused path's standalone kernels)
@@ -1879,6 +2132,15 @@ __device__ __forceinline__ bool sph_occluded_in(const G& g, const Tables& tb, V3
     return sph_occluded(tb, g.sph, p, self_prim, nd, slim, w);
   else
     return sph_occluded(tb, p, self_prim, nd, slim, w);
+}
+
+// The same in a geometry with cones: the spheres, then the cones where no
+// sphere occludes.
+template <class G, class W>
+__device__ __forceinline__ bool sph_occluded_in(const ConeGeom<G>& g, const Tables& tb, V3 p,
+                                                int self_prim, V3 nd, float slim, W& w) {
+  return sph_occluded_in(static_cast<const G&>(g), tb, p, self_prim, nd, slim, w) ||
+         cone_occluded(tb, g.cone, p, self_prim, nd, slim, w);
 }
 
 // Direct radiance at p (get_shade): na = bump-ADJUSTED normal, vd = view

@@ -53,7 +53,9 @@
 // launches them.  The TPU's 512-lane tiles, bit-cast int rows and
 // one-hot attribute matmuls are gone.  W is the test counter (common.cuh):
 // NoWork on the main path, Work when the caller asks for the test counts
-// (a column a thread).
+// (a column a thread).  A scene with NFF cones takes one instantiation
+// more, the staged dense walk with a linear cone sweep after its spheres
+// (common.cuh ConeGeom), NoWork only.
 #include "common.cuh"
 
 namespace rt {
@@ -73,6 +75,7 @@ constexpr int LEVEL_THREADS = 128;
 // The dense walk (common.cuh DenseRowsGeom): the hot rows out of shared
 // memory.
 using SharedDense = DenseRowsGeom<DENSE_LEVEL_GROUPED>;
+using SharedDenseCones = ConeGeom<SharedDense>;
 
 // Under a cooperative geometry every lane runs every statement that sweeps;
 // the per-thread policies keep their early returns.  Its threads take the
@@ -274,7 +277,12 @@ int launch_level(const float* pf, const int* pi, G g, float* contrib, float* rf,
                  float* ff, int* fi, int* casts, int* work, int k, int last, int direct,
                  float threshold, float max_distance, int max_retries, void* stream) {
   int blocks = (k + LEVEL_THREADS - 1) / LEVEL_THREADS;
-  auto kernel = work ? &level_kernel<G, Work> : &level_kernel<G, NoWork>;
+  auto kernel = &level_kernel<G, NoWork>;
+  if constexpr (G::Cone::ON) {  // no Work instantiation casts cones
+    if (work) return (int)cudaErrorNotSupported;
+  } else {
+    if (work) kernel = &level_kernel<G, Work>;
+  }
   int shared = g.smem(LEVEL_THREADS);
   if (shared) {
     int err = coop_opt_in((const void*)kernel, shared);
@@ -294,13 +302,23 @@ extern "C" {
 // ri/fi: [5, k]; casts: [k]; work: [WORK_ROWS, k] or null (null runs the
 // instantiation that counts nothing).  hot: the [n_tri, 16] hot rows; a
 // table too large to stage (DenseRowsGeom::fits) is walked per thread.
+// cone, n_cone: the cone rows [n_cone, 12] (kernel_common.pack_cones; null
+// and 0: none), whose presence picks the staged walk with cones (with work
+// given, or a table too large to stage, cudaErrorNotSupported).
 int rt_level(const float* pf, const int* pi, const float* tri, int n_tri, const float* sph,
              int n_sph, const float* mat, int n_obj, const float* lights, int n_light,
-             const float* hot, float* contrib, float* rf, int* ri, float* ff, int* fi,
-             int* casts, int* work, int k, int last, int direct, float threshold,
-             float max_distance, int max_retries, void* stream) {
+             const float* hot, const float* cone, int n_cone, float* contrib, float* rf,
+             int* ri, float* ff, int* fi, int* casts, int* work, int k, int last, int direct,
+             float threshold, float max_distance, int max_retries, void* stream) {
   rt::Tables tb{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light};
   const float4* rows = (const float4*)hot;
+  if (n_cone) {
+    if (!rt::SharedDense::fits(n_tri)) return (int)cudaErrorNotSupported;
+    return rt::launch_level(pf, pi,
+                            rt::SharedDenseCones{{tb, rows}, {(const float4*)cone, n_cone, nullptr}},
+                            contrib, rf, ri, ff, fi, casts, work, k, last, direct, threshold,
+                            max_distance, max_retries, stream);
+  }
   if (rt::SharedDense::fits(n_tri))
     return rt::launch_level(pf, pi, rt::SharedDense{tb, rows}, contrib, rf, ri, ff, fi, casts,
                             work, k, last, direct, threshold, max_distance, max_retries, stream);

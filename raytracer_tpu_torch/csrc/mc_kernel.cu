@@ -60,6 +60,13 @@
 // sweeps' hits; every other scene, by the linear ones, as before.  (A branch
 // at run time would make every scene's walk carry the gated loops'
 // registers.)
+//
+// A scene with NFF cones (the SPD's rings: 4,200 cylinders beside 4,200
+// spheres) is walked by one instantiation more, the staged gated walk with
+// a linear cone sweep after its spheres (common.cuh ConeGeom): NoWork, or
+// ConeCount when the caller asks for test counts (mc.cone_tests beside
+// mc.sph_tests); no Work and no per-thread yardstick take cones, so the
+// library grows by two kernels and every other kernel is the parent's.
 #include <type_traits>
 
 #include "mc_walk.cuh"
@@ -72,6 +79,7 @@ constexpr int MC_THREADS = 128;
 // memory; its spheres linear, or gated by the sphere chunk table.
 using SharedDense = DenseRowsGeom<DENSE_MC_GROUPED>;
 using SharedDenseGated = SphGatedGeom<SharedDense>;
+using SharedDenseCones = ConeGeom<SharedDenseGated>;
 
 // One MC sample a thread, the walk of mc_kernel and mc_kernel_staged.
 template <class G, class W>
@@ -149,6 +157,7 @@ __device__ __forceinline__ void mc_walk(const float* __restrict__ ray_o,
     w.put(work_out, n, lane);
     w.put_sph(sph_out, lane);
     if constexpr (G::Sph::GATED) w.put_sph_box(g.sph.box_tests, lane);
+    if constexpr (G::Cone::ON) w.put_cone(g.cone.tests, lane);
   }
   if constexpr (G::COOP) {
     __syncwarp();
@@ -174,7 +183,7 @@ mc_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
 // PERF.md §6).  The other walks
 // keep mc_kernel's bounds: a second argument of 1 there let ptxas give
 // the cooperative walk 183 registers (2 blocks an SM, not 3).  G:
-// SharedDense or SharedDenseGated.
+// SharedDense, SharedDenseGated or SharedDenseCones.
 template <class G, class W>
 __global__ void __launch_bounds__(MC_THREADS, 5)
 mc_kernel_staged(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
@@ -189,7 +198,8 @@ mc_kernel_staged(const float* __restrict__ ray_o, const float* __restrict__ ray_
 // The kernel of geometry G and counter W.
 template <class G, class W>
 constexpr auto mc_entry() {
-  if constexpr (std::is_same<G, SharedDense>::value || std::is_same<G, SharedDenseGated>::value)
+  if constexpr (std::is_same<G, SharedDense>::value || std::is_same<G, SharedDenseGated>::value ||
+                std::is_same<G, SharedDenseCones>::value)
     return &mc_kernel_staged<G, W>;
   else
     return &mc_kernel<G, W>;
@@ -202,9 +212,13 @@ int launch_mc(const float* ray_o, const float* ray_d, const float* unifs, G g, f
   int blocks = (n + MC_THREADS - 1) / MC_THREADS;
   bool count_sph = sph;
   if constexpr (G::Sph::GATED) count_sph = count_sph || g.sph.box_tests;
-  auto kernel = work        ? mc_entry<G, Work>()
-                : count_sph ? mc_entry<G, SphCount>()
-                            : mc_entry<G, NoWork>();
+  auto kernel = mc_entry<G, NoWork>();
+  if constexpr (G::Cone::ON) {  // no Work instantiation casts cones
+    if (work) return (int)cudaErrorNotSupported;
+    if (count_sph || g.cone.tests) kernel = mc_entry<G, ConeCount>();
+  } else {
+    kernel = work ? mc_entry<G, Work>() : count_sph ? mc_entry<G, SphCount>() : kernel;
+  }
   int shared = g.smem(MC_THREADS);
   if (shared) {
     int err = coop_opt_in((const void*)kernel, shared);
@@ -227,15 +241,30 @@ extern "C" {
 // 16] hot rows; sph_rows, sph_box, sph_sup, n_sph_chunks: the sphere chunk
 // table (null and 0: none), whose presence picks the gated instantiation.  A
 // table too large to stage (DenseRowsGeom::fits) is walked per thread.
+// cone, n_cone: the cone rows [n_cone, 12] (kernel_common.pack_cones; null
+// and 0: none), whose presence picks the walk with cones (staged, its
+// spheres gated: a scene with cones and spheres carries the sphere chunk
+// table; with work given, or a table too large to stage,
+// cudaErrorNotSupported); cone_tests: [n] int64, each lane's cone tests,
+// or null.
 int rt_mc_trace(const float* ray_o, const float* ray_d, const float* unifs, const float* tri,
                 int n_tri, const float* sph, int n_sph, const float* mat, int n_obj,
                 const float* lights, int n_light, const float* hot, const float* sph_rows,
-                const float* sph_box, const float* sph_sup, int n_sph_chunks, float* photon,
-                int* casts, int* work, long long* sph_tests, long long* sph_box_tests, int n,
-                int depth, float max_distance, int max_retries, void* stream) {
+                const float* sph_box, const float* sph_sup, int n_sph_chunks, const float* cone,
+                int n_cone, float* photon, int* casts, int* work, long long* sph_tests,
+                long long* sph_box_tests, long long* cone_tests, int n, int depth,
+                float max_distance, int max_retries, void* stream) {
   rt::Tables tb{tri, sph, mat, lights, n_tri, n_sph, n_obj, n_light};
   rt::SphGated sg{sph_rows, sph_box, sph_sup, n_sph_chunks, sph_box_tests};
   const float4* rows = (const float4*)hot;
+  if (n_cone) {
+    if (!rt::SharedDense::fits(n_tri)) return (int)cudaErrorNotSupported;
+    return rt::launch_mc(ray_o, ray_d, unifs,
+                         rt::SharedDenseCones{{{tb, rows}, sg},
+                                              {(const float4*)cone, n_cone, cone_tests}},
+                         photon, casts, work, sph_tests, n, depth, max_distance, max_retries,
+                         stream);
+  }
   if (rt::SharedDense::fits(n_tri)) {
     if (n_sph_chunks)
       return rt::launch_mc(ray_o, ray_d, unifs, rt::SharedDenseGated{{tb, rows}, sg}, photon,

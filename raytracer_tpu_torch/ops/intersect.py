@@ -63,6 +63,7 @@ def cast(scene: Scene, rays: Rays, active=None, attrs: str = "full") -> Hits:
     attrs="geom" leaves Hits.uv and Hits.obj zero, for callers that need
     geometry only (the interior march).  `active` masks out dead lanes
     (their result is valid=False)."""
+    scene.require_no_cones("the unfused path's cast (ops/intersect.py)")
     n, dev = rays.o.shape[0], rays.o.device
     if active is None:
         active = torch.ones((n,), dtype=torch.bool, device=dev)
@@ -85,6 +86,7 @@ def cast_any_hit(scene: Scene, rays: Rays, active=None, limit=None):
     the light's origin, any hit for a directional light,
     src/main.rs:435-448).  limit: [N] or None (any hit at all).  Returns
     bool [N]."""
+    scene.require_no_cones("the unfused path's any-hit cast (ops/intersect.py)")
     n, dev = rays.o.shape[0], rays.o.device
     if active is None:
         active = torch.ones((n,), dtype=torch.bool, device=dev)

@@ -100,6 +100,7 @@ def shadow_any_hit_plain(tb: kc.Tables, pos, dirs, excl_prim, limits, actives):
 
 
 def _dense_tables(scene: Scene, dev, name: str) -> kc.Tables:
+    scene.require_no_cones(f"intersect_kernel.{name}")
     if dev.type != "cuda":
         raise ValueError(f"intersect_kernel.{name}: unsupported device {dev}")
     if scene.bvh_node_min is not None:
@@ -138,6 +139,7 @@ def nearest_hit(scene: Scene, rays: Rays, active=None, work=None):
     that the kernel's counting instantiation fills with the tests by kind,
     a column a thread: the lane it tested (listed kernels: the totals are
     the lanes'; the per-thread yardsticks: a column a lane)."""
+    scene.require_no_cones("intersect_kernel.nearest_hit")
     n, dev = rays.o.shape[0], rays.o.device
     active = _active(active, n, dev)
     if dev.type == "cpu":
@@ -177,6 +179,7 @@ def _launch_nearest(entry: str, listed: bool, counts, scene: Scene, rays: Rays, 
 def any_hit(scene: Scene, rays: Rays, active=None, limit=None, work=None):
     """Occlusion sweep of a dense scene: any valid candidate with
     t < limit.  limit: [N] or None (any hit at all).  Returns bool [N]."""
+    scene.require_no_cones("intersect_kernel.any_hit")
     n, dev = rays.o.shape[0], rays.o.device
     active, limit = _active(active, n, dev), _limit(limit, n, dev)
     if dev.type == "cpu":
@@ -226,6 +229,7 @@ def shadow_any_hit(scene: Scene, pos, dirs, excl_prim, limits, actives, work=Non
     limits (inf = none); actives [L, N] bool.  Returns blocked [L, N] bool.
     Each light's target for the factored triangle algebra (its origin, or
     minus its direction) is read from the scene's light table."""
+    scene.require_no_cones("intersect_kernel.shadow_any_hit")
     if dirs.shape[0] != scene.n_light:
         raise ValueError(f"shadow_any_hit: {dirs.shape[0]} directions for {scene.n_light} lights")
     if pos.device.type == "cpu":

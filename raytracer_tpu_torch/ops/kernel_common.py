@@ -16,6 +16,16 @@ tile), its supergroup visit order and its HBM chunk streaming are not
 ported: any visit order gives the same hits, and the permuted table stays
 in global memory.
 
+A scene's NFF cones (open truncated cones, cylinders where both radii are
+equal; Tables.cone) are swept after the spheres, every cone for every ray
+(the linear sweep, as csrc/common.cuh ConeLinear): the roots of the
+quadratic |rho(t)|^2 = r(h(t))^2, rho the point's part off the axis and
+r(h) = r0 + s h its radius at height h, kept at t > 0 and 0 <= h <= L,
+faced by the sign of d.(rho - s r(h) a), the nearer kept one a cone's hit.
+The exclusion of a ray's own primitive drops a root, not the cone, so a
+ray that leaves an open cylinder can meet its inside.  The arithmetic is
+rounded as written, operation by operation, as the kernels round it.
+
 The sphere sweeps gate the same way where the scene carries the sphere
 chunk table (scene/blocked.py build_sph_chunks; Tables.sph_rows): a lane
 tests a supergroup's box, each of its chunks' boxes, and a chunk's spheres
@@ -56,6 +66,9 @@ _HALF_INV_PI = float(np.float32(0.5 / np.pi))
 _EIGHT_PI = float(np.float32(8.0 * np.pi))
 
 TRI_COLS, SPH_COLS, MAT_COLS, LIGHT_COLS = 34, 8, 16, 16
+# A cone row (pack_cones): base b (0:3), base radius r0 (3), unit axis a
+# (4:7), slope s = (r1 - r0) / L (7), axis length L (8), object (9), pad.
+CONE_COLS = 12
 # A sphere chunk row: pack_sph's columns with the ORIGINAL sphere index in
 # column 5 (as float32: exact below 2^24); -1 on a pad row, whose r^2 is -1.
 SPH_ID = 5
@@ -65,6 +78,9 @@ BLK_COLS, BLK_ID = 36, 34
 # The hot table of the warp-cooperative sweeps: the 16 columns of a blocked
 # row that decide a hit (fn 0:3, d 3, g0..g2 4:13, h 13:16), a 64-byte row.
 HOT_COLS = 16
+# The most triangles whose hot rows a dense walk stages in a block's shared
+# memory (csrc/common.cuh DENSE_SMEM_MAX, 96 KB of 64-byte rows).
+DENSE_STAGED_TRIS = 96 * 1024 // (4 * HOT_COLS)
 
 
 class Tables(NamedTuple):
@@ -84,6 +100,9 @@ class Tables(NamedTuple):
     sph_rows: torch.Tensor | None = None  # [NCH * SPH_CHUNK, 8] rows in chunk order
     sph_box: torch.Tensor | None = None  # [NCH, 8] chunk AABBs: min xyz 0:3, max xyz 3:6
     sph_sup: torch.Tensor | None = None  # [ceil(NCH / SPH_SUP), 8] supergroup AABBs
+    # the cones (pack_cones), on scenes that have them
+    cone: torch.Tensor | None = None  # [C, 12]
+    n_cone: int = 0
 
 
 def pack_tri(scene: Scene) -> torch.Tensor:
@@ -154,13 +173,27 @@ def pack_sph_chunks(scene: Scene, sph: torch.Tensor):
     return rows.contiguous(), box, sup.contiguous()
 
 
+def pack_cones(scene: Scene) -> torch.Tensor:
+    """[C, 12]: base (0:3), base radius r0 (3), unit axis a (4:7) from the
+    base to the apex, slope s = (r1 - r0) / L (7), axis length L (8), obj
+    (9), pad (10:12); all in float32, as the reference derives them."""
+    axis = scene.cone_apex - scene.cone_base
+    length = torch.linalg.vector_norm(axis, dim=-1)
+    slope = (scene.cone_apex_r - scene.cone_base_r) / length
+    return torch.cat([
+        scene.cone_base, scene.cone_base_r[:, None], axis / length[:, None], slope[:, None],
+        length[:, None], scene.cone_obj[:, None].float(), axis.new_zeros((axis.shape[0], 2)),
+    ], dim=1).float().contiguous()
+
+
 def pack_tables(scene: Scene) -> Tables:
     tri = pack_tri(scene)
     sph = pack_sph(scene)
-    chunks = () if scene.sph_perm is None else pack_sph_chunks(scene, sph)
+    chunks = (None,) * 3 if scene.sph_perm is None else pack_sph_chunks(scene, sph)
+    cone = pack_cones(scene) if scene.n_cone else None
     return Tables(tri, sph, pack_materials(scene), pack_lights(scene),
                   scene.n_tri, scene.n_sph, scene.n_light, tri[:, :HOT_COLS].contiguous(),
-                  *chunks)
+                  *chunks, cone, scene.n_cone)
 
 
 class BlkTables(NamedTuple):
@@ -455,10 +488,12 @@ def full_sweep(o, d, face, excl_prim, excl_face, active, tb: Tables):
 
 def _finish_hit(o, d, face, excl_prim, excl_face, active, tb: Tables,
                 best_t, best_i, best_bf, tri_rows, tri_row):
-    """Spheres after the triangles (they win exact ties), then the winner's
-    attributes."""
+    """Spheres after the triangles (they win exact ties), cones after the
+    spheres, then the winner's attributes."""
     best_t, best_i, best_bf = _sph_nearest(o, d, face, excl_prim, excl_face, active,
                                            tb, best_t, best_i, best_bf)
+    best_t, best_i, best_bf = _cone_nearest(o, d, face, excl_prim, excl_face, active,
+                                            tb, best_t, best_i, best_bf)
     return hit_attributes(o, d, active, tb, best_t, best_i, best_bf, tri_rows, tri_row)
 
 
@@ -497,6 +532,8 @@ def hit_attributes(o, d, active, tb: Tables, best_t, best_i, best_bf,
 
     if n_sph > 0:
         is_sph = best_i >= n_tri if n_tri > 0 else valid
+        if tb.n_cone:
+            is_sph = is_sph & (best_i < n_tri + n_sph)
         row = _gather_rows(tb.sph, best_i - n_tri, is_sph)
         sx, sy, sz = normalize3(px - row[:, 0], py - row[:, 1], pz - row[:, 2])
         sflip = torch.where(best_bf, -1.0, 1.0)
@@ -510,6 +547,17 @@ def hit_attributes(o, d, active, tb: Tables, best_t, best_i, best_bf,
         v = torch.where(is_sph, sv, v)
         obj = torch.where(is_sph, row[:, 4], obj)
 
+    if tb.n_cone:  # uv (0, 0): a cone's object takes no texture
+        is_cone = best_i >= n_tri + n_sph
+        (cx, cy, cz), cobj = _cone_normal(tb, best_i - n_tri - n_sph, px, py, pz)
+        cflip = torch.where(best_bf, -1.0, 1.0)
+        nx = torch.where(is_cone, cx * cflip, nx)
+        ny = torch.where(is_cone, cy * cflip, ny)
+        nz = torch.where(is_cone, cz * cflip, nz)
+        u = torch.where(is_cone, 0.0, u)
+        v = torch.where(is_cone, 0.0, v)
+        obj = torch.where(is_cone, cobj, obj)
+
     valid = valid & active
     return dict(
         valid=valid,
@@ -519,6 +567,141 @@ def hit_attributes(o, d, active, tb: Tables, best_t, best_i, best_bf,
         backface=best_bf & valid,
         px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz, u=u, v=v,
     )
+
+
+# ---------------------------------------------------------------------------
+# Cones (NFF `c`): the linear sweeps (csrc/common.cuh cone_ray, ConeLinear)
+# ---------------------------------------------------------------------------
+
+
+def cone_roots(cone, o, d):
+    """Cone rows `cone` [K, 12] against the rays o + t d -> the two roots,
+    each (t, back, kept) [K, R]: t in the form that does not cancel, back
+    whether the ray meets the surface's back there (d.(rho - s r(h) a) >
+    0), kept whether t > 0, 0 <= h <= L and the discriminant is not
+    negative (csrc/common.cuh cone_ray, every operation in its order)."""
+    (ox, oy, oz), (dx, dy, dz) = o, d
+    bx, by, bz, r0 = _col(cone, 0), _col(cone, 1), _col(cone, 2), _col(cone, 3)
+    ax, ay, az, s, length = (_col(cone, 4), _col(cone, 5), _col(cone, 6), _col(cone, 7),
+                             _col(cone, 8))
+    wx, wy, wz = ox - bx, oy - by, oz - bz
+    wa = dot3(wx, wy, wz, ax, ay, az)
+    da = dot3(dx, dy, dz, ax, ay, az)
+    rwx, rwy, rwz = wx - wa * ax, wy - wa * ay, wz - wa * az
+    rdx, rdy, rdz = dx - da * ax, dy - da * ay, dz - da * az
+    dd = dot3(rdx, rdy, rdz, rdx, rdy, rdz)
+    wd = dot3(rwx, rwy, rwz, rdx, rdy, rdz)
+    q = r0 + s * wa
+    alpha = dd - s * s * da * da
+    beta = wd - s * q * da
+    gamma = dot3(rwx, rwy, rwz, rwx, rwy, rwz) - q * q
+    disc = beta * beta - alpha * gamma
+    k = -(beta + torch.copysign(torch.sqrt(torch.clamp_min(disc, 0.0)), beta))
+    out = []
+    for t in (k / alpha, gamma / k):
+        h = wa + t * da
+        back = (wd + t * dd) - s * (r0 + s * h) * da > 0.0
+        kept = (disc >= 0.0) & torch.isfinite(t) & (t > 0.0) & (h >= 0.0) & (h <= length)
+        out.append((t, back, kept))
+    return out
+
+
+def _cone_candidates(o, d, face, excl_prim, excl_face, active, tb: Tables):
+    """Each cone's nearest kept root per lane -> (t [C, R], BIG where none;
+    backface [C, R]): a root on a face `face` takes, not dropped by the
+    exclusion; the first root where both lie at one t."""
+    prim = (tb.n_tri + tb.n_sph
+            + torch.arange(tb.n_cone, dtype=torch.int32, device=o[0].device)[:, None])
+    best, best_back = None, None
+    for t, back, kept in cone_roots(tb.cone, o, d):
+        ok = kept & active & _excl_crit(face, back)  # the face `face` takes
+        ok = ok & ~((excl_prim == prim) & _excl_crit(excl_face, back))
+        t = torch.where(ok, t, BIG)
+        if best is None:
+            best, best_back = t, back
+        else:
+            second = t < best
+            best, best_back = torch.where(second, t, best), torch.where(second, back, best_back)
+    return best, best_back
+
+
+def _cone_nearest(o, d, face, excl_prim, excl_face, active, tb: Tables,
+                  best_t, best_i, best_bf):
+    """Cones after the spheres: the least t wins, ties to the larger
+    primitive id (a cone's is above every sphere's)."""
+    if not tb.n_cone:
+        return best_t, best_i, best_bf
+    _cone_tests(active, tb.n_cone)
+    tm, backface = _cone_candidates(o, d, face, excl_prim, excl_face, active, tb)
+    prim = (tb.n_tri + tb.n_sph
+            + torch.arange(tb.n_cone, dtype=torch.int32, device=tm.device)[:, None])
+    t_min, win = _winner(tm, prim)
+    bf = torch.gather(backface, 0, (win - prim[0]).clamp(min=0).long()[None])[0]
+    better = (t_min < BIG) & (t_min <= best_t)
+    return (torch.where(better, t_min, best_t), torch.where(better, win, best_i),
+            torch.where(better, bf, best_bf))
+
+
+def _cone_normal(tb: Tables, j, px, py, pz):
+    """The outward normal of cone rows j [R] at points p: rho - s r(h) a,
+    normalized, rho = q - h a, q = p - b, h = q.a."""
+    row = tb.cone[j.clamp(0, tb.n_cone - 1).long()]
+    col = lambda c: row[:, c]
+    qx, qy, qz = px - col(0), py - col(1), pz - col(2)
+    ax, ay, az, s = col(4), col(5), col(6), col(7)
+    h = dot3(qx, qy, qz, ax, ay, az)
+    m = h + s * (col(3) + s * h)
+    return normalize3(qx - m * ax, qy - m * ay, qz - m * az), col(9)
+
+
+class _ConeShadow:
+    """The cones' part of a shadow sweep from shared origins p: normalized
+    direction, real-unit limit.  Shadow rays take back faces only, and the
+    shading point's own cone drops every back root (the exclusion), so it is
+    left out."""
+
+    def __init__(self, px, py, pz, self_prim, tb: Tables):
+        self.tb = tb
+        self.p = (px, py, pz)
+        self.self_j = (self_prim - tb.n_tri - tb.n_sph).long()
+        self.none = torch.zeros_like(px, dtype=torch.bool)
+
+    def blocked(self, lt, tested):
+        """Lanes of `tested` whose shadow ray toward light `lt` a cone
+        occludes, counted where count_cone_tests counts: the cones in index
+        order, the shading point's own left out, up to the first occluder."""
+        tb = self.tb
+        if not tb.n_cone:
+            return self.none
+        nd = (lt["ndx"], lt["ndy"], lt["ndz"])
+        ids = torch.arange(tb.n_cone, device=tb.cone.device)[:, None]
+        own = ids == self.self_j
+        hit = self.none
+        for t, back, kept in cone_roots(tb.cone, self.p, nd):
+            hit = hit | (kept & back & (t < lt["slim"]))
+        ok = hit & ~own & tested
+        occluded = ok.any(dim=0)
+        if _cone_log is not None:
+            end = torch.where(occluded, ok.to(torch.int8).argmax(dim=0) + 1, tb.n_cone)
+            _cone_tests(tested, end - (own & (ids < end)).any(dim=0).long())
+        return occluded
+
+
+def _cone_back(p, d, active, tb: Tables, best_t, best_i):
+    """Interior rays' cones after the spheres: back faces only, no exclusion
+    (as the other interior sweeps); ties to the larger primitive id."""
+    if not tb.n_cone:
+        return best_t, best_i
+    _cone_tests(active, tb.n_cone)
+    tm = None
+    for t, back, kept in cone_roots(tb.cone, p, d):
+        t = torch.where(kept & back & active, t, BIG)
+        tm = t if tm is None else torch.where(t < tm, t, tm)
+    prim = (tb.n_tri + tb.n_sph
+            + torch.arange(tb.n_cone, dtype=torch.int32, device=tm.device)[:, None])
+    t_min, win = _winner(tm, prim)
+    better = (t_min < BIG) & (t_min <= best_t)
+    return torch.where(better, t_min, best_t), torch.where(better, win, best_i)
 
 
 # ---------------------------------------------------------------------------
@@ -588,6 +771,7 @@ class _ShadowSweep:
             prim = torch.arange(tb.n_tri, dtype=torch.int32, device=dev)[:, None]
             self.not_self_tri = self_prim != prim
         self.sph = _SphShadow(px, py, pz, self_prim, tb)
+        self.cone = _ConeShadow(px, py, pz, self_prim, tb)
 
     def _tri_blocked(self, lt):
         tri = self.tb.tri
@@ -604,10 +788,9 @@ class _ShadowSweep:
         return ok.any(dim=0)
 
     def blocked(self, lt):
-        if self.tb.n_tri == 0:
-            return self.sph.blocked(lt, lt["act"])
-        tri = self._tri_blocked(lt)
-        return tri | self.sph.blocked(lt, lt["act"] & ~tri)
+        tri = self._tri_blocked(lt) if self.tb.n_tri else torch.zeros_like(lt["act"])
+        hit = tri | self.sph.blocked(lt, lt["act"] & ~tri)
+        return hit | self.cone.blocked(lt, lt["act"] & ~hit)
 
 
 class _SphShadow:
@@ -761,8 +944,9 @@ def back_sweep_with_normal(px, py, pz, dx, dy, dz, active, tb: Tables):
 
 
 def _finish_back(p, d, active, tb: Tables, best_t, best_i, tri_rows, tri_row):
-    """Spheres' far shells after the triangles, then the hit point and the
-    flipped interior normal (tri_rows[tri_row] is the winner's row)."""
+    """Spheres' far shells after the triangles, the cones' back faces after
+    the spheres, then the hit point and the flipped interior normal
+    (tri_rows[tri_row] is the winner's row)."""
     px, py, pz = p
     dx, dy, dz = d
     n_tri, n_sph = tb.n_tri, tb.n_sph
@@ -775,6 +959,7 @@ def _finish_back(p, d, active, tb: Tables, best_t, best_i, tri_rows, tri_row):
         better = (t_min < BIG) & ((t_min < best_t) | ((t_min == best_t) & (win > best_i)))
         best_t = torch.where(better, t_min, best_t)
         best_i = torch.where(better, win, best_i)
+    best_t, best_i = _cone_back(p, d, active, tb, best_t, best_i)
 
     hx, hy, hz = px + best_t * dx, py + best_t * dy, pz + best_t * dz
     zero = torch.zeros_like(px)
@@ -796,12 +981,21 @@ def _finish_back(p, d, active, tb: Tables, best_t, best_i, tri_rows, tri_row):
 
     if n_sph > 0:
         is_sph = best_i >= n_tri if n_tri > 0 else best_i >= 0
+        if tb.n_cone:
+            is_sph = is_sph & (best_i < n_tri + n_sph)
         row = _gather_rows(tb.sph, best_i - n_tri, is_sph)
         wx, wy, wz = hx - row[:, 0], hy - row[:, 1], hz - row[:, 2]
         inv = torch.rsqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz, 1e-30))
         nx = torch.where(is_sph, -wx * inv, nx)
         ny = torch.where(is_sph, -wy * inv, ny)
         nz = torch.where(is_sph, -wz * inv, nz)
+
+    if tb.n_cone:  # the back face's normal: the outward one flipped
+        is_cone = best_i >= n_tri + n_sph
+        (cx, cy, cz), _ = _cone_normal(tb, best_i - n_tri - n_sph, hx, hy, hz)
+        nx = torch.where(is_cone, -cx, nx)
+        ny = torch.where(is_cone, -cy, ny)
+        nz = torch.where(is_cone, -cz, nz)
 
     return best_t, best_i, hx, hy, hz, nx, ny, nz
 
@@ -977,6 +1171,33 @@ def count_sph_tests(n_lanes: int, device="cpu"):
         yield lanes
     finally:
         _sph_log = None
+
+
+_cone_log: torch.Tensor | None = None  # count_cone_tests' per-lane counts
+
+
+@contextlib.contextmanager
+def count_cone_tests(n_lanes: int, device="cpu"):
+    """Count the cone tests of the plain sweeps of n_lanes lanes inside the
+    block, as the MC kernel counts them (csrc/common.cuh ConeCount) ->
+    int64 [n_lanes], each lane's: each nearest or interior sweep tests every
+    cone for each of its active lanes; a shadow ray tests none when a
+    triangle or a sphere occludes it, else every cone up to its first
+    occluder, the shading point's own left out.  Every sweep inside must run
+    on these n_lanes lanes."""
+    global _cone_log
+    lanes = _cone_log = torch.zeros(n_lanes, dtype=torch.int64, device=device)
+    try:
+        yield lanes
+    finally:
+        _cone_log = None
+
+
+def _cone_tests(lanes: torch.Tensor, tests) -> None:
+    """Add `tests` (a number, or [R]) to each lane of mask `lanes`, where
+    count_cone_tests is counting."""
+    if _cone_log is not None:
+        _cone_log.add_(torch.where(lanes, torch.as_tensor(tests, dtype=torch.int64), 0))
 
 
 def _sph_tests(lanes: torch.Tensor, tests, kind: int = 0) -> None:
@@ -1222,8 +1443,26 @@ def check_tables(tb: Tables, device, bt: BlkTables | None = None) -> None:
                 raise ValueError("blk_hot and blk_ids must be 16-byte aligned")
 
 
+def check_cone_route(tb: Tables, work) -> None:
+    """Raise unless the kernels' one walk with cones takes these tables: the
+    staged dense walk (csrc/common.cuh ConeGeom over DenseRowsGeom), whose
+    spheres are gated, with no per-lane test counts (`work`)."""
+    if tb.n_tri > DENSE_STAGED_TRIS:
+        raise NotImplementedError(
+            f"a scene with cones takes the staged dense walk, which stages at most "
+            f"{DENSE_STAGED_TRIS} triangles; this one has {tb.n_tri}")
+    if tb.n_sph and tb.sph_rows is None:
+        raise ValueError("a scene with cones and spheres carries the sphere chunk table "
+                         "(scene/builder.py)")
+    if work is not None:
+        raise NotImplementedError("the kernels count no `work` on a scene with cones")
+    check("cone", tb.cone, torch.float32, (tb.n_cone, CONE_COLS), tb.cone.device)
+    if tb.cone.data_ptr() % 16:  # rows read as float4s
+        raise ValueError("cone must be 16-byte aligned")
+
+
 def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False,
-                    sph_chunks: bool = False) -> tuple:
+                    sph_chunks: bool = False, cones: bool = False) -> tuple:
     """The scene arguments of a kernel's C entry (utils/kernels.py
     SIGNATURES): the dense tables and their counts, then, for a blocked
     instantiation, the blocked rows, chunk and supergroup boxes and the
@@ -1232,7 +1471,9 @@ def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False,
     dense staged walk (`hot`, no blocked tables), the dense hot rows.  Last,
     for an entry that gates its sphere sweeps (`sph_chunks`), the sphere
     chunk rows, chunk and supergroup boxes and the chunk count (None and 0
-    on a scene without the table)."""
+    on a scene without the table).  Last, for an entry that casts cones
+    (`cones`), the cone rows and their count (None and 0 on a scene
+    without cones)."""
     geo = (tb.tri, tb.n_tri, tb.sph, tb.n_sph, tb.mat, tb.mat.shape[0],
            tb.lights, tb.n_light)
     if bt is not None:
@@ -1248,4 +1489,6 @@ def kernel_geometry(tb: Tables, bt: BlkTables | None = None, hot: bool = False,
     if sph_chunks:
         n = 0 if tb.sph_box is None else tb.sph_box.shape[0]
         geo += (tb.sph_rows, tb.sph_box, tb.sph_sup, n)
+    if cones:
+        geo += (tb.cone, tb.n_cone)
     return geo

@@ -16,6 +16,9 @@ warps walk the chunks together out of shared memory (CoopGeom): its
 threads write the dead lanes in pool order and take the live ones dealt
 round-robin over the warps (a map inside the kernel: the outputs keep the
 pool's order).
+A scene with NFF cones takes the staged dense level with a linear cone
+sweep after its spheres (csrc/common.cuh ConeGeom); the blocked level, the
+per-thread yardsticks and the counting of `work=` refuse such a scene.
 `process_level_plain` below is the same level in plain PyTorch over either
 geometry.  `process_level_per_thread` launches either level with every
 thread sweeping the tables in global memory alone, light by light, as the
@@ -172,6 +175,8 @@ def process_level(scene: Scene, pool: Pool, last: bool, direct: bool,
     (chip_smoke.py derives the operation bound from them)."""
     dev = pool.f.device
     counts = COUNTS_BLK if scene.blocked else COUNTS
+    if scene.blocked:
+        scene.require_no_cones("the blocked level (csrc/level_kernel.cu CoopGeom)")
     if dev.type == "cpu":
         counts.plain += 1
         contrib, rch, fch, casts = process_level_plain(
@@ -191,7 +196,8 @@ def process_level_per_thread(scene: Scene, pool: Pool, last: bool, direct: bool,
     instantiation (every thread sweeps the dense table, or walks its own
     chunk list, out of global memory, one light after the other).  The main
     path's level must give its outputs, casts and test counts; nothing on
-    the main path calls this."""
+    the main path calls this.  It casts no cones."""
+    scene.require_no_cones("the per-thread level (level_kernel.process_level_per_thread)")
     entry, counts = (("rt_level_blk_thread", COUNTS_BLK_THREAD) if scene.blocked
                      else ("rt_level_thread", COUNTS_THREAD))
     contrib, rch, fch, casts = _launch(entry, False, counts, scene, pool, last, direct,
@@ -213,6 +219,9 @@ def _launch(entry: str, hot: bool, counts, scene: Scene, pool: Pool, last, direc
     tb = scene.tables
     bt = scene.blk_tables if scene.blocked else None
     kc.check_tables(tb, dev, bt)
+    cones = entry == "rt_level"  # the staged dense entry takes the cones
+    if tb.n_cone:
+        kc.check_cone_route(tb, work)
     k = pool.width
     kernels.check("pool.f", pool.f, torch.float32, (N_F, k), dev)
     kernels.check("pool.i", pool.i, torch.int32, (N_I, k), dev)
@@ -224,7 +233,8 @@ def _launch(entry: str, hot: bool, counts, scene: Scene, pool: Pool, last, direc
     casts = torch.empty((k,), dtype=torch.int32, device=dev)
     if k:
         kernels.launch(
-            entry, pool.f, pool.i, *kc.kernel_geometry(tb, bt, hot), contrib, rch.f, rch.i,
+            entry, pool.f, pool.i, *kc.kernel_geometry(tb, bt, hot, cones=cones), contrib,
+            rch.f, rch.i,
             fch.f, fch.i, casts, work, k, int(last), int(direct),
             float(threshold), float(max_distance), int(max_retries),
         )

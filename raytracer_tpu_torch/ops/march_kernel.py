@@ -63,6 +63,7 @@ def march(scene: Scene, pos, normal, ray_d, prim, k, want, max_distance: float,
     counting instantiation fills with the tests by kind, a column a thread
     (the lane it marched, listed: the totals are the lanes')."""
     del prim
+    scene.require_no_cones("march_kernel.march")
     if pos.device.type == "cpu":
         COUNTS.plain += 1
         *out, iters = march_plain(scene.tables, pos, normal, ray_d, k, want, max_distance,
@@ -90,6 +91,7 @@ def _launch(entry: str, listed: bool, counts, scene: Scene, pos, normal, ray_d, 
     """Check the operands, launch C entry `entry` (`listed`: it takes the
     hot rows and a lane list) and advance its launch counter `counts` ->
     march_plain's outputs (each lane's casts in `iters`)."""
+    scene.require_no_cones(f"march_kernel ({entry})")
     n, dev = pos.shape[0], pos.device
     if dev.type != "cuda":
         raise ValueError(f"march_kernel.march: unsupported device {dev}")

@@ -292,6 +292,7 @@ def deal_lanes(sf, si):
 
 
 def _cuda_args(scene: Scene, dev, name: str, hot: bool = False):
+    scene.require_no_cones(f"mc_binned.{name}")
     if dev.type != "cuda":
         raise ValueError(f"mc_binned.{name}: unsupported device {dev}")
     if not scene.blocked:
@@ -421,6 +422,7 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     unifs: [depth, 3, N] in slot (primary ray) order."""
     if not scene.blocked:
         raise ValueError("the binned MC path takes blocked scenes only")
+    scene.require_no_cones("the binned MC walk (ops/mc_binned.py)")
     n = ray_o.shape[0]
     sf, si, c0 = primary(scene, ray_o.t().contiguous(), ray_d.t().contiguous())
     casts = c0.sum()

@@ -27,13 +27,21 @@ dense entries launch the instantiations whose sphere sweeps test only the
 spheres of the chunks a ray enters (csrc/common.cuh SphGated), with the
 linear sweeps' hits; the plain version gates alike.
 
+A scene with NFF cones takes the staged dense walk with its spheres gated
+and a linear cone sweep after them (csrc/common.cuh ConeGeom; the builder
+gives every such scene with spheres the sphere chunk table); no other
+instantiation casts cones, so the blocked walk, the per-thread yardsticks
+and the counting of `work=` refuse such a scene.
+
 Asked to (`sph_tests=`), the walk counts its sphere tests: every sweep's,
 added once at its end (csrc/common.cuh SphCount, launched only then, so the
 untraced walk runs no counting instruction; the plain version through
-kernel_common.count_sph_tests), and a gated walk its box tests
-(`sph_box_tests=`).  Inside a unit that utils/tracing records, `trace`
-asks, and adds the call's sums to the counters `mc.sph_tests` and, on a
-gated walk, `mc.sph_box_tests`.
+kernel_common.count_sph_tests), a gated walk its box tests
+(`sph_box_tests=`), and a walk with cones its cone tests (`cone_tests=`,
+kernel_common.count_cone_tests).  Inside a unit that utils/tracing records,
+`trace` asks, and adds the call's sums to the counters `mc.sph_tests` and,
+on a gated walk, `mc.sph_box_tests`, and on a scene with cones
+`mc.cone_tests`.
 """
 
 from __future__ import annotations
@@ -223,7 +231,8 @@ def trace_plain(geom, textures, ray_o, ray_d, unifs, depth: int,
 
 def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
           max_retries: int, work: torch.Tensor | None = None,
-          sph_tests: torch.Tensor | None = None, sph_box_tests: torch.Tensor | None = None):
+          sph_tests: torch.Tensor | None = None, sph_box_tests: torch.Tensor | None = None,
+          cone_tests: torch.Tensor | None = None):
     """One MC sample per primary ray -> (photon [N, 3] UNfiltered, casts
     0-d tensor).  unifs: [depth, 3, N] float32.
 
@@ -236,37 +245,43 @@ def trace(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance: float,
     one, it receives each lane's sphere tests, or its sphere gate's box tests
     (0 where the walk's sphere sweeps are linear).  Inside a recorded unit
     (utils/tracing) their sums are counted as `mc.sph_tests` and, on a
-    gated walk, `mc.sph_box_tests`."""
+    gated walk, `mc.sph_box_tests`.  `cone_tests`: the same for each lane's
+    cone tests (0 on a scene without cones), counted as `mc.cone_tests`."""
     n, dev = ray_o.shape[0], ray_o.device
+    if scene.blocked:
+        scene.require_no_cones("the blocked MC walk (csrc/mc_kernel.cu CoopGeom)")
     if tracing.active():
         if sph_tests is None:
             sph_tests = torch.empty((n,), dtype=torch.int64, device=dev)
         if sph_box_tests is None and scene.sph_perm is not None:
             sph_box_tests = torch.empty((n,), dtype=torch.int64, device=dev)
+        if cone_tests is None and scene.n_cone:
+            cone_tests = torch.empty((n,), dtype=torch.int64, device=dev)
     counts = COUNTS_BLK if scene.blocked else COUNTS
     if dev.type == "cpu":
         counts.plain += 1
-        if sph_tests is None and sph_box_tests is None:
+        if sph_tests is None and sph_box_tests is None and cone_tests is None:
             return trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
                                depth, max_distance, max_retries)
-        outs = [t for t in (sph_tests, sph_box_tests) if t is not None]
+        outs = [t for t in (sph_tests, sph_box_tests, cone_tests) if t is not None]
         for t in outs:
             kernels.check("sph_tests", t, torch.int64, (n,), dev)
-        with kc.count_sph_tests(n, dev) as (lanes, boxes):
+        with kc.count_sph_tests(n, dev) as (lanes, boxes), kc.count_cone_tests(n, dev) as cones:
             out = trace_plain(scene.geom, scene.textures, ray_o, ray_d, unifs,
                               depth, max_distance, max_retries)
-        if sph_tests is not None:
-            sph_tests.copy_(lanes)
-        if sph_box_tests is not None:
-            sph_box_tests.copy_(boxes)
+        for t, got in ((sph_tests, lanes), (sph_box_tests, boxes), (cone_tests, cones)):
+            if t is not None:
+                t.copy_(got)
     else:
         out = _launch("rt_mc_trace_blk" if scene.blocked else "rt_mc_trace", True, counts,
                       scene, ray_o, ray_d, unifs, depth, max_distance, max_retries, work,
-                      sph_tests, sph_box_tests)
+                      sph_tests, sph_box_tests, cone_tests)
     if sph_tests is not None:
         tracing.count("mc.sph_tests", sph_tests)
     if sph_box_tests is not None and scene.sph_perm is not None:
         tracing.count("mc.sph_box_tests", sph_box_tests)
+    if cone_tests is not None and scene.n_cone:
+        tracing.count("mc.cone_tests", cone_tests)
     return out
 
 
@@ -278,7 +293,8 @@ def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance
     instantiation (every thread sweeps the dense table, or walks its own
     chunk list, out of global memory alone).  The main path's walk must
     give its photons, casts and test counts; nothing on the main path calls
-    this, and it counts nothing into utils/tracing."""
+    this, and it counts nothing into utils/tracing.  It casts no cones."""
+    scene.require_no_cones("the per-thread MC walk (mc_kernel.trace_per_thread)")
     if scene.blocked:
         return _launch("rt_mc_trace_blk_thread", False, COUNTS_BLK_THREAD, scene, ray_o, ray_d,
                        unifs, depth, max_distance, max_retries, work, sph_tests, sph_box_tests)
@@ -287,11 +303,13 @@ def trace_per_thread(scene: Scene, ray_o, ray_d, unifs, depth: int, max_distance
 
 
 def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, depth,
-            max_distance, max_retries, work, sph_tests, sph_box_tests):
+            max_distance, max_retries, work, sph_tests, sph_box_tests, cone_tests=None):
     """Check the operands and launch C entry `entry` (`hot`: it takes the
     hot rows of the staged or cooperative walk; a dense entry takes the
     sphere chunk table and `sph_box_tests`, a blocked one neither, and its
-    `sph_box_tests` is zeroed) and advance its launch counter `counts`."""
+    `sph_box_tests` is zeroed; the staged dense entry, `rt_mc_trace`, takes
+    the cones and `cone_tests` too, which is zeroed elsewhere) and advance
+    its launch counter `counts`."""
     dev = ray_o.device
     n = ray_o.shape[0]
     if dev.type != "cuda":
@@ -301,11 +319,14 @@ def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, de
     tb = scene.tables
     bt = scene.blk_tables if scene.blocked else None
     kc.check_tables(tb, dev, bt)
+    cones = entry == "rt_mc_trace"
+    if tb.n_cone:
+        kc.check_cone_route(tb, work)
     kernels.check("ray_o", ray_o, torch.float32, (n, 3), dev)
     kernels.check("ray_d", ray_d, torch.float32, (n, 3), dev)
     kernels.check("unifs", unifs, torch.float32, (depth, 3, n), dev)
     kernels.check_work(work, n, dev)
-    for t in (sph_tests, sph_box_tests):
+    for t in (sph_tests, sph_box_tests, cone_tests):
         if t is not None:
             kernels.check("sph_tests", t, torch.int64, (n,), dev)
     o_t = ray_o.t().contiguous()
@@ -317,8 +338,13 @@ def _launch(entry: str, hot: bool, counts, scene: Scene, ray_o, ray_d, unifs, de
         outs += (sph_box_tests,)
     elif sph_box_tests is not None:
         sph_box_tests.zero_()
+    if cones:
+        outs += (cone_tests,)
+    elif cone_tests is not None:
+        cone_tests.zero_()
     if n:
-        kernels.launch(entry, o_t, d_t, unifs, *kc.kernel_geometry(tb, bt, hot, bt is None),
-                       *outs, n, depth, float(max_distance), int(max_retries))
+        kernels.launch(entry, o_t, d_t, unifs,
+                       *kc.kernel_geometry(tb, bt, hot, bt is None, cones), *outs, n, depth,
+                       float(max_distance), int(max_retries))
         counts.launches += 1
     return photon.t(), casts.sum()

@@ -6,9 +6,14 @@ numpy precomputation of the intersection constants, returning torch
 tensors.  From BVH_MIN_TRIS triangles on (or when asked), the scene also
 carries a BVH (scene/bvh.py) and the blocked layout derived from its leaf
 order (scene/blocked.py), as raytracer_tpu/scene/builder.py:229-252 does.
-A scene without them and of more than SPH_CHUNK spheres carries the sphere
-chunk table (scene/blocked.py build_sph_chunks), which the dense MC walk
-gates its sphere sweeps by.
+A scene without them and of more than SPH_CHUNK spheres, or of spheres and
+cones, carries the sphere chunk table (scene/blocked.py build_sph_chunks),
+which the dense MC walk gates its sphere sweeps by (the walk that casts
+cones gates its spheres always).
+
+`push_cone` adds an NFF cone (E. Haines, the SPD's Neutral File Format,
+record `c`): an open truncated cone from `base` (radius r0) to `apex`
+(radius r1), with no end caps, a cylinder where r0 == r1.
 """
 
 from __future__ import annotations
@@ -104,6 +109,27 @@ class ObjectProxy:
         self._b._spheres.append((self.object_index, _v3(center), float(radius)))
         return self
 
+    def push_cone(self, base, base_radius: float, apex, apex_radius: float) -> "ObjectProxy":
+        """An NFF cone, refused where it has no surface or its object asks
+        what an open cone cannot give: a texture (a cone hit has no uv) or
+        transparency (an open surface has no inside for the refraction
+        march to cross)."""
+        base, apex = _v3(base), _v3(apex)
+        r0, r1 = np.float32(base_radius), np.float32(apex_radius)
+        spec = (base.tolist(), float(r0), apex.tolist(), float(r1))
+        if not np.linalg.norm(apex - base) > 0.0:
+            raise ValueError(f"cone {spec}: its axis has no length")
+        if r0 < 0.0 or r1 < 0.0 or (r0 == 0.0 and r1 == 0.0):
+            raise ValueError(f"cone {spec}: a radius is negative, or both are 0")
+        mat = self._b._materials[self.object_index]
+        if mat.texture:
+            raise ValueError(f"cone {spec}: a cone hit has no uv, so its object takes no texture")
+        if mat.transparency > 0.0:
+            raise ValueError(f"cone {spec}: an open cone has no inside, so its object is not "
+                             "transparent")
+        self._b._cones.append((self.object_index, base, float(r0), apex, float(r1)))
+        return self
+
 
 class SceneBuilder:
     """Accumulates objects/primitives/lights, then build() -> Scene."""
@@ -112,6 +138,7 @@ class SceneBuilder:
         self._materials: List[MaterialSpec] = []
         self._triangles: List[Tuple[int, List[Vertex]]] = []
         self._spheres: List[Tuple[int, np.ndarray, float]] = []
+        self._cones: List[Tuple[int, np.ndarray, float, np.ndarray, float]] = []
         self._lights: List[dict] = []
 
     def push_object(self, material: MaterialSpec) -> ObjectProxy:
@@ -204,9 +231,14 @@ class SceneBuilder:
                 bvh_prim_order=t(bvh.prim_order), bvh_depth=bvh.depth,
                 blk_perm=t(perm), blk_box=t(boxes),
             )
-        if S > SPH_CHUNK and not opt:  # the blocked walks sweep spheres linearly
+        C = len(self._cones)
+        if (S > SPH_CHUNK or (C and S)) and not opt:  # the blocked walks sweep spheres linearly
             sph_perm, sph_box = build_sph_chunks(sph_c, sph_r)
             opt.update(sph_perm=t(sph_perm), sph_box=t(sph_box))
+        if C:
+            col = lambda k, dt=f32: np.asarray([c[k] for c in self._cones], dt)
+            opt.update(cone_base=t(col(1)), cone_base_r=t(col(2)), cone_apex=t(col(3)),
+                       cone_apex_r=t(col(4)), cone_obj=t(col(0, np.int32)))
         return Scene(
             **opt,
             tri_v=t(tri_v), tri_n=t(tri_n), tri_uv=t(tri_uv), tri_obj=t(tri_obj),

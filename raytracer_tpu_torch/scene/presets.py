@@ -11,13 +11,16 @@ package's mesh bench and goldens render.  A maker returns a Scene whose
 `textures` are DEFAULT_TEXTURES (the JAX makers return a (scene,
 textures) pair); makers build on the card unless given device="cpu".
 
-The port's own preset, with no JAX counterpart: `spd-balls`, the
-sphereflake of the Standard Procedural Databases (7,381 spheres, its own
-z-up view), whose maker returns (scene, camera).
+The port's own presets, with no JAX counterpart, from the Standard
+Procedural Databases, each with its own z-up view, whose makers return
+(scene, camera): `spd-balls`, the sphereflake (7,381 spheres), and
+`spd-rings`, a pyramid of interlocking rings (4,200 spheres joined by 4,200
+cylinders, NFF cones).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 
 import numpy as np
@@ -499,6 +502,142 @@ def spd_balls_scene(size_factor: int = 4, device=DEFAULT_DEVICE) -> tuple[Scene,
             spd_balls_camera(device))
 
 
+# ---------------------------------------------------------------------------
+# SPD `rings`: pentagonal rings of spheres joined by cylinders, in a pyramid
+# ---------------------------------------------------------------------------
+
+SPD_RINGS_SPHERE_R = 0.12  # a sphere's radius, the ring's circle being of radius 1
+SPD_RINGS_CYLINDER_R = 0.05  # a cylinder's
+SPD_RINGS_SPACING = 2.5  # between neighbouring units' centres
+SPD_RINGS_SPHERE = MaterialSpec(  # NFF "f 1 .9 .7 Kd 0.5 Ks 0.5 Shine 3"
+    diffuse_color=(0.5, 0.45, 0.35), shiness=0.5, specular_color=WHITE,
+    smoothness=1.0 / 3.0)
+SPD_RINGS_CYLINDER = MaterialSpec(  # NFF "f .7 .7 1 Kd 0.5 Ks 0.5 Shine 3"
+    diffuse_color=(0.35, 0.35, 0.5), shiness=0.5, specular_color=WHITE,
+    smoothness=1.0 / 3.0)
+SPD_RINGS_FLOOR = SPD_BALLS_FLOOR
+
+
+def spd_rings_unit() -> np.ndarray:
+    """One unit of `rings`: six pentagonal rings through the 30 edge
+    midpoints of a dodecahedron (vertices (+-1, +-1, +-1), (0, +-1/phi,
+    +-phi) and its cyclic shifts), scaled to distance 1 from its centre ->
+    [6, 5, 3] float64, ring by ring, each ring's points in turn about its
+    axis.  The midpoints perpendicular to one of the six five-fold axes a
+    (through opposite face centres, (0, phi, 1) and its shifts and signs,
+    the one of each opposite pair met first) lie on a great decagon; ring a
+    takes every other one, those whose edge e has (e.a) (e.(a x m)) > 0 (the
+    one of the two mirror-image ways to share the 30 midpoints out as 6
+    pentagons that this sign picks)."""
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = [np.array(s, np.float64) for s in itertools.product((-1.0, 1.0), repeat=3)]
+    for a, b in itertools.product((-1.0, 1.0), repeat=2):
+        verts += [np.array(v) for v in ((0.0, a / phi, b * phi), (a / phi, b * phi, 0.0),
+                                        (a * phi, 0.0, b / phi))]
+    verts = np.array(verts)
+    gap = np.linalg.norm(verts[:, None] - verts[None], axis=-1)
+    edge = gap[gap > 1e-9].min()
+    pairs = [(i, j) for i in range(20) for j in range(i + 1, 20)
+             if abs(gap[i, j] - edge) < 1e-9]
+    mid = np.array([(verts[i] + verts[j]) / 2.0 for i, j in pairs])
+    along = np.array([verts[j] - verts[i] for i, j in pairs])
+    mid /= np.linalg.norm(mid[0])
+    axes = []
+    for a, b in itertools.product((-1.0, 1.0), repeat=2):
+        for v in ((0.0, a * phi, b), (a * phi, b, 0.0), (b, 0.0, a * phi)):
+            v = np.array(v) / np.linalg.norm(v)
+            if not any(np.allclose(v, -w) for w in axes):
+                axes.append(v)
+    rings = []
+    for a in axes:
+        on = np.flatnonzero(np.abs(mid @ a) < 1e-9)
+        take = on[[(along[i] @ a) * (along[i] @ np.cross(a, mid[i])) > 0.0 for i in on]]
+        u = mid[take[0]]
+        turn = np.arctan2(mid[take] @ np.cross(a, u), mid[take] @ u) % (2.0 * np.pi)
+        rings.append(mid[take[np.argsort(turn)]])
+    return np.array(rings)
+
+
+def spd_rings_centres(size_factor: int = 7) -> np.ndarray:
+    """The units' centres, a pyramid of size_factor layers, apex up: layer
+    i (0 at the top) holds (i + 1)^2 units on a square grid of pitch
+    SPD_RINGS_SPACING centred on the z axis at z = -i SPD_RINGS_SPACING /
+    sqrt(2), so each unit is SPD_RINGS_SPACING from its neighbours in its
+    layer and from the four below it -> [U, 3] float64, layer by layer,
+    row by row (size_factor (size_factor + 1) (2 size_factor + 1) / 6
+    units)."""
+    d = SPD_RINGS_SPACING
+    return np.array([((j - i / 2.0) * d, (k - i / 2.0) * d, -i * d / np.sqrt(2.0))
+                     for i in range(size_factor) for j in range(i + 1) for k in range(i + 1)])
+
+
+def spd_rings_builder(size_factor: int = 7) -> SceneBuilder:
+    """SPD `rings` (E. Haines, IEEE CG&A 7(11), 1987), z up: units of six
+    interlocking pentagonal rings (spd_rings_unit) at spd_rings_centres,
+    each ring five spheres (radius SPD_RINGS_SPHERE_R) joined in a closed
+    loop by five cylinders (NFF cones of equal radii SPD_RINGS_CYLINDER_R,
+    from a sphere's centre to the next one's), 30 of each a unit; the
+    spheres then the cylinders, unit by unit and ring by ring.  Below the
+    pyramid a floor square (half-side 40, two triangles facing +z) 1.5
+    under the lowest layer's centres; three white point lights of
+    intensity 1/sqrt(3).  Materials map NFF's onto MaterialSpec as
+    spd_balls_builder's."""
+    b = SceneBuilder()
+    centres = spd_rings_centres(size_factor)
+    h, z = 40.0, float(centres[:, 2].min()) - 1.5
+    b.push_object(SPD_RINGS_FLOOR).push_triangles(square([
+        ((-h, -h, z), (0.0, 0.0)), ((h, -h, z), (1.0, 0.0)),
+        ((h, h, z), (1.0, 1.0)), ((-h, h, z), (0.0, 1.0)),
+    ]))
+    balls, rods = b.push_object(SPD_RINGS_SPHERE), b.push_object(SPD_RINGS_CYLINDER)
+    unit = spd_rings_unit()
+    for c in centres:
+        for ring in unit:
+            for p in ring:
+                balls.push_sphere(c + p, SPD_RINGS_SPHERE_R)
+        for ring in unit:
+            for k in range(5):
+                rods.push_cone(c + ring[k], SPD_RINGS_CYLINDER_R, c + ring[(k + 1) % 5],
+                               SPD_RINGS_CYLINDER_R)
+    white = np.full(3, 1.0 / np.sqrt(3.0))
+    for origin in SPD_RINGS_LIGHTS:
+        b.push_point_light(origin=origin, color=white)
+    return b
+
+
+SPD_RINGS_LIGHTS = ((12.0, -6.0, 20.0), (-10.0, -12.0, 16.0), (4.0, 14.0, 18.0))
+# The view at size factor 7: the eye and the point it looks at, the
+# pyramid's middle
+SPD_RINGS_EYE = (11.0, -19.0, 17.0)
+SPD_RINGS_AT = (0.0, 0.0, -8.5)
+
+
+def spd_rings_view(size_factor: int = 7) -> tuple[np.ndarray, np.ndarray]:
+    """(eye, the point it looks at) of `rings` at `size_factor`: at size
+    factor 7 SPD_RINGS_EYE and SPD_RINGS_AT; else the look-at point moved
+    with the pyramid's middle (its z times (size_factor - 1) / 6) and the
+    eye's offset from it scaled by size_factor / 7, so a smaller pyramid
+    fills the view alike."""
+    at = np.array(SPD_RINGS_AT) * np.array([1.0, 1.0, (size_factor - 1) / 6.0])
+    return at + (np.array(SPD_RINGS_EYE) - np.array(SPD_RINGS_AT)) * (size_factor / 7.0), at
+
+
+def spd_rings_camera(size_factor: int = 7, device=DEFAULT_DEVICE) -> Camera:
+    """SPD `rings`' view (spd_rings_view), up +z, the 45 degree field of
+    view of SPD_BALLS_FOVY_DEG; the rays start at the eye (near 0)."""
+    eye, at = spd_rings_view(size_factor)
+    return Camera.create(fovy_deg=SPD_BALLS_FOVY_DEG, center=eye,
+                         toward=(at - eye) / np.linalg.norm(at - eye), up=(0.0, 0.0, 1.0),
+                         near=0.0, device=device)
+
+
+def spd_rings_scene(size_factor: int = 7, device=DEFAULT_DEVICE) -> tuple[Scene, Camera]:
+    """SPD `rings` at `size_factor` (7: 4,200 spheres, 4,200 cylinders and
+    the 2-triangle floor, on the dense walks) -> (scene, its own camera)."""
+    return (spd_rings_builder(size_factor).build(device=device),
+            spd_rings_camera(size_factor, device))
+
+
 PRESETS = {
     "01-spheres": spheres_scene,
     "02-triangles": triangles_scene,
@@ -511,4 +650,5 @@ PRESETS = {
     "full": full_scene,
     "demo": demo_scene,
     "spd-balls": spd_balls_scene,  # the port's own: returns (scene, camera)
+    "spd-rings": spd_rings_scene,  # the port's own: returns (scene, camera)
 }

@@ -11,6 +11,8 @@ one, and is the JAX package's format unchanged:
     {"material": {"diffuse_color": [1,0.8,0.6], "shiness": 0.5,
                    "smoothness": 0.01, "texture": "stripes", ...},
      "spheres": [{"center": [0,0.5,0], "radius": 0.5}],
+     "cones": [{"base": [0,0,0], "base_radius": 0.1,
+                "apex": [0,1,0], "apex_radius": 0.1}],             # NFF `c`
      "triangles": [[[x,y,z],[x,y,z],[x,y,z]]],            # flat normals
      "squares":   [[[..4 corners..]]],                     # 2 tris each
      "obj": {"path": "mesh.obj", "scale": 0.333, "offset": [0.7,1,-0.5]}}
@@ -25,6 +27,11 @@ one, and is the JAX package's format unchanged:
 }
 
 Triangle/square vertices may be [x,y,z] or {"p": [x,y,z], "uv": [u,v]}.
+A cone is NFF's `c` record, the benchmark's form of it: an open truncated
+cone from `base` (radius `base_radius`) to `apex` (radius `apex_radius`),
+no end caps, a cylinder where the radii are equal; ObjectProxy.push_cone
+refuses a zero axis, a negative radius or two zero radii, and a textured
+or transparent object.
 An OBJ path is relative to the file's directory.  Texture names resolve
 against scene/textures.DEFAULT_TEXTURES.  "bvh" (true / false / "auto")
 goes to SceneBuilder.build(use_bvh=...).  The camera's near defaults to
@@ -80,6 +87,9 @@ def load_scene_dict(data: dict, base_dir: str = ".",
         proxy = b.push_object(_material(obj.get("material", {})))
         for sph in obj.get("spheres", []):
             proxy.push_sphere(sph["center"], sph["radius"])
+        for cone in obj.get("cones", []):
+            proxy.push_cone(cone["base"], cone["base_radius"], cone["apex"],
+                            cone["apex_radius"])
         for tri in obj.get("triangles", []):
             proxy.push_triangle(triangle([_vertex(v) for v in tri]))
         for sq in obj.get("squares", []):
@@ -161,6 +171,10 @@ def dump_builder(builder: SceneBuilder, camera: Optional[Camera] = None) -> dict
                 for obj_idx, c, r in builder._spheres if obj_idx == idx]
         if sphs:
             entry["spheres"] = sphs
+        cones = [{"base": _floats(b), "base_radius": r0, "apex": _floats(a), "apex_radius": r1}
+                 for obj_idx, b, r0, a, r1 in builder._cones if obj_idx == idx]
+        if cones:
+            entry["cones"] = cones
         objects.append(entry)
 
     lights = []

@@ -9,9 +9,16 @@ i has id i, sphere j has id n_tri + j.
 Scenes with many triangles also carry the BVH (scene/bvh.py) and the
 blocked layout derived from it (scene/blocked.py); the kernels take the
 blocked branch when `Scene.blocked` holds.  Other scenes with more spheres
-than one chunk holds carry the sphere chunk table (scene/blocked.py
-build_sph_chunks), which the MC walk's dense routes gate their sphere
-sweeps by.
+than one chunk holds, or with spheres and cones, carry the sphere chunk
+table (scene/blocked.py build_sph_chunks), which the MC walk's dense routes
+gate their sphere sweeps by.
+
+A scene may also hold NFF cones (the SPD's `c` record): open truncated
+cones with no caps, a cylinder where both radii are equal.  Cone j has id
+n_tri + n_sph + j, after the spheres.  Only the dense fused kernels (the
+staged MC walk with its gated spheres, and the dense level kernel) and
+their plain versions cast them; every other route refuses a scene with
+cones (`require_no_cones`).
 
 Scenes and cameras are made on the card unless the caller asks for the CPU
 (`device="cpu"`, the plain PyTorch path): see `render_device`.
@@ -69,8 +76,11 @@ BVH_FIELDS = (
 )
 
 # Optional tensor fields of Scene: the sphere chunk table; None on blocked
-# scenes and on scenes of at most SPH_CHUNK spheres.
+# scenes and on scenes of at most SPH_CHUNK spheres and no cones.
 SPH_CHUNK_FIELDS = ("sph_perm", "sph_box")
+
+# Optional tensor fields of Scene: the cones; None on a scene without one.
+CONE_FIELDS = ("cone_base", "cone_base_r", "cone_apex", "cone_apex_r", "cone_obj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +129,12 @@ class Scene:
     # sphere chunk table (scene/blocked.py build_sph_chunks)
     sph_perm: torch.Tensor | None = None  # [S_pad] int32 (-1 = pad row)
     sph_box: torch.Tensor | None = None  # [NCH, 8] chunk AABB min/max
+    # NFF cones: base (radius r0) to apex (radius r1), open, no caps
+    cone_base: torch.Tensor | None = None  # [C, 3]
+    cone_base_r: torch.Tensor | None = None  # [C]
+    cone_apex: torch.Tensor | None = None  # [C, 3]
+    cone_apex_r: torch.Tensor | None = None  # [C]
+    cone_obj: torch.Tensor | None = None  # [C] int32
 
     @property
     def device(self) -> torch.device:
@@ -133,8 +149,12 @@ class Scene:
         return self.sph_c.shape[0]
 
     @property
+    def n_cone(self) -> int:
+        return 0 if self.cone_base is None else self.cone_base.shape[0]
+
+    @property
     def n_prim(self) -> int:
-        return self.n_tri + self.n_sph
+        return self.n_tri + self.n_sph + self.n_cone
 
     @property
     def n_obj(self) -> int:
@@ -149,8 +169,17 @@ class Scene:
         """Does the scene take the kernels' blocked branch?"""
         return self.blk_perm is not None and self.n_tri > 0
 
+    def require_no_cones(self, route: str) -> None:
+        """Raise NotImplementedError if this scene has cones: `route` (a
+        kernel or walk that casts no cone) would render it without them."""
+        if self.n_cone:
+            raise NotImplementedError(
+                f"{route} casts no cones, and this scene has {self.n_cone}: only the dense "
+                "fused kernels (the staged MC walk, the level kernel) and their plain "
+                "versions render NFF cones")
+
     def to(self, device) -> "Scene":
-        fields = SCENE_FIELDS + tuple(f for f in BVH_FIELDS + SPH_CHUNK_FIELDS
+        fields = SCENE_FIELDS + tuple(f for f in BVH_FIELDS + SPH_CHUNK_FIELDS + CONE_FIELDS
                                       if getattr(self, f) is not None)
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in fields}

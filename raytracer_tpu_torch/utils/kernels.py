@@ -44,7 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # walk counting its sphere tests alone fills it with each lane's.  The dense
 # MC entries' third, `sph_box_tests` (int64 [n]), receives the gate's box
 # tests of the same walk; they take the sphere chunk table as optional
-# pointers too (None and a count of 0: a scene without one).
+# pointers too (None and a count of 0: a scene without one).  The staged
+# dense entries (rt_mc_trace, rt_level) take the cone rows as an optional
+# pointer and their count (None and 0: a scene without cones), and
+# rt_mc_trace a last optional output, `cone_tests` (int64 [n]).
 _TABLES = "p" + "ip" * 3 + "i"  # tri, n_tri, sph, n_sph, mat, n_obj, lights, n_light
 _BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
 # what the warp-cooperative walks read besides: hot rows, their ids, the
@@ -52,18 +55,19 @@ _BLK = "pppi"  # blocked tri rows, chunk boxes, supergroup boxes, n_chunks
 # staged walks read its hot rows only, after _TABLES: "p")
 _HOT = "pppp"
 _SPH = "oooi"  # sphere chunk rows, chunk boxes, supergroup boxes, n_sph_chunks
+_CONE = "oi"  # cone rows, n_cone
 _GEO = "pipi"  # tri, n_tri, sph, n_sph
 _RAYS = "pppppp"  # ray_o, ray_d, face, excl_prim, excl_face, active
 SIGNATURES = {
     # ray_o, ray_d, unifs, tables, photon, casts, work, sph_tests,
-    # (sph_box_tests,) n, depth, max_distance, max_retries
-    "rt_mc_trace": "ppp" + _TABLES + "p" + _SPH + "ppooo" + "ii" + "fi",
+    # (sph_box_tests, (cone_tests,)) n, depth, max_distance, max_retries
+    "rt_mc_trace": "ppp" + _TABLES + "p" + _SPH + _CONE + "ppooo" + "o" + "ii" + "fi",
     "rt_mc_trace_thread": "ppp" + _TABLES + _SPH + "ppooo" + "ii" + "fi",
     "rt_mc_trace_blk": "ppp" + _TABLES + _BLK + _HOT + "ppoo" + "ii" + "fi",
     "rt_mc_trace_blk_thread": "ppp" + _TABLES + _BLK + "ppoo" + "ii" + "fi",
     # pf, pi, tables, contrib, rf, ri, ff, fi, casts, work, k, last, direct,
     # threshold, max_distance, max_retries
-    "rt_level": "pp" + _TABLES + "p" + "ppppppo" + "iii" + "ffi",
+    "rt_level": "pp" + _TABLES + "p" + _CONE + "ppppppo" + "iii" + "ffi",
     "rt_level_thread": "pp" + _TABLES + "ppppppo" + "iii" + "ffi",
     "rt_level_blk": "pp" + _TABLES + _BLK + _HOT + "ppppppo" + "iii" + "ffi",
     "rt_level_blk_thread": "pp" + _TABLES + _BLK + "ppppppo" + "iii" + "ffi",

@@ -28,8 +28,10 @@ def _c_entries() -> dict[str, list[str]]:
     return out
 
 
-# the optional pointers: the counters' outputs, and the sphere chunk table
-OPTIONAL = ("work", "sph_tests", "sph_box_tests", "sph_rows", "sph_box", "sph_sup")
+# the optional pointers: the counters' outputs, the sphere chunk table and
+# the cone rows
+OPTIONAL = ("work", "sph_tests", "sph_box_tests", "sph_rows", "sph_box", "sph_sup", "cone",
+            "cone_tests")
 
 
 def _code(param: str) -> str:
@@ -42,7 +44,8 @@ def test_c_entries_match_signatures():
     """Every bound entry exists with SIGNATURES' types in order, the stream
     last, and `work` is its one optional pointer (the ordered delivery,
     which runs no tests, has none; the MC walks have `sph_tests` too, and
-    the dense ones `sph_box_tests` and the sphere chunk table's three)."""
+    the dense ones `sph_box_tests` and the sphere chunk table's three; the
+    staged dense entries the cone rows, and the MC one `cone_tests`)."""
     entries = _c_entries()
     assert {"rt_nearest_hit", "rt_any_hit", "rt_shadow_any_hit", "rt_march"} <= set(entries)
     assert {"intersect_kernels.cu", "march_kernel.cu"} <= set(kernels.SOURCES)
@@ -53,7 +56,8 @@ def test_c_entries_match_signatures():
         assert params[-1] == "void* stream", (name, params[-1])
         assert "".join(_code(p) for p in params[:-1]) == sig, name
         want = (0 if name == "rt_deliver" else 2 if name.startswith("rt_mc_trace_blk")
-                else 6 if name.startswith("rt_mc_trace") else 1)
+                else 8 if name == "rt_mc_trace" else 6 if name.startswith("rt_mc_trace")
+                else 2 if name == "rt_level" else 1)
         assert sig.count("o") == want, name
     for entry, _ in kernels.ATTRS.values():
         n_tri = ["int n_tri"] if entry in kernels.ATTRS_N_TRI else []
@@ -171,14 +175,27 @@ def test_cooperative_entries_take_the_hot_tables(entry, thread):
                                           ("rt_level", "rt_level_thread")])
 def test_staged_dense_entries_take_the_hot_rows(entry, thread):
     """The staged dense walk's entry is its per-thread yardstick's plus the
-    dense hot rows right after the tables, in kernel_geometry's order."""
+    dense hot rows right after the tables, in kernel_geometry's order, and
+    the cone rows and their count after the scene's last table (the MC
+    walk's also a last output, `cone_tests`): only the staged walks cast
+    cones."""
     entries = _c_entries()
-    staged, ref = entries[entry], entries[thread]
+    staged, ref = list(entries[entry]), entries[thread]
     at = staged.index("int n_light") + 1
-    assert staged[at] == "const float* hot"
-    assert staged[:at] + staged[at + 1:] == ref
+    assert staged.pop(at) == "const float* hot"
+    at = staged.index("const float* cone")
+    assert staged[at - 1] in ("int n_sph_chunks", "int n_light")
+    assert staged[at:at + 2] == ["const float* cone", "int n_cone"]
+    del staged[at:at + 2]
+    if entry == "rt_mc_trace":
+        at = staged.index("long long* sph_box_tests") + 1
+        assert staged.pop(at) == "long long* cone_tests"
+    assert staged == ref
     sig, ref_sig = kernels.SIGNATURES[entry], kernels.SIGNATURES[thread]
-    assert sig.replace(kernels._TABLES + "p", kernels._TABLES, 1) == ref_sig
+    sig = sig.replace(kernels._TABLES + "p", kernels._TABLES, 1).replace(kernels._CONE, "", 1)
+    if entry == "rt_mc_trace":
+        sig = sig.replace("ppooo" + "o", "ppooo", 1)
+    assert sig == ref_sig
 
 
 @pytest.mark.parametrize("entry,thread,after", [("rt_march", "rt_march_thread", "int n_sph"),

@@ -46,8 +46,9 @@ def from_jax(jscene):
 
 
 def test_presets_have_the_jax_keys_and_makers():
-    """Every preset of the JAX package, and the port's own `spd-balls`."""
-    assert sorted(tpresets.PRESETS) == sorted([*jpresets.PRESETS, "spd-balls"])
+    """Every preset of the JAX package, and the port's own `spd-balls` and
+    `spd-rings`."""
+    assert sorted(tpresets.PRESETS) == sorted([*jpresets.PRESETS, "spd-balls", "spd-rings"])
     for key, maker in jpresets.PRESETS.items():
         assert tpresets.PRESETS[key].__name__ == maker.__name__, key
 

@@ -187,7 +187,8 @@ def test_package_exports_match_the_jax_package():
         assert getattr(raytracer_tpu_torch, name) is not None, name
     assert REFERENCE_CONFIG == RenderConfig()
     assert (NORTH_STAR_CONFIG.width, NORTH_STAR_CONFIG.height) == (1024, 1024)
-    assert sorted(raytracer_tpu_torch.PRESETS) == sorted([*raytracer_tpu.PRESETS, "spd-balls"])
+    assert sorted(raytracer_tpu_torch.PRESETS) == sorted([*raytracer_tpu.PRESETS, "spd-balls",
+                                                          "spd-rings"])
 
 
 def test_exported_path_renders_on_the_card_unless_asked_for_the_cpu(tmp_path):
